@@ -1,15 +1,18 @@
-"""Command-line driver: the ``--EM`` main path of the reference pipeline.
+"""Command-line driver of the reference pipeline.
 
 Port of ``bammmotif2_tpu.cli``.  It parses the same flags (every reference
 command line still parses), loads the sequence sets, builds or loads the
 background model, fans out seeds, refines them with ZOOPS EM (all seeds of
-a group in one batched loop) and writes the model files:
+a group in one batched loop), writes the model files, scans the positives
+for occurrences (``--scoreSeqset``) and evaluates the seeds by
+cross-validated FDR (``--FDR``):
 
-    python -m bammmotif2_tpu_torch.cli OUTDIR pos.fasta --PWMFile seeds.meme --EM
+    python -m bammmotif2_tpu_torch.cli OUTDIR pos.fasta --PWMFile seeds.meme \
+        --EM --FDR --scoreSeqset -k 2 -K 2 -q 0.9 --mFold 10 --cvFold 5
 
-Stages not ported yet (--CGS, --scoreSeqset, --FDR, --profile) raise
-NotImplementedError naming their ROADMAP item before any work is done.
-The run is single-device: --single-device is accepted and has no effect.
+Stages not ported yet (--CGS, --profile) raise NotImplementedError naming
+their ROADMAP item before any work is done.  The run is single-device:
+--single-device is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -20,19 +23,24 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from bammmotif2_tpu.utils.alphabet import Alphabet
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu.utils.fasta import read_fasta
 from bammmotif2_tpu.utils.metrics import MetricsLogger
+from bammmotif2_tpu_torch.evaluation.fdr import evaluate_motifs
+from bammmotif2_tpu_torch.evaluation.prcurve import average_recall
+from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motifset import load_motifs
 from bammmotif2_tpu_torch.refinement.em import run_em
 from bammmotif2_tpu_torch.refinement.multi import run_em_multi
+from bammmotif2_tpu_torch.scoring import scan
 
 # flag -> the ROADMAP item that ports it
-NOT_PORTED = {"CGS": "A9", "scoreSeqset": "A7", "FDR": "A8", "profile": "A11"}
+NOT_PORTED = {"CGS": "A9", "profile": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     # extensions of the JAX package, same names
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no-pallas", dest="use_pallas", action="store_false", default=True,
-                   help="use the plain PyTorch E+M pass instead of the CUDA kernel")
+                   help="use the plain PyTorch versions instead of the CUDA kernels")
     p.add_argument(
         "--single-device", dest="multiDevice", action="store_false", default=True
     )
@@ -236,11 +244,79 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
                 m.write(params.outputDirectory, f"{basename}_{m.name}")
             )
 
+    if params.scoreSeqset:
+        _scan_stage(params, device, metrics, out, pos_set, neg_set, bg, motifs, basename)
+    if params.FDR:
+        _fdr_stage(params, device, metrics, out, pos_set, neg_set, bg, alphabet, basename)
+
     out["runtime_seconds"] = time.perf_counter() - t_start
     metrics.event("run_done", runtime_seconds=round(out["runtime_seconds"], 3))
     if params.verbose:
         print(f"Runtime: {out['runtime_seconds']:.2f}s")
     return out
+
+
+def _scan_stage(params, device, metrics, out, pos_set, neg_set, bg, motifs, basename) -> None:
+    """--scoreSeqset: per-window occurrence p-values against the negatives'
+    per-window scores (user negatives when given, else sampled from a
+    background fit to the positives), one .occurrence file per motif.  Each
+    scan_done event carries the seconds since the stage began."""
+    t0 = time.perf_counter()
+    if neg_set is not None:
+        neg_sample = neg_set
+    else:
+        bg_fit = BackgroundModel.from_sequence_set(
+            pos_set, order=params.sOrder, alpha=params.bgModelAlpha, ss=params.ss,
+        )
+        neg_sample = seqgen.generate_neg_set(
+            bg_fit, pos_set.lens, m_fold=max(params.mFold, 1), seed=params.seed, device=device,
+        )
+    # motifs of equal (W, K) scan in one seed-stacked pass per chunk
+    groups: dict = {}
+    for m in motifs:
+        groups.setdefault((m.W, m.K), []).append(m)
+    kw = dict(ss=params.ss, device=device, use_pallas=params.use_pallas)
+    pairs: list = []
+    for group in groups.values():
+        pairs += list(zip(group, scan.score_set_multi(group, bg, pos_set, **kw),
+                          scan.score_set_multi(group, bg, neg_sample, **kw)))
+    for m, res, neg_res in pairs:
+        # passing the negatives' ScanResult keeps their pool on the device
+        occs = scan.find_occurrences(res, pos_set, neg_res, params.pvalCutoff)
+        path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.occurrence")
+        scan.write_occurrences(path, occs)
+        out["files"].append(path)
+        metrics.event(
+            "scan_done", motif=m.name, hits=len(occs),
+            windows=int(np.sum(np.maximum(pos_set.lens - m.W + 1, 0)))
+            * (1 if params.ss else 2),
+            seconds=round(time.perf_counter() - t0, 3),
+        )
+        if params.saveLogOdds:
+            lo_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.logOdds")
+            scan.write_logodds(lo_path, res, pos_set)
+            out["files"].append(lo_path)
+
+
+def _fdr_stage(params, device, metrics, out, pos_set, neg_set, bg, alphabet, basename) -> None:
+    """--FDR: cross-validated evaluation of the (unrefined) seeds; the seeds
+    of a (W, K) group are refined and scored together in every fold."""
+    seed_motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
+    fdr_list = evaluate_motifs(seed_motifs, bg, pos_set, params, neg_set=neg_set, device=device)
+    for m, res in zip(seed_motifs, fdr_list):
+        if params.savePRs:
+            out["files"] += res.write(params.outputDirectory, f"{basename}_{m.name}")
+        if params.savePvalues:
+            pv_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.pvalues")
+            np.savetxt(pv_path, res.pos_pvalues, fmt="%.4e")
+            out["files"].append(pv_path)
+        out.setdefault("fdr_results", []).append(res)
+        metrics.event(
+            "fdr_done", motif=m.name,
+            avrec_zoops=round(average_recall(res.zoops), 4),
+            avrec_mops=round(average_recall(res.mops), 4),
+            W=m.W, K=m.K, group_seconds=round(res.group_seconds, 3),
+        )
 
 
 def main(argv=None, device=None) -> int:

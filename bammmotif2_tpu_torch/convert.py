@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif
 
 
@@ -47,4 +48,13 @@ def motif(m) -> Motif:
         np.array(m.alphas, np.float64), np.array(m.f_bg, np.float64),
         m.alphabet, m.name,
         counts=[np.array(c, np.float64) for c in m.counts] if m.counts is not None else None,
+    )
+
+
+def background(bg) -> BackgroundModel:
+    """A port BackgroundModel with the same host state as a reference one."""
+    return BackgroundModel(
+        bg.order, bg.alpha, [np.array(vk, np.float64) for vk in bg.v],
+        counts=[np.array(c, np.float64) for c in bg.counts] if bg.counts is not None else None,
+        alphabet=bg.alphabet, name=bg.name,
     )

@@ -1,0 +1,139 @@
+"""Window log-odds scores for M seeds: the CUDA kernel's binding.
+
+Port of ``bammmotif2_tpu.ops.pallas_em.window_scores_multi`` (the Pallas
+TPU kernel ``_scores_kernel``).  ``window_scores_multi`` scores every window
+of every strand against M combined log-odds LUTs in one launch
+(``csrc/window_scores.cu``): the scanner's and the FDR scorer's hot op.  On
+CPU tensors it runs the plain PyTorch version ``window_scores_multi_ref``;
+on CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from bammmotif2_tpu_torch.ops import _build, escore
+from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, SMEM_TARGET
+
+# codes a block stages per work item (16 KB): whole rows up to this length,
+# tiles of one row with a W-1 halo beyond it
+TILE_CODES = 4096
+
+
+def launch_plan(M: int, R1: int, W: int) -> tuple:
+    """(seeds_per_block, smem_lut) for LUTs of shape [M, R1, W].
+
+    A seed's LUT is staged in shared memory when it fits beside the codes
+    tile; as many seeds share a block as fit SMEM_TARGET (at least one).
+    Above SMEM_MAX (A=4, K=5, W=12 needs 262 KB) the LUT is read through
+    the read-only cache and every seed shares one block's staged codes.
+    """
+    per_seed = R1 * W * 4
+    if per_seed + TILE_CODES * 4 > SMEM_MAX:
+        return max(M, 1), False
+    return max(1, min(M, SMEM_TARGET // per_seed)), True
+
+
+def library() -> ctypes.CDLL:
+    lib = _build.load("window_scores")
+    if lib.window_scores_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.window_scores_launch.argtypes = [p] * 5 + [i] * 9 + [p]
+        lib.window_scores_launch.restype = i
+        lib.window_scores_error_string.argtypes = [i]
+        lib.window_scores_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(s_flat, cidx, lens) -> None:
+    dev = cidx.device
+    for name, t, dtype in (
+        ("s_flat", s_flat, torch.float32), ("cidx", cidx, torch.int32),
+        ("lens", lens, torch.int32),
+    ):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} on {t.device}; all inputs must share one CUDA device")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, want {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if s_flat.dim() != 3 or cidx.dim() != 3:
+        raise ValueError(f"want s_flat [M, R+1, W] and cidx [S, N, L], got "
+                         f"{tuple(s_flat.shape)} and {tuple(cidx.shape)}")
+    W = s_flat.shape[2]
+    _, N, L = cidx.shape
+    if tuple(lens.shape) != (N,):
+        raise ValueError(f"want lens [{N}], got {tuple(lens.shape)}")
+    if L - W + 1 <= 0:
+        raise ValueError(f"motif width {W} exceeds padded length {L}")
+    if W > TILE_CODES:
+        raise ValueError(f"motif width {W} exceeds the kernel's tile of {TILE_CODES} codes")
+
+
+def window_scores_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor) -> tuple:
+    """Seed-stacked window scoring.
+
+    Args:
+      s_flat: f32 [M, R+1, W] combined log-odds LUTs, zero sentinel row R.
+      cidx: int32 [S, N, L] combined-row codes in [0, R]
+        (encode.strand_indices).
+      lens: int32 [N].
+
+    Returns (scores f32 [M, S, N, L-W+1] with escore.NEG_INF on invalid
+    windows, mask bool [N, L-W+1]).  ``window_scores_multi.launches``
+    counts kernel launches.
+    """
+    if all(t.device.type == "cpu" for t in (s_flat, cidx, lens)):
+        return window_scores_multi_ref(s_flat, cidx, lens)
+    _check(s_flat, cidx, lens)
+    M, R1, W = s_flat.shape
+    S, N, L = cidx.shape
+    dev = cidx.device
+    n_win = L - W + 1
+    scores = torch.empty((M, S, N, n_win), dtype=torch.float32, device=dev)
+    if M == 0 or N == 0:
+        return scores, escore.window_mask(lens, n_win, W)
+    mask = torch.empty((N, n_win), dtype=torch.bool, device=dev)
+    seeds_per_block, smem_lut = launch_plan(M, R1, W)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.window_scores_launch(
+            cidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(),
+            scores.data_ptr(), mask.data_ptr(),
+            S, N, L, W, R1, M, seeds_per_block, int(smem_lut), TILE_CODES,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"window_scores launch failed: {lib.window_scores_error_string(err).decode()}"
+        )
+    window_scores_multi.launches += 1
+    return scores, mask
+
+
+window_scores_multi.launches = 0
+
+
+def window_scores(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor) -> tuple:
+    """``window_scores_multi`` with M=1: s_flat [R+1, W] -> (scores
+    [S, N, L-W+1], mask [N, L-W+1])."""
+    scores, mask = window_scores_multi(s_flat[None], cidx, lens)
+    return scores[0], mask
+
+
+def window_scores_multi_ref(s_flat: torch.Tensor, cidx: torch.Tensor,
+                            lens: torch.Tensor) -> tuple:
+    """The plain PyTorch version of ``window_scores_multi``
+    (``escore.window_scores``, one seed at a time); same arguments and
+    results, on any device."""
+    M, _, W = s_flat.shape
+    S, N, L = cidx.shape
+    n_win = L - W + 1
+    if n_win <= 0:
+        raise ValueError(f"motif width {W} exceeds padded length {L}")
+    mask = escore.window_mask(lens, n_win, W)
+    if M == 0:
+        return torch.empty((0, S, N, n_win), dtype=s_flat.dtype, device=cidx.device), mask
+    return torch.stack([escore.window_scores(s_flat[m], cidx, lens, W)[0] for m in range(M)]), mask

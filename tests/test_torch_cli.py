@@ -1,5 +1,6 @@
-"""Port parity: the CLI's --EM path against the JAX package's CLI on
-examples/, the port's import hygiene, and its refusal of unported stages."""
+"""Port parity: the CLI's --EM, --scoreSeqset and --FDR stages against the
+JAX package's CLI on examples/, the port's import hygiene, and its refusal
+of unported stages."""
 
 import json
 import os
@@ -11,8 +12,12 @@ import pytest
 import torch
 
 from bammmotif2_tpu import cli as jcli
+from bammmotif2_tpu.utils.fasta import read_fasta, write_fasta
 from bammmotif2_tpu_torch import cli
 from bammmotif2_tpu_torch.models.motif import _read_position_blocks
+
+from tests import torch_outputs
+from tests.test_em import planted_set
 
 torch.set_num_threads(1)
 
@@ -52,11 +57,39 @@ def test_cli_matches_jax(tmp_path, extra):
     np.testing.assert_allclose([e["ll"] for e in ev], [e["ll"] for e in jev], rtol=1e-5)
 
 
+def test_scan_and_fdr_match_jax(tmp_path):
+    """--EM --scoreSeqset --FDR with numpy-made user negatives: every file
+    the two CLIs write agrees within the bars of tests/torch_outputs.py
+    (EM-refined models differ by rounding).  A fixed EM budget: converged,
+    this run stops on |dll| < epsilon at 38 iterations in one package and 43
+    in the other, rounding noise in the stop rule (ROADMAP C)."""
+    neg = str(tmp_path / "neg.fasta")
+    write_fasta(neg, planted_set(n=300, l=100, motif="ACGTACGT", q=0.0, noise=1.0, seed=11))
+    argv = [POS, "--PWMFile", MEME, "--EM", "--scoreSeqset", "--FDR", "--negSeqFile", neg,
+            "--savePvalues", "--saveLogOdds", "--jsonl", "--single-device", "-k", "2",
+            "--cvFold", "3", "--maxEMIterations", "20"]
+    jout, out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jcli.main([jout, *argv])
+    assert cli.main([out, *argv], device="cpu") == 0
+    m_fold = 300 / read_fasta(POS).n
+    res = torch_outputs.compare_dirs(out, jout, refined=True, m_fold=m_fold)
+    assert res["files"] == 9 and res["rows_near_cutoff"] <= 2, res
+    events = {}
+    for d in (out, jout):
+        with open(os.path.join(d, "positives.metrics.jsonl")) as fh:
+            events[d] = {e["event"]: e for e in map(json.loads, fh)}
+    assert events[out]["scan_done"]["windows"] == events[jout]["scan_done"]["windows"]
+    assert abs(events[out]["scan_done"]["hits"] - events[jout]["scan_done"]["hits"]) <= 2
+    for k in ("avrec_zoops", "avrec_mops"):
+        assert events[out]["fdr_done"][k] == pytest.approx(events[jout]["fdr_done"][k], abs=1e-3)
+
+
 def test_cli_imports_no_jax(tmp_path):
     code = (
         "import sys\n"
         "from bammmotif2_tpu_torch import cli\n"
-        f"cli.main([{str(tmp_path)!r}, {POS!r}, '--PWMFile', {MEME!r}, '--EM', '-k', '1'], device='cpu')\n"
+        f"cli.main([{str(tmp_path)!r}, {POS!r}, '--PWMFile', {MEME!r}, '--EM', '-k', '1',"
+        " '--scoreSeqset', '--FDR', '--mFold', '2', '--cvFold', '2'], device='cpu')\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
         "print('no jax')\n"
     )
@@ -65,14 +98,16 @@ def test_cli_imports_no_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
-    assert os.path.exists(tmp_path / "positives_motif_1.ihbcp")
+    for ext in ("ihbcp", "occurrence", "zoops.stats", "mops.stats"):
+        assert os.path.exists(tmp_path / f"positives_motif_1.{ext}")
 
 
-@pytest.mark.parametrize("flag", ["--CGS", "--FDR", "--scoreSeqset", "--profile=trace"])
-def test_unported_stages_raise_before_work(tmp_path, flag):
+@pytest.mark.parametrize("flags", [["--CGS"], ["--FDR", "--CGS"], ["--profile=trace"]],
+                         ids=["--CGS", "--FDR --CGS", "--profile=trace"])
+def test_unported_stages_raise_before_work(tmp_path, flags):
     out = tmp_path / "out"
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        cli.main([str(out), POS, "--PWMFile", MEME, "--EM", flag], device="cpu")
+        cli.main([str(out), POS, "--PWMFile", MEME, "--EM", *flags], device="cpu")
     assert not out.exists()
 
 

@@ -1,4 +1,4 @@
-"""The CUDA E+M kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 ``cuda`` lane: every test here needs a CUDA device and ``nvcc`` and skips
 with its reason otherwise (the decision is made in a fixture, never at
@@ -6,8 +6,9 @@ import).  Run on a GPU machine with
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-``chip_smoke.py`` runs the same checks (``KERNEL_CASES`` /
-``check_kernel``) at the main path's shapes.  This module imports no JAX.
+``chip_smoke.py`` runs the same checks (``KERNEL_CASES`` / ``check_kernel``
+for the E+M kernel, ``SCORE_CASES`` / ``check_scores`` for the window-score
+kernel) at the main path's shapes.  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from bammmotif2_tpu.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import log_odds_lut
-from bammmotif2_tpu_torch.ops import cuda_em, encode
+from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores, encode
+from bammmotif2_tpu_torch.ops.escore import NEG_INF
 
 # Counts agree to |dC| <= C_ATOL + C_RTOL*|C| and ll to LL_RTOL: the
 # kernel's float atomics add in an order that varies from run to run, and
@@ -40,6 +42,28 @@ KERNEL_CASES = {
     "ss": dict(N=2_000, L=200, W=12, K=2, M=1, S=1),
     "A5_small": dict(N=300, L=60, W=8, K=3, M=2, S=1, A=5),
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True),
+}
+
+
+# Window scores agree to |ds| <= SC_ATOL + SC_RTOL*|s| on valid windows (the
+# kernel adds j = 0..W-1 in the plain version's order and forms no FMA, so
+# it is expected to be bit-equal; the bound is the parity bar of the JAX
+# suite's kernel tests), with an identical mask and exactly NEG_INF on
+# invalid windows.
+SC_ATOL, SC_RTOL = 1e-5, 1e-6
+
+# name -> geometry; "10k" is bench.py's set size at BASELINE config 5's width
+SCORE_CASES = {
+    "10k_M1": dict(N=10_000, L=200, W=12, K=2, M=1, S=2),
+    "10k_M10": dict(N=10_000, L=200, W=12, K=2, M=10, S=2),
+    "K4_smem_lut": dict(N=2_000, L=200, W=12, K=4, M=2, S=2),
+    "K5_global_lut": dict(N=2_000, L=200, W=12, K=5, M=2, S=2),
+    "ss": dict(N=2_000, L=200, W=12, K=2, M=1, S=1),
+    "A5": dict(N=300, L=60, W=8, K=3, M=2, S=2, A=5),
+    "W8": dict(N=2_000, L=200, W=8, K=2, M=3, S=2),
+    "W30": dict(N=2_000, L=200, W=30, K=2, M=3, S=2),
+    "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True),
+    "long_rows_tiled": dict(N=40, L=9_000, W=12, K=2, M=2, S=2, ragged=True),
 }
 
 
@@ -109,6 +133,31 @@ def check_kernel(case: dict, device) -> dict:
     return out
 
 
+def check_scores(case: dict, device) -> dict:
+    """Window-score kernel vs plain on the same CUDA tensors; raises
+    AssertionError on a mismatch.  Returns the errors."""
+    s_flat, cidx, lens, _q = kernel_inputs(**case, device=device)
+    launches = cuda_scores.window_scores_multi.launches
+    sc, mk = cuda_scores.window_scores_multi(s_flat, cidx, lens)
+    torch.cuda.synchronize(device)
+    assert cuda_scores.window_scores_multi.launches == launches + 1
+    sc_ref, mk_ref = cuda_scores.window_scores_multi_ref(s_flat, cidx, lens)
+    assert sc.shape == sc_ref.shape and sc.dtype == torch.float32
+    assert torch.equal(mk, mk_ref), "mask differs"
+    valid = mk_ref[None, None].expand_as(sc_ref)
+    d = (sc - sc_ref).abs()[valid]
+    bound = SC_ATOL + SC_RTOL * sc_ref.abs()[valid]
+    out = {
+        "max_abs_err": d.max().item() if d.numel() else 0.0,
+        "max_err_over_bound": (d / bound).max().item() if d.numel() else 0.0,
+        "bitwise_equal": float(torch.equal(sc, sc_ref)),
+        "valid_windows": float(valid.sum().item()),
+    }
+    assert bool((sc[~valid] == NEG_INF).all()), out
+    assert bool((d <= bound).all()), out
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     import shutil
@@ -141,3 +190,24 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         cuda_em.em_counts_multi(s_flat, cidx[:, :, ::2], lens, q)
     with pytest.raises(ValueError):
         cuda_em.em_counts_multi(s_flat, cidx, lens, q.repeat(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCORE_CASES))
+def test_scores_kernel_matches_plain(cuda_device, name):
+    check_scores(SCORE_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+def test_scores_wrapper_rejects_bad_inputs(cuda_device):
+    s_flat, cidx, lens, _q = kernel_inputs(N=20, L=30, W=6, K=1, M=2, S=2, device=cuda_device)
+    with pytest.raises(TypeError):
+        cuda_scores.window_scores_multi(s_flat.double(), cidx, lens)
+    with pytest.raises(ValueError):
+        cuda_scores.window_scores_multi(s_flat, cidx, lens.cpu())
+    with pytest.raises(ValueError):
+        cuda_scores.window_scores_multi(s_flat, cidx[:, :, ::2], lens)
+    with pytest.raises(ValueError):
+        cuda_scores.window_scores_multi(s_flat, cidx, lens[:-1])
+    with pytest.raises(ValueError):
+        cuda_scores.window_scores_multi(s_flat, cidx[:, :, :5], lens)
