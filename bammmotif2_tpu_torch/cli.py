@@ -2,17 +2,19 @@
 
 Port of ``bammmotif2_tpu.cli``.  It parses the same flags (every reference
 command line still parses), loads the sequence sets, builds or loads the
-background model, fans out seeds, refines them with ZOOPS EM (all seeds of
-a group in one batched loop), writes the model files, scans the positives
-for occurrences (``--scoreSeqset``) and evaluates the seeds by
-cross-validated FDR (``--FDR``):
+background model, fans out seeds, refines them with ZOOPS EM (``--EM``)
+and/or collapsed Gibbs sampling (``--CGS``, after EM when both are given;
+all seeds of a group in one batched loop), writes the model files, scans
+the positives for occurrences (``--scoreSeqset``) and evaluates the seeds
+by cross-validated FDR (``--FDR``, refining each fold by CGS under
+``--CGS``, else by EM):
 
     python -m bammmotif2_tpu_torch.cli OUTDIR pos.fasta --PWMFile seeds.meme \
         --EM --FDR --scoreSeqset -k 2 -K 2 -q 0.9 --mFold 10 --cvFold 5
 
-Stages not ported yet (--CGS, --profile) raise NotImplementedError naming
-their ROADMAP item before any work is done.  The run is single-device:
---single-device is accepted and has no effect.
+``--profile DIR`` records the run with ``torch.profiler`` and writes a
+Chrome trace into DIR.  The run is single-device: --single-device is
+accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -36,11 +38,9 @@ from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motifset import load_motifs
 from bammmotif2_tpu_torch.refinement.em import run_em
+from bammmotif2_tpu_torch.refinement.gibbs import run_gibbs_multi
 from bammmotif2_tpu_torch.refinement.multi import run_em_multi
 from bammmotif2_tpu_torch.scoring import scan
-
-# flag -> the ROADMAP item that ports it
-NOT_PORTED = {"CGS": "A9", "profile": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,16 +134,27 @@ def params_from_args(argv: list) -> Params:
 
 
 def run_pipeline(params: Params, device) -> dict:
-    """Execute the ported stages; returns a dict of produced artifacts.
+    """Execute the pipeline; returns a dict of produced artifacts.
 
-    With ``params.jsonl`` every stage appends one event to
-    ``BASENAME.metrics.jsonl``.
+    With ``params.profile`` set, the whole run is recorded by
+    ``torch.profiler`` (CPU, and CUDA on a CUDA device) and its Chrome
+    trace written into that directory (``<host>_<pid>.<time>.pt.trace.json``,
+    readable by TensorBoard or chrome://tracing); with ``params.jsonl``
+    every stage appends one event to ``BASENAME.metrics.jsonl``.
     """
-    for flag, item in NOT_PORTED.items():
-        if getattr(params, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported to the PyTorch package yet (ROADMAP {item})"
-            )
+    if params.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(params.profile),
+        ):
+            return _run_pipeline(params, device)
+    return _run_pipeline(params, device)
+
+
+def _run_pipeline(params: Params, device) -> dict:
     t_start = time.perf_counter()
     os.makedirs(params.outputDirectory, exist_ok=True)
     alphabet = Alphabet.from_type(params.alphabetType)
@@ -238,6 +249,20 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
                     f"q={r.q:.3f}, {r.windows_per_sec:,.0f} windows/s"
                 )
 
+    if params.CGS:
+        # an independent stage, not an alternative to EM: --EM --CGS
+        # Gibbs-refines the EM-refined models; all seeds of a (W, K) group
+        # sweep together.  cgs_done carries this seed's share of its group's
+        # seconds (as em_done does).
+        out["cgs_results"] = run_gibbs_multi(motifs, bg, pos_set, params, device=device)
+        for m, r in zip(motifs, out["cgs_results"]):
+            metrics.event(
+                "cgs_done", motif=m.name, iterations=r.iterations, q=r.q,
+                seconds=round(r.seconds, 3),
+            )
+            if params.verbose:
+                print(f"CGS {m.name}: {r.iterations} sweeps, ll={r.ll:.2f}, q={r.q:.3f}")
+
     if params.saveBaMMs:
         for m in motifs:
             out["files"] += list(
@@ -300,7 +325,8 @@ def _scan_stage(params, device, metrics, out, pos_set, neg_set, bg, motifs, base
 
 def _fdr_stage(params, device, metrics, out, pos_set, neg_set, bg, alphabet, basename) -> None:
     """--FDR: cross-validated evaluation of the (unrefined) seeds; the seeds
-    of a (W, K) group are refined and scored together in every fold."""
+    of a (W, K) group are refined (by CGS under --CGS, else EM) and scored
+    together in every fold."""
     seed_motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
     fdr_list = evaluate_motifs(seed_motifs, bg, pos_set, params, neg_set=neg_set, device=device)
     for m, res in zip(seed_motifs, fdr_list):

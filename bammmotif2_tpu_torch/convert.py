@@ -31,6 +31,16 @@ def motif_state(m, device) -> tuple:
     return tuple(floats(vk, device) for vk in m.v), floats(m.alphas, device), floats(m.f_bg, device)
 
 
+def cgs_state(m, q, device) -> tuple:
+    """(v tuple of [A^(k+1), W], q [], log alphas [K+1, W], default alphas
+    [K+1, W], f_bg [A]) as float32 tensors: a CGS chain's start from a
+    Motif of either package, as ``refinement.gibbs.gibbs_step`` takes it.
+    log alphas is the float32 log of the float32 alphas."""
+    alphas = floats(m.alphas, device)
+    return (tuple(floats(vk, device) for vk in m.v), floats(q, device), torch.log(alphas),
+            alphas, floats(m.f_bg, device))
+
+
 def em_data(cidx, lens, bg_flat, device) -> dict:
     """The dict ``refinement.em.em_step`` takes, from the reference's
     ``prepare_data`` output (or any cidx [S, N, L], lens [N], bg_flat [R])."""

@@ -4,7 +4,7 @@ Port of ``bammmotif2_tpu.evaluation.fdr`` (``FDR::evaluateMotif``,
 ``calculatePR``, ``calculatePvalues``, ``write``):
 
   for each of --cvFold round-robin folds: refine a copy of each seed on the
-  other folds with ZOOPS EM, obtain negatives (user-provided via
+  other folds with ZOOPS EM (or CGS), obtain negatives (user-provided via
   --negSeqFile, folded like the positives; otherwise sampled at
   --mFold x |held out| from an order---sOrder background fit to the
   training positives), score the held-out positives and the negatives,
@@ -17,10 +17,12 @@ training rows keep their place while the held-out rows get length 0 (the EM
 loop corrects for them through ``n_real``).  The held-out rows are gathered
 by index for scoring.  The reference fused the fold loop of a seed group
 into one device program to save TPU dispatches; here it is a plain Python
-loop.  Every fold runs the seed-stacked EM loop (``refinement.multi``) for
-all seeds of a (W, K, f_bg) group, then scores the held-out positives and
-the fold's negatives with one window-score launch each, and the MOPS sweep
-sorts and ranks on the device.
+loop.  Every fold runs the seed-stacked EM loop (``refinement.multi``) or
+the stacked CGS chains (``refinement.gibbs``) for all seeds of a (W, K,
+f_bg) group, then scores the held-out positives and the fold's negatives
+with one window-score launch each, and the MOPS sweep sorts and ranks on
+the device.  A CGS chain is seeded from the seed's input index
+(``gibbs.chain_seed``), the same in every fold.
 
 Outputs ``.zoops.stats`` / ``.mops.stats`` TSVs.
 """
@@ -40,6 +42,7 @@ from bammmotif2_tpu_torch.evaluation import prcurve
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
+from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, run_em
 from bammmotif2_tpu_torch.refinement.multi import batched_step, batched_while_loop
 from bammmotif2_tpu_torch.scoring.scan import empirical_pvalues, score_fn
@@ -52,7 +55,8 @@ class FDRResult:
     pos_pvalues: np.ndarray  # per held-out-positive ZOOPS-score p-values
     m_fold: int
     fold_iterations: list = dataclasses.field(default_factory=list)
-    # EM iterations of each evaluated fold (0 where nothing was refined)
+    # EM iterations or CGS sweeps of each evaluated fold (0 where nothing
+    # was refined)
     group_seconds: float = 0.0  # wall-clock of the group evaluation this seed ran in
 
     def write(self, outdir: str, basename: str) -> list:
@@ -90,15 +94,11 @@ def _write_stats(path: str, sweep: dict, max_rows: int = MAX_STATS_ROWS) -> None
 
 def _resolve(params: Params | None, refine: str | None) -> tuple:
     """(params, refine); refine defaults to CGS under params.CGS, else EM.
-    Raises before any work for an engine the port does not have."""
+    Raises before any work for an unknown engine."""
     params = params or Params(FDR=True)
     if refine is None:
         refine = "CGS" if params.CGS else "EM"
-    if refine == "CGS":
-        raise NotImplementedError(
-            "FDR with CGS refinement is not ported to the PyTorch package yet (ROADMAP A9)"
-        )
-    if refine not in ("EM", "none"):
+    if refine not in ("EM", "CGS", "none"):
         raise ValueError(f"refine must be 'EM', 'CGS' or 'none', got {refine!r}")
     return params, refine
 
@@ -115,19 +115,20 @@ def evaluate_motifs(
     """k-fold CV FDR analysis for a whole MotifSet, seeds of equal
     (W, K, alphabet, f_bg) evaluated as one stacked group.
 
-    Semantically ``[evaluate_motif(m, ...) for m in seed_motifs]`` (same
-    folds, same per-fold negatives, same statistics), with one EM loop and
-    one scoring launch per fold for the whole group.  Falls back to the
-    per-seed path when cvFold < 2 or the set has fewer rows than folds.
+    Semantically ``[evaluate_motif(m, ..., index=i) for i, m in
+    enumerate(seed_motifs)]`` (same folds, same per-fold negatives, same CGS
+    chains, same statistics), with one refinement loop and one scoring
+    launch per fold for the whole group.  Falls back to the per-seed path
+    when cvFold < 2 or the set has fewer rows than folds.
 
-    ``refine``: 'EM' or 'none' (score the seeds as-is); None derives it from
-    ``params`` ('CGS' under params.CGS, which raises: ROADMAP A9).
+    ``refine``: 'EM', 'CGS' or 'none' (score the seeds as-is); None derives
+    it from ``params`` ('CGS' under params.CGS, else 'EM').
     """
     params, refine = _resolve(params, refine)
     n_folds = max(1, params.cvFold)
     if n_folds < 2 or sset.n < n_folds:
         return [evaluate_motif(m, bg, sset, params, refine=refine, neg_set=neg_set,
-                               device=device) for m in seed_motifs]
+                               device=device, index=i) for i, m in enumerate(seed_motifs)]
     results: list = [None] * len(seed_motifs)
     groups: dict = {}
     for i, m in enumerate(seed_motifs):
@@ -137,7 +138,7 @@ def evaluate_motifs(
         ).append(i)
     for idxs in groups.values():
         group = [seed_motifs[i] for i in idxs]
-        for i, res in zip(idxs, _evaluate_group(group, bg, sset, params, refine, neg_set,
+        for i, res in zip(idxs, _evaluate_group(group, idxs, bg, sset, params, refine, neg_set,
                                                 device, stacked=True)):
             results[i] = res
     return results
@@ -151,14 +152,17 @@ def evaluate_motif(
     refine: str | None = None,
     neg_set: SequenceSet | None = None,
     device="cpu",
+    index: int = 0,
 ) -> FDRResult:
     """k-fold CV FDR analysis of one seed (``FDR::evaluateMotif``).
 
     Folds are round-robin by sequence index, so pooled outputs
     (``pos_pvalues``, the sweep pools) are in fold-major order.  Each fold
-    refines with the single-seed EM loop (``refinement.em.run_em``).
-    ``neg_set``: user-provided negatives, folded round-robin like the
-    positives; when absent, negatives are sampled per fold.
+    refines with the single-seed EM loop (``refinement.em.run_em``) or CGS
+    (``refinement.gibbs.run_gibbs``, its chain seeded from ``index``, the
+    seed's position in its MotifSet).  ``neg_set``: user-provided
+    negatives, folded round-robin like the positives; when absent,
+    negatives are sampled per fold.
     """
     params, refine = _resolve(params, refine)
     if sset.n == 0:
@@ -166,7 +170,7 @@ def evaluate_motif(
         sweep = prcurve.threshold_sweep(empty, empty, max(params.mFold, 1))
         return FDRResult(zoops=sweep, mops=dict(sweep), pos_pvalues=empty,
                          m_fold=params.mFold)
-    return _evaluate_group([seed_motif], bg, sset, params, refine, neg_set, device,
+    return _evaluate_group([seed_motif], [index], bg, sset, params, refine, neg_set, device,
                            stacked=False)[0]
 
 
@@ -184,13 +188,32 @@ def _score_rows(s_flat, cidx, lens, rows, path) -> tuple:
     return sc.amax(dim=(1, 3)), sc.reshape(sc.shape[0], -1)
 
 
-def _evaluate_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: Params,
-                    refine: str, neg_set: SequenceSet | None, device, *,
+def _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train, params, path, stacked,
+              bg, sset) -> tuple:
+    """One fold's CGS refinement of the group on the train-masked rows:
+    stacked chains, or (one seed) ``run_gibbs``.  Returns v [M, ...]."""
+    A, K, W = group[0].A, group[0].K, group[0].W
+    dev = tdata["cidx"].device
+    if stacked:
+        gens = gibbs.chain_generators(params.seed, indices, dev)
+        v, _q, _la, _lls = gibbs.gibbs_chains(v0, q0, alphas, f_bg, tdata, float(n_train), gens,
+                                              params, A=A, K=K, W=W, path=path)
+        return v
+    m = group[0].copy()
+    gibbs.run_gibbs(m, bg, sset, params, data=tdata, n_real=n_train, device=dev,
+                    index=indices[0])
+    return tuple(torch.as_tensor(vk, dtype=torch.float32, device=dev)[None] for vk in m.v)
+
+
+def _evaluate_group(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+                    params: Params, refine: str, neg_set: SequenceSet | None, device, *,
                     stacked: bool) -> list:
     """The fold loop for one (W, K, f_bg) seed group.
 
-    ``stacked``: refine all seeds in one batched EM loop per fold; else
-    (one seed) with ``run_em``.
+    ``indices``: the seeds' input indices (their CGS chains' seeds).
+    ``stacked``: refine all seeds in one batched EM loop or one set of
+    stacked CGS chains per fold; else (one seed) with ``run_em`` /
+    ``run_gibbs``.
     """
     t0 = time.perf_counter()
     A, K, W = group[0].A, group[0].K, group[0].W
@@ -237,11 +260,15 @@ def _evaluate_group(group: list, bg: BackgroundModel, sset: SequenceSet, params:
             continue
 
         v, its = v0, [0] * M
-        if train_sel.any() and refine == "EM":
+        if train_sel.any() and refine != "none":
             tdata = {**data, "lens": torch.as_tensor(
                 np.where(train_sel, lens_np, 0).astype(np.int32), device=dev)}
             n_train = int(train_sel.sum())
-            if stacked:
+            if refine == "CGS":
+                v = _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train,
+                              params, path, stacked, bg, sset)
+                its = [params.maxCGSIterations] * M
+            elif stacked:
                 def step(v, q, tdata=tdata, n_train=n_train):
                     return batched_step(v, q, tdata, alphas, f_bg, n_train, A=A, K=K, W=W,
                                         optimize_q=params.optimizeQ, path=path)

@@ -59,6 +59,10 @@ def update_v(counts: tuple, alphas: torch.Tensor, f_bg: torch.Tensor) -> tuple:
     """The interpolated pseudo-count estimator, all orders (calculateV).
 
     counts[k] [..., A^(k+1), W], alphas [..., K+1, W], f_bg [A].
+
+    The repeats are broadcasts, not index gathers, so the gradient that the
+    Gibbs alpha step takes through this function sums without atomics and
+    is reproducible on a GPU.
     """
     K = len(counts) - 1
     A = f_bg.shape[0]
@@ -69,13 +73,23 @@ def update_v(counts: tuple, alphas: torch.Tensor, f_bg: torch.Tensor) -> tuple:
     for k in range(1, K + 1):
         nk = counts[k]
         ak = alphas[..., k : k + 1, :]
-        W = nk.shape[-1]
-        ctx = nk.reshape(*nk.shape[:-2], -1, A, W).sum(dim=-2)  # [..., A^k, W]
-        denom = torch.repeat_interleave(ctx, A, dim=-2) + ak
-        y = torch.arange(nk.shape[-2], device=nk.device)
-        lower = v[k - 1][..., y % (A ** k), :]
-        v.append((nk + ak * lower) / denom)
+        ctx = nk.reshape(*nk.shape[:-2], -1, A, nk.shape[-1]).sum(dim=-2)  # [..., A^k, W]
+        # denom[y] = ctx[y // A] + a_k; lower[y] = v^(k-1)[y % A^k]
+        denom = repeat_rows(ctx, A) + ak
+        v.append((nk + ak * tile_rows(v[k - 1], A)) / denom)
     return tuple(v)
+
+
+def repeat_rows(x: torch.Tensor, A: int) -> torch.Tensor:
+    """[..., n, W] -> [..., n*A, W], each row A times in a row."""
+    *lead, n, W = x.shape
+    return x.unsqueeze(-2).expand(*lead, n, A, W).reshape(*lead, n * A, W)
+
+
+def tile_rows(x: torch.Tensor, A: int) -> torch.Tensor:
+    """[..., n, W] -> [..., A*n, W], the whole block A times."""
+    *lead, n, W = x.shape
+    return x.unsqueeze(-3).expand(*lead, A, n, W).reshape(*lead, A * n, W)
 
 
 def combined_v(v: tuple) -> torch.Tensor:

@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   : nvcc builds csrc/em_counts.cu and csrc/window_scores.cu in
-               parallel; prints the toolchain, the card and both ptxas
-               resource reports.
+  1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu and
+               csrc/counts_from_r.cu in parallel; prints the toolchain, the
+               card and the ptxas resource reports.
   2. kernel  : each kernel against its plain PyTorch version on the card at
                the main paths' geometries (tests/test_torch_cuda.py:
-               KERNEL_CASES / check_kernel, SCORE_CASES / check_scores).
+               KERNEL_CASES / check_kernel, SCORE_CASES / check_scores,
+               COUNTS_CASES / check_counts).
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
                just before each run and read just after:
@@ -38,12 +39,27 @@ Phases (any failure exits non-zero):
                  --maxEMIterations 20 (agreement as on examples/), then
                  converged through the kernels: finite .stats, AvRec ZOOPS
                  >= 0.25 for the three unperturbed seeds, both kernels
-                 launched.
+                 launched;
+               - --CGS -k 2 -K 2 on the planted 10k x 200 bp set at the
+                 default 100 sweeps: written files agree (equal files are
+                 expected: both paths draw the same numbers, window scores
+                 are bit-equal and 0/1 counts exact), the consensus is the
+                 planted motif, the window-score and counts-from-r kernels
+                 launched at least once per sweep;
+               - --EM --CGS on examples/: files agree, all three kernels
+                 launched;
+               - config 4 with --CGS --FDR (per-fold CGS) compared at
+                 --maxCGSIterations 20, then through the kernels at the
+                 default 100: AvRec ZOOPS >= 0.25 for the planted seeds.
   4. timing  : each kernel against its plain version (CUDA events): E+M at
                bench.py's geometry (10k x 200 bp, W=12, K=2), window scores
-               at config 5's (100k x 200 bp, W=12, K=2) at M=1 and M=10; EM
-               windows/s and iterations/s; config 5's end-to-end scan
-               windows/s and config 4's FDR seconds per (W, K) group.
+               at config 5's (100k x 200 bp, W=12, K=2) at M=1 and M=10,
+               counts-from-r at bench's geometry with the sampler's 0/1 r at
+               M=1 and M=10; EM windows/s and iterations/s; CGS sweeps/s at
+               bench's geometry (kernel and plain, and the device's busy
+               share under torch.profiler); config 5's end-to-end scan
+               windows/s and config 4's EM-FDR and CGS-FDR seconds per
+               (W, K) group.
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; the last line is {"ok": true, "device": {...}}.
 Imports no JAX.
@@ -63,7 +79,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("em_counts", "window_scores")
+KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r")
 
 # bench.py's problem
 N_SEQS, SEQ_LEN, W, N_TIMED = 10_000, 200, 12, 30
@@ -72,6 +88,7 @@ C5_SEQS = 100_000  # BASELINE config 5: a 100k-sequence scan
 C5_MFOLD = 10
 C4_MOTIFS = ["TGACTCAG", "CACGTGACTT", "GGGGCGGGGCCA"]  # W = 8, 10, 12
 C4_SEEDS = 10
+CGS_FIXED_SWEEPS = 20  # config 4's CGS-FDR comparison budget
 
 
 def log(*a):
@@ -95,29 +112,32 @@ def load_by_path(name: str, rel: str):
 
 
 def launches() -> dict:
-    from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_scores
 
     return {"em_counts": cuda_em.em_counts_multi.launches,
-            "window_scores": cuda_scores.window_scores_multi.launches}
+            "window_scores": cuda_scores.window_scores_multi.launches,
+            "counts_from_r": cuda_counts.counts_from_r_multi.launches}
 
 
 def reset_launches() -> None:
-    from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_scores
 
     cuda_em.em_counts_multi.launches = 0
     cuda_scores.window_scores_multi.launches = 0
+    cuda_counts.counts_from_r_multi.launches = 0
 
 
 def phase_build():
     import torch
 
-    from bammmotif2_tpu_torch.ops import _build, cuda_em, cuda_scores
+    from bammmotif2_tpu_torch.ops import _build, cuda_counts, cuda_em, cuda_scores
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:  # one nvcc per source, together
         paths = list(ex.map(_build.library_path, KERNEL_SOURCES))
     cuda_em.library()
     cuda_scores.library()
+    cuda_counts.library()
     secs = time.perf_counter() - t0
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -133,7 +153,7 @@ def phase_build():
 
 def phase_kernel(device) -> dict:
     checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
-    worst = {"em_counts": 0.0, "window_scores": 0.0}
+    worst = {"em_counts": 0.0, "window_scores": 0.0, "counts_from_r": 0.0}
     for name, case in checks.KERNEL_CASES.items():
         res = checks.check_kernel(case, device)
         worst["em_counts"] = max(worst["em_counts"], res["max_abs_err"])
@@ -142,6 +162,10 @@ def phase_kernel(device) -> dict:
         res = checks.check_scores(case, device)
         worst["window_scores"] = max(worst["window_scores"], res["max_abs_err"])
         log(f"kernel window_scores {name}: " + json.dumps({k: float(v) for k, v in res.items()}))
+    for name, case in checks.COUNTS_CASES.items():
+        res = checks.check_counts(case, device)
+        worst["counts_from_r"] = max(worst["counts_from_r"], res["max_abs_err"])
+        log(f"kernel counts_from_r {name}: " + json.dumps({k: float(v) for k, v in res.items()}))
     return worst
 
 
@@ -213,6 +237,15 @@ def config4_problem(outdir: str) -> tuple:
     return fasta, meme
 
 
+def runs_events(tmp: str, tag: str, base: str) -> dict:
+    """A finished run's metrics events by kind (lists)."""
+    events: dict = {}
+    with open(os.path.join(tmp, tag, f"{base}.metrics.jsonl")) as fh:
+        for e in map(json.loads, fh):
+            events.setdefault(e["event"], []).append(e)
+    return events
+
+
 def run_cli(outdir: str, fasta: str, meme: str, extra: list, device) -> dict:
     """One CLI run; returns its metrics events by kind (lists), the launches
     each kernel made in it (counts zeroed just before) and its seconds."""
@@ -224,10 +257,7 @@ def run_cli(outdir: str, fasta: str, meme: str, extra: list, device) -> dict:
     secs = time.perf_counter() - t0
     n = launches()
     base = os.path.splitext(os.path.basename(fasta))[0]
-    events: dict = {}
-    with open(os.path.join(outdir, f"{base}.metrics.jsonl")) as fh:
-        for e in map(json.loads, fh):
-            events.setdefault(e["event"], []).append(e)
+    events = runs_events(os.path.dirname(outdir), os.path.basename(outdir), base)
     return {"events": events, "launches": n, "seconds": secs, "base": base}
 
 
@@ -290,19 +320,31 @@ def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None) -> dic
     return out
 
 
-def full_slice(tag, fasta, meme, extra, device, tmp, m_fold) -> tuple:
-    """--EM --scoreSeqset/--FDR through the kernels and under --no-pallas:
-    every written file agrees (tests/torch_outputs.py, refined models), and
-    both kernels launched in the kernel run."""
+def files_equal(dir_a: str, dir_b: str) -> bool:
+    """Every written file (metrics logs aside) byte-identical."""
+    names = sorted(n for n in os.listdir(dir_a) if not n.endswith(".metrics.jsonl"))
+    for n in names:
+        with open(os.path.join(dir_a, n), "rb") as a, open(os.path.join(dir_b, n), "rb") as b:
+            if a.read() != b.read():
+                return False
+    return True
+
+
+def full_slice(tag, fasta, meme, extra, device, tmp, m_fold,
+               kernels=("em_counts", "window_scores")) -> tuple:
+    """A CLI command through the kernels and under --no-pallas: every
+    written file agrees (tests/torch_outputs.py, refined models), and each
+    of ``kernels`` launched in the kernel run."""
     outputs = load_by_path("bamm_torch_outputs", "tests/torch_outputs.py")
     k, p = run_pair(tag, fasta, meme, extra, device, tmp)
-    if not all(k["launches"].values()):
+    if not all(k["launches"][name] for name in kernels):
         raise AssertionError(f"{tag}: a kernel did not launch: {k['launches']}")
-    cmp = outputs.compare_dirs(os.path.join(tmp, tag + "_kernel"), os.path.join(tmp, tag + "_plain"),
-                               refined=True, m_fold=m_fold)
+    dirs = (os.path.join(tmp, tag + "_kernel"), os.path.join(tmp, tag + "_plain"))
+    cmp = outputs.compare_dirs(*dirs, refined=True, m_fold=m_fold)
     out = {
         "launches": k["launches"],
         "files_compared": cmp["files"],
+        "files_equal": files_equal(*dirs),
         "max_abs_dp": cmp["max_dp"],
         "rows_near_cutoff": cmp["rows_near_cutoff"],
         "avrec_zoops_mops_kernel": [[e["avrec_zoops"], e["avrec_mops"]]
@@ -367,7 +409,7 @@ def config4_slice(device, tmp) -> dict:
     _k, fixed = full_slice("config4_fixed", fasta, meme, [*extra, "--maxEMIterations", "20"],
                            device, tmp, m_fold=10)
     conv = run_cli(os.path.join(tmp, "config4_converged"), fasta, meme, extra, device)
-    if not all(conv["launches"].values()):
+    if not (conv["launches"]["em_counts"] and conv["launches"]["window_scores"]):
         raise AssertionError(f"config4: a kernel did not launch: {conv['launches']}")
     fdr = conv["events"]["fdr_done"]
     d = os.path.join(tmp, "config4_converged")
@@ -396,6 +438,52 @@ def config4_slice(device, tmp) -> dict:
     return out
 
 
+def cgs_slices(device, tmp) -> dict:
+    """--CGS on the planted 10k set, --EM --CGS on examples/, and config 4's
+    CGS-FDR, each through the kernels and under --no-pallas."""
+    examples = os.path.join(ROOT, "examples")
+    _, fasta, meme, planted, _pos, _has = planted_problem(tmp, tag="cgs")
+    k, main = full_slice("cgs_10k", fasta, meme, ["--CGS", "-k", "2", "-K", "2"], device, tmp,
+                         m_fold=1, kernels=("window_scores", "counts_from_r"))
+    sweeps = k["events"]["cgs_done"][0]["iterations"]
+    if min(k["launches"]["window_scores"], k["launches"]["counts_from_r"]) < sweeps:
+        raise AssertionError(f"cgs_10k: {k['launches']} for {sweeps} sweeps")
+    check_consensus("cgs_10k", (os.path.join(tmp, "cgs_10k_kernel"), os.path.join(tmp, "cgs_10k_plain")),
+                    k["base"], k["events"]["cgs_done"][0]["motif"], planted)
+    p_ev = runs_events(tmp, "cgs_10k_plain", k["base"])["cgs_done"][0]
+    stage = {"sweeps": sweeps, "q_kernel": k["events"]["cgs_done"][0]["q"], "q_plain": p_ev["q"],
+             "cgs_seconds_kernel": k["events"]["cgs_done"][0]["seconds"],
+             "cgs_seconds_plain": p_ev["seconds"]}
+    log("slice cgs_10k CGS stage (cgs_done events): " + json.dumps(stage))
+    main.update(stage)
+    _k, em_cgs = full_slice("examples_em_cgs", os.path.join(examples, "positives.fasta"),
+                            os.path.join(examples, "seed.meme"), ["--EM", "--CGS"], device, tmp,
+                            m_fold=1, kernels=("em_counts", "window_scores", "counts_from_r"))
+
+    fasta4, meme4 = config4_problem(tmp)
+    extra = ["--maxPWM", str(C4_SEEDS), "--CGS", "--FDR", "-q", "0.5", "--mFold", "10",
+             "--cvFold", "5"]
+    _k, fixed = full_slice("config4_cgs_fixed", fasta4, meme4,
+                           [*extra, "--maxCGSIterations", str(CGS_FIXED_SWEEPS)], device, tmp,
+                           m_fold=10, kernels=("window_scores", "counts_from_r"))
+    full = run_cli(os.path.join(tmp, "config4_cgs"), fasta4, meme4, extra, device)
+    if not (full["launches"]["window_scores"] and full["launches"]["counts_from_r"]):
+        raise AssertionError(f"config4 CGS: a kernel did not launch: {full['launches']}")
+    fdr = full["events"]["fdr_done"]
+    avrec = {e["motif"]: e["avrec_zoops"] for e in fdr}
+    if min(avrec[f"motif_{s + 1}"] for s in range(len(C4_MOTIFS))) < 0.25:
+        raise AssertionError(f"config4 CGS: AvRec ZOOPS of the planted seeds {avrec}")
+    c4 = {
+        "fixed": fixed,
+        "launches": full["launches"],
+        "avrec_zoops": avrec,
+        "cgs_fdr_group_seconds_kernel": {f"W{e['W']}_K{e['K']}": e["group_seconds"] for e in fdr},
+        "cli_seconds": full["seconds"],
+    }
+    log("slice config4 CGS (10 seeds, --CGS --FDR, 100 sweeps): " + json.dumps(c4))
+    return {"cgs_10k": main, "examples_em_cgs": em_cgs, "config4_cgs": c4}
+
+
 def phase_slice(device, tmp) -> dict:
     examples = os.path.join(ROOT, "examples")
     ex_fa, ex_meme = os.path.join(examples, "positives.fasta"), os.path.join(examples, "seed.meme")
@@ -421,9 +509,13 @@ def phase_slice(device, tmp) -> dict:
     t0 = time.perf_counter()
     c4 = config4_slice(device, tmp)
     secs["config4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cgs = cgs_slices(device, tmp)
+    secs["cgs"] = time.perf_counter() - t0
     log("slice seconds: " + json.dumps(secs))
     return {"em_launches": conv["launches"], "scan_launches": c5["launches"]["window_scores"],
-            "config5": c5, "config4": c4}
+            "counts_launches": cgs["cgs_10k"]["launches"]["counts_from_r"],
+            "config5": c5, "config4": c4, "cgs": cgs}
 
 
 def time_cuda(fn, n: int) -> float:
@@ -529,13 +621,103 @@ def time_scores(device, tmp) -> dict:
     return out
 
 
+def time_counts(device) -> dict:
+    """counts_from_r_multi vs plain at bench's geometry with the sampler's
+    0/1 r, M=1 and M=10."""
+    from bammmotif2_tpu_torch.ops import cuda_counts
+
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    out = {}
+    for M in (1, 10):
+        args = checks.counts_inputs(N=N_SEQS, L=SEQ_LEN, W=W, K=2, M=M, S=2, r="01", device=device)
+        r = args[0]
+        out[f"M{M}"] = {
+            "ms": time_cuda(lambda: cuda_counts.counts_from_r_multi(*args), N_TIMED),
+            "plain_ms": time_cuda(lambda: cuda_counts.counts_from_r_multi_ref(*args),
+                                  5 if M > 1 else N_TIMED),
+            "r_bytes": r.numel() * 4,
+            "nonzero_r": int((r != 0).sum().item()),
+        }
+    log("timing counts_from_r (bench geometry 10k x 200 bp, W=12, K=2, S=2, 0/1 r): "
+        + json.dumps(out))
+    return out
+
+
+def time_cgs(device, tmp) -> dict:
+    """CGS sweeps/s at bench's geometry (one chain), kernel path and plain,
+    and a torch.profiler window over the kernel path's sweeps: the device's
+    busy share and its largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from bammmotif2_tpu_torch.models import seeds as seeds_mod
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+    from bammmotif2_tpu_torch.refinement import gibbs
+    from bammmotif2_tpu_torch.refinement.em import prepare_data
+
+    sset, _, _, planted, _pos, _has = planted_problem(tmp, tag="cgs_timing")
+    bg = BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)
+    pwm = np.full((W, 4), 0.1)
+    pwm[np.arange(W), planted] = 0.7
+    motif = seeds_mod.motif_from_pwm(pwm, K=2, f_bg=sset.base_frequencies())
+    data = prepare_data(sset, bg, 2, False, device)
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
+    v0 = tuple(f32(vk)[None] for vk in motif.v)
+    alphas, f_bg, q0 = f32(motif.alphas)[None], f32(motif.f_bg), f32([0.9])
+
+    def sweeps(path, n):
+        gens = gibbs.chain_generators(0, [0], device)
+        torch.cuda.set_sync_debug_mode("error")  # the sweep loop must not sync
+        try:
+            out = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas,
+                                       float(N_SEQS), A=4, K=2, W=W, sample_z=True,
+                                       sample_q=True, learn_alpha=True, path=path, n_iters=n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return out
+
+    out = {}
+    for path in ("cuda", "plain", "cuda", "plain"):
+        sweeps(path, 2)
+        t0 = time.perf_counter()
+        sweeps(path, N_TIMED)
+        out.setdefault(f"sweeps_per_s_{path}", []).append(N_TIMED / (time.perf_counter() - t0))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sweeps("cuda", 10)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out["profiled_10_sweeps"] = {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1 - busy_us / wall_us if busy_us else "not measured",
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+    }
+    # does a CUDA generator give row n the same uniform when rows follow it?
+    u = [torch.rand(N_SEQS + extra, generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)[:N_SEQS] for extra in (0, 7)]
+    out["cuda_rand_prefix_equal"] = bool(torch.equal(*u))
+    log("timing CGS sweeps (bench geometry 10k x 200 bp, W=12, K=2, M=1): " + json.dumps(out))
+    return out
+
+
 def phase_timing(device, tmp, slices: dict) -> dict:
-    out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp)}
+    out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
+           "counts": time_counts(device), "cgs": time_cgs(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
     e2e = {
         "config5_scan_windows_per_s_kernel": c5["scan_windows_per_s_kernel"],
         "config5_scan_windows_per_s_plain": c5["scan_windows_per_s_plain"],
         "config4_fdr_group_seconds_kernel": c4["fdr_group_seconds_kernel"],
+        "config4_cgs_fdr_group_seconds_kernel":
+            slices["cgs"]["config4_cgs"]["cgs_fdr_group_seconds_kernel"],
+        "cgs_10k_cli_seconds_kernel": slices["cgs"]["cgs_10k"]["cli_seconds_kernel"],
+        "cgs_10k_cli_seconds_plain": slices["cgs"]["cgs_10k"]["cli_seconds_plain"],
         "gpu": nvidia_smi(),
     }
     log("timing end to end: " + json.dumps(e2e))
@@ -590,6 +772,15 @@ def main() -> int:
         "max_abs_err": max_err["window_scores"],
         "ms": timing["scores"]["M1"]["ms"],
         "plain_ms": timing["scores"]["M1"]["plain_ms"],
+    }, {
+        "name": "counts_from_r",
+        "route": "cuda",
+        "source": "bammmotif2_tpu_torch/csrc/counts_from_r.cu",
+        "replaces": "bammmotif2_tpu/ops/pallas_em.py:639",
+        "launches": slices["counts_launches"],
+        "max_abs_err": max_err["counts_from_r"],
+        "ms": timing["counts"]["M1"]["ms"],
+        "plain_ms": timing["counts"]["M1"]["plain_ms"],
     }]
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())

@@ -1,6 +1,6 @@
-"""Port parity: the CLI's --EM, --scoreSeqset and --FDR stages against the
-JAX package's CLI on examples/, the port's import hygiene, and its refusal
-of unported stages."""
+"""Port parity: the CLI's --EM, --CGS, --scoreSeqset and --FDR stages against
+the JAX package's CLI on examples/, the port's import hygiene, and
+--profile."""
 
 import json
 import os
@@ -89,7 +89,8 @@ def test_cli_imports_no_jax(tmp_path):
         "import sys\n"
         "from bammmotif2_tpu_torch import cli\n"
         f"cli.main([{str(tmp_path)!r}, {POS!r}, '--PWMFile', {MEME!r}, '--EM', '-k', '1',"
-        " '--scoreSeqset', '--FDR', '--mFold', '2', '--cvFold', '2'], device='cpu')\n"
+        " '--scoreSeqset', '--FDR', '--mFold', '2', '--cvFold', '2', '--CGS',"
+        " '--maxCGSIterations', '2'], device='cpu')\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
         "print('no jax')\n"
     )
@@ -105,10 +106,55 @@ def test_cli_imports_no_jax(tmp_path):
 @pytest.mark.parametrize("flags", [["--CGS"], ["--FDR", "--CGS"], ["--profile=trace"]],
                          ids=["--CGS", "--FDR --CGS", "--profile=trace"])
 def test_unported_stages_raise_before_work(tmp_path, flags):
+    """The stages that once raised NotImplementedError before any work
+    (--CGS, --FDR --CGS, --profile) run on the CPU and write their outputs."""
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        cli.main([str(out), POS, "--PWMFile", MEME, "--EM", *flags], device="cpu")
-    assert not out.exists()
+    flags = [f.replace("=trace", f"={tmp_path / 'trace'}") for f in flags]
+    assert cli.main([str(out), POS, "--PWMFile", MEME, "--EM", "-k", "1", "--maxEMIterations", "3",
+                     "--maxCGSIterations", "3", "--cvFold", "2", "--mFold", "1", "--jsonl", *flags],
+                    device="cpu") == 0
+    assert (out / "positives_motif_1.ihbcp").exists()
+    with open(out / "positives.metrics.jsonl") as fh:
+        events = [e["event"] for e in map(json.loads, fh)]
+    assert ("cgs_done" in events) == ("--CGS" in flags)
+    assert (out / "positives_motif_1.zoops.stats").exists() == ("--FDR" in flags)
+    assert (tmp_path / "trace").exists() == any(f.startswith("--profile") for f in flags)
+
+
+def test_profile_writes_trace(tmp_path):
+    """--profile DIR: one Chrome trace of the run in DIR, holding the
+    pipeline's ops."""
+    trace = tmp_path / "trace"
+    cli.main([str(tmp_path / "out"), POS, "--PWMFile", MEME, "--EM", "-k", "1",
+              "--maxEMIterations", "2", "--profile", str(trace)], device="cpu")
+    files = os.listdir(trace)
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json"), files
+    with open(trace / files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+
+
+@pytest.mark.parametrize("stages", [["--CGS"], ["--EM", "--CGS"]], ids=["CGS", "EM_CGS"])
+def test_cgs_matches_jax(tmp_path, stages):
+    """--CGS (and --EM then --CGS) under --noZSampling --noQSampling: every
+    file the two CLIs write agrees within the bars of tests/torch_outputs.py,
+    and each cgs_done event reports the same sweeps and q, at the default
+    100 sweeps.  A fixed EM budget (see test_scan_and_fdr_match_jax)."""
+    argv = [POS, "--PWMFile", MEME, *stages, "--noZSampling", "--noQSampling", "--jsonl",
+            "--single-device", "-k", "2", "--maxEMIterations", "20"]
+    jout, out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jcli.main([jout, *argv])
+    assert cli.main([out, *argv], device="cpu") == 0
+    res = torch_outputs.compare_dirs(out, jout, refined=True)
+    assert res["files"] == 4, res
+    events = {}
+    for d in (out, jout):
+        with open(os.path.join(d, "positives.metrics.jsonl")) as fh:
+            events[d] = [e for e in map(json.loads, fh) if e["event"] == "cgs_done"]
+    assert len(events[out]) == len(events[jout]) == 1
+    for e, je in zip(events[out], events[jout]):
+        assert e["iterations"] == je["iterations"] == 100 and e["q"] == je["q"] == pytest.approx(0.9)
+        assert e["seconds"] >= 0
 
 
 def test_default_device_needs_cuda(tmp_path, monkeypatch):

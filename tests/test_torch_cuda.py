@@ -8,7 +8,8 @@ import).  Run on a GPU machine with
 
 ``chip_smoke.py`` runs the same checks (``KERNEL_CASES`` / ``check_kernel``
 for the E+M kernel, ``SCORE_CASES`` / ``check_scores`` for the window-score
-kernel) at the main path's shapes.  This module imports no JAX.
+kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel) at
+the main path's shapes.  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from bammmotif2_tpu.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import log_odds_lut
-from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores, encode
-from bammmotif2_tpu_torch.ops.escore import NEG_INF
+from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_scores, encode
+from bammmotif2_tpu_torch.ops.escore import NEG_INF, window_mask
+from bammmotif2_tpu_torch.refinement.gibbs import occupancy
 
 # Counts agree to |dC| <= C_ATOL + C_RTOL*|C| and ll to LL_RTOL: the
 # kernel's float atomics add in an order that varies from run to run, and
@@ -65,6 +67,85 @@ SCORE_CASES = {
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True),
     "long_rows_tiled": dict(N=40, L=9_000, W=12, K=2, M=2, S=2, ragged=True),
 }
+
+
+# Counts from r agree to |dC| <= CR_ATOL + CR_RTOL*|C|: the kernel sums in
+# f32 per block and f64 globally, the plain version wholly in f64, and both
+# round once.  For 0/1 r every partial is an integer and C must be equal.
+CR_ATOL, CR_RTOL = 1e-5, 1e-6
+
+# name -> geometry and r: "01" is the Gibbs sampler's occupancy (at most one
+# window per (m, n)), "frac" a posterior (fractional, <= 1 per (m, n)),
+# "unmasked" fractional with mass on invalid windows too
+COUNTS_CASES = {
+    "bench_M1_01": dict(N=10_000, L=200, W=12, K=2, M=1, S=2, r="01"),
+    "bench_M10_01": dict(N=10_000, L=200, W=12, K=2, M=10, S=2, r="01"),
+    "bench_M1_frac": dict(N=10_000, L=200, W=12, K=2, M=1, S=2, r="frac"),
+    "bench_M10_frac": dict(N=10_000, L=200, W=12, K=2, M=10, S=2, r="frac"),
+    "K0_frac": dict(N=2_000, L=200, W=8, K=0, M=3, S=2, r="frac"),
+    "K1_01": dict(N=2_000, L=200, W=12, K=1, M=3, S=2, r="01"),
+    "K3_frac": dict(N=2_000, L=200, W=12, K=3, M=2, S=2, r="frac"),
+    "K4_smem_01": dict(N=2_000, L=200, W=12, K=4, M=2, S=2, r="01"),
+    "K5_global_01": dict(N=2_000, L=200, W=12, K=5, M=2, S=2, r="01"),
+    "K5_global_frac": dict(N=2_000, L=200, W=12, K=5, M=2, S=2, r="frac"),
+    "ss": dict(N=2_000, L=200, W=12, K=2, M=1, S=1, r="01"),
+    "A5": dict(N=300, L=60, W=8, K=3, M=2, S=2, A=5, r="frac"),
+    "W8": dict(N=2_000, L=200, W=8, K=2, M=3, S=2, r="01"),
+    "W30": dict(N=2_000, L=200, W=30, K=2, M=3, S=2, r="frac"),
+    "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True, r="frac"),
+    "mass_on_invalid_windows": dict(N=500, L=60, W=10, K=2, M=2, S=2, ragged=True, r="unmasked"),
+    "long_rows": dict(N=40, L=9_000, W=12, K=2, M=2, S=2, ragged=True, r="01"),
+}
+
+
+def counts_inputs(N, L, W, K, M, S, r, A=4, ragged=False, seed=0, device="cpu"):
+    """(r [M, S, N, L], cidx, R, W) for counts_from_r_multi on kernel_inputs'
+    sequences; r is zero past each row's window frontier unless
+    ``r == "unmasked"``."""
+    s_flat, cidx, lens, _q = kernel_inputs(N, L, W, K, 1, S, A=A, ragged=ragged, seed=seed,
+                                           device=device)
+    R = s_flat.shape[1] - 1
+    n_win = L - W + 1
+    mask = window_mask(lens, n_win, W)  # [N, n_win]
+    g = torch.Generator(device=device).manual_seed(seed)
+    occupied = torch.rand((M, N), generator=g, device=device) < 0.8
+    if r == "01":
+        pick = torch.rand((M, S, N, n_win), generator=g, device=device)
+        pick = torch.where(mask[None, None], pick, -1.0).permute(0, 2, 1, 3).reshape(M, N, S * n_win)
+        z = torch.where(occupied & mask.any(dim=1)[None], pick.argmax(dim=-1) + 1, 0)
+        return occupancy(z, S, L, n_win), cidx, R, W
+    w = torch.rand((M, S, N, n_win), generator=g, device=device)
+    if r == "frac":
+        w = torch.where(mask[None, None], w, 0.0)
+    w = w / w.sum(dim=(1, 3), keepdim=True).clamp(min=1e-30)
+    w = w * torch.rand((M, 1, N, 1), generator=g, device=device) * occupied[:, None, :, None]
+    return torch.nn.functional.pad(w, (0, L - n_win)).contiguous(), cidx, R, W
+
+
+def check_counts(case: dict, device) -> dict:
+    """Counts-from-r kernel vs plain on the same CUDA tensors; raises
+    AssertionError on a mismatch.  Returns the errors."""
+    r, cidx, R, W = counts_inputs(**case, device=device)
+    launches = cuda_counts.counts_from_r_multi.launches
+    C = cuda_counts.counts_from_r_multi(r, cidx, R, W)
+    torch.cuda.synchronize(device)
+    assert cuda_counts.counts_from_r_multi.launches == launches + 1
+    C_ref = cuda_counts.counts_from_r_multi_ref(r, cidx, R, W)
+    assert C.shape == C_ref.shape == (r.shape[0], R + 1, W) and C.dtype == torch.float32
+    d = (C - C_ref).abs()
+    bound = CR_ATOL + CR_RTOL * C_ref.abs()
+    out = {
+        "max_abs_err": d.max().item(),
+        "max_err_over_bound": (d / bound).max().item(),
+        "bitwise_equal": float(torch.equal(C, C_ref)),
+        "max_count": C_ref.abs().max().item(),
+        "sentinel_mass": C_ref[:, -1].sum().item(),
+    }
+    assert bool(torch.isfinite(C).all()), out
+    assert bool((d <= bound).all()), out
+    if case["r"] == "01":
+        assert torch.equal(C, C_ref), out
+    return out
 
 
 def kernel_inputs(N, L, W, K, M, S, A=4, ragged=False, seed=0, device="cpu"):
@@ -211,3 +292,24 @@ def test_scores_wrapper_rejects_bad_inputs(cuda_device):
         cuda_scores.window_scores_multi(s_flat, cidx, lens[:-1])
     with pytest.raises(ValueError):
         cuda_scores.window_scores_multi(s_flat, cidx[:, :, :5], lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(COUNTS_CASES))
+def test_counts_kernel_matches_plain(cuda_device, name):
+    check_counts(COUNTS_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+def test_counts_wrapper_rejects_bad_inputs(cuda_device):
+    r, cidx, R, W = counts_inputs(N=20, L=30, W=6, K=1, M=2, S=2, r="frac", device=cuda_device)
+    with pytest.raises(TypeError):
+        cuda_counts.counts_from_r_multi(r.double(), cidx, R, W)
+    with pytest.raises(ValueError):
+        cuda_counts.counts_from_r_multi(r, cidx.cpu(), R, W)
+    with pytest.raises(ValueError):
+        cuda_counts.counts_from_r_multi(r[:, :, :, ::2], cidx, R, W)
+    with pytest.raises(ValueError):
+        cuda_counts.counts_from_r_multi(r[:, :, :-1].contiguous(), cidx, R, W)
+    with pytest.raises(ValueError):
+        cuda_counts.counts_from_r_multi(r, cidx, R, 31)

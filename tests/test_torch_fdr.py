@@ -214,13 +214,59 @@ def test_group_matches_per_seed_short_and_empty_rows():
 
 
 def test_cgs_raises_before_work(fdr_data):
+    """CGS is an engine FDR accepts (by name, or from params.CGS); an unknown
+    engine raises before any work."""
     sset, _neg, _jbg, bg = fdr_data
     ms = [convert.motif(m) for m in _jseeds(sset)]
-    for kw in (dict(params=Params(FDR=True, CGS=True)), dict(refine="CGS")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            fdr.evaluate_motifs(ms, bg, sset, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            fdr.evaluate_motif(ms[0], bg, sset, **kw)
+    assert fdr._resolve(Params(FDR=True, CGS=True), None)[1] == "CGS"
+    assert fdr._resolve(None, "CGS")[1] == "CGS"
+    for refine in ("Gibbs", "cgs"):
+        with pytest.raises(ValueError, match="refine must be"):
+            fdr.evaluate_motifs(ms, bg, sset, Params(FDR=True, CGS=True), refine=refine)
+        with pytest.raises(ValueError, match="refine must be"):
+            fdr.evaluate_motif(ms[0], bg, sset, Params(FDR=True, CGS=True), refine=refine)
+
+
+def test_fdr_cgs_matches_jax(fdr_data):
+    """refine='CGS' under --noZSampling --noQSampling with user negatives:
+    no random draw is made, so the chains' keys do not matter, and the
+    .stats tables agree with the reference's by the bars of
+    test_fdr_em_matches_jax (scores atol 1e-4, AvRec 1e-3)."""
+    sset, neg, jbg, bg = fdr_data
+    params = Params(FDR=True, CGS=True, cvFold=3, q=0.5, maxCGSIterations=8,
+                    noZSampling=True, noQSampling=True)
+    jms = _jseeds(sset)
+    jres = jfdr.evaluate_motifs(jms, jbg, sset, params, neg_set=neg)
+    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, sset, params, neg_set=neg)
+    for i, (r, jr) in enumerate(zip(res, jres)):
+        assert r.fold_iterations == [params.maxCGSIterations] * 3
+        for tag in ("zoops", "mops"):
+            a, b = getattr(r, tag), getattr(jr, tag)
+            assert a["score"].shape == b["score"].shape
+            np.testing.assert_allclose(a["score"], b["score"], atol=1e-4, err_msg=f"{tag} seed {i}")
+            assert prcurve.average_recall(a) == pytest.approx(jprcurve.average_recall(b), abs=1e-3)
+
+
+@pytest.mark.parametrize("negatives", ["sampled", "user"])
+def test_cgs_group_matches_per_seed(fdr_data, negatives):
+    """Sampled CGS: the stacked group's chains are the per-seed path's
+    (evaluate_motif with the seed's index), bit for bit, so the two give
+    the same statistics."""
+    sset, neg, _jbg, bg = fdr_data
+    params = Params(FDR=True, CGS=True, cvFold=3, mFold=2, q=0.5, maxCGSIterations=6)
+    neg_set = neg if negatives == "user" else None
+    ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
+    ref = [fdr.evaluate_motif(m.copy(), bg, sset, params, neg_set=neg_set, index=i)
+           for i, m in enumerate(ms)]
+    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, sset, params, neg_set=neg_set)
+    for r, n in zip(ref, new):
+        np.testing.assert_array_equal(r.pos_pvalues, n.pos_pvalues)
+        for k in SWEEP_KEYS:
+            np.testing.assert_array_equal(r.zoops[k], n.zoops[k])
+            np.testing.assert_array_equal(r.mops[k], n.mops[k])
+    # chains differ between seeds: the same seed at index 1 is another chain
+    other = fdr.evaluate_motif(ms[0].copy(), bg, sset, params, neg_set=neg_set, index=1)
+    assert not np.array_equal(other.zoops["score"], ref[0].zoops["score"])
 
 
 def test_cvfold1_and_empty_set(fdr_data):
