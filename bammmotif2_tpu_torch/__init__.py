@@ -4,15 +4,18 @@ The JAX package ``bammmotif2_tpu`` is the reference; this package mirrors
 its module names (``ops.encode``, ``models.motif``, ``refinement.em``, ...)
 so each counterpart is easy to find, and is held to it by the
 ``tests/test_torch_*.py`` parity tests.  Plain tensor code is PyTorch
-(float32 throughout, an explicit ``device`` threaded through).  Two
-hand-written CUDA kernels carry the hot paths: the fused E+M data pass of
-one EM iteration (``csrc/em_counts.cu``, bound in ``ops.cuda_em``) and the
+(float32 throughout, an explicit ``device`` threaded through).
+Hand-written CUDA kernels carry the hot paths: the fused E+M data pass of
+one EM iteration (``csrc/em_counts.cu``, bound in ``ops.cuda_em``), the
 seed-stacked window scores of scanning and FDR (``csrc/window_scores.cu``,
-bound in ``ops.cuda_scores``).
+``ops.cuda_scores``), the counts of a Gibbs sweep
+(``csrc/counts_from_r.cu``, ``ops.cuda_counts``), and the three passes on
+base-(A+1) k-mer codes (``csrc/flat.cu``, ``ops.cuda_flat``).
 
-The port never imports ``jax``.  It reuses the reference's jax-free host
-modules by import: ``bammmotif2_tpu.utils.{alphabet,fasta,config,metrics}``
-and ``bammmotif2_tpu.io.native``.
+The port imports neither ``jax`` nor anything of ``bammmotif2_tpu``.  It
+keeps its own copies of the reference's host modules: ``utils.{alphabet,
+fasta,config,metrics}`` and ``io.native`` (tests/test_torch_imports.py
+holds it to that).
 """
 
 __version__ = "0.1.0"

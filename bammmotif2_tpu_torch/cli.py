@@ -28,10 +28,10 @@ import time
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
-from bammmotif2_tpu.utils.config import Params
-from bammmotif2_tpu.utils.fasta import read_fasta
-from bammmotif2_tpu.utils.metrics import MetricsLogger
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.fasta import read_fasta
+from bammmotif2_tpu_torch.utils.metrics import MetricsLogger
 from bammmotif2_tpu_torch.evaluation.fdr import evaluate_motifs
 from bammmotif2_tpu_torch.evaluation.prcurve import average_recall
 from bammmotif2_tpu_torch.generator import seqgen

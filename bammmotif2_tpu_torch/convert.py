@@ -1,18 +1,24 @@
-"""Carry state from the JAX package into the port's tensors.
+"""Carry state from the JAX package into the port's tensors and objects.
 
 Everything goes through numpy (``np.asarray`` reads a JAX array without this
 module importing jax) and is cast explicitly: ``torch.from_numpy`` of a
 float64 array would stay float64 and silently run the port in f64 against
-the reference's f32.
+the reference's f32.  Host objects (alphabet, sequence set, parameters,
+models) become the port's own classes, read field by field.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 
 
 def floats(x, device) -> torch.Tensor:
@@ -51,12 +57,29 @@ def em_data(cidx, lens, bg_flat, device) -> dict:
     }
 
 
+def alphabet(a) -> Alphabet:
+    """The port's Alphabet of the same type as ``a`` (either package's)."""
+    return Alphabet.from_type(a.name)
+
+
+def sequence_set(sset) -> SequenceSet:
+    """A port SequenceSet with copies of ``sset``'s codes, lens and headers
+    and an alphabet of the same type (``sset`` from either package)."""
+    return SequenceSet(np.array(sset.codes, np.int8), np.array(sset.lens, np.int32),
+                       list(sset.headers), alphabet(sset.alphabet))
+
+
+def params(p) -> Params:
+    """The port's Params with every field of ``p`` (either package's)."""
+    return Params(**dataclasses.asdict(p))
+
+
 def motif(m) -> Motif:
     """A port Motif with the same host state as a reference Motif."""
     return Motif(
         m.W, m.K, [np.array(vk, np.float64) for vk in m.v],
         np.array(m.alphas, np.float64), np.array(m.f_bg, np.float64),
-        m.alphabet, m.name,
+        alphabet(m.alphabet), m.name,
         counts=[np.array(c, np.float64) for c in m.counts] if m.counts is not None else None,
     )
 
@@ -66,5 +89,5 @@ def background(bg) -> BackgroundModel:
     return BackgroundModel(
         bg.order, bg.alpha, [np.array(vk, np.float64) for vk in bg.v],
         counts=[np.array(c, np.float64) for c in bg.counts] if bg.counts is not None else None,
-        alphabet=bg.alphabet, name=bg.name,
+        alphabet=alphabet(bg.alphabet), name=bg.name,
     )

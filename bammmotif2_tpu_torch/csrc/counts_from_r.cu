@@ -44,12 +44,9 @@
 // atomics add in an order that varies from run to run, so fractional C is
 // reproducible only to rounding; 0/1 C is exact.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 __global__ void __launch_bounds__(kThreads)
 counts_kernel(const float* __restrict__ r, const int* __restrict__ cidx,
@@ -86,22 +83,7 @@ counts_kernel(const float* __restrict__ r, const int* __restrict__ cidx,
     }
   }
 
-  if (smem_counts) {
-    __syncthreads();
-    double* Cg = Cd + (size_t)m0 * RW;
-    for (int k = threadIdx.x; k < (m1 - m0) * RW; k += blockDim.x) {
-      const float v = Cs[k];
-      if (v != 0.f) atomicAdd(Cg + k, (double)v);
-    }
-  }
-}
-
-// C = (float)Cd.
-__global__ void round_counts_kernel(const double* __restrict__ Cd, float* __restrict__ C,
-                                    size_t n) {
-  for (size_t k = blockIdx.x * (size_t)blockDim.x + threadIdx.x; k < n;
-       k += (size_t)gridDim.x * blockDim.x)
-    C[k] = (float)Cd[k];
+  if (smem_counts) flush_counts(Cs, Cd + (size_t)m0 * RW, (m1 - m0) * RW);
 }
 
 }  // namespace
@@ -116,22 +98,12 @@ int counts_from_r_launch(const float* r, const int* cidx, float* C, double* Cd,
                          int seeds_per_block, int smem_counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_counts ? sizeof(float) * (size_t)seeds_per_block * R1 * W : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, counts_kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
   const int chunks = (M + seeds_per_block - 1) / seeds_per_block;
-  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
-  int gx = (resident + chunks - 1) / chunks;
-  const int row_blocks = (rows + kWarps - 1) / kWarps;
-  gx = row_blocks < gx ? row_blocks : gx;
-  gx = gx < 1 ? 1 : gx;
+  int gx = 1, sms = 0;
+  cudaError_t err =
+      resident_grid(counts_kernel, smem, (rows + kWarps - 1) / kWarps, chunks, &gx);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
   counts_kernel<<<dim3(gx, chunks), kThreads, smem, st>>>(
       r, cidx, Cd, rows, L, W, R1, M, seeds_per_block, smem_counts);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

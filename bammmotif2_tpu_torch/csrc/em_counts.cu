@@ -55,39 +55,9 @@
 // reproducible only to rounding.  expf/logf/log1pf are IEEE f32 (the build
 // does not use --use_fast_math).
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;  // escore.NEG_INF
-
-// (m, s) <- logsumexp merge of (m, s) and (m2, s2); s holds sum exp(x - m)
-__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
-  const float mn = fmaxf(m, m2);
-  s = s * expf(m - mn) + s2 * expf(m2 - mn);
-  m = mn;
-}
-
-// Block-wide (max, sum exp) reduction; every thread gets the same result.
-__device__ __forceinline__ void block_lse(float& m, float& s, float* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    lse_merge(m, s, m2, s2);
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[warp] = m;
-    red[kWarps + warp] = s;
-  }
-  __syncthreads();
-  m = red[0];
-  s = red[kWarps];
-  for (int w = 1; w < kWarps; ++w) lse_merge(m, s, red[w], red[kWarps + w]);
-  __syncthreads();  // red is reused by the next sequence
-}
 
 __device__ __forceinline__ float window_score(const int* __restrict__ row,
                                               const float* __restrict__ lut, int W) {
@@ -159,38 +129,7 @@ em_counts_kernel(const int* __restrict__ cidx, const int* __restrict__ lens,
     }
   }
 
-  if (smem_counts) {
-    __syncthreads();
-    double* Cg = Cd + (size_t)m0 * RW;
-    for (int k = threadIdx.x; k < (m1 - m0) * RW; k += blockDim.x) {
-      const float v = Cs[k];
-      if (v != 0.f) atomicAdd(Cg + k, (double)v);
-    }
-  }
-}
-
-// C = (float)Cd.
-__global__ void round_counts_kernel(const double* __restrict__ Cd, float* __restrict__ C,
-                                    size_t n) {
-  for (size_t k = blockIdx.x * (size_t)blockDim.x + threadIdx.x; k < n;
-       k += (size_t)gridDim.x * blockDim.x)
-    C[k] = (float)Cd[k];
-}
-
-// ll[m] = sum_n logz[m, n]: one block per seed, fixed order, double sums.
-__global__ void __launch_bounds__(kThreads)
-ll_reduce_kernel(const float* __restrict__ logz, int N, float* __restrict__ ll) {
-  __shared__ double part[kThreads];
-  const float* row = logz + (size_t)blockIdx.x * N;
-  double acc = 0.0;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) acc += (double)row[n];
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) part[threadIdx.x] += part[threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) ll[blockIdx.x] = (float)part[0];
+  if (smem_counts) flush_counts(Cs, Cd + (size_t)m0 * RW, (m1 - m0) * RW);
 }
 
 }  // namespace
@@ -207,21 +146,11 @@ int em_counts_launch(const int* cidx, const int* lens, const float* s_flat,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(float) * (2 * kWarps +
       (smem_counts ? (size_t)seeds_per_block * R1 * W : 0));
-  cudaError_t err = cudaFuncSetAttribute(
-      em_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, em_counts_kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
   const int chunks = (M + seeds_per_block - 1) / seeds_per_block;
-  const int resident = (per_sm > 0 ? per_sm : 1) * sms;
-  int gx = (resident + chunks - 1) / chunks;
-  gx = N < gx ? N : gx;
-  gx = gx < 1 ? 1 : gx;
+  int gx = 1, sms = 0;
+  cudaError_t err = resident_grid(em_counts_kernel, smem, N, chunks, &gx);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
   em_counts_kernel<<<dim3(gx, chunks), kThreads, smem, st>>>(
       cidx, lens, s_flat, q, C, Cd, logz, S, N, L, W, R1, M, seeds_per_block, smem_counts);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

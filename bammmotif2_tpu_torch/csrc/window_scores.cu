@@ -45,12 +45,9 @@
 //   * the kernel writes NEG_INF on invalid windows and the mask itself:
 //     no second pass over the output.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;  // escore.NEG_INF
 
 template <bool kSmemLut>
 __global__ void __launch_bounds__(kThreads)
@@ -144,16 +141,6 @@ int window_scores_launch(const int* cidx, const int* lens, const float* s_flat,
       smem_lut ? window_scores_kernel<true> : window_scores_kernel<false>;
   const size_t smem = sizeof(float) * (
       (smem_lut ? (size_t)seeds_per_block * R1 * W : 0) + (size_t)tile_codes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
-      cudaSuccess)
-    return (int)err;
   const int nwin = L - W + 1;
   const bool whole_rows = L <= tile_codes;
   const int rows_per_item = whole_rows ? tile_codes / L : 1;
@@ -161,11 +148,10 @@ int window_scores_launch(const int* cidx, const int* lens, const float* s_flat,
   const long long items = (long long)S * ((N + rows_per_item - 1) / rows_per_item) *
                           ((nwin + win_per_item - 1) / win_per_item);
   const int chunks = (M + seeds_per_block - 1) / seeds_per_block;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  long long gx = (resident + chunks - 1) / chunks;
-  gx = items < gx ? items : gx;
-  gx = gx < 1 ? 1 : gx;
-  kern<<<dim3((unsigned)gx, chunks), kThreads, smem, st>>>(
+  int gx = 1;
+  cudaError_t err = resident_grid(kern, smem, items, chunks, &gx);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(gx, chunks), kThreads, smem, st>>>(
       cidx, lens, s_flat, scores, mask, S, N, L, W, R1, M, seeds_per_block, tile_codes);
   return (int)cudaGetLastError();
 }

@@ -36,8 +36,8 @@ import time
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.config import Params
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.evaluation import prcurve
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel

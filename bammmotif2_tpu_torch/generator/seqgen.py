@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.fasta import PAD, SequenceSet
+from bammmotif2_tpu_torch.utils.fasta import PAD, SequenceSet
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif
 from bammmotif2_tpu_torch.ops import encode

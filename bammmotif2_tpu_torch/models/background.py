@@ -19,8 +19,8 @@ import os
 
 import numpy as np
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.ops import encode
 
 _FLOAT_FMT = "%.6e"

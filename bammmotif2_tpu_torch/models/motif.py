@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
 from bammmotif2_tpu_torch.ops import encode
 
 _FLOAT_FMT = "%.4e"

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
-from bammmotif2_tpu.utils.config import Params
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.config import Params
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
 from bammmotif2_tpu_torch.models.motif import Motif
 

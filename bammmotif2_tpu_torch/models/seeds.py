@@ -13,8 +13,8 @@ import re
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models.motif import Motif, counts_from_combined
 from bammmotif2_tpu_torch.ops import encode
 

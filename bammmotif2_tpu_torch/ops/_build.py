@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it into a shared library in seconds.  The library lands in
 ``_build/`` beside this package (listed in .gitignore), named by a hash of
-the source and the flags so an edited source rebuilds; the compiler's
+the source, the shared headers (``csrc/*.cuh``) and the flags so an
+edited source or header rebuilds; the compiler's
 resource report (``-Xptxas -v``) is kept beside it as ``<lib>.log``.
 
 Nothing here runs at import time: the CPU-only test suite imports every
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -43,8 +45,11 @@ def nvcc_path() -> str:
 def library_path(name: str) -> str:
     """Build ``csrc/<name>.cu`` if its library is missing; return its path."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return out

@@ -11,6 +11,10 @@ turns window scoring into a gather against the combined LUT and the EM
 M-step into the transposed scatter.  Invalid positions (ambiguous current
 base, padding) index the trailing sentinel row ``R``.
 
+The flat-layout passes (``ops.cuda_flat``) read base-(A+1) codes instead
+(``base5_kmer_index``, ``strand_base5_indices``), and the static map
+``map_base5_to_combined`` takes each to its combined row.
+
 The numpy entry points (``combined_kmer_index_np``, ``revcomp_codes``) run
 the same torch code on CPU tensors, so host counting and the device encoder
 cannot drift apart.
@@ -21,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 
 
 def order_offsets(A: int, K: int) -> np.ndarray:
@@ -78,6 +82,51 @@ def combined_kmer_index_np(codes: np.ndarray, A: int, K: int) -> np.ndarray:
     return combined_kmer_index(torch.from_numpy(np.asarray(codes)), A, K).numpy()
 
 
+def base5_kmer_index(codes: torch.Tensor, A: int, K: int) -> torch.Tensor:
+    """qidx[n, t]: the (A+1)-ary code of the K+1 bases ending at t.
+
+    Digit d (weight (A+1)^d) is the base at t-d; the extra symbol ``A``
+    stands for "no base" (ambiguous, padding, or before the sequence
+    start).  Every combined-LUT row is ``map_base5_to_combined(A, K)[qidx]``
+    (== combined_kmer_index), so order truncation is a static map rather
+    than logic in the kernels (ops.cuda_flat).  Returns int32 [N, L] on
+    the codes' device, values in [0, (A+1)^(K+1)).
+    """
+    codes = codes.to(torch.int32)
+    N, L = codes.shape
+    sym = torch.where(codes >= 0, codes, A)
+    out = sym
+    for d in range(1, K + 1):
+        head = torch.full((N, min(d, L)), A, dtype=torch.int32, device=codes.device)
+        out = out + torch.cat([head, sym[:, : max(L - d, 0)]], dim=1) * (A + 1) ** d
+    return out
+
+
+def map_base5_to_combined(A: int, K: int) -> np.ndarray:
+    """Static lookup int32 [(A+1)^(K+1)] -> combined-LUT row in [0, R].
+
+    The order-truncation rule of ``combined_kmer_index`` in the base-(A+1)
+    code space: current base absent -> sentinel row R; otherwise the
+    effective order m is the longest run of present context digits
+    1..m (m <= K), and the row is off[m] + the lexicographic code of the
+    (m+1)-mer (the base at t-m most significant).
+    """
+    B = A + 1
+    off = order_offsets(A, K)
+    R = int(off[-1])
+    c = np.arange(B ** (K + 1), dtype=np.int64)
+    digits = [(c // B ** d) % B for d in range(K + 1)]  # digit d = base at t-d
+    m = np.zeros_like(c)
+    run = np.ones(c.shape, bool)
+    for d in range(1, K + 1):
+        run &= digits[d] != A
+        m += run
+    y = np.zeros_like(c)
+    for d in range(K + 1):
+        y += np.where(d <= m, digits[d] * A ** d, 0)
+    return np.where(digits[0] == A, R, off[m] + y).astype(np.int32)
+
+
 def comp_table(alphabet) -> np.ndarray:
     """int8 complement lookup table for an Alphabet (letter i -> index of
     its complement letter)."""
@@ -121,11 +170,25 @@ def strand_indices(sset: SequenceSet, K: int, ss: bool, device) -> tuple:
     S = 1 for single-strand (--ss) or 2 (forward, reverse-complement).
     """
     A = sset.alphabet.size
+    strands, lens = _strand_codes(sset, ss, device)
+    cidx = torch.stack([combined_kmer_index(c, A, K) for c in strands])
+    return cidx, lens
+
+
+def strand_base5_indices(sset: SequenceSet, K: int, ss: bool, device) -> torch.Tensor:
+    """Per-strand base-(A+1) k-mer codes, int32 [S, N, L] on ``device``
+    (see base5_kmer_index); S as in strand_indices."""
+    A = sset.alphabet.size
+    strands, _lens = _strand_codes(sset, ss, device)
+    return torch.stack([base5_kmer_index(c, A, K) for c in strands])
+
+
+def _strand_codes(sset: SequenceSet, ss: bool, device) -> tuple:
+    """([forward codes (+ reverse complement unless ss)], lens) on ``device``."""
     codes = torch.as_tensor(np.asarray(sset.codes, np.int8), device=device)
     lens = torch.as_tensor(np.asarray(sset.lens, np.int32), device=device)
     strands = [codes]
     if not ss:
         comp = torch.as_tensor(comp_table(sset.alphabet), device=device)
         strands.append(revcomp_codes_device(codes, lens, comp))
-    cidx = torch.stack([combined_kmer_index(c, A, K) for c in strands])
-    return cidx, lens
+    return strands, lens

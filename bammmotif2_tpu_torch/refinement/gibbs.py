@@ -46,8 +46,8 @@ import time
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.config import Params
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import (
     Motif, counts_from_combined, log_odds_lut, tile_rows, update_v,

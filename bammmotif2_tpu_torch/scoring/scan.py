@@ -27,8 +27,8 @@ import os
 import numpy as np
 import torch
 
-from bammmotif2_tpu.utils.config import Params
-from bammmotif2_tpu.utils.fasta import PAD, SequenceSet
+from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.fasta import PAD, SequenceSet
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
 from bammmotif2_tpu_torch.ops import cuda_scores, encode, escore

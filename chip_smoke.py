@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu and
-               csrc/counts_from_r.cu in parallel; prints the toolchain, the
-               card and the ptxas resource reports.
-  2. kernel  : each kernel against its plain PyTorch version on the card at
-               the main paths' geometries (tests/test_torch_cuda.py:
+  1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu,
+               csrc/counts_from_r.cu and csrc/flat.cu in parallel; prints
+               the toolchain, the card and the ptxas resource reports.
+  2. kernel  : each of the six kernels against its plain PyTorch version on
+               the card at the main paths' geometries (tests/test_torch_cuda.py:
                KERNEL_CASES / check_kernel, SCORE_CASES / check_scores,
-               COUNTS_CASES / check_counts).
+               COUNTS_CASES / check_counts, FLAT_CASES / check_flat; the
+               last also holds the flat kernels to the combined-layout ones
+               on the same sequences).
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
                just before each run and read just after:
@@ -50,12 +52,30 @@ Phases (any failure exits non-zero):
                  launched;
                - config 4 with --CGS --FDR (per-fold CGS) compared at
                  --maxCGSIterations 20, then through the kernels at the
-                 default 100: AvRec ZOOPS >= 0.25 for the planted seeds.
+                 default 100: AvRec ZOOPS >= 0.25 for the planted seeds;
+               - the flat-layout entry points (ops/cuda_flat.py, the port of
+                 tools/pallas_flat.py) on the planted 10k x 200 bp set at
+                 K=2: FLAT_ITERS EM iterations through flat em_counts, then
+                 flat window_scores and flat counts_from_r on the refined
+                 model's best windows; every flat kernel launched, the model
+                 agrees with FLAT_ITERS iterations through the combined E+M
+                 kernel within tests/torch_outputs.py's PROB_TOL and has the
+                 planted consensus, scores are bit-equal to the combined
+                 window-score kernel's, counts equal to the combined
+                 counts kernel's.
   4. timing  : each kernel against its plain version (CUDA events): E+M at
                bench.py's geometry (10k x 200 bp, W=12, K=2), window scores
                at config 5's (100k x 200 bp, W=12, K=2) at M=1 and M=10,
                counts-from-r at bench's geometry with the sampler's 0/1 r at
-               M=1 and M=10; EM windows/s and iterations/s; CGS sweeps/s at
+               M=1 and M=10; the flat kernels at bench's geometry at K=2, 3
+               and 4 beside the combined-layout kernels on the same
+               sequences (CUDA events, and each kernel's device time under
+               torch.profiler), and flat window scores at config 5's; each
+               kernel's bound (bytes over 3.35 TB/s or f32 operations over
+               67 TFLOP/s, whichever is larger) and, where one PyTorch call computes
+               the same function (embedding_bag for window scores,
+               index_add_ for counts from r, on an index built beforehand),
+               that call's time; EM windows/s and iterations/s; CGS sweeps/s at
                bench's geometry (kernel and plain, and the device's busy
                share under torch.profiler); config 5's end-to-end scan
                windows/s and config 4's EM-FDR and CGS-FDR seconds per
@@ -79,7 +99,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r")
+KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat")
 
 # bench.py's problem
 N_SEQS, SEQ_LEN, W, N_TIMED = 10_000, 200, 12, 30
@@ -89,6 +109,11 @@ C5_MFOLD = 10
 C4_MOTIFS = ["TGACTCAG", "CACGTGACTT", "GGGGCGGGGCCA"]  # W = 8, 10, 12
 C4_SEEDS = 10
 CGS_FIXED_SWEEPS = 20  # config 4's CGS-FDR comparison budget
+FLAT_ITERS = 40  # EM iterations of the flat slice, compared at a fixed budget
+# the card's peaks (H100 SXM datasheet, 700 W): device
+# memory bandwidth, and f32 arithmetic outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(*a):
@@ -111,26 +136,116 @@ def load_by_path(name: str, rel: str):
     return mod
 
 
-def launches() -> dict:
-    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_scores
+def counted() -> dict:
+    """Each kernel's name -> the wrapper that counts its launches."""
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
 
-    return {"em_counts": cuda_em.em_counts_multi.launches,
-            "window_scores": cuda_scores.window_scores_multi.launches,
-            "counts_from_r": cuda_counts.counts_from_r_multi.launches}
+    return {"em_counts": cuda_em.em_counts_multi,
+            "window_scores": cuda_scores.window_scores_multi,
+            "counts_from_r": cuda_counts.counts_from_r_multi,
+            "flat_em_counts": cuda_flat.em_counts,
+            "flat_window_scores": cuda_flat.window_scores,
+            "flat_counts_from_r": cuda_flat.counts_from_r}
+
+
+def launches() -> dict:
+    return {name: fn.launches for name, fn in counted().items()}
 
 
 def reset_launches() -> None:
-    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_scores
+    for fn in counted().values():
+        fn.launches = 0
 
-    cuda_em.em_counts_multi.launches = 0
-    cuda_scores.window_scores_multi.launches = 0
-    cuda_counts.counts_from_r_multi.launches = 0
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the bytes a function must move
+    (each input read once, each output written once) over HBM_BYTES_PER_S,
+    or its f32 operations over F32_OPS_PER_S, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def valid_windows(lens, S: int, W: int) -> int:
+    """Window starts i with i + W <= len, over all rows and strands."""
+    return S * int((lens.long() - W + 1).clamp(min=0).sum().item())
+
+
+def em_bound(codes, lens, R1: int, W: int, M: int, extra: int = 0) -> dict:
+    """E+M pass: codes, lens, M LUTs and q in, M count tables and ll out;
+    2W + 6 f32 operations a valid window and seed (W adds to score it, a
+    max, an exp and an add for log Z, an exp for r, W adds of r)."""
+    S = codes.shape[0]
+    nbytes = codes.numel() * 4 + lens.numel() * 4 + 2 * M * (R1 * W * 4 + 4) + extra
+    return bound(nbytes, M * valid_windows(lens, S, W) * (2 * W + 6))
+
+
+def scores_bound(codes, lens, R1: int, W: int, M: int, extra: int = 0) -> dict:
+    """Window scores: codes, lens and M LUTs in, M score planes and the mask
+    out; W f32 adds a valid window and seed."""
+    S, N, L = codes.shape
+    n_win = L - W + 1
+    nbytes = codes.numel() * 4 + lens.numel() * 4 + M * R1 * W * 4 + M * S * N * n_win * 4 + N * n_win
+    return bound(nbytes + extra, M * valid_windows(lens, S, W) * W)
+
+
+def counts_bound(r, codes, R1: int, W: int, extra: int = 0) -> dict:
+    """Counts from r: the count tables out; in, r at every window start
+    (i < L-W+1, the only starts read) and only the codes that this run's
+    non-zero r needs, in whole 32-byte sectors (a zero r needs no code);
+    W f32 adds for each non-zero r at a window start."""
+    import torch
+
+    S, N, L = codes.shape
+    n_win, esize = L - W + 1, codes.element_size()
+    M = r.numel() // codes.numel()
+    live = r.reshape(M, S, N, L)[..., :n_win] != 0
+    _m, s, n, i = live.nonzero(as_tuple=True)
+    first = ((s * N + n) * L + i) * esize  # byte offset of each live window's codes
+    sec = first[:, None] // 32 + torch.arange(-(-W * esize // 32) + 1, device=codes.device)
+    sec = sec[sec <= (first[:, None] + W * esize - 1) // 32]
+    nbytes = (M * S * N * n_win * r.element_size() + int(torch.unique(sec).numel()) * 32
+              + M * R1 * W * 4 + extra)
+    return bound(nbytes, int(s.numel()) * W)
+
+
+def window_index(codes, W: int):
+    """[S*N*n_win, W] int64 with codes[s, n, i+j] * W + j: every window's
+    LUT entries, the index a library call needs (built untimed)."""
+    import torch
+
+    j = torch.arange(W, device=codes.device)
+    return (codes.unfold(2, W, 1).to(torch.int64) * W + j).reshape(-1, W)
+
+
+def library_scores_ms(lut, codes, W: int) -> float:
+    """One embedding_bag call (mode="sum") summing every window's W LUT
+    entries: the window-score function without its mask."""
+    import torch
+
+    idx, weight = window_index(codes, W), lut.reshape(-1, 1).contiguous()
+    return time_cuda(lambda: torch.nn.functional.embedding_bag(idx, weight, mode="sum"), 10)
+
+
+def library_counts_ms(r, rows, R1: int, W: int) -> float:
+    """One index_add_ call adding every non-zero r at its window's W
+    combined rows (``rows`` holds combined-row codes, [S, N, L])."""
+    import torch
+
+    n_win = rows.shape[2] - W + 1
+    rv = r[:, :, :n_win].reshape(-1)
+    nz = rv != 0
+    idx = window_index(rows, W)[nz].reshape(-1)
+    vals = rv[nz][:, None].expand(-1, W).reshape(-1).contiguous()
+    return time_cuda(lambda: torch.zeros(R1 * W, dtype=torch.float32, device=r.device)
+                     .index_add_(0, idx, vals), 10)
 
 
 def phase_build():
     import torch
 
-    from bammmotif2_tpu_torch.ops import _build, cuda_counts, cuda_em, cuda_scores
+    from bammmotif2_tpu_torch.ops import _build, cuda_counts, cuda_em, cuda_flat, cuda_scores
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:  # one nvcc per source, together
@@ -138,6 +253,7 @@ def phase_build():
     cuda_em.library()
     cuda_scores.library()
     cuda_counts.library()
+    cuda_flat.library()
     secs = time.perf_counter() - t0
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -153,7 +269,7 @@ def phase_build():
 
 def phase_kernel(device) -> dict:
     checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
-    worst = {"em_counts": 0.0, "window_scores": 0.0, "counts_from_r": 0.0}
+    worst = dict.fromkeys(counted(), 0.0)
     for name, case in checks.KERNEL_CASES.items():
         res = checks.check_kernel(case, device)
         worst["em_counts"] = max(worst["em_counts"], res["max_abs_err"])
@@ -166,6 +282,11 @@ def phase_kernel(device) -> dict:
         res = checks.check_counts(case, device)
         worst["counts_from_r"] = max(worst["counts_from_r"], res["max_abs_err"])
         log(f"kernel counts_from_r {name}: " + json.dumps({k: float(v) for k, v in res.items()}))
+    for name, case in checks.FLAT_CASES.items():
+        res = checks.check_flat(case, device)
+        for k in checks.FLAT_KERNELS:
+            worst[k] = max(worst[k], res[k]["max_abs_err"])
+        log(f"kernel flat {name}: " + json.dumps(res))
     return worst
 
 
@@ -182,8 +303,8 @@ def write_meme(path: str, pwms: list) -> None:
 def planted_problem(outdir: str, n_seqs: int = N_SEQS, tag: str = "planted") -> tuple:
     """bench.py::build_problem's set (numpy seed 0, n_seqs rows) as FASTA +
     MEME seed.  Returns (sset, fasta, meme, motif codes, start, planted?)."""
-    from bammmotif2_tpu.utils.alphabet import Alphabet
-    from bammmotif2_tpu.utils.fasta import SequenceSet, write_fasta
+    from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+    from bammmotif2_tpu_torch.utils.fasta import SequenceSet, write_fasta
 
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 4, (n_seqs, SEQ_LEN)).astype(np.int8)
@@ -207,8 +328,8 @@ def config4_problem(outdir: str) -> tuple:
     """tools/config4_bench.py's inputs, built with the port's seeds module:
     10k x 200 bp, 3 motifs interleaved (80% of their rows), 10 seeds (the 3
     motifs, then perturbed variants)."""
-    from bammmotif2_tpu.utils.alphabet import Alphabet
-    from bammmotif2_tpu.utils.fasta import SequenceSet, write_fasta
+    from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+    from bammmotif2_tpu_torch.utils.fasta import SequenceSet, write_fasta
     from bammmotif2_tpu_torch.models import seeds as seeds_mod
 
     rng = np.random.default_rng(0)
@@ -484,6 +605,88 @@ def cgs_slices(device, tmp) -> dict:
     return {"cgs_10k": main, "examples_em_cgs": em_cgs, "config4_cgs": c4}
 
 
+def flat_slice(device, tmp) -> dict:
+    """The flat-layout entry points (ops/cuda_flat.py, the port of
+    tools/pallas_flat.py) at bench's geometry, K=2: FLAT_ITERS ZOOPS EM
+    iterations (optimised q) through flat em_counts, then flat
+    window_scores and flat counts_from_r on the refined model's best window
+    of each row.  The launch counts are zeroed just before and read just
+    after; then the same iterations run through the combined E+M kernel
+    and the combined window-score and counts kernels score and count the
+    same model, for the checks."""
+    import torch
+
+    from bammmotif2_tpu_torch.models import motif as motif_mod
+    from bammmotif2_tpu_torch.models import seeds as seeds_mod
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_flat, cuda_scores, encode
+    from bammmotif2_tpu_torch.refinement.em import em_step, prepare_data
+    from bammmotif2_tpu_torch.refinement.gibbs import occupancy
+
+    outputs = load_by_path("bamm_torch_outputs", "tests/torch_outputs.py")
+    K = 2
+    sset, _, _, planted, _pos, _has = planted_problem(tmp, tag="flat")
+    bg = BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)
+    pwm = np.full((W, 4), 0.1)
+    pwm[np.arange(W), planted] = 0.7
+    motif = seeds_mod.motif_from_pwm(pwm, K=K, f_bg=sset.base_frequencies())
+    data = prepare_data(sset, bg, K, False, device)
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
+    v0 = tuple(f32(vk) for vk in motif.v)
+    alphas, f_bg, q0 = f32(motif.alphas), f32(motif.f_bg), f32(0.9)
+    R, lens = encode.num_rows(4, K), data["lens"]
+    kw = dict(A=4, K=K, W=W)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    qidx = encode.strand_base5_indices(sset, K, False, device)
+    map5 = torch.as_tensor(encode.map_base5_to_combined(4, K), device=device)
+    v, q = v0, q0
+    for _ in range(FLAT_ITERS):
+        C, ll = cuda_flat.em_counts(motif_mod.log_odds_lut(v, data["bg_flat"]), qidx, lens, q,
+                                    map5, R=R, **kw)
+        v = motif_mod.update_v(motif_mod.counts_from_combined(C[:R], 4, K), alphas, f_bg)
+        q = torch.clamp(C.sum(dim=0)[0] / lens.shape[0], 1e-4, 1.0 - 1e-4)  # as em_step
+    s_flat = motif_mod.log_odds_lut(v, data["bg_flat"])
+    sc, mk = cuda_flat.window_scores(s_flat, qidx, lens, map5, **kw)
+    S, N, n_win = sc.shape
+    best = sc.permute(1, 0, 2).reshape(N, S * n_win).argmax(dim=1) + 1
+    r = occupancy(torch.where(mk.any(dim=1), best, 0)[None], S, qidx.shape[2], n_win)[0]
+    Cr = cuda_flat.counts_from_r(r, qidx, map5, R=R, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = launches()
+    flat_n = {k: n[k] for k in ("flat_em_counts", "flat_window_scores", "flat_counts_from_r")}
+    if flat_n["flat_em_counts"] != FLAT_ITERS or min(flat_n.values()) == 0:
+        raise AssertionError(f"flat: launches {n} for {FLAT_ITERS} EM iterations")
+
+    vc, qc = v0, q0
+    for _ in range(FLAT_ITERS):
+        vc, qc, llc, _vd = em_step(vc, qc, data, alphas, f_bg, A=4, K=K, W=W, optimize_q=True,
+                                   path="cuda")
+    dv = max((a - b).abs().max().item() for a, b in zip(v, vc))
+    consensus = v[0].argmax(dim=0).cpu().numpy()
+    b2, b2_mk = cuda_scores.window_scores(s_flat, data["cidx"], lens)
+    b3 = cuda_counts.counts_from_r(r, data["cidx"], R, W)
+    out = {
+        "launches": flat_n,
+        "seconds": secs,
+        "em_max_abs_dv_vs_combined": dv,
+        "q_flat": q.item(), "q_combined": qc.item(),
+        "ll_flat": ll.item(), "ll_combined": llc.item(),
+        "scores_bit_equal_combined": bool(torch.equal(sc, b2) and torch.equal(mk, b2_mk)),
+        "counts_equal_combined": bool(torch.equal(Cr, b3)),
+        "occupied_rows": int((r.sum(dim=(0, 2)) > 0).sum().item()),
+    }
+    log("slice flat (bench geometry 10k x 200 bp, W=12, K=2): " + json.dumps(out))
+    if dv > outputs.PROB_TOL or not np.array_equal(consensus, planted):
+        raise AssertionError(f"flat: dv {dv} vs the combined kernel, consensus {consensus} "
+                             f"vs planted {planted}")
+    if not (out["scores_bit_equal_combined"] and out["counts_equal_combined"]):
+        raise AssertionError(f"flat: scores or counts differ from the combined kernels: {out}")
+    return out
+
+
 def phase_slice(device, tmp) -> dict:
     examples = os.path.join(ROOT, "examples")
     ex_fa, ex_meme = os.path.join(examples, "positives.fasta"), os.path.join(examples, "seed.meme")
@@ -512,10 +715,15 @@ def phase_slice(device, tmp) -> dict:
     t0 = time.perf_counter()
     cgs = cgs_slices(device, tmp)
     secs["cgs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = flat_slice(device, tmp)
+    secs["flat"] = time.perf_counter() - t0
     log("slice seconds: " + json.dumps(secs))
-    return {"em_launches": conv["launches"], "scan_launches": c5["launches"]["window_scores"],
-            "counts_launches": cgs["cgs_10k"]["launches"]["counts_from_r"],
-            "config5": c5, "config4": c4, "cgs": cgs}
+    return {"launches": {"em_counts": conv["launches"],
+                         "window_scores": c5["launches"]["window_scores"],
+                         "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
+                         **flat["launches"]},
+            "config5": c5, "config4": c4, "cgs": cgs, "flat": flat}
 
 
 def time_cuda(fn, n: int) -> float:
@@ -558,6 +766,8 @@ def time_em(device, tmp) -> dict:
     out = {
         "kernel_ms": time_cuda(lambda: cuda_em.em_counts_multi(*args), N_TIMED),
         "plain_ms": time_cuda(lambda: cuda_em.em_counts_multi_ref(*args), N_TIMED),
+        **em_bound(data["cidx"], data["lens"], s_flat.shape[1], W, 1),
+        "library_ms": None,
     }
     for path in ("cuda", "plain"):
         def loop(n):
@@ -581,13 +791,15 @@ def time_em(device, tmp) -> dict:
 
 def time_scores(device, tmp) -> dict:
     """window_scores_multi vs plain at config 5's geometry, M=1 and M=10,
-    with the bytes it moves (cidx read, scores and mask written)."""
+    with the bytes it moves (cidx read, scores and mask written), its bound
+    and, at M=1, the library call's time and the flat window-score kernel
+    on the same sequences and LUT."""
     import torch
 
     from bammmotif2_tpu_torch.models.background import BackgroundModel
     from bammmotif2_tpu_torch.models.motif import log_odds_lut
     from bammmotif2_tpu_torch.models import seeds as seeds_mod
-    from bammmotif2_tpu_torch.ops import cuda_scores, encode
+    from bammmotif2_tpu_torch.ops import cuda_flat, cuda_scores, encode
 
     sset, _, _, planted, _pos, _has = planted_problem(tmp, C5_SEQS, "c5_timing")
     bg = BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)
@@ -615,7 +827,19 @@ def time_scores(device, tmp) -> dict:
             "bytes": nbytes, "kernel_GB_per_s": nbytes / ms / 1e6,
             "share_of_3.35TB_per_s": nbytes / ms / 1e6 / 3350.0,
             "windows_per_s": M * S * N * n_win / ms * 1e3,
+            **scores_bound(cidx, lens, s_flat.shape[1], W, M),
         }
+    out["M1"]["library_ms"] = library_scores_ms(base, cidx, W)
+    qidx = encode.strand_base5_indices(sset, 2, False, device)
+    map5 = torch.as_tensor(encode.map_base5_to_combined(4, 2), device=device)
+    args = (base, qidx, lens, map5)
+    kw = dict(A=4, K=2, W=W)
+    out["flat_M1"] = {
+        "ms": time_cuda(lambda: cuda_flat.window_scores(*args, **kw), N_TIMED),
+        "plain_ms": time_cuda(lambda: cuda_flat.window_scores_ref(*args, **kw), 5),
+        "combined_ms": out["M1"]["ms"],
+        **scores_bound(qidx, lens, base.shape[0], W, 1, extra=map5.numel() * 4),
+    }
     log("timing window_scores (config 5 geometry 100k x 200 bp, W=12, K=2, S=2): "
         + json.dumps(out))
     return out
@@ -637,9 +861,92 @@ def time_counts(device) -> dict:
                                   5 if M > 1 else N_TIMED),
             "r_bytes": r.numel() * 4,
             "nonzero_r": int((r != 0).sum().item()),
+            **counts_bound(r, args[1], args[2] + 1, W),
         }
+    r, cidx, R, _w = checks.counts_inputs(N=N_SEQS, L=SEQ_LEN, W=W, K=2, M=1, S=2, r="01",
+                                          device=device)
+    out["M1"]["library_ms"] = library_counts_ms(r[0], cidx, R + 1, W)
     log("timing counts_from_r (bench geometry 10k x 200 bp, W=12, K=2, S=2, 0/1 r): "
         + json.dumps(out))
+    return out
+
+
+def device_ms(fn, n: int, kernel: str) -> dict:
+    """Device time per call under torch.profiler over n calls after one
+    warm-up: of the __global__ function ``kernel`` alone, and of every
+    kernel the call launches (the wrapper's torch ops included)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
+    if not own:
+        log(f"device_ms: no device event of {kernel} among {[e.key[:60] for e in evs]}")
+        return {"kernel_device_ms": "not measured", "call_device_ms": "not measured"}
+    return {"kernel_device_ms": sum(e.self_device_time_total for e in own) / n / 1e3,
+            "call_device_ms": sum(e.self_device_time_total for e in evs) / n / 1e3}
+
+
+def time_flat(device) -> dict:
+    """The flat kernels (ops/cuda_flat.py) against their plain versions and
+    the combined-layout kernels (B1-B3) on the same sequences and LUT, at
+    bench's geometry (10k x 200 bp, W=12) at K=2, 3 and 4, with the
+    sampler's 0/1 r for the counts: the wrapper's time (CUDA events), the
+    device time of the hand-written kernel alone and of the whole call
+    (torch.profiler), each function's bound and, for scores and counts, the
+    library call's time."""
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
+
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    out = {}
+    for K in (2, 3, 4):
+        x = checks.flat_inputs(N=N_SEQS, L=SEQ_LEN, W=W, K=K, S=2, device=device)
+        kw, R, map_bytes = dict(A=4, K=K, W=W), x["R"], x["map5"].numel() * 4
+        em = (x["s_flat"], x["qidx"], x["lens"], x["q"], x["map5"])
+        sc = (x["s_flat"], x["qidx"], x["lens"], x["map5"])
+        cr = (x["r"]["01"], x["qidx"], x["map5"])
+        s5 = x["s_flat"][x["map5"].long()]
+        calls = {  # function: (flat call, combined call, flat kernel, combined kernel)
+            "em": (lambda: cuda_flat.em_counts(*em, R=R, **kw),
+                   lambda: cuda_em.em_counts_multi(x["s_multi"], x["cidx"], x["lens"], x["q"]),
+                   "flat_em_kernel", "em_counts_kernel"),
+            "scores": (lambda: cuda_flat.window_scores(*sc, **kw),
+                       lambda: cuda_scores.window_scores(x["s_flat"], x["cidx"], x["lens"]),
+                       "flat_scores_kernel", "window_scores_kernel"),
+            "counts": (lambda: cuda_flat.counts_from_r(*cr, R=R, **kw),
+                       lambda: cuda_counts.counts_from_r(x["r"]["01"], x["cidx"], R, W),
+                       "flat_counts_kernel", "counts_kernel"),
+        }
+        plain = {"em": lambda: cuda_flat.em_counts_ref(*em, R=R, **kw),
+                 "scores": lambda: cuda_flat.window_scores_ref(*sc, **kw),
+                 "counts": lambda: cuda_flat.counts_from_r_ref(*cr, R=R, **kw)}
+        res = {}
+        for fn_name, (flat_fn, comb_fn, flat_k, comb_k) in calls.items():
+            fdev, cdev = device_ms(flat_fn, 10, flat_k), device_ms(comb_fn, 10, comb_k)
+            res[fn_name] = {
+                "ms": time_cuda(flat_fn, N_TIMED),
+                "plain_ms": time_cuda(plain[fn_name], 10),
+                "combined_ms": time_cuda(comb_fn, N_TIMED),
+                **fdev,
+                "combined_kernel_device_ms": cdev["kernel_device_ms"],
+                "combined_call_device_ms": cdev["call_device_ms"],
+            }
+        res["em"].update(em_bound(x["qidx"], x["lens"], R + 1, W, 1, extra=map_bytes),
+                         library_ms=None)
+        res["scores"].update(scores_bound(x["qidx"], x["lens"], R + 1, W, 1, extra=map_bytes),
+                             library_ms=library_scores_ms(s5, x["qidx"], W))
+        res["counts"].update(counts_bound(x["r"]["01"], x["qidx"], R + 1, W, extra=map_bytes),
+                             library_ms=library_counts_ms(x["r"]["01"], x["cidx"], R + 1, W))
+        out[f"K{K}"] = res
+        log(f"timing flat kernels (bench geometry 10k x 200 bp, W=12, K={K}, S=2, M=1): "
+            + json.dumps(res))
     return out
 
 
@@ -708,7 +1015,7 @@ def time_cgs(device, tmp) -> dict:
 
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
-           "counts": time_counts(device), "cgs": time_cgs(device, tmp)}
+           "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
     e2e = {
         "config5_scan_windows_per_s_kernel": c5["scan_windows_per_s_kernel"],
@@ -754,34 +1061,29 @@ def main() -> int:
         phase_secs["timing"] = time.perf_counter() - t0
     phase_secs["total"] = time.perf_counter() - t_all
     log("phase seconds: " + json.dumps(phase_secs))
-    kernels = [{
-        "name": "em_counts",
-        "route": "cuda",
-        "source": "bammmotif2_tpu_torch/csrc/em_counts.cu",
-        "replaces": "bammmotif2_tpu/ops/pallas_em.py:345",
-        "launches": slices["em_launches"],
-        "max_abs_err": max_err["em_counts"],
-        "ms": timing["em"]["kernel_ms"],
-        "plain_ms": timing["em"]["plain_ms"],
-    }, {
-        "name": "window_scores",
-        "route": "cuda",
-        "source": "bammmotif2_tpu_torch/csrc/window_scores.cu",
-        "replaces": "bammmotif2_tpu/ops/pallas_em.py:800",
-        "launches": slices["scan_launches"],
-        "max_abs_err": max_err["window_scores"],
-        "ms": timing["scores"]["M1"]["ms"],
-        "plain_ms": timing["scores"]["M1"]["plain_ms"],
-    }, {
-        "name": "counts_from_r",
-        "route": "cuda",
-        "source": "bammmotif2_tpu_torch/csrc/counts_from_r.cu",
-        "replaces": "bammmotif2_tpu/ops/pallas_em.py:639",
-        "launches": slices["counts_launches"],
-        "max_abs_err": max_err["counts_from_r"],
-        "ms": timing["counts"]["M1"]["ms"],
-        "plain_ms": timing["counts"]["M1"]["plain_ms"],
-    }]
+    flat = timing["flat"]["K2"]
+    rows = [  # name, source, TPU kernel, timing entry
+        ("em_counts", "em_counts.cu", "bammmotif2_tpu/ops/pallas_em.py:345",
+         {**timing["em"], "ms": timing["em"]["kernel_ms"]}),
+        ("window_scores", "window_scores.cu", "bammmotif2_tpu/ops/pallas_em.py:800",
+         timing["scores"]["M1"]),
+        ("counts_from_r", "counts_from_r.cu", "bammmotif2_tpu/ops/pallas_em.py:639",
+         timing["counts"]["M1"]),
+        ("flat_em_counts", "flat.cu", "tools/pallas_flat.py:267", flat["em"]),
+        ("flat_window_scores", "flat.cu", "tools/pallas_flat.py:378", flat["scores"]),
+        ("flat_counts_from_r", "flat.cu", "tools/pallas_flat.py:447", flat["counts"]),
+    ]
+    kernels = []
+    for name, src, tpu, t in rows:
+        entry = {"name": name, "route": "cuda", "source": f"bammmotif2_tpu_torch/csrc/{src}",
+                 "replaces": tpu, "launches": slices["launches"][name],
+                 "max_abs_err": max_err[name]}
+        entry.update({k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        entry.update({k: t[k] for k in ("combined_ms", "kernel_device_ms",
+                                        "combined_kernel_device_ms") if k in t})
+        kernels.append(entry)
+    if any(k["launches"] == 0 for k in kernels):
+        raise AssertionError(f"a kernel did not launch on its path: {kernels}")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 the JAX package's CLI on examples/, the port's import hygiene, and
 --profile."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -164,12 +165,14 @@ def test_default_device_needs_cuda(tmp_path, monkeypatch):
 
 
 def test_reference_command_lines_parse():
+    """Both CLIs read a reference command line into the same fields (each
+    package has its own Params class, so fields are compared, not objects)."""
     p = cli.params_from_args(
         ["out", "pos.fa", "--PWMFile", "s.meme", "--EM", "--FDR", "-k", "4", "-K", "3",
          "-q", "0.5", "--mFold", "5", "--ss", "--extend", "2", "3", "--no-pallas"]
     )
-    assert p == jcli.params_from_args(
+    assert dataclasses.asdict(p) == dataclasses.asdict(jcli.params_from_args(
         ["out", "pos.fa", "--PWMFile", "s.meme", "--EM", "--FDR", "-k", "4", "-K", "3",
          "-q", "0.5", "--mFold", "5", "--ss", "--extend", "2", "3", "--no-pallas"]
-    )
+    ))
     assert p.modelOrder == 4 and p.extend == (2, 3) and not p.use_pallas

@@ -8,8 +8,9 @@ import).  Run on a GPU machine with
 
 ``chip_smoke.py`` runs the same checks (``KERNEL_CASES`` / ``check_kernel``
 for the E+M kernel, ``SCORE_CASES`` / ``check_scores`` for the window-score
-kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel) at
-the main path's shapes.  This module imports no JAX.
+kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel,
+``FLAT_CASES`` / ``check_flat`` for the three kernels on base-(A+1) codes)
+at the main path's shapes.  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -18,12 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import log_odds_lut
-from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_scores, encode
+from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, encode
 from bammmotif2_tpu_torch.ops.escore import NEG_INF, window_mask
 from bammmotif2_tpu_torch.refinement.gibbs import occupancy
 
@@ -148,15 +149,10 @@ def check_counts(case: dict, device) -> dict:
     return out
 
 
-def kernel_inputs(N, L, W, K, M, S, A=4, ragged=False, seed=0, device="cpu"):
-    """Planted-motif inputs for em_counts_multi: (s_flat, cidx, lens, q).
-
-    Random codes with a planted motif in 80% of rows and 1% ambiguous
-    bases; ``ragged`` draws lengths in [0, L] so rows of length 0 and
-    shorter than W occur.  Seed 0's LUT is the planted PWM's log-odds,
-    the others perturb it (zero sentinel row kept).
-    """
-    rng = np.random.default_rng(seed)
+def planted_set(N, L, W, A, ragged, rng) -> tuple:
+    """(sset, planted codes): random codes with a planted motif in 80% of
+    rows and 1% ambiguous bases; ``ragged`` draws lengths in [0, L] so rows
+    of length 0 and shorter than W occur."""
     alphabet = Alphabet.from_type("STANDARD" if A == 4 else "METHYLC")
     codes = rng.integers(0, A, (N, L)).astype(np.int8)
     planted = rng.integers(0, A, W)
@@ -169,7 +165,18 @@ def kernel_inputs(N, L, W, K, M, S, A=4, ragged=False, seed=0, device="cpu"):
         lens = rng.integers(0, L + 1, N).astype(np.int32)
         lens[:3] = [0, W - 1, W]
         codes[np.arange(L)[None, :] >= lens[:, None]] = -2
-    sset = SequenceSet(codes, lens, [f"s{i}" for i in range(N)], alphabet)
+    return SequenceSet(codes, lens, [f"s{i}" for i in range(N)], alphabet), planted
+
+
+def kernel_inputs(N, L, W, K, M, S, A=4, ragged=False, seed=0, device="cpu"):
+    """Planted-motif inputs for em_counts_multi: (s_flat, cidx, lens, q).
+
+    The sequences of ``planted_set``.  Seed 0's LUT is the planted PWM's
+    log-odds, the others perturb it (zero sentinel row kept).
+    """
+    rng = np.random.default_rng(seed)
+    sset, planted = planted_set(N, L, W, A, ragged, rng)
+    alphabet = sset.alphabet
     bg = BackgroundModel.from_sequence_set(sset, order=min(2, K), ss=S == 1)
     pwm = np.full((W, A), 0.3 / (A - 1))
     pwm[np.arange(W), planted] = 0.7
@@ -236,6 +243,103 @@ def check_scores(case: dict, device) -> dict:
     }
     assert bool((sc[~valid] == NEG_INF).all()), out
     assert bool((d <= bound).all()), out
+    return out
+
+
+# Flat-layout kernels (ops/cuda_flat.py) against their plain versions on the
+# same CUDA tensors: window scores bit-equal (the kernel adds j = 0..W-1 in
+# the plain version's order with __fadd_rn, and s5[qidx] == s_flat[cidx]),
+# E+M by the E+M kernel's bar (C_ATOL, C_RTOL, LL_RTOL), counts from 0/1 r
+# equal and from fractional r by CR_ATOL, CR_RTOL.  ``combined`` cases also
+# hold them against the combined-layout kernels on the same sequences:
+# scores bit-equal to B2, 0/1 counts equal to B3, E+M within B1's bar.
+FLAT_CASES = {
+    "bench_K2": dict(N=10_000, L=200, W=12, K=2, S=2, combined=True),
+    "bench_K4": dict(N=10_000, L=200, W=12, K=4, S=2, combined=True),
+    "K0": dict(N=2_000, L=200, W=8, K=0, S=2),
+    "K1": dict(N=2_000, L=200, W=12, K=1, S=2),
+    "K3": dict(N=2_000, L=200, W=12, K=3, S=2),
+    "K4_W30_global": dict(N=2_000, L=200, W=30, K=4, S=2),
+    "K5_global": dict(N=2_000, L=200, W=12, K=5, S=2, combined=True),
+    "ss": dict(N=2_000, L=200, W=12, K=2, S=1),
+    "A5": dict(N=300, L=60, W=8, K=3, S=2, A=5),
+    "A5_K5_W30_global": dict(N=300, L=60, W=30, K=5, S=2, A=5),
+    "W8": dict(N=2_000, L=200, W=8, K=2, S=2),
+    "W30": dict(N=2_000, L=200, W=30, K=2, S=2),
+    "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, S=2, ragged=True),
+    "long_rows": dict(N=40, L=9_000, W=12, K=2, S=2, ragged=True),
+}
+
+FLAT_KERNELS = ("flat_em_counts", "flat_window_scores", "flat_counts_from_r")
+
+
+def flat_inputs(N, L, W, K, S, A=4, ragged=False, seed=0, device="cpu", combined=False):
+    """The flat passes' inputs on kernel_inputs' sequences (M=1): a dict of
+    s_flat [R+1, W], cidx, qidx (encode.strand_base5_indices), lens, q [1],
+    map5, and r [S, N, L] drawn as counts_inputs does, "01" and "frac"."""
+    s_flat, cidx, lens, q = kernel_inputs(N, L, W, K, 1, S, A=A, ragged=ragged, seed=seed,
+                                          device=device)
+    sset, _planted = planted_set(N, L, W, A, ragged, np.random.default_rng(seed))
+    r = {kind: counts_inputs(N, L, W, K, 1, S, kind, A=A, ragged=ragged, seed=seed,
+                             device=device)[0][0].contiguous() for kind in ("01", "frac")}
+    return dict(s_flat=s_flat[0].contiguous(), s_multi=s_flat, cidx=cidx, lens=lens, q=q,
+                qidx=encode.strand_base5_indices(sset, K, S == 1, device),
+                map5=torch.as_tensor(encode.map_base5_to_combined(A, K), device=device),
+                r=r, A=A, K=K, W=W, R=s_flat.shape[1] - 1)
+
+
+def check_flat(case: dict, device) -> dict:
+    """The three flat kernels vs their plain versions (and, for ``combined``
+    cases, vs the combined-layout kernels) on the same CUDA tensors; raises
+    AssertionError on a mismatch.  Returns the errors by kernel."""
+    x = flat_inputs(**case, device=device)
+    kw = dict(A=x["A"], K=x["K"], W=x["W"])
+    R = x["R"]
+    before = (cuda_flat.em_counts.launches, cuda_flat.window_scores.launches,
+              cuda_flat.counts_from_r.launches)
+    sc, mk = cuda_flat.window_scores(x["s_flat"], x["qidx"], x["lens"], x["map5"], **kw)
+    C, ll = cuda_flat.em_counts(x["s_flat"], x["qidx"], x["lens"], x["q"], x["map5"], R=R, **kw)
+    Cr = {k: cuda_flat.counts_from_r(r, x["qidx"], x["map5"], R=R, **kw) for k, r in x["r"].items()}
+    torch.cuda.synchronize(device)
+    assert (cuda_flat.em_counts.launches, cuda_flat.window_scores.launches,
+            cuda_flat.counts_from_r.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+    sc_ref, mk_ref = cuda_flat.window_scores_ref(x["s_flat"], x["qidx"], x["lens"], x["map5"], **kw)
+    assert torch.equal(mk, mk_ref), "mask differs"
+    assert torch.equal(sc, sc_ref), (sc - sc_ref).abs().max().item()
+    C_ref, ll_ref = cuda_flat.em_counts_ref(x["s_flat"], x["qidx"], x["lens"], x["q"], x["map5"],
+                                            R=R, **kw)
+    dC = (C - C_ref).abs()
+    ll_rel = abs(ll.item() - ll_ref.item()) / abs(ll_ref.item())
+    out = {"flat_window_scores": {"max_abs_err": 0.0, "valid_windows": float(mk.sum().item())},
+           "flat_em_counts": {"max_abs_err": dC.max().item(),
+                              "max_err_over_bound": (dC / (C_ATOL + C_RTOL * C_ref.abs())).max().item(),
+                              "ll_rel_err": ll_rel, "sentinel_mass": C[-1, 0].item()}}
+    assert bool(torch.isfinite(C).all()) and bool(torch.isfinite(ll)), out
+    assert bool((dC <= C_ATOL + C_RTOL * C_ref.abs()).all()) and ll_rel <= LL_RTOL, out
+    errs = {}
+    for k, r in x["r"].items():
+        ref = cuda_flat.counts_from_r_ref(r, x["qidx"], x["map5"], R=R, **kw)
+        d = (Cr[k] - ref).abs()
+        errs[k] = d.max().item()
+        assert bool((d <= CR_ATOL + CR_RTOL * ref.abs()).all()), (k, errs)
+        if k == "01":
+            assert torch.equal(Cr[k], ref), (k, errs)
+    out["flat_counts_from_r"] = {"max_abs_err": max(errs.values()), "max_abs_err_01": errs["01"],
+                                 "max_abs_err_frac": errs["frac"]}
+    if case.get("combined"):
+        b2, b2_mk = cuda_scores.window_scores(x["s_flat"], x["cidx"], x["lens"])
+        b3 = cuda_counts.counts_from_r(x["r"]["01"], x["cidx"], R, x["W"])
+        b1, b1_ll = cuda_em.em_counts_multi(x["s_multi"], x["cidx"], x["lens"], x["q"])
+        torch.cuda.synchronize(device)
+        d1 = (C - b1[0]).abs()
+        b1_rel = abs(ll.item() - b1_ll[0].item()) / abs(b1_ll[0].item())
+        out["vs_combined"] = {"scores_bit_equal_B2": float(torch.equal(sc, b2) and torch.equal(mk, b2_mk)),
+                              "counts01_equal_B3": float(torch.equal(Cr["01"], b3)),
+                              "em_max_abs_err_vs_B1": d1.max().item(), "em_ll_rel_err_vs_B1": b1_rel}
+        assert out["vs_combined"]["scores_bit_equal_B2"] == 1.0, out
+        assert out["vs_combined"]["counts01_equal_B3"] == 1.0, out
+        assert bool((d1 <= C_ATOL + C_RTOL * b1[0].abs()).all()) and b1_rel <= LL_RTOL, out
     return out
 
 
@@ -313,3 +417,29 @@ def test_counts_wrapper_rejects_bad_inputs(cuda_device):
         cuda_counts.counts_from_r_multi(r[:, :, :-1].contiguous(), cidx, R, W)
     with pytest.raises(ValueError):
         cuda_counts.counts_from_r_multi(r, cidx, R, 31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLAT_CASES))
+def test_flat_kernels_match_plain(cuda_device, name):
+    check_flat(FLAT_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+def test_flat_wrappers_reject_bad_inputs(cuda_device):
+    x = flat_inputs(N=20, L=30, W=6, K=1, S=2, device=cuda_device)
+    kw = dict(A=4, K=1, W=6)
+    with pytest.raises(TypeError):
+        cuda_flat.window_scores(x["s_flat"], x["qidx"].long(), x["lens"], x["map5"], **kw)
+    with pytest.raises(ValueError):
+        cuda_flat.window_scores(x["s_flat"], x["qidx"], x["lens"].cpu(), x["map5"], **kw)
+    with pytest.raises(ValueError):
+        cuda_flat.em_counts(x["s_flat"], x["qidx"], x["lens"], x["q"], x["map5"][:-1], R=x["R"],
+                            A=4, K=1, W=6)
+    with pytest.raises(ValueError):
+        cuda_flat.em_counts(x["s_flat"], x["qidx"][:, :, ::2], x["lens"], x["q"], x["map5"],
+                            R=x["R"], **kw)
+    with pytest.raises(ValueError):
+        cuda_flat.counts_from_r(x["r"]["01"][:, :-1].contiguous(), x["qidx"], x["map5"], R=x["R"], **kw)
+    with pytest.raises(ValueError):
+        cuda_flat.counts_from_r(x["r"]["01"], x["qidx"], x["map5"], R=x["R"], A=4, K=1, W=31)

@@ -15,6 +15,7 @@ from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.refinement import em, multi
+from bammmotif2_tpu_torch.utils.config import Params as PParams
 
 from tests.test_em import planted_set
 
@@ -25,9 +26,11 @@ MOTIF = "TGACTCAG"
 
 @pytest.fixture(scope="module")
 def planted():
+    """(JAX set, JAX background, port background, the port's copy of the set)."""
     sset = planted_set(n=80, l=60, motif=MOTIF, q=0.8, seed=3)
+    psset = convert.sequence_set(sset)
     return sset, jbackground.BackgroundModel.from_sequence_set(sset, order=2), \
-        BackgroundModel.from_sequence_set(sset, order=2)
+        BackgroundModel.from_sequence_set(psset, order=2), psset
 
 
 def _seed(sset, K, pattern=MOTIF, soft=0.6):
@@ -38,7 +41,7 @@ def _seed(sset, K, pattern=MOTIF, soft=0.6):
     (0, True, False, None), (2, False, False, None), (2, True, True, 70), (4, True, False, None),
 ])
 def test_em_step_matches_jax(planted, K, optimize_q, ss, n_real):
-    sset, jbg, _ = planted
+    sset, jbg, _, _ = planted
     jm = _seed(sset, K)
     jdata = jem.prepare_data(sset, jbg, K, ss)
     jv = tuple(jnp.asarray(v, jnp.float32) for v in jm.v)
@@ -70,7 +73,7 @@ def _check_result(res, jres, m, jm):
 
 @pytest.mark.parametrize("mode", ["one_shot", "checkpoint", "verbose"])
 def test_run_em_matches_jax(planted, mode, capsys):
-    sset, jbg, bg = planted
+    sset, jbg, bg, psset = planted
     params = Params(EM=True, modelOrder=2, optimizeQ=True, q=0.8, verbose=mode == "verbose",
                     checkpointEvery=3 if mode != "one_shot" else 0)
     jm = _seed(sset, 2)
@@ -80,7 +83,7 @@ def test_run_em_matches_jax(planted, mode, capsys):
     ckpt = (lambda motif, iteration: calls.append(iteration)) if mode != "one_shot" else None
     jres = jem.run_em(jm, jbg, sset, params, checkpoint_fn=jckpt)
     jout = capsys.readouterr().out
-    res = em.run_em(m, bg, sset, params, checkpoint_fn=ckpt, device="cpu")
+    res = em.run_em(m, bg, psset, convert.params(params), checkpoint_fn=ckpt, device="cpu")
     out = capsys.readouterr().out
     _check_result(res, jres, m, jm)
     assert calls == jcalls
@@ -89,7 +92,7 @@ def test_run_em_matches_jax(planted, mode, capsys):
 
 
 def test_run_em_multi_matches_jax(planted):
-    sset, jbg, bg = planted
+    sset, jbg, bg, psset = planted
     # two seeds of width 8 share a group; the width-7 seed is its own group.
     # Iteration counts agree away from ties at the stop threshold: seeded at
     # soft=0.6 the first seed's v_diff crossed 1e-3 at iteration 54 here
@@ -99,7 +102,7 @@ def test_run_em_multi_matches_jax(planted):
     ms = [convert.motif(jm) for jm in jms]
     params = Params(EM=True, modelOrder=2, optimizeQ=True, maxEMIterations=600)
     jres = jmulti.run_em_multi(jms, jbg, sset, params)
-    res = multi.run_em_multi(ms, bg, sset, params, device="cpu")
+    res = multi.run_em_multi(ms, bg, psset, convert.params(params), device="cpu")
     for r, jr, m, jm in zip(res, jres, ms, jms):
         _check_result(r, jr, m, jm)
         # maxEMIterations 600 > HIST_CAP: one history slot per 3 iterations
@@ -131,16 +134,17 @@ def test_batched_loop_freezes_converged_seeds():
 
 
 def test_prepare_data_memo_is_separate_from_jax(planted):
-    sset, jbg, bg = planted
+    sset, jbg, bg, psset = planted
     jdata = jem.prepare_data(sset, jbg, 2, False)
-    data = em.prepare_data(sset, bg, 2, False, "cpu")
+    data = em.prepare_data(psset, bg, 2, False, "cpu")
     assert isinstance(data["cidx"], torch.Tensor) and not isinstance(jdata["cidx"], torch.Tensor)
-    assert em.prepare_data(sset, bg, 2, False, "cpu")["cidx"] is data["cidx"]
-    assert (2, False, "cpu") in sset.__dict__["_torch_em_data_cache"]
+    assert em.prepare_data(psset, bg, 2, False, "cpu")["cidx"] is data["cidx"]
+    assert (2, False, "cpu") in psset.__dict__["_torch_em_data_cache"]
+    assert "_torch_em_data_cache" not in sset.__dict__
     np.testing.assert_array_equal(data["cidx"].numpy(), np.asarray(jdata["cidx"]))
 
 
 def test_choose_path():
-    assert em.choose_path(Params(), "cpu") == "plain"
-    assert em.choose_path(Params(), torch.device("cuda")) == "cuda"
-    assert em.choose_path(Params(use_pallas=False), "cuda:0") == "plain"
+    assert em.choose_path(PParams(), "cpu") == "plain"
+    assert em.choose_path(PParams(), torch.device("cuda")) == "cuda"
+    assert em.choose_path(PParams(use_pallas=False), "cuda:0") == "plain"

@@ -20,6 +20,8 @@ from bammmotif2_tpu.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.evaluation import fdr, prcurve
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
+from bammmotif2_tpu_torch.utils.config import Params as PParams
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet as PSequenceSet
 
 from tests.test_em import planted_set
 
@@ -80,10 +82,12 @@ def test_sweeps_and_avrec_match_jax():
 
 @pytest.fixture(scope="module")
 def fdr_data():
+    """(JAX positives, JAX negatives, JAX background, and the port's copies
+    of the background, positives and negatives)."""
     sset = planted_set(n=90, l=50, motif=MOTIF, q=0.8, noise=0.05, seed=6)
     neg = planted_set(n=70, l=50, motif="ACGTACGT", q=0.0, noise=1.0, seed=7)
     jbg = jbackground.BackgroundModel.from_sequence_set(sset, order=2)
-    return sset, neg, jbg, convert.background(jbg)
+    return sset, neg, jbg, convert.background(jbg), convert.sequence_set(sset), convert.sequence_set(neg)
 
 
 def _jseeds(sset, specs=(MOTIF, "TGASTCAG"), K=2):
@@ -103,12 +107,12 @@ def test_fdr_unrefined_matches_jax(fdr_data, tmp_path):
     everywhere, p-values equal there and within one rank elsewhere: the LUTs come from torch.log and XLA's log, which differ by
     an ulp, so two windows that tie in one package can split in the other
     (1 row of 13,760 here)."""
-    sset, neg, jbg, bg = fdr_data
+    sset, neg, jbg, bg, psset, pneg = fdr_data
     params = Params(FDR=True, cvFold=3, q=0.5)
     jms = _jseeds(sset)
     jres = jfdr.evaluate_motifs(jms, jbg, sset, params, refine="none", neg_set=neg)
-    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, sset, params, refine="none",
-                              neg_set=neg)
+    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
+                              refine="none", neg_set=pneg)
     n_neg = {"zoops": neg.n, "mops": 2 * int(np.maximum(neg.lens - 8 + 1, 0).sum())}
     for i, (r, jr) in enumerate(zip(res, jres)):
         assert r.fold_iterations == [0, 0, 0]
@@ -143,11 +147,12 @@ def test_fdr_em_matches_jax(fdr_data):
     1e-2: at 1e-3 the stop statistic of some folds lands within float noise
     of epsilon, and the packages then stop one iteration apart (as
     test_torch_em.py::test_run_em_multi_matches_jax notes)."""
-    sset, neg, jbg, bg = fdr_data
+    sset, neg, jbg, bg, psset, pneg = fdr_data
     params = Params(FDR=True, cvFold=3, q=0.5, maxEMIterations=40, epsilon=1e-2)
     jms = _jseeds(sset)
     jres = jfdr.evaluate_motifs(jms, jbg, sset, params, neg_set=neg)
-    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, sset, params, neg_set=neg)
+    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
+                              neg_set=pneg)
     # the reference's per-fold iteration counts: its single-seed EM on the
     # same train-masked lengths (its fused group loop returns none)
     jdata = jem.prepare_data(sset, jbg, 2, False)
@@ -183,12 +188,12 @@ def _assert_same(ref, new):
 
 @pytest.mark.parametrize("negatives", ["sampled", "user"])
 def test_group_matches_per_seed(fdr_data, negatives):
-    sset, neg, jbg, bg = fdr_data
-    params = Params(FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=12)
-    neg_set = neg if negatives == "user" else None
+    sset, _neg, _jbg, bg, psset, pneg = fdr_data
+    params = PParams(FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=12)
+    neg_set = pneg if negatives == "user" else None
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
-    ref = [fdr.evaluate_motif(m.copy(), bg, sset, params, neg_set=neg_set) for m in ms]
-    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, sset, params, neg_set=neg_set)
+    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set) for m in ms]
+    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set)
     _assert_same(ref, new)
     assert all(it > 0 for it in new[0].fold_iterations)
 
@@ -206,25 +211,26 @@ def test_group_matches_per_seed_short_and_empty_rows():
     sset = SequenceSet(codes=codes, lens=lens, headers=[f"s{i}" for i in range(N)],
                        alphabet=Alphabet.standard())
     bg = convert.background(jbackground.BackgroundModel.from_sequence_set(sset, order=1))
-    params = Params(FDR=True, cvFold=3, mFold=2, q=0.5, sOrder=1, maxEMIterations=6, ss=True)
+    params = PParams(FDR=True, cvFold=3, mFold=2, q=0.5, sOrder=1, maxEMIterations=6, ss=True)
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF,), K=1)]
-    ref = [fdr.evaluate_motif(ms[0].copy(), bg, sset, params)]
-    new = fdr.evaluate_motifs([ms[0].copy()], bg, sset, params)
+    psset = convert.sequence_set(sset)
+    ref = [fdr.evaluate_motif(ms[0].copy(), bg, psset, params)]
+    new = fdr.evaluate_motifs([ms[0].copy()], bg, psset, params)
     _assert_same(ref, new)
 
 
 def test_cgs_raises_before_work(fdr_data):
     """CGS is an engine FDR accepts (by name, or from params.CGS); an unknown
     engine raises before any work."""
-    sset, _neg, _jbg, bg = fdr_data
+    sset, _neg, _jbg, bg, psset, _pneg = fdr_data
     ms = [convert.motif(m) for m in _jseeds(sset)]
-    assert fdr._resolve(Params(FDR=True, CGS=True), None)[1] == "CGS"
+    assert fdr._resolve(PParams(FDR=True, CGS=True), None)[1] == "CGS"
     assert fdr._resolve(None, "CGS")[1] == "CGS"
     for refine in ("Gibbs", "cgs"):
         with pytest.raises(ValueError, match="refine must be"):
-            fdr.evaluate_motifs(ms, bg, sset, Params(FDR=True, CGS=True), refine=refine)
+            fdr.evaluate_motifs(ms, bg, psset, PParams(FDR=True, CGS=True), refine=refine)
         with pytest.raises(ValueError, match="refine must be"):
-            fdr.evaluate_motif(ms[0], bg, sset, Params(FDR=True, CGS=True), refine=refine)
+            fdr.evaluate_motif(ms[0], bg, psset, PParams(FDR=True, CGS=True), refine=refine)
 
 
 def test_fdr_cgs_matches_jax(fdr_data):
@@ -232,12 +238,13 @@ def test_fdr_cgs_matches_jax(fdr_data):
     no random draw is made, so the chains' keys do not matter, and the
     .stats tables agree with the reference's by the bars of
     test_fdr_em_matches_jax (scores atol 1e-4, AvRec 1e-3)."""
-    sset, neg, jbg, bg = fdr_data
+    sset, neg, jbg, bg, psset, pneg = fdr_data
     params = Params(FDR=True, CGS=True, cvFold=3, q=0.5, maxCGSIterations=8,
                     noZSampling=True, noQSampling=True)
     jms = _jseeds(sset)
     jres = jfdr.evaluate_motifs(jms, jbg, sset, params, neg_set=neg)
-    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, sset, params, neg_set=neg)
+    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
+                              neg_set=pneg)
     for i, (r, jr) in enumerate(zip(res, jres)):
         assert r.fold_iterations == [params.maxCGSIterations] * 3
         for tag in ("zoops", "mops"):
@@ -252,28 +259,28 @@ def test_cgs_group_matches_per_seed(fdr_data, negatives):
     """Sampled CGS: the stacked group's chains are the per-seed path's
     (evaluate_motif with the seed's index), bit for bit, so the two give
     the same statistics."""
-    sset, neg, _jbg, bg = fdr_data
-    params = Params(FDR=True, CGS=True, cvFold=3, mFold=2, q=0.5, maxCGSIterations=6)
-    neg_set = neg if negatives == "user" else None
+    sset, _neg, _jbg, bg, psset, pneg = fdr_data
+    params = PParams(FDR=True, CGS=True, cvFold=3, mFold=2, q=0.5, maxCGSIterations=6)
+    neg_set = pneg if negatives == "user" else None
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
-    ref = [fdr.evaluate_motif(m.copy(), bg, sset, params, neg_set=neg_set, index=i)
+    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set, index=i)
            for i, m in enumerate(ms)]
-    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, sset, params, neg_set=neg_set)
+    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set)
     for r, n in zip(ref, new):
         np.testing.assert_array_equal(r.pos_pvalues, n.pos_pvalues)
         for k in SWEEP_KEYS:
             np.testing.assert_array_equal(r.zoops[k], n.zoops[k])
             np.testing.assert_array_equal(r.mops[k], n.mops[k])
     # chains differ between seeds: the same seed at index 1 is another chain
-    other = fdr.evaluate_motif(ms[0].copy(), bg, sset, params, neg_set=neg_set, index=1)
+    other = fdr.evaluate_motif(ms[0].copy(), bg, psset, params, neg_set=neg_set, index=1)
     assert not np.array_equal(other.zoops["score"], ref[0].zoops["score"])
 
 
 def test_cvfold1_and_empty_set(fdr_data):
-    sset, _neg, _jbg, bg = fdr_data
+    sset, _neg, _jbg, bg, psset, _pneg = fdr_data
     m = convert.motif(_jseeds(sset)[0])
-    res = fdr.evaluate_motifs([m], bg, sset, Params(FDR=True, cvFold=1, mFold=2))
+    res = fdr.evaluate_motifs([m], bg, psset, PParams(FDR=True, cvFold=1, mFold=2))
     # one fold holds every row out, so nothing trains and the seed is scored as is
-    assert res[0].zoops["score"].size == sset.n * 3 and res[0].fold_iterations == [0]
-    empty = fdr.evaluate_motif(m, bg, SequenceSet.from_sequences([]), Params(FDR=True, cvFold=3))
+    assert res[0].zoops["score"].size == psset.n * 3 and res[0].fold_iterations == [0]
+    empty = fdr.evaluate_motif(m, bg, PSequenceSet.from_sequences([]), PParams(FDR=True, cvFold=3))
     assert empty.pos_pvalues.size == 0 and empty.zoops["score"].size == 0

@@ -30,6 +30,7 @@ from bammmotif2_tpu_torch.models.motif import log_odds_lut
 from bammmotif2_tpu_torch.ops import cuda_counts, cuda_scores
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.refinement import gibbs
+from bammmotif2_tpu_torch.utils.config import Params as PParams
 
 from tests.test_em import planted_set
 from tests.test_pallas_em import _setup
@@ -235,7 +236,7 @@ def test_run_gibbs_deterministic_matches_jax(small, burn_in):
                                                   learn_alpha=True)
     jm, m = seeds[0].copy(), convert.motif(seeds[0])
     jres = jgibbs.run_gibbs(jm, jbg, sset, params)
-    res = gibbs.run_gibbs(m, bg, sset, params)
+    res = gibbs.run_gibbs(m, bg, convert.sequence_set(sset), convert.params(params))
     assert res.iterations == jres.iterations == params.maxCGSIterations
     for a, b in zip(m.v, jm.v):
         np.testing.assert_allclose(a, b, atol=1e-5)
@@ -248,7 +249,7 @@ def test_stacked_member_equals_solo_run(small):
     """(e) Sampling on: member i of run_gibbs_multi is run_gibbs(...,
     index=i), bit for bit."""
     sset, _jbg, bg, seeds = small
-    params = Params(CGS=True, q=0.5, maxCGSIterations=5, seed=9)
+    sset, params = convert.sequence_set(sset), PParams(CGS=True, q=0.5, maxCGSIterations=5, seed=9)
     stacked = [convert.motif(m) for m in seeds]
     res = gibbs.run_gibbs_multi(stacked, bg, sset, params)
     assert res[0].group_seconds > 0
@@ -353,7 +354,7 @@ def test_chains_of_two_groups_differ(small):
     member i reproduces run_gibbs(..., index=i), and the group-local index
     (0) does not."""
     sset, _jbg, bg, _seeds = small
-    params = Params(CGS=True, q=0.5, maxCGSIterations=5, seed=11)
+    sset, params = convert.sequence_set(sset), PParams(CGS=True, q=0.5, maxCGSIterations=5, seed=11)
 
     def mk(s):
         return convert.motif(jseeds.motif_from_pwm(jseeds.iupac_to_pwm(s, soft=0.6), K=2,
@@ -383,7 +384,7 @@ def test_sampled_cgs_on_the_planted_set():
     seed = jseeds.motif_from_pwm(jseeds.iupac_to_pwm(MOTIF, soft=0.6), K=2, f_bg=sset.base_frequencies())
     params = Params(CGS=True, q=0.5, maxCGSIterations=30, seed=0)
     m = convert.motif(seed)
-    res = gibbs.run_gibbs(m, convert.background(jbg), sset, params)
+    res = gibbs.run_gibbs(m, convert.background(jbg), convert.sequence_set(sset), convert.params(params))
     assert "".join("ACGT"[i] for i in m.v[0].argmax(axis=0)) == MOTIF
     assert np.all(m.alphas > 0) and not np.allclose(m.alphas, seed.alphas)
     for k, vk in enumerate(m.v):

@@ -13,11 +13,12 @@ import jax.numpy as jnp
 from bammmotif2_tpu.models import background as jbackground
 from bammmotif2_tpu.models import motif as jmotif
 from bammmotif2_tpu.models import motifset as jmotifset
-from bammmotif2_tpu.utils.alphabet import Alphabet
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.models import background, motif, motifset, seeds
 from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.utils import alphabet as palphabet
+from bammmotif2_tpu_torch.utils.config import Params as PParams
 
 from tests.test_torch_encode import ragged_set
 
@@ -64,7 +65,8 @@ def test_model_math_matches_jax(A, K):
 @pytest.mark.parametrize("order,ss", [(0, False), (2, False), (2, True), (3, False)])
 def test_background_files_byte_identical(tmp_path, order, ss, alphabet):
     sset = ragged_set(alphabet, n=40, seed=order)
-    bg = background.BackgroundModel.from_sequence_set(sset, order=order, alpha=10.0, ss=ss)
+    psset = convert.sequence_set(sset)
+    bg = background.BackgroundModel.from_sequence_set(psset, order=order, alpha=10.0, ss=ss)
     jbg = jbackground.BackgroundModel.from_sequence_set(sset, order=order, alpha=10.0, ss=ss)
     paths = bg.write(str(tmp_path / "t"), "bg")
     jpaths = jbg.write(str(tmp_path / "j"), "bg")
@@ -73,7 +75,7 @@ def test_background_files_byte_identical(tmp_path, order, ss, alphabet):
             assert a.read() == b.read()
     for K in (0, order, 4):
         np.testing.assert_array_equal(bg.conditional_flat(K), jbg.conditional_flat(K))
-    back = background.BackgroundModel.read(paths[0], sset.alphabet)
+    back = background.BackgroundModel.read(paths[0], psset.alphabet)
     np.testing.assert_allclose(np.concatenate(back.v), np.concatenate(bg.v), rtol=1e-6)
 
 
@@ -101,7 +103,7 @@ def _seed_params(tmp_path, **kw):
 def test_seeded_models_match_jax(tmp_path, seed_kw):
     params = _seed_params(tmp_path, **seed_kw)
     f_bg = np.array([0.3, 0.2, 0.2, 0.3])
-    ms = motifset.load_motifs(params, f_bg)
+    ms = motifset.load_motifs(convert.params(params), f_bg)
     jms = jmotifset.load_motifs(params, f_bg)
     assert [m.name for m in ms] == [m.name for m in jms]
     for m, jm in zip(ms, jms):
@@ -121,7 +123,7 @@ def test_bamm_file_with_base_background(tmp_path):
     seed = seeds.motif_from_pwm(seeds.iupac_to_pwm("TGACTCA"), 2, np.full(4, 0.25))
     ihbcp, _ = seed.write(str(tmp_path), "saved")
     params = Params(BaMMFile=ihbcp, baseBgModelFile=hbcp, modelOrder=2, extend=(1, 1))
-    (m,) = motifset.load_motifs(params, np.full(4, 0.25))
+    (m,) = motifset.load_motifs(convert.params(params), np.full(4, 0.25))
     (jm,) = jmotifset.load_motifs(params, np.full(4, 0.25))
     np.testing.assert_array_equal(m.f_bg, jm.f_bg)
     for a, b in zip(m.v, jm.v):
@@ -140,10 +142,10 @@ def test_seed_readers_and_errors(tmp_path):
     assert [dataclasses.astuple(s)[0::2] for s in ours] == [dataclasses.astuple(s)[0::2] for s in theirs]
     np.testing.assert_array_equal(ours[0].pwm, theirs[0].pwm)
     with pytest.raises(ValueError):
-        motifset.load_motifs(Params(pattern="TGA", alphabetType="METHYLC"), np.full(5, 0.2),
-                             Alphabet.from_type("METHYLC"))
+        motifset.load_motifs(PParams(pattern="TGA", alphabetType="METHYLC"), np.full(5, 0.2),
+                             palphabet.Alphabet.from_type("METHYLC"))
     with pytest.raises(ValueError):
-        motifset.load_motifs(Params(), np.full(4, 0.25))
+        motifset.load_motifs(PParams(), np.full(4, 0.25))
 
 
 def test_convert_casts_to_float32():
@@ -153,5 +155,6 @@ def test_convert_casts_to_float32():
     assert all(t.dtype == torch.float32 for t in (*v, alphas, f_bg))
     m = convert.motif(jm)
     assert isinstance(m, motif.Motif) and m.name == "x" and m.v[1].shape == (16, 3)
+    assert isinstance(m.alphabet, palphabet.Alphabet) and m.alphabet.name == jm.alphabet.name
     data = convert.em_data(np.zeros((2, 3, 5), np.int64), np.array([5, 4, 0]), np.ones(20), "cpu")
     assert data["cidx"].dtype == torch.int32 and data["bg_flat"].dtype == torch.float32

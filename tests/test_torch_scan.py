@@ -16,10 +16,11 @@ from bammmotif2_tpu.ops import pallas_em
 from bammmotif2_tpu.refinement.em import run_em as jrun_em
 from bammmotif2_tpu.scoring import scan as jscan
 from bammmotif2_tpu.utils.config import Params
-from bammmotif2_tpu.utils.fasta import SequenceSet
+from bammmotif2_tpu.utils.fasta import SequenceSet as JSequenceSet
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.ops import cuda_scores, escore
 from bammmotif2_tpu_torch.scoring import scan
+from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 
 from tests.test_em import planted_set
 from tests.test_torch_em_kernel import em_problem
@@ -89,7 +90,7 @@ def test_launch_plan():
 @pytest.fixture(scope="module")
 def trained():
     """A JAX-refined motif on a planted set, a second seed, and numpy-made
-    user negatives; the port's copies of the motifs and background."""
+    user negatives; the port's copies of the sets, motifs and background."""
     sset = planted_set(n=120, l=60, motif=MOTIF, q=0.9, noise=0.05, seed=4)
     jbg = jbackground.BackgroundModel.from_sequence_set(sset, order=2)
     jm = jseeds.motif_from_pwm(jseeds.iupac_to_pwm(MOTIF, soft=0.6), 2, sset.base_frequencies())
@@ -97,15 +98,16 @@ def trained():
     jm2 = jseeds.motif_from_pwm(jseeds.iupac_to_pwm("TGASTCAG", soft=0.8), 2, sset.base_frequencies())
     neg = planted_set(n=150, l=70, motif="ACGTACGT", q=0.0, noise=1.0, seed=5)
     return dict(sset=sset, neg=neg, jbg=jbg, jms=[jm, jm2], bg=convert.background(jbg),
-                ms=[convert.motif(jm), convert.motif(jm2)])
+                ms=[convert.motif(jm), convert.motif(jm2)],
+                psset=convert.sequence_set(sset), pneg=convert.sequence_set(neg))
 
 
 @pytest.mark.parametrize("keep_bytes", [scan.KEEP_BYTES, 0], ids=["retained", "streamed"])
 def test_score_set_multi_matches_jax(trained, keep_bytes):
     t = trained
     jres = jscan.score_set_multi(t["jms"], t["jbg"], t["sset"], keep_bytes=keep_bytes, batch=50)
-    res = scan.score_set_multi(t["ms"], t["bg"], t["sset"], keep_bytes=keep_bytes, batch=50)
-    retained = scan.score_set_multi(t["ms"], t["bg"], t["sset"], batch=50)
+    res = scan.score_set_multi(t["ms"], t["bg"], t["psset"], keep_bytes=keep_bytes, batch=50)
+    retained = scan.score_set_multi(t["ms"], t["bg"], t["psset"], batch=50)
     for r, jr, kept in zip(res, jres, retained):
         assert (r._chunks is None) == (keep_bytes == 0)
         assert r.n_windows == jr.n_windows == kept.n_windows
@@ -117,7 +119,7 @@ def test_score_set_multi_matches_jax(trained, keep_bytes):
         np.testing.assert_array_equal(r.max_scores, kept.max_scores)
         np.testing.assert_array_equal(r.all_window_scores(), kept.all_window_scores())
     # chunking does not change the reductions
-    small = scan.score_set(t["ms"][0], t["bg"], t["sset"], batch=17)
+    small = scan.score_set(t["ms"][0], t["bg"], t["psset"], batch=17)
     np.testing.assert_array_equal(small.max_scores, retained[0].max_scores)
 
 
@@ -132,10 +134,10 @@ def test_find_occurrences_matches_jax(trained, cutoff):
     jres = jscan.score_set(jm, t["jbg"], t["sset"])
     jneg = jscan.score_set(jm, t["jbg"], t["neg"])
     jocc = jscan.find_occurrences(jres, t["sset"], jneg, cutoff)
-    res = scan.score_set(m, t["bg"], t["sset"], batch=50)
-    neg = scan.score_set(m, t["bg"], t["neg"], batch=64, keep_bytes=0)
-    occ_dev = scan.find_occurrences(res, t["sset"], neg, cutoff)        # device pool
-    occ_host = scan.find_occurrences(res, t["sset"], neg.all_window_scores(), cutoff)
+    res = scan.score_set(m, t["bg"], t["psset"], batch=50)
+    neg = scan.score_set(m, t["bg"], t["pneg"], batch=64, keep_bytes=0)
+    occ_dev = scan.find_occurrences(res, t["psset"], neg, cutoff)        # device pool
+    occ_host = scan.find_occurrences(res, t["psset"], neg.all_window_scores(), cutoff)
     assert len(jocc) > 0
     assert _rows(occ_dev) == _rows(occ_host) == _rows(jocc)
     for a, b, j in zip(occ_dev, occ_host, jocc):
@@ -149,12 +151,12 @@ def test_writers_match_jax(trained, tmp_path):
     t = trained
     m, jm = t["ms"][0], t["jms"][0]
     jres = jscan.score_set(jm, t["jbg"], t["sset"])
-    res = scan.score_set(m, t["bg"], t["sset"])
+    res = scan.score_set(m, t["bg"], t["psset"])
     neg = np.random.default_rng(0).normal(-8, 3, 2000)
     jscan.write_occurrences(tmp_path / "j.occurrence", jscan.find_occurrences(jres, t["sset"], neg, 1e-2))
-    scan.write_occurrences(tmp_path / "t.occurrence", scan.find_occurrences(res, t["sset"], neg, 1e-2))
+    scan.write_occurrences(tmp_path / "t.occurrence", scan.find_occurrences(res, t["psset"], neg, 1e-2))
     n_j = jscan.write_logodds(tmp_path / "j.logOdds", jres, t["sset"])
-    n_t = scan.write_logodds(tmp_path / "t.logOdds", res, t["sset"])
+    n_t = scan.write_logodds(tmp_path / "t.logOdds", res, t["psset"])
     assert n_t == n_j == res.n_windows
     for ext in ("occurrence", "logOdds"):
         a = (tmp_path / f"t.{ext}").read_text().splitlines()
@@ -201,7 +203,7 @@ class TestScanEdgeCases:
         wide[:, :30] = np.random.default_rng(0).integers(0, 4, (300, 30))
         short_wide = SequenceSet(codes=wide, lens=np.full(300, 30, np.int32),
                                  headers=[f"s{i}" for i in range(300)],
-                                 alphabet=trained["sset"].alphabet)
+                                 alphabet=trained["psset"].alphabet)
         # padded chunks: 2 * 300 * (4000-8+1) * 4 B = 9.6 MB > a 1 MB budget,
         # while a lens-based estimate (30-8+1 windows) would say retain
         res = scan.score_set(m, trained["bg"], short_wide, keep_bytes=1 << 20)
@@ -211,16 +213,18 @@ class TestScanEdgeCases:
     def test_single_strand_empty_scan_keeps_two_strands(self, trained):
         """The reference's quirk, kept for parity (ROADMAP C): a --ss scan
         with no chunks reports S = 2 in ``scores`` when the set has rows."""
-        short = SequenceSet.from_sequences(["ACGTAC"])
-        res = scan.score_set(trained["ms"][0], trained["bg"], short, ss=True)
-        jres = jscan.score_set(trained["jms"][0], trained["jbg"], short, ss=True)
+        res = scan.score_set(trained["ms"][0], trained["bg"], SequenceSet.from_sequences(["ACGTAC"]),
+                             ss=True)
+        jres = jscan.score_set(trained["jms"][0], trained["jbg"], JSequenceSet.from_sequences(["ACGTAC"]),
+                               ss=True)
         assert res.scores.shape == jres.scores.shape == (2, 1, 0)
 
     def test_device_codes_memo(self, trained):
         """The upload is memoized on the set, apart from the reference's
         memo; like it, the memo assumes the codes are never mutated."""
-        sset = trained["sset"]
+        sset = trained["psset"]
         a = scan._device_codes(sset, 50, "cpu")
         assert scan._device_codes(sset, 50, "cpu")[0] is a[0]
         assert (50, "cpu") in sset.__dict__["_torch_device_codes_cache"]
+        assert "_torch_device_codes_cache" not in trained["sset"].__dict__
         assert a[0].shape == (150, sset.codes.shape[1]) and int(a[1][120:].sum()) == 0

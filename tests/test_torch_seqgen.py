@@ -11,19 +11,25 @@ import numpy as np
 import pytest
 import torch
 
-from bammmotif2_tpu.utils.alphabet import Alphabet
-from bammmotif2_tpu.utils.fasta import PAD, SequenceSet
+from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.ops import encode
 from bammmotif2_tpu_torch.scoring import scan
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.fasta import PAD, SequenceSet
 
-from tests.test_em import planted_set
+from tests import test_em
 
 torch.set_num_threads(1)
 
 MOTIF = "TGACTCAG"
+
+
+def planted_set(**kw) -> SequenceSet:
+    """tests/test_em.py's planted set as the port's SequenceSet."""
+    return convert.sequence_set(test_em.planted_set(**kw))
 
 
 def _kmer_freqs(sset: SequenceSet, k: int) -> np.ndarray:
