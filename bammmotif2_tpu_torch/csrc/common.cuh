@@ -40,6 +40,15 @@ __device__ __forceinline__ void block_lse(float& m, float& s, float* red) {
   __syncthreads();  // red is reused by the next sequence
 }
 
+// Warp-wide (max, sum exp) reduction by shuffles; every lane gets the result.
+__device__ __forceinline__ void warp_lse(float& m, float& s) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+    lse_merge(m, s, m2, s2);
+  }
+}
+
 // Adds a block's n shared-memory partial counts Cs into the f64 global
 // table Cg, one atomic per non-zero entry.  Called by every thread.
 __device__ __forceinline__ void flush_counts(const float* Cs, double* Cg, int n) {

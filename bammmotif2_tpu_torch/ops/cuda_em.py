@@ -11,6 +11,7 @@ responsibilities into combined count rows, in one launch
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,28 +22,88 @@ from bammmotif2_tpu_torch.ops import _build, escore
 SMEM_MAX = 232_448
 SMEM_TARGET = 48 * 1024
 _SCRATCH = 2 * 8 * 4  # the kernel's (max, sum) reduction slots, 8 warps
+# A warp owns a sequence while S * L codes are at most this (rows of up to
+# 400 bp on both strands); longer rows take a block each, which buffers
+# BLOCK_CODES codes and log-weights at a time and tiles rows beyond that.
+# The two tie at 800 codes; at 400 the warp is 1.5x faster, at 1,024 the
+# block 1.2x (PERF.md, PR 5, plan sweep).
+WARP_ROW_CODES = 800
+BLOCK_CODES = 4096
+# The tables of the seeds that share a block stay within this: more seeds a
+# block cost resident blocks (PERF.md, PR 5: all four seeds of M=4 in one
+# block were slower than a block each).
+TABLES_TARGET = 16 * 1024
 
 
-def launch_plan(M: int, R1: int, W: int) -> tuple:
-    """(seeds_per_block, smem_counts) for counts of shape [M, R1, W].
+class Plan(NamedTuple):
+    """How ``em_counts_launch`` runs: ``seeds_per_block`` seeds share a
+    block; ``smem_lut`` / ``smem_counts`` say whether their LUTs and counts
+    live in shared memory (else the LUT is read through L1 and counts go to
+    float64 global atomics), ``fixed_counts`` whether shared counts are
+    64-bit fixed point (else float); ``team`` threads (32 or 256) own a
+    sequence; each team buffers ``codes_cap`` codes and as many
+    log-weights."""
 
-    Counts are privatised per block in shared memory when one seed's
-    [R1, W] f32 table fits; as many seeds share a block's copy as fit in
-    SMEM_TARGET (at least one).  Above SMEM_MAX (A=4, K=5 needs 262 KB)
-    every seed gets its own blocks and adds to the float64 global counts
-    directly.
+    seeds_per_block: int
+    smem_lut: bool
+    smem_counts: bool
+    fixed_counts: bool
+    team: int
+    codes_cap: int
+
+    @property
+    def counts(self) -> int:
+        """em_counts_launch's counts argument: 0 global, 1 float, 2 fixed."""
+        return 0 if not self.smem_counts else 2 if self.fixed_counts else 1
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def smem_bytes(plan: Plan, R1: int, W: int) -> int:
+    """The dynamic shared memory a block of ``plan`` asks for, as
+    em_counts_launch computes it."""
+    table = _round4(plan.seeds_per_block * R1 * W)
+    words = int(plan.smem_lut) + int(plan.smem_counts) * (1 + int(plan.fixed_counts))
+    return _SCRATCH + 4 * (words * table + 256 // plan.team * 2 * plan.codes_cap)
+
+
+def launch_plan(M: int, R1: int, W: int, S: int = 2, L: int = 200) -> Plan:
+    """The plan for counts of shape [M, R1, W] over codes [S, N, L].
+
+    A warp owns a sequence where S * L <= WARP_ROW_CODES, else a block.
+    Counts are privatised in shared memory when one seed's [W, R1] table
+    fits beside the teams' buffers: as 64-bit fixed point where that fits
+    (exact block sums, and faster: at K=4 too), else as float (A=4, K=4,
+    W=30).  The LUT joins them where it fits too (faster than L1 at K=2 and
+    K=4).  As many seeds share a block as their tables fit in TABLES_TARGET
+    (at least one).  Where counts do not fit (A=4, K=5 needs 262 KB) each
+    seed gets its own blocks, reads its LUT through L1 and adds to the
+    float64 global counts directly.
     """
-    per_seed = R1 * W * 4
-    if per_seed + _SCRATCH > SMEM_MAX:
-        return 1, False
-    return max(1, min(M, SMEM_TARGET // per_seed)), True
+    team = 32 if S * L <= WARP_ROW_CODES else 256
+    codes_cap = _round4(S * L) if team == 32 else max(BLOCK_CODES, _round4(W))
+
+    def need(spb, lut, counts, fixed):
+        return smem_bytes(Plan(spb, lut, counts, fixed, team, codes_cap), R1, W)
+
+    counts = need(1, False, True, False) <= SMEM_MAX
+    fixed = counts and need(1, False, True, True) <= SMEM_MAX
+    lut = counts and need(1, True, True, fixed) <= SMEM_MAX
+    spb = 1
+    if counts:
+        spb = max(1, min(M, TABLES_TARGET // (R1 * W * 4 * (int(lut) + 1 + int(fixed)))))
+        while spb > 1 and need(spb, lut, counts, fixed) > SMEM_MAX:
+            spb -= 1
+    return Plan(spb, lut, counts, fixed, team, codes_cap)
 
 
 def library() -> ctypes.CDLL:
     lib = _build.load("em_counts")
     if lib.em_counts_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.em_counts_launch.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.em_counts_launch.argtypes = [p] * 8 + [i] * 11 + [p]
         lib.em_counts_launch.restype = i
         lib.em_counts_error_string.argtypes = [i]
         lib.em_counts_error_string.restype = ctypes.c_char_p
@@ -100,13 +161,14 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
         return C, ll
     Cd = torch.zeros((M, R1, W), dtype=torch.float64, device=dev)
     logz = torch.empty((M, N), dtype=torch.float32, device=dev)
-    seeds_per_block, smem_counts = launch_plan(M, R1, W)
+    plan = launch_plan(M, R1, W, S, L)
     lib = library()
     with torch.cuda.device(dev):
         err = lib.em_counts_launch(
             cidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), q.data_ptr(),
             C.data_ptr(), Cd.data_ptr(), logz.data_ptr(), ll.data_ptr(),
-            S, N, L, W, R1, M, seeds_per_block, int(smem_counts),
+            S, N, L, W, R1, M, plan.seeds_per_block, int(plan.smem_lut), plan.counts,
+            plan.team, plan.codes_cap,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -36,7 +36,10 @@ import torch
 
 from bammmotif2_tpu_torch.ops import _build, escore
 from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX
-from bammmotif2_tpu_torch.ops.cuda_scores import TILE_CODES
+
+# codes flat_scores_kernel stages per work item: whole rows up to this
+# length, tiles of one row with a W-1 halo beyond it
+TILE_CODES = 4096
 
 _SCRATCH = 2 * 8 * 4  # the E+M kernel's (max, sum) reduction slots, 8 warps
 

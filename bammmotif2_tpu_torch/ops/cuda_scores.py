@@ -17,23 +17,36 @@ import torch
 from bammmotif2_tpu_torch.ops import _build, escore
 from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, SMEM_TARGET
 
-# codes a block stages per work item (16 KB): whole rows up to this length,
-# tiles of one row with a W-1 halo beyond it
-TILE_CODES = 4096
+# codes an item lays out in shared memory: whole rows at a power-of-two
+# stride >= L + 16 (16 rows at L=200), tiles of one row beyond that
+ROWS_CAP = 4096
+STAGES = 2  # the kernel's bulk-copy buffers: one item streams in while one is scored
+_STATIC = 64  # the kernel's static shared memory (its buffers' barriers), rounded up
+
+
+def smem_bytes(seeds_per_block: int, smem_lut: bool, R1: int, W: int) -> int:
+    """The shared memory a block of the kernel takes: the dynamic part as
+    window_scores_launch computes it (the block's LUTs, rows padded to the
+    odd stride W | 1 and the whole rounded up to 16 bytes, the laid-out
+    rows and STAGES bulk-copy buffers), and the static part."""
+    lut = -(-seeds_per_block * R1 * (W | 1) // 4) * 4 if smem_lut else 0
+    return 4 * (lut + ROWS_CAP + STAGES * (ROWS_CAP + 8)) + _STATIC
 
 
 def launch_plan(M: int, R1: int, W: int) -> tuple:
     """(seeds_per_block, smem_lut) for LUTs of shape [M, R1, W].
 
-    A seed's LUT is staged in shared memory when it fits beside the codes
-    tile; as many seeds share a block as fit SMEM_TARGET (at least one).
-    Above SMEM_MAX (A=4, K=5, W=12 needs 262 KB) the LUT is read through
-    the read-only cache and every seed shares one block's staged codes.
+    A seed's LUT is staged in shared memory when it fits beside the code
+    buffers; as many seeds share a block as fit SMEM_TARGET (at least
+    one).  Above SMEM_MAX (A=4, K=5, W=12 needs 262 KB) the LUT is read
+    through the read-only cache and every seed shares one block's codes.
     """
-    per_seed = R1 * W * 4
-    if per_seed + TILE_CODES * 4 > SMEM_MAX:
+    if smem_bytes(1, True, R1, W) > SMEM_MAX:
         return max(M, 1), False
-    return max(1, min(M, SMEM_TARGET // per_seed)), True
+    spb = max(1, min(M, SMEM_TARGET // (R1 * (W | 1) * 4)))
+    while spb > 1 and smem_bytes(spb, True, R1, W) > SMEM_MAX:
+        spb -= 1
+    return spb, True
 
 
 def library() -> ctypes.CDLL:
@@ -68,8 +81,8 @@ def _check(s_flat, cidx, lens) -> None:
         raise ValueError(f"want lens [{N}], got {tuple(lens.shape)}")
     if L - W + 1 <= 0:
         raise ValueError(f"motif width {W} exceeds padded length {L}")
-    if W > TILE_CODES:
-        raise ValueError(f"motif width {W} exceeds the kernel's tile of {TILE_CODES} codes")
+    if W + 16 > ROWS_CAP:
+        raise ValueError(f"motif width {W} exceeds the kernel's tile of {ROWS_CAP} codes")
 
 
 def window_scores_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor) -> tuple:
@@ -102,7 +115,7 @@ def window_scores_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Te
         err = lib.window_scores_launch(
             cidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(),
             scores.data_ptr(), mask.data_ptr(),
-            S, N, L, W, R1, M, seeds_per_block, int(smem_lut), TILE_CODES,
+            S, N, L, W, R1, M, seeds_per_block, int(smem_lut), ROWS_CAP,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

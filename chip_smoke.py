@@ -70,7 +70,10 @@ Phases (any failure exits non-zero):
                M=1 and M=10; the flat kernels at bench's geometry at K=2, 3
                and 4 beside the combined-layout kernels on the same
                sequences (CUDA events, and each kernel's device time under
-               torch.profiler), and flat window scores at config 5's; each
+               torch.profiler), and flat window scores at config 5's; the
+               E+M kernel's device time at bench's geometry at K=2 and 4,
+               M=1 and 4 (and on homopolymer rows), the window-score
+               kernel's at config 5's at M=1 and 10; each
                kernel's bound (bytes over 3.35 TB/s or f32 operations over
                67 TFLOP/s, whichever is larger) and, where one PyTorch call computes
                the same function (embedding_bag for window scores,
@@ -769,6 +772,8 @@ def time_em(device, tmp) -> dict:
         **em_bound(data["cidx"], data["lens"], s_flat.shape[1], W, 1),
         "library_ms": None,
     }
+    out["device"] = em_device_times(device)
+    out["kernel_device_ms"] = out["device"]["K2_M1"]["kernel_device_ms"]
     for path in ("cuda", "plain"):
         def loop(n):
             v, q = v0, q0
@@ -789,17 +794,44 @@ def time_em(device, tmp) -> dict:
     return out
 
 
-def time_scores(device, tmp) -> dict:
-    """window_scores_multi vs plain at config 5's geometry, M=1 and M=10,
-    with the bytes it moves (cidx read, scores and mask written), its bound
-    and, at M=1, the library call's time and the flat window-score kernel
-    on the same sequences and LUT."""
+EM_DEVICE_CASES = {  # bench's geometry (10k x 200 bp, S=2, W=12); kernel_inputs options
+    "K2_M1": dict(K=2, M=1), "K2_M4": dict(K=2, M=4), "K4_M1": dict(K=4, M=1),
+    "K4_M4": dict(K=4, M=4), "K2_M1_homopolymer": dict(K=2, M=1, homopolymer=True),
+}
+
+
+def em_inputs(name: str, device) -> tuple:
+    """(s_flat, cidx, lens, q) of EM_DEVICE_CASES[name]
+    (tests/test_torch_cuda.py's kernel_inputs)."""
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    return checks.kernel_inputs(N=N_SEQS, L=SEQ_LEN, W=W, S=2, device=device,
+                                **EM_DEVICE_CASES[name])
+
+
+def em_device_times(device) -> dict:
+    """em_counts_kernel's device time (torch.profiler, 10 calls) and its
+    launch plan on each of EM_DEVICE_CASES."""
+    from bammmotif2_tpu_torch.ops import cuda_em
+
+    out = {}
+    for name in EM_DEVICE_CASES:
+        args = em_inputs(name, device)
+        M, R1, _w = args[0].shape
+        plan = cuda_em.launch_plan(M, R1, W, 2, SEQ_LEN)
+        out[name] = {**device_ms(lambda: cuda_em.em_counts_multi(*args), 10, "em_counts_kernel"),
+                     "plan": plan._asdict()}
+    return out
+
+
+def c5_inputs(device, tmp) -> tuple:
+    """Config 5's geometry (100k x 200 bp, S=2, K=2): (cidx, lens, the
+    planted PWM's log-odds LUT [R+1, W])."""
     import torch
 
     from bammmotif2_tpu_torch.models.background import BackgroundModel
     from bammmotif2_tpu_torch.models.motif import log_odds_lut
     from bammmotif2_tpu_torch.models import seeds as seeds_mod
-    from bammmotif2_tpu_torch.ops import cuda_flat, cuda_scores, encode
+    from bammmotif2_tpu_torch.ops import encode
 
     sset, _, _, planted, _pos, _has = planted_problem(tmp, C5_SEQS, "c5_timing")
     bg = BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)
@@ -810,14 +842,37 @@ def time_scores(device, tmp) -> dict:
     bg_flat = torch.as_tensor(bg.conditional_flat(2), dtype=torch.float32, device=device)
     base = log_odds_lut(tuple(torch.as_tensor(v, dtype=torch.float32, device=device)
                               for v in motif.v), bg_flat)
+    return cidx, lens, base, sset
+
+
+def c5_luts(base, M: int):
+    """M LUTs: the planted PWM's, then scaled copies (numpy seed 1), zero
+    sentinel row."""
+    import torch
+
     rng = np.random.default_rng(1)
+    s_flat = torch.stack([base] + [
+        base * float(rng.uniform(0.6, 1.4)) for _ in range(M - 1)]).contiguous()
+    s_flat[:, -1, :] = 0.0
+    return s_flat
+
+
+def time_scores(device, tmp) -> dict:
+    """window_scores_multi vs plain at config 5's geometry, M=1 and M=10,
+    with the bytes it moves (cidx read, scores and mask written), its bound,
+    the kernel's device time (torch.profiler) and, at M=1, the library
+    call's time and the flat window-score kernel on the same sequences and
+    LUT."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_flat, cuda_scores, encode
+
+    cidx, lens, base, sset = c5_inputs(device, tmp)
     out = {}
     S, N, L = cidx.shape
     n_win = L - W + 1
     for M in (1, 10):
-        s_flat = torch.stack([base] + [
-            base * float(rng.uniform(0.6, 1.4)) for _ in range(M - 1)]).contiguous()
-        s_flat[:, -1, :] = 0.0
+        s_flat = c5_luts(base, M)
         args = (s_flat, cidx, lens)
         ms = time_cuda(lambda: cuda_scores.window_scores_multi(*args), N_TIMED)
         plain_ms = time_cuda(lambda: cuda_scores.window_scores_multi_ref(*args), 5 if M > 1 else N_TIMED)
@@ -828,6 +883,7 @@ def time_scores(device, tmp) -> dict:
             "share_of_3.35TB_per_s": nbytes / ms / 1e6 / 3350.0,
             "windows_per_s": M * S * N * n_win / ms * 1e3,
             **scores_bound(cidx, lens, s_flat.shape[1], W, M),
+            **device_ms(lambda: cuda_scores.window_scores_multi(*args), 10, "window_scores_kernel"),
         }
     out["M1"]["library_ms"] = library_scores_ms(base, cidx, W)
     qidx = encode.strand_base5_indices(sset, 2, False, device)

@@ -45,6 +45,13 @@ KERNEL_CASES = {
     "ss": dict(N=2_000, L=200, W=12, K=2, M=1, S=1),
     "A5_small": dict(N=300, L=60, W=8, K=3, M=2, S=1, A=5),
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True),
+    # rows longer than a warp's buffer: a block per row, in tiles of one strand
+    "long_rows": dict(N=40, L=9_000, W=12, K=2, M=2, S=2, ragged=True),
+    "W8": dict(N=2_000, L=200, W=8, K=2, M=3, S=2),
+    "W30": dict(N=2_000, L=200, W=30, K=2, M=3, S=2),
+    # every lane of a warp on one count address
+    "homopolymer_M2": dict(N=2_000, L=200, W=12, K=2, M=2, S=2, homopolymer=True),
+    "K4_M4": dict(N=2_000, L=200, W=12, K=4, M=4, S=2),  # FDR's group
 }
 
 
@@ -67,6 +74,11 @@ SCORE_CASES = {
     "W30": dict(N=2_000, L=200, W=30, K=2, M=3, S=2),
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True),
     "long_rows_tiled": dict(N=40, L=9_000, W=12, K=2, M=2, S=2, ragged=True),
+    # rows of 50 windows: runs of four cross row ends, vector stores misalign
+    "unaligned": dict(N=333, L=61, W=12, K=2, M=3, S=2),
+    "homopolymer": dict(N=2_000, L=200, W=12, K=2, M=2, S=2, homopolymer=True),
+    # a width with no kernel of its own: the sliding loop over the shared LUT
+    "W11_any_width": dict(N=2_000, L=200, W=11, K=2, M=2, S=2),
 }
 
 
@@ -149,10 +161,11 @@ def check_counts(case: dict, device) -> dict:
     return out
 
 
-def planted_set(N, L, W, A, ragged, rng) -> tuple:
+def planted_set(N, L, W, A, ragged, rng, homopolymer=False) -> tuple:
     """(sset, planted codes): random codes with a planted motif in 80% of
     rows and 1% ambiguous bases; ``ragged`` draws lengths in [0, L] so rows
-    of length 0 and shorter than W occur."""
+    of length 0 and shorter than W occur; ``homopolymer`` makes row n one
+    base (n mod A) throughout, with no motif and no ambiguous base."""
     alphabet = Alphabet.from_type("STANDARD" if A == 4 else "METHYLC")
     codes = rng.integers(0, A, (N, L)).astype(np.int8)
     planted = rng.integers(0, A, W)
@@ -160,6 +173,8 @@ def planted_set(N, L, W, A, ragged, rng) -> tuple:
     for n in np.nonzero(rng.random(N) < 0.8)[0]:
         codes[n, pos[n] : pos[n] + W] = planted
     codes[rng.random((N, L)) < 0.01] = -1
+    if homopolymer:
+        codes[:] = (np.arange(N) % A)[:, None]
     lens = np.full(N, L, np.int32)
     if ragged:
         lens = rng.integers(0, L + 1, N).astype(np.int32)
@@ -168,14 +183,15 @@ def planted_set(N, L, W, A, ragged, rng) -> tuple:
     return SequenceSet(codes, lens, [f"s{i}" for i in range(N)], alphabet), planted
 
 
-def kernel_inputs(N, L, W, K, M, S, A=4, ragged=False, seed=0, device="cpu"):
+def kernel_inputs(N, L, W, K, M, S, A=4, ragged=False, seed=0, device="cpu",
+                  homopolymer=False):
     """Planted-motif inputs for em_counts_multi: (s_flat, cidx, lens, q).
 
     The sequences of ``planted_set``.  Seed 0's LUT is the planted PWM's
     log-odds, the others perturb it (zero sentinel row kept).
     """
     rng = np.random.default_rng(seed)
-    sset, planted = planted_set(N, L, W, A, ragged, rng)
+    sset, planted = planted_set(N, L, W, A, ragged, rng, homopolymer)
     alphabet = sset.alphabet
     bg = BackgroundModel.from_sequence_set(sset, order=min(2, K), ss=S == 1)
     pwm = np.full((W, A), 0.3 / (A - 1))

@@ -102,12 +102,26 @@ def test_plain_em_pass_matches_jax(name):
 
 
 def test_launch_plan():
-    # bench's K=2, W=12: 4 KB a seed, three seeds share a block's counts
-    assert cuda_em.launch_plan(3, encode.num_rows(4, 2) + 1, 12) == (3, True)
-    # K=4 (65 KB a seed) stays in shared memory, one seed a block
-    assert cuda_em.launch_plan(2, encode.num_rows(4, 4) + 1, 12) == (1, True)
+    # bench's K=2, W=12, rows of 200 bp on both strands: a warp a sequence;
+    # LUT (4 KB a seed) and fixed-point counts (8 KB) in shared memory, one
+    # seed a block
+    plan = cuda_em.launch_plan(3, encode.num_rows(4, 2) + 1, 12, S=2, L=200)
+    assert (plan.seeds_per_block, plan.smem_lut, plan.smem_counts, plan.fixed_counts,
+            plan.team) == (1, True, True, True, 32)
+    # K=4 (65 KB a seed): fixed-point counts and the LUT fill one block's
+    # shared memory
+    plan = cuda_em.launch_plan(2, encode.num_rows(4, 4) + 1, 12)
+    assert (plan.seeds_per_block, plan.smem_lut, plan.smem_counts, plan.fixed_counts) == (
+        1, True, True, True)
+    # K=4 at W=30: only float counts fit, the LUT goes through L1
+    plan = cuda_em.launch_plan(2, encode.num_rows(4, 4) + 1, 30)
+    assert (plan.smem_lut, plan.smem_counts, plan.fixed_counts) == (False, True, False)
     # A=4, K=5 (262 KB a seed) goes to global memory
-    assert cuda_em.launch_plan(2, encode.num_rows(4, 5) + 1, 12) == (1, False)
+    plan = cuda_em.launch_plan(2, encode.num_rows(4, 5) + 1, 12)
+    assert (plan.seeds_per_block, plan.smem_lut, plan.smem_counts) == (1, False, False)
+    # rows of 9,000 bp take a block each, and so do rows of 512 bp
+    assert cuda_em.launch_plan(2, encode.num_rows(4, 2) + 1, 12, S=2, L=9_000).team == 256
+    assert cuda_em.launch_plan(2, encode.num_rows(4, 2) + 1, 12, S=2, L=512).team == 256
 
 
 def test_plain_pass_rejects_width_beyond_length():

@@ -1,6 +1,7 @@
 """The port's measurement helpers, on the CPU: chip_smoke.py's bound for
-counts from r against a brute-force count, and the rank tests of
-bammmotif2_tpu_torch/tools/cgs_ab.py on synthetic process rates."""
+counts from r against a brute-force count, the rank tests of
+bammmotif2_tpu_torch/tools/ab.py on synthetic process rates, and the source
+edits of bammmotif2_tpu_torch/tools/kernel_variants.py."""
 
 import importlib.util
 import os
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from bammmotif2_tpu_torch.tools import cgs_ab
+from bammmotif2_tpu_torch.tools import ab, kernel_variants
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,12 +60,24 @@ def test_cgs_ab_summary_rank_tests(shift, distinct):
         for pos, tree in enumerate(order):
             off = shift if tree == "change" else 0.0
             procs.append({"tree": tree, "round": rnd, "position": pos,
-                          "rates": {"cuda": 150.0 + off + rng.normal(0, 5),
-                                    "plain": 130.0 + rng.normal(0, 5)}})
-    out = cgs_ab.summary(procs)
-    cuda = out["cuda"]
+                          "metrics": {"sweeps_per_s_cuda": 150.0 + off + rng.normal(0, 5),
+                                      "sweeps_per_s_plain": 130.0 + rng.normal(0, 5)}})
+    out = ab.summary(procs)
+    cuda = out["sweeps_per_s_cuda"]
     assert len(cuda["base"]) == len(cuda["change"]) == 12
     assert (cuda["mannwhitney_p_change_vs_base"] < 0.01) == distinct
     assert (cuda["wilcoxon_p_paired_rounds"] < 0.01) == distinct
     assert (cuda["median_paired_change_minus_base"] > 20) == distinct
-    assert out["plain"]["mannwhitney_p_change_vs_base"] > 0.01
+    assert out["sweeps_per_s_plain"]["mannwhitney_p_change_vs_base"] > 0.01
+
+
+@pytest.mark.parametrize("design", sorted(kernel_variants.DESIGNS))
+def test_kernel_variant_edits_apply_to_this_source(design):
+    """Every variant's edits apply exactly once to this checkout's kernel
+    source, and each variant but ``as_is`` changes it."""
+    source, _kernel, variants = kernel_variants.DESIGNS[design]
+    with open(os.path.join(ROOT, "bammmotif2_tpu_torch", "csrc", f"{source}.cu")) as fh:
+        src = fh.read()
+    for name, edits in variants.items():
+        out = kernel_variants.variant_source(src, edits)
+        assert (out == src) == (name == "as_is"), name
