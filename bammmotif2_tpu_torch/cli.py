@@ -260,8 +260,6 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
                 "cgs_done", motif=m.name, iterations=r.iterations, q=r.q,
                 seconds=round(r.seconds, 3),
             )
-            if params.verbose:
-                print(f"CGS {m.name}: {r.iterations} sweeps, ll={r.ll:.2f}, q={r.q:.3f}")
 
     if params.saveBaMMs:
         for m in motifs:

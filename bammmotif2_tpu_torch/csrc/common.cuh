@@ -7,6 +7,9 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -83,29 +86,96 @@ ll_reduce_kernel(const float* __restrict__ logz, int N, float* __restrict__ ll) 
   if (threadIdx.x == 0) ll[blockIdx.x] = (float)part[0];
 }
 
-// The card's streaming-multiprocessor count.
+// The current device's streaming-multiprocessor count, queried once a
+// device.
 inline cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0 = not yet queried
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < kDevices && known[dev].load() > 0) {
+    *sms = known[dev].load();
+    return cudaSuccess;
+  }
+  if ((err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if (dev < kDevices) known[dev].store(*sms);
+  return cudaSuccess;
 }
 
-// Grid x for a persistent launch of `kern` at `smem` bytes of dynamic shared
-// memory whose grid y holds `chunks` seed chunks: the resident block count
-// split over the chunks, capped by the work items available, at least 1.
-// Also opts `kern` into `smem` bytes.
+// Blocks of `kern` (kThreads threads, `smem` bytes of dynamic shared memory)
+// resident on the whole current device, after opting `kern` into `smem`
+// bytes.  The attribute set and the occupancy query run once for each
+// (kernel, smem, device); later calls read a cache and make no host query,
+// so a launcher stays cheap and legal under CUDA-graph stream capture.  The
+// opt-in only grows: a kernel keeps the largest size any call asked for.
 template <typename Kern>
-cudaError_t resident_grid(Kern kern, size_t smem, long long work, int chunks, int* grid) {
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+cudaError_t resident_blocks(Kern kern, size_t smem, long long* resident) {
+  struct Entry {
+    const void* kern;
+    size_t smem;
+    int dev;
+    long long resident;
+  };
+  constexpr int kEntries = 64;
+  static std::mutex mu;
+  static Entry cache[kEntries];
+  static int n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kern);
+  std::lock_guard<std::mutex> lock(mu);
+  size_t opt_in = smem;
+  for (int i = 0; i < n; ++i) {
+    if (cache[i].kern != key || cache[i].dev != dev) continue;
+    if (cache[i].smem == smem) {
+      *resident = cache[i].resident;
+      return cudaSuccess;
+    }
+    opt_in = cache[i].smem > opt_in ? cache[i].smem : opt_in;
+  }
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)opt_in)) != cudaSuccess)
+    return err;
   int sms = 0, per_sm = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem)) !=
       cudaSuccess)
     return err;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  *resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (n < kEntries) cache[n++] = Entry{key, smem, dev, *resident};
+  return cudaSuccess;
+}
+
+// Makes `device` current for a launcher's lifetime and then restores the
+// caller's device: a host call of two cheap runtime queries where the
+// device is already current, as it usually is.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) : device_(device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device_) err_ = cudaSetDevice(device_);
+  }
+  ~DeviceScope() {
+    if (err_ == cudaSuccess && prev_ != device_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int device_, prev_ = 0;
+  cudaError_t err_;
+};
+
+// Grid x for a persistent launch of `kern` at `smem` bytes of dynamic shared
+// memory whose grid y holds `chunks` seed chunks: the resident block count
+// split over the chunks, capped by the work items available, at least 1.
+template <typename Kern>
+cudaError_t resident_grid(Kern kern, size_t smem, long long work, int chunks, int* grid) {
+  long long resident = 0;
+  cudaError_t err = resident_blocks(kern, smem, &resident);
+  if (err != cudaSuccess) return err;
   long long g = (resident + chunks - 1) / chunks;
   g = work < g ? work : g;
   *grid = (int)(g < 1 ? 1 : g);

@@ -20,94 +20,54 @@
 // lands in whatever row cidx holds there (the sentinel, for padding),
 // exactly as escore.mstep_counts does.  cidx[i+j] is never read past L.
 //
-// What bounds it on this card: reading r densely (M*S*N*L*4 bytes, 16 MB a
-// seed at 10k x 200 bp), and W atomics per non-zero responsibility.  For a
-// Gibbs sweep r holds at most one non-zero per (m, n), so the atomics are
-// few; for fractional r (the contract allows it) they are W per window, as
-// in the E+M kernel.
-//
-// What the design does about it:
-//   * one warp per (s, n) row at a time (grid-stride over rows), lanes over
-//     window starts, so r and cidx are read coalesced and no index is
-//     divided;
-//   * zero responsibilities are skipped before any cidx read or atomic;
-//   * counts are privatised per block in shared memory (the wrapper picks
-//     how many seeds share one block's copy) and flushed with one f64 global
-//     atomicAdd per non-zero entry, so windows that share a k-mer at one
-//     offset (a planted motif) do not serialise on one global address.
-//     Where one seed's counts do not fit (A=4, K=5 is 262 KB), every
-//     responsibility goes to the f64 global counts directly;
-//   * global counts are float64 (Cd) and a second kernel rounds them into C
-//     once: integer counts are exact, and fractional counts do not repeat
-//     the E+M kernel's f32-flush error (3.7e-3 at |C| ~ 8e3).
-// Shared-memory partials are f32, exact for 0/1 r up to 2^24 per cell.  The
-// atomics add in an order that varies from run to run, so fractional C is
-// reproducible only to rounding; 0/1 C is exact.
+// What bounds it on this card, and what the design does about it: see
+// counts.cuh, whose streaming pass this kernel runs with grid y over the
+// seeds: block (x, m) streams its share of seed m's plane r[m] into a private
+// shared-memory table (one seed's [R1, W] f32, 4 KB at K=2, W=12), and the
+// last block of seed m writes C[m].  Where one seed's table does not fit
+// (A=4, K=5 is 262 KB) every responsibility adds to the f64 accumulator
+// directly.
 
-#include "common.cuh"
+#include "counts.cuh"
 
 namespace {
 
 __global__ void __launch_bounds__(kThreads)
-counts_kernel(const float* __restrict__ r, const int* __restrict__ cidx,
-              double* __restrict__ Cd, int rows, int L, int W, int R1, int M,
-              int seeds_per_block, int smem_counts) {
-  extern __shared__ float Cs[];  // seeds_per_block * R1 * W when smem_counts
+counts_kernel(const float* __restrict__ r, const int* __restrict__ cidx, float* __restrict__ C,
+              double* __restrict__ acc, unsigned* __restrict__ tickets, long long plane, int L,
+              int W, int R1, int smem_counts) {
+  extern __shared__ float Cs[];  // R1 * W when smem_counts
   const int RW = R1 * W;
-  const int m0 = blockIdx.y * seeds_per_block;
-  const int m1 = min(M, m0 + seeds_per_block);
+  const int m = blockIdx.y;
   if (smem_counts) {
-    for (int k = threadIdx.x; k < (m1 - m0) * RW; k += blockDim.x) Cs[k] = 0.f;
+    for (int k = threadIdx.x; k < RW; k += kThreads) Cs[k] = 0.f;
     __syncthreads();
   }
-
-  const int lane = threadIdx.x & 31;
-  const int nwin = L - W + 1;
-  const size_t plane = (size_t)rows * L;  // one seed's r
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += gridDim.x * kWarps) {
-    const int* crow = cidx + (size_t)row * L;
-    for (int i = lane; i < nwin; i += 32) {
-      for (int m = m0; m < m1; ++m) {
-        const float v = __ldg(r + (size_t)m * plane + (size_t)row * L + i);
-        if (v == 0.f) continue;
-        if (smem_counts) {
-          float* Cm = Cs + (size_t)(m - m0) * RW;
-          for (int j = 0; j < W; ++j) atomicAdd(Cm + (size_t)__ldg(crow + i + j) * W + j, v);
-        } else {
-          double* Cdm = Cd + (size_t)m * RW;
-          for (int j = 0; j < W; ++j)
-            atomicAdd(Cdm + (size_t)__ldg(crow + i + j) * W + j, (double)v);
-        }
-      }
-    }
-  }
-
-  if (smem_counts) flush_counts(Cs, Cd + (size_t)m0 * RW, (m1 - m0) * RW);
+  counts_pass(r + m * plane, cidx, plane, L, W, RW, CombinedRows{}, smem_counts ? Cs : nullptr,
+              acc + (size_t)m * RW, tickets + m, C + (size_t)m * RW);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernels on `stream`.  Cd ([M, R1, W] f64) must be zeroed by
-// the caller; C is written in full.  rows = S * N.
+// Launches counts_kernel on `stream` of `device`: one kernel, no host query
+// after the first call at a shared-memory size.  acc ([M, R1, W] f64) and
+// tickets ([M] u32) must be zero, and are left zero; C is written in full.
+// plane = S * N * L > 0, 1 <= M <= 65535.
 // Returns a cudaError_t (0 = success) from the launch checks.
-int counts_from_r_launch(const float* r, const int* cidx, float* C, double* Cd,
-                         int rows, int L, int W, int R1, int M,
-                         int seeds_per_block, int smem_counts, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_counts ? sizeof(float) * (size_t)seeds_per_block * R1 * W : 0;
-  const int chunks = (M + seeds_per_block - 1) / seeds_per_block;
-  int gx = 1, sms = 0;
-  cudaError_t err =
-      resident_grid(counts_kernel, smem, (rows + kWarps - 1) / kWarps, chunks, &gx);
+int counts_from_r_launch(const float* r, const int* cidx, float* C, double* acc,
+                         unsigned* tickets, long long plane, int L, int W, int R1, int M,
+                         int smem_counts, int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
+  const size_t smem = smem_counts ? sizeof(float) * (size_t)R1 * W : 0;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(counts_kernel, smem, &resident);
   if (err != cudaSuccess) return (int)err;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  counts_kernel<<<dim3(gx, chunks), kThreads, smem, st>>>(
-      r, cidx, Cd, rows, L, W, R1, M, seeds_per_block, smem_counts);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  round_counts_kernel<<<sms * 4, kThreads, 0, st>>>(Cd, C, (size_t)M * R1 * W);
+  const int gx = counts_grid(resident, M, plane);
+  counts_kernel<<<dim3(gx, M), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, cidx, C, acc, tickets, plane, L, W, R1, smem_counts);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,11 @@
 // d is the base at t-d, the symbol A is "no base"), and the LUT is
 // s5 = s_flat[map5] [Q, W], gathered by the wrapper (ops/cuda_flat.py).
 // Order truncation lives in the static map map5, so the kernels need none,
-// and s5[qidx] == s_flat[cidx] exactly.  The counting kernels write base-
-// (A+1) counts Cq [Q, W] in float64; the wrapper folds them into the combined
-// rows in float64 (index_add_ over map5) and rounds once.
+// and s5[qidx] == s_flat[cidx] exactly.  The E+M kernel writes base-(A+1)
+// counts Cq [Q, W] in float64, which the wrapper folds into the combined rows
+// in float64 (index_add_ over map5) and rounds once; the counts-from-r kernel
+// adds each count straight into its combined row map5[qidx] and rounds in the
+// same launch (counts.cuh).
 //
 // The TPU kernels flatten G rows into one lane vector, form every gather as
 // a chunked one-hot matmul against bf16 term splits of the LUT, and shift
@@ -28,28 +30,33 @@
 //   flat_scores: qidx, lens, s5 -> scores f32 [S,N,L-W+1] (NEG_INF on invalid
 //                windows), mask uint8 [N,L-W+1] (i + W <= len)
 //   flat_counts: r f32 [S,N,L] (window starts i < L-W+1 are read; no lens),
-//                qidx -> Cq f64 [Q,W]
+//                qidx, map5 int32 [Q] -> C f32 [R+1,W] (+= r at
+//                [map5[qidx[s,n,i+j]], j])
 // Window sums add j = 0..W-1 in order from 0.f with __fadd_rn (never an
 // FMA), as escore.window_scores does: scores are bit-equal to the plain
 // version's and to window_scores.cu's on the same sequences.  The build does
 // not use --use_fast_math.
 //
 // What bounds them on this card: as for their combined counterparts, bytes
-// (reading qidx, writing scores) and, for the counting passes, W shared-
-// memory atomics per window.  What differs is the height of the tables:
-// Q rows against the combined layout's R+1 (A=4: 125 vs 85 at K=2, 3,125 vs
-// 1,365 at K=4, 15,625 vs 5,461 at K=5).  At W=12 a [Q, W] f32 table is 6 KB
-// at K=2, 30 KB at K=3, 150 KB at K=4 and 750 KB at K=5.
+// (reading qidx, writing scores; reading r for the counts from r) and, for
+// the E+M pass, W shared-memory atomics per window.  What differs is the
+// height of the tables: Q rows against the combined layout's R+1 (A=4: 125
+// vs 85 at K=2, 3,125 vs 1,365 at K=4, 15,625 vs 5,461 at K=5).  At W=12 a
+// [Q, W] f32 table is 6 KB at K=2, 30 KB at K=3, 150 KB at K=4 and 750 KB at
+// K=5.
 //
-// What the design does about it: the wrapper privatises the counts, and then
-// the LUT, in shared memory while they fit in the 227 KB a block may opt into
-// (the E+M pass needs both: at K=4 only the counts fit, and the LUT is read
-// through L1/L2 with __ldg).  Above that, counts go to the float64 global
-// table with f64 atomics, as em_counts.cu and counts_from_r.cu do at K=5.  A
-// table of 150 KB leaves room for one block per SM: the cost of the taller
-// table is occupancy, which the timings in PERF.md put a number on.
+// What the design does about it: the wrapper privatises the E+M counts, and
+// then the LUT, in shared memory while they fit in the 227 KB a block may opt
+// into (at K=4 only the counts fit, and the LUT is read through L1/L2 with
+// __ldg).  Above that, counts go to the float64 global table with f64
+// atomics, as em_counts.cu does at K=5.  A table of 150 KB leaves room for
+// one block per SM: the cost of the taller table is occupancy, which the
+// timings in PERF.md put a number on.  The counts from r keep the combined
+// layout's [R1, W] table, so the taller one never arises there; only map5
+// ([Q] int32, 500 B at K=2) is new, staged beside the counts while both fit
+// the wrapper's budget and read through L1 beyond.
 
-#include "common.cuh"
+#include "counts.cuh"
 
 namespace {
 
@@ -195,34 +202,26 @@ flat_scores_kernel(const int* __restrict__ qidx, const int* __restrict__ lens,
 
 // --------------------------------------------------------------- counts --
 
-// One warp per (s, n) row at a time, lanes over window starts; zero
-// responsibilities are skipped before any qidx read or atomic.
+// counts.cuh's streaming pass on qidx, its rows through map5: staged in
+// shared memory beside the counts when the plan says so (kSmemMap), else
+// read through L1.  The counts land in combined rows [R1, W].
+template <bool kSmemMap>
 __global__ void __launch_bounds__(kThreads)
 flat_counts_kernel(const float* __restrict__ r, const int* __restrict__ qidx,
-                   double* __restrict__ Cq, int rows, int L, int W, int Q, int smem_counts) {
-  extern __shared__ float Cs[];  // Q * W when smem_counts
-  const int QW = Q * W;
-  if (smem_counts) {
-    for (int k = threadIdx.x; k < QW; k += blockDim.x) Cs[k] = 0.f;
-    __syncthreads();
-  }
-  const int lane = threadIdx.x & 31;
-  const int nwin = L - W + 1;
-  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows;
-       row += gridDim.x * kWarps) {
-    const float* rrow = r + (size_t)row * L;
-    const int* qrow = qidx + (size_t)row * L;
-    for (int i = lane; i < nwin; i += 32) {
-      const float v = __ldg(rrow + i);
-      if (v == 0.f) continue;
-      for (int j = 0; j < W; ++j) {
-        const int k = __ldg(qrow + i + j) * W + j;
-        if (smem_counts) atomicAdd(Cs + k, v);
-        else atomicAdd(Cq + k, (double)v);
-      }
-    }
-  }
-  if (smem_counts) flush_counts(Cs, Cq, QW);
+                   const int* __restrict__ map5, float* __restrict__ C,
+                   double* __restrict__ acc, unsigned* __restrict__ ticket, long long plane,
+                   int L, int W, int R1, int Q, int smem_counts) {
+  extern __shared__ float smem[];
+  const int RW = R1 * W;
+  float* Cs = smem;                                                   // RW when smem_counts
+  int* map_s = reinterpret_cast<int*>(smem + (smem_counts ? RW : 0));  // Q when kSmemMap
+  if (smem_counts)
+    for (int k = threadIdx.x; k < RW; k += kThreads) Cs[k] = 0.f;
+  if constexpr (kSmemMap)
+    for (int k = threadIdx.x; k < Q; k += kThreads) map_s[k] = __ldg(map5 + k);
+  __syncthreads();
+  counts_pass(r, qidx, plane, L, W, RW, MappedRows<kSmemMap>{kSmemMap ? map_s : map5},
+              smem_counts ? Cs : nullptr, acc, ticket, C);
 }
 
 }  // namespace
@@ -274,17 +273,24 @@ int flat_scores_launch(const int* qidx, const int* lens, const float* s5, float*
   return (int)cudaGetLastError();
 }
 
-// Counts from r on `stream`.  Cq ([Q, W] f64) must be zeroed by the caller.
-// rows = S * N > 0.
-int flat_counts_launch(const float* r, const int* qidx, double* Cq, int rows, int L, int W,
-                       int Q, int smem_counts, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_counts ? sizeof(float) * (size_t)Q * W : 0;
-  int grid = 1;
-  cudaError_t err =
-      resident_grid(flat_counts_kernel, smem, (rows + kWarps - 1) / kWarps, 1, &grid);
+// Counts from r on `stream` of `device`: one kernel, no host query after
+// the first call at a plan.  acc ([R1, W] f64) and *ticket must be zero, and
+// are left zero; C [R1, W] is written in full.  plane = S * N * L > 0.
+int flat_counts_launch(const float* r, const int* qidx, const int* map5, float* C, double* acc,
+                       unsigned* ticket, long long plane, int L, int W, int R1, int Q,
+                       int smem_counts, int smem_map, int device, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
+  const size_t smem =
+      sizeof(float) * ((smem_counts ? (size_t)R1 * W : 0) + (smem_map ? (size_t)Q : 0));
+  void (*kern)(const float*, const int*, const int*, float*, double*, unsigned*, long long,
+               int, int, int, int, int) =
+      smem_map ? flat_counts_kernel<true> : flat_counts_kernel<false>;
+  long long resident = 0;
+  cudaError_t err = resident_blocks(kern, smem, &resident);
   if (err != cudaSuccess) return (int)err;
-  flat_counts_kernel<<<grid, kThreads, smem, st>>>(r, qidx, Cq, rows, L, W, Q, smem_counts);
+  kern<<<counts_grid(resident, 1, plane), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, qidx, map5, C, acc, ticket, plane, L, W, R1, Q, smem_counts);
   return (int)cudaGetLastError();
 }
 

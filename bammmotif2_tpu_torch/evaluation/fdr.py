@@ -94,12 +94,11 @@ def _write_stats(path: str, sweep: dict, max_rows: int = MAX_STATS_ROWS) -> None
 
 def _resolve(params: Params | None, refine: str | None) -> tuple:
     """(params, refine); refine defaults to CGS under params.CGS, else EM.
-    Raises before any work for an unknown engine."""
+    An engine other than 'EM' or 'CGS' scores the seeds unrefined, as the
+    reference does for any other string."""
     params = params or Params(FDR=True)
     if refine is None:
         refine = "CGS" if params.CGS else "EM"
-    if refine not in ("EM", "CGS", "none"):
-        raise ValueError(f"refine must be 'EM', 'CGS' or 'none', got {refine!r}")
     return params, refine
 
 
@@ -121,8 +120,9 @@ def evaluate_motifs(
     launch per fold for the whole group.  Falls back to the per-seed path
     when cvFold < 2 or the set has fewer rows than folds.
 
-    ``refine``: 'EM', 'CGS' or 'none' (score the seeds as-is); None derives
-    it from ``params`` ('CGS' under params.CGS, else 'EM').
+    ``refine``: 'EM', 'CGS', or 'none' or any other string (score the seeds
+    as-is); None derives it from ``params`` ('CGS' under params.CGS, else
+    'EM').
     """
     params, refine = _resolve(params, refine)
     n_folds = max(1, params.cvFold)
@@ -260,7 +260,7 @@ def _evaluate_group(group: list, indices: list, bg: BackgroundModel, sset: Seque
             continue
 
         v, its = v0, [0] * M
-        if train_sel.any() and refine != "none":
+        if train_sel.any() and refine in ("EM", "CGS"):
             tdata = {**data, "lens": torch.as_tensor(
                 np.where(train_sel, lens_np, 0).astype(np.int32), device=dev)}
             n_train = int(train_sel.sum())

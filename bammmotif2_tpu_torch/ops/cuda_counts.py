@@ -7,42 +7,83 @@ tensors r [M, S, N, L] into combined count rows, in one launch
 whose r is the sampler's 0/1 occupancy.  On CPU tensors it runs the plain
 PyTorch version ``counts_from_r_multi_ref``; on CUDA tensors it launches the
 kernel or raises.
+
+A call enqueues exactly one kernel and no other device operation: the
+kernel sums across its blocks in a float64 accumulator that it leaves zero,
+held in a per-stream ``workspace`` (shared with ``cuda_flat.counts_from_r``).
+After the first call at a shape on a stream a call allocates nothing on the
+device but its output and makes no host query, so it may be captured in a
+CUDA graph.  The launcher makes the tensors' device current itself, and the
+stream's handle comes from ``current_stream``: a Python device context and a
+``torch.cuda.Stream`` object cost more host time than the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from bammmotif2_tpu_torch.ops import _build, escore
-from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, SMEM_TARGET
+from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX
+
+# static shared memory of the counts kernels (csrc/counts.cuh: eight warps'
+# queues of 648 32-bit offsets, and a flag), rounded up
+STATIC_SMEM = 21 * 1024
+
+# (device index, stream handle) -> [acc f64, tickets int32, retired buffers]
+_WORKSPACES: dict = {}
 
 
-def launch_plan(M: int, R1: int, W: int) -> tuple:
-    """(seeds_per_block, smem_counts) for counts of shape [M, R1, W].
+def workspace(device: torch.device, stream: int, n_acc: int, n_tickets: int) -> tuple:
+    """(acc, tickets) of the counts kernels on ``stream`` (a handle on
+    ``device``): a float64 accumulator of at least ``n_acc`` entries and at
+    least ``n_tickets`` int32 ticket counters, all zero between launches
+    (each launch leaves them zero).
 
-    Counts are privatised per block in shared memory when one seed's
-    [R1, W] f32 table fits; as many seeds share a block's copy as fit in
-    SMEM_TARGET (at least one).  Above SMEM_MAX (A=4, K=5 needs 262 KB)
-    every seed gets its own blocks and adds to the float64 global counts
-    directly.
+    One per (device, stream), never shared between two streams; the
+    launches on one stream are ordered, so both counts wrappers share it.
+    It grows (zeroed, on ``stream``) when a call needs more, and keeps the
+    buffers it outgrew alive, since a captured CUDA graph may still hold
+    their addresses.
     """
-    per_seed = R1 * W * 4
-    if per_seed > SMEM_MAX:
-        return 1, False
-    return max(1, min(M, SMEM_TARGET // per_seed)), True
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < n_acc or ws[1].numel() < n_tickets:
+        retired = [] if ws is None else [*ws[2], ws[0], ws[1]]
+        n_acc = max(n_acc, 0 if ws is None else ws[0].numel())
+        n_tickets = max(n_tickets, 0 if ws is None else ws[1].numel())
+        ws = [torch.zeros(n_acc, dtype=torch.float64, device=device),
+              torch.zeros(n_tickets, dtype=torch.int32, device=device), retired]
+        _WORKSPACES[key] = ws
+    return ws[0], ws[1]
 
 
+@functools.cache
+def launch_plan(R1: int, W: int) -> bool:
+    """Whether each block privatises one seed's [R1, W] f32 counts in
+    shared memory, beside the kernel's STATIC_SMEM.  Above SMEM_MAX (A=4,
+    K=5 at W=12 needs 262 KB) every responsibility adds to the float64
+    accumulator directly."""
+    return R1 * W * 4 + STATIC_SMEM <= SMEM_MAX
+
+
+@functools.cache
 def library() -> ctypes.CDLL:
     lib = _build.load("counts_from_r")
-    if lib.counts_from_r_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.counts_from_r_launch.argtypes = [p] * 4 + [i] * 7 + [p]
-        lib.counts_from_r_launch.restype = i
-        lib.counts_from_r_error_string.argtypes = [i]
-        lib.counts_from_r_error_string.restype = ctypes.c_char_p
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.counts_from_r_launch.argtypes = [p] * 5 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.counts_from_r_launch.restype = i
+    lib.counts_from_r_error_string.argtypes = [i]
+    lib.counts_from_r_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream (the capture stream
+    under CUDA-graph capture), without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check(r, cidx, R: int, W: int) -> None:
@@ -61,6 +102,8 @@ def _check(r, cidx, R: int, W: int) -> None:
         raise ValueError(f"want R >= 0 and W >= 1, got R={R}, W={W}")
     if cidx.shape[2] - W + 1 <= 0:
         raise ValueError(f"motif width {W} exceeds padded length {cidx.shape[2]}")
+    if r.shape[0] > 65535:
+        raise ValueError(f"at most 65535 seeds a launch, got {r.shape[0]}")
 
 
 def counts_from_r_multi(r: torch.Tensor, cidx: torch.Tensor, R: int, W: int) -> torch.Tensor:
@@ -86,18 +129,16 @@ def counts_from_r_multi(r: torch.Tensor, cidx: torch.Tensor, R: int, W: int) -> 
     S, N, L = cidx.shape
     R1 = R + 1
     dev = cidx.device
-    C = torch.zeros((M, R1, W), dtype=torch.float32, device=dev)
     if M == 0 or S * N == 0:
-        return C
-    Cd = torch.zeros((M, R1, W), dtype=torch.float64, device=dev)
-    seeds_per_block, smem_counts = launch_plan(M, R1, W)
+        return torch.zeros((M, R1, W), dtype=torch.float32, device=dev)
+    C = torch.empty((M, R1, W), dtype=torch.float32, device=dev)
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.counts_from_r_launch(
-            r.data_ptr(), cidx.data_ptr(), C.data_ptr(), Cd.data_ptr(),
-            S * N, L, W, R1, M, seeds_per_block, int(smem_counts),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    stream = current_stream(dev)
+    acc, tickets = workspace(dev, stream, M * R1 * W, M)
+    err = lib.counts_from_r_launch(
+        r.data_ptr(), cidx.data_ptr(), C.data_ptr(), acc.data_ptr(), tickets.data_ptr(),
+        S * N * L, L, W, R1, M, int(launch_plan(R1, W)), dev.index, stream,
+    )
     if err != 0:
         raise RuntimeError(
             f"counts_from_r launch failed: {lib.counts_from_r_error_string(err).decode()}"

@@ -12,10 +12,13 @@ They read base-(A+1) codes ``qidx`` (``encode.strand_base5_indices``) and
 the static map ``map5`` (``encode.map_base5_to_combined``) instead of the
 combined rows ``cidx``: ``map5[qidx] == cidx``, so order truncation is a
 lookup, and the LUT the kernels read is ``s5 = s_flat[map5]`` [Q, W],
-gathered here.  Count passes return base-(A+1) counts that are folded back
+gathered here.  The E+M pass returns base-(A+1) counts that are folded back
 into the combined rows here, in float64, and rounded once (an f32
-``index_add_`` on the card adds with atomics in a varying order).  The
-kernels are in ``csrc/flat.cu``.  On CPU tensors each function runs its
+``index_add_`` on the card adds with atomics in a varying order); the
+counts-from-r kernel adds into the combined rows through ``map5`` itself
+and rounds in the same launch, so that call is one kernel (the streaming
+pass of ``csrc/counts.cuh``, shared with ``cuda_counts``).  The kernels are
+in ``csrc/flat.cu``.  On CPU tensors each function runs its
 plain PyTorch version (``*_ref``); on CUDA tensors it launches its kernel or
 raises.
 
@@ -31,11 +34,12 @@ is no block padding (hence no pad-row correction of ll).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from bammmotif2_tpu_torch.ops import _build, escore
-from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX
+from bammmotif2_tpu_torch.ops import _build, cuda_counts, escore
+from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, SMEM_TARGET
 
 # codes flat_scores_kernel stages per work item: whole rows up to this
 # length, tiles of one row with a W-1 halo beyond it
@@ -64,24 +68,29 @@ def scores_plan(Q: int, W: int) -> bool:
     return Q * W * 4 + TILE_CODES * 4 <= SMEM_MAX
 
 
-def counts_plan(Q: int, W: int) -> bool:
-    """Whether the counts kernel privatises the [Q, W] counts in shared
-    memory."""
-    return Q * W * 4 <= SMEM_MAX
+@functools.cache
+def counts_plan(Q: int, R1: int, W: int) -> tuple:
+    """(smem_counts, smem_map) of the counts-from-r kernel: the combined
+    [R1, W] counts privatised in shared memory as ``cuda_counts.launch_plan``
+    decides, and map5 ([Q] int32) staged beside them while both fit in
+    SMEM_TARGET, else read through L1 (A=4: staged up to K=3; every block
+    reads the whole map to stage it, 62.5 KB at K=5)."""
+    smem_counts = cuda_counts.launch_plan(R1, W)
+    return smem_counts, (R1 * W * 4 if smem_counts else 0) + Q * 4 <= SMEM_TARGET
 
 
+@functools.cache
 def library() -> ctypes.CDLL:
     lib = _build.load("flat")
-    if lib.flat_em_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flat_em_launch.argtypes = [p] * 7 + [i] * 7 + [p]
-        lib.flat_em_launch.restype = i
-        lib.flat_scores_launch.argtypes = [p] * 5 + [i] * 7 + [p]
-        lib.flat_scores_launch.restype = i
-        lib.flat_counts_launch.argtypes = [p] * 3 + [i] * 5 + [p]
-        lib.flat_counts_launch.restype = i
-        lib.flat_error_string.argtypes = [i]
-        lib.flat_error_string.restype = ctypes.c_char_p
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flat_em_launch.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.flat_em_launch.restype = i
+    lib.flat_scores_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.flat_scores_launch.restype = i
+    lib.flat_counts_launch.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 7 + [p]
+    lib.flat_counts_launch.restype = i
+    lib.flat_error_string.argtypes = [i]
+    lib.flat_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -248,8 +257,9 @@ def counts_from_r(r_snl: torch.Tensor, qidx: torch.Tensor, map5: torch.Tensor, *
       qidx: int32 [S, N, L] base-(A+1) codes; map5 as for em_counts.
 
     Returns C f32 [R+1, W] with C[map5[qidx[s, n, i+j]], j] += r[s, n, i]
-    and the sentinel row's mass kept.  ``counts_from_r.launches`` counts
-    kernel launches.
+    and the sentinel row's mass kept, summed in float64 and rounded once:
+    one kernel, as ``cuda_counts.counts_from_r_multi``.
+    ``counts_from_r.launches`` counts kernel launches.
     """
     if all(t.device.type == "cpu" for t in (r_snl, qidx, map5)):
         return counts_from_r_ref(r_snl, qidx, map5, A=A, K=K, W=W, R=R)
@@ -263,20 +273,22 @@ def counts_from_r(r_snl: torch.Tensor, qidx: torch.Tensor, map5: torch.Tensor, *
     S, N, L = qidx.shape
     if L - W + 1 <= 0:
         raise ValueError(f"motif width {W} exceeds padded length {L}")
-    dev = qidx.device
-    Q = map5.shape[0]
-    Cq = torch.zeros((Q, W), dtype=torch.float64, device=dev)
+    dev, R1, Q = qidx.device, R + 1, map5.shape[0]
     if S * N == 0:
-        return _fold(Cq, map5, R)
+        return torch.zeros((R1, W), dtype=torch.float32, device=dev)
+    C = torch.empty((R1, W), dtype=torch.float32, device=dev)
+    smem_counts, smem_map = counts_plan(Q, R1, W)
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.flat_counts_launch(
-            r_snl.data_ptr(), qidx.data_ptr(), Cq.data_ptr(), S * N, L, W, Q,
-            int(counts_plan(Q, W)), torch.cuda.current_stream(dev).cuda_stream,
-        )
+    stream = cuda_counts.current_stream(dev)
+    acc, ticket = cuda_counts.workspace(dev, stream, R1 * W, 1)
+    err = lib.flat_counts_launch(
+        r_snl.data_ptr(), qidx.data_ptr(), map5.data_ptr(), C.data_ptr(), acc.data_ptr(),
+        ticket.data_ptr(), S * N * L, L, W, R1, Q, int(smem_counts), int(smem_map), dev.index,
+        stream,
+    )
     _raise_on(lib, err, "flat counts_from_r")
     counts_from_r.launches += 1
-    return _fold(Cq, map5, R)
+    return C
 
 
 counts_from_r.launches = 0

@@ -1,7 +1,7 @@
 """A/B between two checkouts on one GPU, in interleaved processes, with rank
 tests.
 
-    python -m bammmotif2_tpu_torch.tools.ab {cgs,kernels} BASE_DIR CHANGE_DIR [--rounds N]
+    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,kernels} BASE_DIR CHANGE_DIR [--rounds N]
 
 Each directory is the root of a checkout holding ``chip_smoke.py``.  Every
 round starts one process per checkout, one at a time, base first in even
@@ -13,15 +13,29 @@ measures, through that checkout's code:
   200 bp, W=12, K=2, one chain; two timed runs of 30 sweeps through the
   kernels and two plain, interleaved), the mean of its two runs a path.
 
+``counts``: the two counts-from-r wrappers at bench's geometry (10k x 200
+  bp, W=12, K=2, S=2, the sampler's 0/1 r): ``cuda_counts.
+  counts_from_r_multi`` at M=1 and M=10 (and on a fractional r, a
+  posterior's, as ``_frac``) and ``cuda_flat.counts_from_r``.
+  For each, the device ms of its ``__global__`` (``counts_kernel``,
+  ``flat_counts_kernel``) and of every operation the call enqueues
+  (``chip_smoke.device_ms``), the wrapper's ms by CUDA events over
+  back-to-back calls (``chip_smoke.time_cuda``) and its host µs a call
+  (``host_us``); each device operation a call enqueues (``device_ops``)
+  goes beside the metrics.
+
 ``kernels``: ``em_counts_kernel``'s and ``window_scores_kernel``'s device
-  ms (``chip_smoke.device_ms``: torch.profiler, 10 calls) on inputs made
-  once, before the first round, by this checkout's ``chip_smoke`` (numpy
-  seeds) and saved: the E+M cases of ``chip_smoke.EM_DEVICE_CASES``
-  (bench's geometry at K=2 and 4, M=1 and 4, and K=2 on homopolymer rows)
-  and config 5's geometry (100k x 200 bp, K=2) at M=1 and M=10; ``--EM``
+  ms (``chip_smoke.device_ms``: torch.profiler, 10 calls) on the E+M cases
+  of ``chip_smoke.EM_DEVICE_CASES`` (bench's geometry at K=2 and 4, M=1 and
+  4, and K=2 on homopolymer rows) and config 5's geometry (100k x 200 bp,
+  K=2) at M=1 and M=10; everything ``counts`` measures; ``--EM``
   iterations/s at bench's geometry (``chip_smoke.time_em``); config 4's
   EM-FDR seconds per (W, K) group, converged, through the kernels
   (``chip_smoke.config4_problem`` and ``run_cli``).
+
+The kernels' inputs are made once, before the first round, by this
+checkout's ``chip_smoke`` and ``tests/test_torch_cuda.py`` (numpy and
+torch CPU seeds) and saved, so both trees read the same tensors.
 
 The summary gives, per metric, each checkout's per-process values and
 medians and three two-sided tests (scipy): Mann-Whitney U of change against
@@ -42,18 +56,64 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 C4_ARGS = ["--maxPWM", "10", "--EM", "--optimizeQ", "--FDR", "-q", "0.5", "--mFold", "10",
            "--cvFold", "5"]
+# bench.py's geometry (chip_smoke.N_SEQS, SEQ_LEN, W) with the sampler's 0/1 r
+COUNTS_GEOMETRY = dict(N=10_000, L=200, W=12, K=2, S=2)
 
 
-def make_inputs(out_dir: str) -> None:
-    """Saves the ``kernels`` cases' inputs (CPU tensors) as <case>.pt."""
+def host_us(fn, n: int = 1000) -> float:
+    """The host's µs a call over n back-to-back calls with no
+    synchronisation (time.perf_counter, after a warm-up): what a wrapper
+    costs its caller while the device keeps up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def device_ops(fn, n: int = 10) -> dict:
+    """Every device operation a call enqueues (torch.profiler over n calls
+    after a warm-up): its name -> [operations a call, device µs a call]."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: [e.count / n, e.self_device_time_total / n]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def make_inputs(out_dir: str, measure: str) -> None:
+    """Saves the cases' inputs (CPU tensors) as <case>.pt."""
     import torch
 
     sys.path.insert(0, os.getcwd())
     import chip_smoke
 
+    checks = chip_smoke.load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    for M in (1, 10):
+        for kind, tag in (("01", ""), ("frac", "_frac")):
+            torch.save(checks.counts_inputs(**COUNTS_GEOMETRY, M=M, r=kind),
+                       os.path.join(out_dir, f"counts_M{M}{tag}.pt"))
+    x = checks.flat_inputs(**COUNTS_GEOMETRY)
+    torch.save((x["r"]["01"], x["qidx"], x["map5"], dict(A=x["A"], K=x["K"], W=x["W"], R=x["R"])),
+               os.path.join(out_dir, "flat_counts_K2.pt"))
+    if measure == "counts":
+        return
     for name in chip_smoke.EM_DEVICE_CASES:
         torch.save(chip_smoke.em_inputs(name, "cpu"), os.path.join(out_dir, f"em_{name}.pt"))
     with tempfile.TemporaryDirectory() as tmp:
@@ -70,22 +130,44 @@ def measure_cgs(chip_smoke, dev, _inputs) -> tuple:
     return {k: sum(v) / len(v) for k, v in runs.items()}, {"runs": runs}
 
 
-def measure_kernels(chip_smoke, dev, inputs) -> tuple:
+def case_call(name: str, args):
+    """(the wrapper call of a saved case, its __global__'s name)."""
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
+
+    if name.startswith("em_"):
+        return (lambda: cuda_em.em_counts_multi(*args)), "em_counts_kernel"
+    if name.startswith("scores_"):
+        return (lambda: cuda_scores.window_scores_multi(*args)), "window_scores_kernel"
+    if name.startswith("counts_"):
+        return (lambda: cuda_counts.counts_from_r_multi(*args)), "counts_kernel"
+    r, qidx, map5, kw = args
+    return (lambda: cuda_flat.counts_from_r(r, qidx, map5, **kw)), "flat_counts_kernel"
+
+
+def measure_cases(chip_smoke, dev, inputs) -> tuple:
+    """Every saved case's kernel device ms; for the counts wrappers also the
+    call's device ms, events ms, host µs and device operations."""
     import torch
 
-    from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores
-
-    metrics = {}
+    metrics, ops = {}, {}
     for f in sorted(os.listdir(inputs)):
         name = f[:-3]
         args = torch.load(os.path.join(inputs, f), map_location=dev)
-        if name.startswith("em_"):
-            fn, kernel = (lambda: cuda_em.em_counts_multi(*args)), "em_counts_kernel"
-        else:
-            fn, kernel = (lambda: cuda_scores.window_scores_multi(*args)), "window_scores_kernel"
-        metrics[f"device_ms_{name}"] = chip_smoke.device_ms(fn, 10, kernel)["kernel_device_ms"]
-        del args
+        fn, kernel = case_call(name, args)
+        dev_ms = chip_smoke.device_ms(fn, 10, kernel)
+        if kernel in ("counts_kernel", "flat_counts_kernel"):
+            metrics[f"call_device_ms_{name}"] = dev_ms["call_device_ms"]
+            metrics[f"wrapper_ms_{name}"] = chip_smoke.time_cuda(fn, 30)
+            metrics[f"host_us_{name}"] = host_us(fn)
+            ops[name] = device_ops(fn)
+        metrics[f"device_ms_{name}"] = dev_ms["kernel_device_ms"]
+        del args, fn
         torch.cuda.empty_cache()
+    return metrics, {"device_ops": ops}
+
+
+def measure_kernels(chip_smoke, dev, inputs) -> tuple:
+    metrics, extra = measure_cases(chip_smoke, dev, inputs)
     with tempfile.TemporaryDirectory() as tmp:
         metrics["em_iters_per_s"] = chip_smoke.time_em(dev, tmp)["em_iters_per_s_cuda"]
         fasta, meme = chip_smoke.config4_problem(tmp)
@@ -93,10 +175,11 @@ def measure_kernels(chip_smoke, dev, inputs) -> tuple:
     for e in run["events"]["fdr_done"]:
         metrics[f"config4_fdr_seconds_W{e['W']}_K{e['K']}"] = e["group_seconds"]
     metrics["config4_cli_seconds"] = run["seconds"]
-    return metrics, {"config4_em_iterations": [e["iterations"] for e in run["events"]["em_done"]]}
+    return metrics, {**extra,
+                     "config4_em_iterations": [e["iterations"] for e in run["events"]["em_done"]]}
 
 
-MEASURES = {"cgs": measure_cgs, "kernels": measure_kernels}
+MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "kernels": measure_kernels}
 
 
 def one(measure: str, root: str, inputs: str) -> None:
@@ -172,8 +255,8 @@ def main(argv=None) -> int:
     trees = {"base": args.base, "change": args.change}
     procs = []
     with tempfile.TemporaryDirectory() as inputs:
-        if args.measure == "kernels":
-            make_inputs(inputs)
+        if args.measure != "cgs":
+            make_inputs(inputs, args.measure)
         for rnd in range(args.rounds):
             order = ("base", "change") if rnd % 2 == 0 else ("change", "base")
             for pos, tree in enumerate(order):

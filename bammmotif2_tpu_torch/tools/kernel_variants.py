@@ -6,10 +6,11 @@ plan, timed on one GPU.
 
 SOURCE_ROOT is the root of a checkout whose ``csrc/`` holds the design D
 names.  The tool writes copies of that source beside its ``common.cuh`` in a
-scratch directory, edited by exact string replacement (each edit must apply
-once), builds each with ``ops/_build.NVCC_FLAGS`` (one nvcc each, all
-started together), loads it with ctypes and times it on the card.  The
-variants that drop or fake work give wrong results and are only timed.
+scratch directory, with its other headers (``counts.cuh``) written into it,
+edited by exact string replacement (each edit must apply once), builds each
+with ``ops/_build.NVCC_FLAGS`` (one nvcc each, all started together), loads
+it with ctypes and times it on the card.  The variants that drop or fake
+work give wrong results and are only timed.
 
 ``em_pr5``: the one-pass E+M kernel of PR 5, with this checkout's
 ``cuda_em.launch_plan`` (at K=2, fixed-point shared counts):
@@ -36,6 +37,19 @@ strand) a warp against a block a sequence.  ``--M`` and
   rows2048_stages4  and four buffers;
   no_store       the full runs' float4 scores are not stored;
   no_mask        the mask is not written.
+
+``counts_stream``: the streaming counts-from-r kernel (B3, with
+``cuda_counts.launch_plan``), on the sampler's 0/1 r; beside the variants,
+``torch.sum`` of the same r, a read of the same bytes by PyTorch:
+  as_is        the source unchanged;
+  stream_only  nothing queued and no cross-block sum: the read alone;
+  no_tail      no flush, ticket or last-block conversion;
+  ldg          r read through __ldg instead of __ldcs (evict-first);
+  unroll1, unroll2, unroll8  1, 2 or 8 16-byte loads in flight a thread (not 4);
+  min_blocks6, min_blocks8  registers capped for 6 or 8 resident blocks an SM;
+  grid_x4, grid_half, grid_quarter  4x, 1/2 or 1/4 of the resident blocks;
+  drain_every_chunk  a warp drains its queue after every chunk that queued a value;
+  global_acc   no shared-memory table: every count an f64 atomic on acc.
 
 E+M designs run on bench.py's geometry (10k x 200 bp, S=2, W=12, K=2;
 tests/test_torch_cuda.py's ``kernel_inputs``, with ``--homopolymer`` on rows
@@ -93,6 +107,30 @@ DESIGNS = {  # design -> (source, __global__, {variant: edits})
                      "const bool mask_here = false;")],
     }),
     "em_plans": ("em_counts", "em_counts_kernel", {"as_is": []}),
+    "counts_stream": ("counts_from_r", "counts_kernel", {
+        "as_is": [],
+        "stream_only": [("    bool keep = x != 0.f;", "    bool keep = false;"),
+                        ("  if (Cs != nullptr) flush_counts(Cs, acc, RW);",
+                         "  return;\n  if (Cs != nullptr) flush_counts(Cs, acc, RW);")],
+        "no_tail": [("  if (Cs != nullptr) flush_counts(Cs, acc, RW);",
+                     "  return;\n  if (Cs != nullptr) flush_counts(Cs, acc, RW);")],
+        "ldg": [("__ldcs(rb + k)", "__ldg(rb + k)")],
+        "unroll1": [("constexpr int kCountsUnroll = 4;", "constexpr int kCountsUnroll = 1;")],
+        "unroll2": [("constexpr int kCountsUnroll = 4;", "constexpr int kCountsUnroll = 2;")],
+        "unroll8": [("constexpr int kCountsUnroll = 4;", "constexpr int kCountsUnroll = 8;")],
+        "min_blocks6": [("__launch_bounds__(kThreads)\ncounts_kernel(",
+                         "__launch_bounds__(kThreads, 6)\ncounts_kernel(")],
+        "min_blocks8": [("__launch_bounds__(kThreads)\ncounts_kernel(",
+                         "__launch_bounds__(kThreads, 8)\ncounts_kernel(")],
+        "grid_x4": [("counts_grid(resident, M, plane)", "counts_grid(4 * resident, M, plane)")],
+        "grid_half": [("counts_grid(resident, M, plane)", "counts_grid(resident / 2, M, plane)")],
+        "grid_quarter": [("counts_grid(resident, M, plane)",
+                          "counts_grid(resident / 4, M, plane)")],
+        "drain_every_chunk": [("constexpr int kWarpDrainAt = 128;",
+                               "constexpr int kWarpDrainAt = 0;")],
+        "global_acc": [("  const size_t smem = smem_counts ? sizeof(float) * (size_t)R1 * W : 0;",
+                        "  smem_counts = 0;\n  const size_t smem = 0;")],
+    }),
 }
 
 # em_plans: case -> kernel_inputs options (S=2)
@@ -115,11 +153,22 @@ def variant_source(src: str, edits: list) -> str:
     return src
 
 
+def inline_headers(src: str, csrc: str) -> str:
+    """``src`` with each ``#include "X.cuh"`` but common.cuh's replaced by
+    that header's text, so that edits reach a kernel's device routines."""
+    for name in sorted(os.listdir(csrc)):
+        inc = f'#include "{name}"'
+        if name.endswith(".cuh") and name != "common.cuh" and inc in src:
+            with open(os.path.join(csrc, name)) as fh:
+                src = src.replace(inc, fh.read().replace("#pragma once\n", ""))
+    return src
+
+
 def build(source_root: str, out_dir: str, source: str, variants: dict) -> dict:
     """name -> path of the built library of each variant."""
     csrc = os.path.join(source_root, "bammmotif2_tpu_torch", "csrc")
     with open(os.path.join(csrc, f"{source}.cu")) as fh:
-        src = fh.read()
+        src = inline_headers(fh.read(), csrc)
     with open(os.path.join(csrc, "common.cuh")) as fh:
         common = fh.read()
     with open(os.path.join(out_dir, "common.cuh"), "w") as fh:
@@ -231,6 +280,36 @@ def scores_caller(lib_path: str, args: tuple):
     return call
 
 
+def counts_caller(lib_path: str, args: tuple):
+    """One launch of the library's counts_from_r_launch on args = (r, cidx,
+    R, W), with cuda_counts.launch_plan's plan and a zeroed workspace of its
+    own."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_counts
+
+    lib = ctypes.CDLL(lib_path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.counts_from_r_launch.argtypes = [p] * 5 + [ctypes.c_longlong] + [i] * 6 + [p]
+    lib.counts_from_r_launch.restype = i
+    r, cidx, R, W = args
+    M, (S, N, L), R1 = r.shape[0], cidx.shape, R + 1
+    dev = cidx.device
+    C = torch.empty((M, R1, W), dtype=torch.float32, device=dev)
+    acc = torch.zeros(M * R1 * W, dtype=torch.float64, device=dev)
+    tickets = torch.zeros(M, dtype=torch.int32, device=dev)
+
+    def call():
+        err = lib.counts_from_r_launch(
+            r.data_ptr(), cidx.data_ptr(), C.data_ptr(), acc.data_ptr(), tickets.data_ptr(),
+            S * N * L, L, W, R1, M, int(cuda_counts.launch_plan(R1, W)), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: {err}")
+
+    return call
+
+
 def device_us(fn, kernel: str, n: int = 10) -> float:
     """Mean device microseconds of ``kernel`` per call under torch.profiler."""
     import torch
@@ -286,6 +365,9 @@ def main() -> int:
             if source == "window_scores":
                 args = (chip_smoke.c5_luts(base, opts["M"]), cidx, lens)
                 calls = {n: scores_caller(path, args) for n, path in libs.items()}
+            elif source == "counts_from_r":
+                args = checks.counts_inputs(S=2, device=dev, r="01", **opts)
+                calls = {n: counts_caller(path, args) for n, path in libs.items()}
             else:
                 args = checks.kernel_inputs(S=2, device=dev, **opts,
                                             **({"homopolymer": True} if a.homopolymer else {}))
@@ -302,6 +384,10 @@ def main() -> int:
             for order in (names, names[::-1]):
                 for n in order:
                     runs[n].append(device_us(calls[n], kernel))
+            if source == "counts_from_r":
+                r = args[0]
+                runs["torch_sum_reference"] = [device_us(lambda: r.sum(), "reduce_kernel")
+                                               for _ in range(2)]
             out["device_us"][case] = runs
             print(case, json.dumps(runs), flush=True)
             del calls, args

@@ -12,7 +12,10 @@ Phases (any failure exits non-zero):
                KERNEL_CASES / check_kernel, SCORE_CASES / check_scores,
                COUNTS_CASES / check_counts, FLAT_CASES / check_flat; the
                last also holds the flat kernels to the combined-layout ones
-               on the same sequences).
+               on the same sequences), and check_counts_calls: each
+               counts-from-r call is one kernel, its workspace cleans
+               itself across calls, shapes and streams, and a CUDA graph
+               of a call replays right.
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
                just before each run and read just after:
@@ -67,18 +70,21 @@ Phases (any failure exits non-zero):
                bench.py's geometry (10k x 200 bp, W=12, K=2), window scores
                at config 5's (100k x 200 bp, W=12, K=2) at M=1 and M=10,
                counts-from-r at bench's geometry with the sampler's 0/1 r at
-               M=1 and M=10; the flat kernels at bench's geometry at K=2, 3
-               and 4 beside the combined-layout kernels on the same
-               sequences (CUDA events, and each kernel's device time under
-               torch.profiler), and flat window scores at config 5's; the
+               M=1 and M=10 (also the kernel's and the whole call's device
+               time and the wrapper's host µs a call); the flat kernels at
+               bench's geometry at K=2, 3 and 4 beside the combined-layout
+               kernels on the same sequences (CUDA events, and each
+               kernel's device time under torch.profiler; the counts'
+               host µs), and flat window scores at config 5's; the
                E+M kernel's device time at bench's geometry at K=2 and 4,
                M=1 and 4 (and on homopolymer rows), the window-score
                kernel's at config 5's at M=1 and 10; each
                kernel's bound (bytes over 3.35 TB/s or f32 operations over
                67 TFLOP/s, whichever is larger) and, where one PyTorch call computes
-               the same function (embedding_bag for window scores,
-               index_add_ for counts from r, on an index built beforehand),
-               that call's time; EM windows/s and iterations/s; CGS sweeps/s at
+               the same function (embedding_bag for window scores on an
+               index built beforehand, index_add_ for counts from r with its
+               index built beforehand and, beside it, inside the timed
+               call), that call's time; EM windows/s and iterations/s; CGS sweeps/s at
                bench's geometry (kernel and plain, and the device's busy
                share under torch.profiler); config 5's end-to-end scan
                windows/s and config 4's EM-FDR and CGS-FDR seconds per
@@ -231,18 +237,35 @@ def library_scores_ms(lut, codes, W: int) -> float:
     return time_cuda(lambda: torch.nn.functional.embedding_bag(idx, weight, mode="sum"), 10)
 
 
-def library_counts_ms(r, rows, R1: int, W: int) -> float:
-    """One index_add_ call adding every non-zero r at its window's W
-    combined rows (``rows`` holds combined-row codes, [S, N, L])."""
+def library_counts_ms(r, rows, R1: int, W: int, index_inside: bool = False) -> float:
+    """One index_add_ call adding every non-zero r ([M, S, N, L] or [S, N,
+    L]) at a window start to its window's W combined rows (``rows`` holds
+    combined-row codes, [S, N, L]).  The index (the non-zero r, their
+    windows' codes) is built beforehand, or with ``index_inside`` inside the
+    timed call, as a caller holding only r would have to."""
     import torch
 
-    n_win = rows.shape[2] - W + 1
-    rv = r[:, :, :n_win].reshape(-1)
-    nz = rv != 0
-    idx = window_index(rows, W)[nz].reshape(-1)
-    vals = rv[nz][:, None].expand(-1, W).reshape(-1).contiguous()
-    return time_cuda(lambda: torch.zeros(R1 * W, dtype=torch.float32, device=r.device)
-                     .index_add_(0, idx, vals), 10)
+    S, N, L = rows.shape
+    r4 = r.reshape(-1, S, N, L)
+    M, n_win = r4.shape[0], L - W + 1
+    j = torch.arange(W, device=r.device)
+    codes = rows.reshape(-1)
+
+    def index():
+        rv = r4[..., :n_win]
+        m, s, n, i = rv.nonzero(as_tuple=True)
+        pos = (s * N + n) * L + i
+        idx = ((m * R1)[:, None] + codes[pos[:, None] + j].long()) * W + j
+        return idx.reshape(-1), rv[m, s, n, i][:, None].expand(-1, W).reshape(-1)
+
+    def add(idx, vals):
+        return torch.zeros(M * R1 * W, dtype=torch.float32, device=r.device).index_add_(0, idx, vals)
+
+    if index_inside:
+        return time_cuda(lambda: add(*index()), 10)
+    idx, vals = index()
+    vals = vals.contiguous()
+    return time_cuda(lambda: add(idx, vals), 10)
 
 
 def phase_build():
@@ -290,6 +313,10 @@ def phase_kernel(device) -> dict:
         for k in checks.FLAT_KERNELS:
             worst[k] = max(worst[k], res[k]["max_abs_err"])
         log(f"kernel flat {name}: " + json.dumps(res))
+    res = checks.check_counts_calls(device)
+    for k in ("counts_from_r", "flat_counts_from_r"):
+        worst[k] = max(worst[k], res["max_abs_err"])
+    log("kernel counts calls (one kernel a call, workspace, CUDA graph): " + json.dumps(res))
     return worst
 
 
@@ -903,48 +930,61 @@ def time_scores(device, tmp) -> dict:
 
 def time_counts(device) -> dict:
     """counts_from_r_multi vs plain at bench's geometry with the sampler's
-    0/1 r, M=1 and M=10."""
+    0/1 r, M=1 and M=10: the wrapper's ms (CUDA events), its host µs a call
+    (tools/ab.py's host_us), the device ms of the kernel alone and of the
+    whole call (torch.profiler), the bound, and the index_add_ call's ms
+    with its index built beforehand and inside the timed call."""
     from bammmotif2_tpu_torch.ops import cuda_counts
+    from bammmotif2_tpu_torch.tools.ab import host_us
 
     checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
     out = {}
     for M in (1, 10):
         args = checks.counts_inputs(N=N_SEQS, L=SEQ_LEN, W=W, K=2, M=M, S=2, r="01", device=device)
-        r = args[0]
+        r, cidx, R, _w = args
+        fn = lambda: cuda_counts.counts_from_r_multi(*args)  # noqa: E731
         out[f"M{M}"] = {
-            "ms": time_cuda(lambda: cuda_counts.counts_from_r_multi(*args), N_TIMED),
+            "ms": time_cuda(fn, N_TIMED),
             "plain_ms": time_cuda(lambda: cuda_counts.counts_from_r_multi_ref(*args),
                                   5 if M > 1 else N_TIMED),
+            **device_ms(fn, 10, "counts_kernel"),
+            "host_us": host_us(fn),
             "r_bytes": r.numel() * 4,
             "nonzero_r": int((r != 0).sum().item()),
-            **counts_bound(r, args[1], args[2] + 1, W),
+            **counts_bound(r, cidx, R + 1, W),
+            "library_ms": library_counts_ms(r, cidx, R + 1, W),
+            "library_with_index_ms": library_counts_ms(r, cidx, R + 1, W, index_inside=True),
         }
-    r, cidx, R, _w = checks.counts_inputs(N=N_SEQS, L=SEQ_LEN, W=W, K=2, M=1, S=2, r="01",
-                                          device=device)
-    out["M1"]["library_ms"] = library_counts_ms(r[0], cidx, R + 1, W)
     log("timing counts_from_r (bench geometry 10k x 200 bp, W=12, K=2, S=2, 0/1 r): "
         + json.dumps(out))
     return out
 
 
-def device_ms(fn, n: int, kernel: str) -> dict:
+def device_ms(fn, n: int, kernel: str, attempts: int = 3) -> dict:
     """Device time per call under torch.profiler over n calls after one
     warm-up: of the __global__ function ``kernel`` alone, and of every
-    kernel the call launches (the wrapper's torch ops included)."""
+    kernel the call launches (the wrapper's torch ops included).  A window
+    that traced no event of ``kernel`` (the profiler of a long process
+    sometimes returns no device event at all) is retried, ``attempts``
+    times in all."""
     import torch
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
+        if own:
+            break
+        log(f"device_ms: no device event of {kernel} among {[e.key[:60] for e in evs]} "
+            f"(window {attempt + 1} of {attempts})")
     if not own:
-        log(f"device_ms: no device event of {kernel} among {[e.key[:60] for e in evs]}")
         return {"kernel_device_ms": "not measured", "call_device_ms": "not measured"}
     return {"kernel_device_ms": sum(e.self_device_time_total for e in own) / n / 1e3,
             "call_device_ms": sum(e.self_device_time_total for e in evs) / n / 1e3}
@@ -957,8 +997,10 @@ def time_flat(device) -> dict:
     sampler's 0/1 r for the counts: the wrapper's time (CUDA events), the
     device time of the hand-written kernel alone and of the whole call
     (torch.profiler), each function's bound and, for scores and counts, the
-    library call's time."""
+    library call's time (for the counts also with its index built inside
+    the timed call, and the wrapper's host µs a call)."""
     from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
+    from bammmotif2_tpu_torch.tools.ab import host_us
 
     checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
     out = {}
@@ -999,7 +1041,10 @@ def time_flat(device) -> dict:
         res["scores"].update(scores_bound(x["qidx"], x["lens"], R + 1, W, 1, extra=map_bytes),
                              library_ms=library_scores_ms(s5, x["qidx"], W))
         res["counts"].update(counts_bound(x["r"]["01"], x["qidx"], R + 1, W, extra=map_bytes),
-                             library_ms=library_counts_ms(x["r"]["01"], x["cidx"], R + 1, W))
+                             host_us=host_us(calls["counts"][0]),
+                             library_ms=library_counts_ms(x["r"]["01"], x["cidx"], R + 1, W),
+                             library_with_index_ms=library_counts_ms(
+                                 x["r"]["01"], x["cidx"], R + 1, W, index_inside=True))
         out[f"K{K}"] = res
         log(f"timing flat kernels (bench geometry 10k x 200 bp, W=12, K={K}, S=2, M=1): "
             + json.dumps(res))
@@ -1135,8 +1180,9 @@ def main() -> int:
                  "replaces": tpu, "launches": slices["launches"][name],
                  "max_abs_err": max_err[name]}
         entry.update({k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        entry.update({k: t[k] for k in ("combined_ms", "kernel_device_ms",
-                                        "combined_kernel_device_ms") if k in t})
+        entry.update({k: t[k] for k in ("combined_ms", "kernel_device_ms", "call_device_ms",
+                                        "combined_kernel_device_ms", "host_us",
+                                        "library_with_index_ms") if k in t})
         kernels.append(entry)
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel did not launch on its path: {kernels}")

@@ -5,6 +5,7 @@ the JAX package's CLI on examples/, the port's import hygiene, and
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -156,6 +157,24 @@ def test_cgs_matches_jax(tmp_path, stages):
     for e, je in zip(events[out], events[jout]):
         assert e["iterations"] == je["iterations"] == 100 and e["q"] == je["q"] == pytest.approx(0.9)
         assert e["seconds"] >= 0
+
+
+def test_cgs_verbose_prints_as_the_reference(tmp_path, capsys):
+    """--CGS --verbose: the port prints no `CGS ` line (the reference's CGS
+    stage prints nothing) and the same lines as the reference, the run
+    time's digits aside."""
+    argv = [POS, "--PWMFile", MEME, "--CGS", "--verbose", "--single-device", "-k", "1",
+            "--maxCGSIterations", "3", "--noZSampling", "--noQSampling"]
+    jcli.main([str(tmp_path / "jax"), *argv])
+    jout = capsys.readouterr().out
+    assert cli.main([str(tmp_path / "torch"), *argv], device="cpu") == 0
+    out = capsys.readouterr().out
+
+    def lines(text):
+        return [re.sub(r"Runtime: [0-9.]+s", "Runtime: s", ln) for ln in text.splitlines()]
+
+    assert not any(ln.startswith("CGS ") for ln in out.splitlines()), out
+    assert lines(out) == lines(jout) and any(ln.startswith("Runtime") for ln in lines(out))
 
 
 def test_default_device_needs_cuda(tmp_path, monkeypatch):

@@ -9,8 +9,10 @@ import).  Run on a GPU machine with
 ``chip_smoke.py`` runs the same checks (``KERNEL_CASES`` / ``check_kernel``
 for the E+M kernel, ``SCORE_CASES`` / ``check_scores`` for the window-score
 kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel,
-``FLAT_CASES`` / ``check_flat`` for the three kernels on base-(A+1) codes)
-at the main path's shapes.  This module imports no JAX.
+``FLAT_CASES`` / ``check_flat`` for the three kernels on base-(A+1) codes,
+``check_counts_calls`` for the two counts-from-r wrappers' one-kernel
+calls, their workspace and CUDA-graph capture) at the main path's shapes.
+This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -108,6 +110,9 @@ COUNTS_CASES = {
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, M=3, S=2, ragged=True, r="frac"),
     "mass_on_invalid_windows": dict(N=500, L=60, W=10, K=2, M=2, S=2, ragged=True, r="unmasked"),
     "long_rows": dict(N=40, L=9_000, W=12, K=2, M=2, S=2, ragged=True, r="01"),
+    # planes of 333 x 61 floats: seeds 1 and 2 start off a 16-byte boundary
+    "misaligned_L61_S1_01": dict(N=333, L=61, W=12, K=2, M=3, S=1, r="01"),
+    "misaligned_L61_S1_frac": dict(N=333, L=61, W=12, K=2, M=3, S=1, r="frac"),
 }
 
 
@@ -284,6 +289,9 @@ FLAT_CASES = {
     "W30": dict(N=2_000, L=200, W=30, K=2, S=2),
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, S=2, ragged=True),
     "long_rows": dict(N=40, L=9_000, W=12, K=2, S=2, ragged=True),
+    # the counts kernel reads map5 (62.5 KB) through L1, counts to global f64
+    "K5_map_through_L1": dict(N=2_000, L=200, W=12, K=5, S=2, ragged=True),
+    "misaligned_L61_S1": dict(N=333, L=61, W=12, K=2, S=1),
 }
 
 FLAT_KERNELS = ("flat_em_counts", "flat_window_scores", "flat_counts_from_r")
@@ -359,6 +367,110 @@ def check_flat(case: dict, device) -> dict:
     return out
 
 
+def one_kernel_a_call(fn, kernel: str) -> list:
+    """Every device operation of three calls of ``fn`` after a warm-up
+    (torch.profiler); asserts that each call enqueued exactly one, the
+    kernel ``kernel``.  Returns their names."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all(f"::{kernel}" in n for n in names), names
+    return names
+
+
+def offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_counts_calls(device) -> dict:
+    """The one-launch counts-from-r wrappers (cuda_counts.counts_from_r_multi,
+    cuda_flat.counts_from_r) across calls: each call one kernel and no other
+    device operation; calls in a row and at two shapes interleaved on one
+    stream, whose workspace must clean itself and grow; r starting off a
+    16-byte boundary; a call on a side stream; a CUDA graph of one call,
+    captured, then replayed on two r.  0/1 counts must equal the plain
+    version's, fractional ones lie within CR_ATOL, CR_RTOL.  Raises
+    AssertionError on a mismatch; returns the worst error."""
+    worst = [0.0]
+
+    def same(C, ref, exact):
+        d = (C - ref).abs()
+        worst[0] = max(worst[0], d.max().item() if d.numel() else 0.0)
+        assert bool((d <= CR_ATOL + CR_RTOL * ref.abs()).all()), d.max().item()
+        if exact:
+            assert torch.equal(C, ref), d.max().item()
+
+    small = counts_inputs(N=500, L=60, W=10, K=2, M=3, S=2, r="frac", device=device)
+    big = counts_inputs(N=800, L=120, W=12, K=4, M=4, S=2, r="01", device=device)
+    flat = flat_inputs(N=400, L=80, W=8, K=3, S=2, device=device)
+    fkw = dict(A=4, K=3, W=8, R=flat["R"])
+
+    def b3(args):
+        return cuda_counts.counts_from_r_multi(*args), cuda_counts.counts_from_r_multi_ref(*args)
+
+    def b4c(r):
+        return (cuda_flat.counts_from_r(r, flat["qidx"], flat["map5"], **fkw),
+                cuda_flat.counts_from_r_ref(r, flat["qidx"], flat["map5"], **fkw))
+
+    # in a row, then two shapes and both wrappers interleaved on one stream
+    for args, exact in ((small, False), (small, False), (big, True), (small, False), (big, True)):
+        same(*b3(args), exact)
+        same(*b4c(flat["r"]["01"]), True)
+        same(*b4c(flat["r"]["frac"]), False)
+    # planes off a 16-byte boundary (head and tail of the streaming read)
+    same(*b3((offset_copy(big[0]), *big[1:])), True)
+    same(*b4c(offset_copy(flat["r"]["01"])), True)
+    # a side stream: its own workspace
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        C, ref = b3(big)
+        Cf, reff = b4c(flat["r"]["01"])
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    same(C, ref, True)
+    same(Cf, reff, True)
+    # one kernel and no other device operation a call
+    names = {"B3": one_kernel_a_call(lambda: cuda_counts.counts_from_r_multi(*big), "counts_kernel"),
+             "B4c": one_kernel_a_call(lambda: cuda_flat.counts_from_r(
+                 flat["r"]["01"], flat["qidx"], flat["map5"], **fkw), "flat_counts_kernel")}
+    # a CUDA graph of one call each, replayed on the captured r, then on new r
+    r_b3, r_flat = big[0].clone(), flat["r"]["01"].clone()
+    other = counts_inputs(N=800, L=120, W=12, K=4, M=4, S=2, r="01", seed=1, device=device)[0]
+    other_flat = counts_inputs(N=400, L=80, W=8, K=3, M=1, S=2, r="01", seed=1,
+                               device=device)[0][0]
+    cap = torch.cuda.Stream(device)
+    cap.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(cap):  # warm-up: the capture stream's workspace
+        cuda_counts.counts_from_r_multi(r_b3, *big[1:])
+        cuda_flat.counts_from_r(r_flat, flat["qidx"], flat["map5"], **fkw)
+    torch.cuda.current_stream(device).wait_stream(cap)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=cap):
+        C = cuda_counts.counts_from_r_multi(r_b3, *big[1:])
+        Cf = cuda_flat.counts_from_r(r_flat, flat["qidx"], flat["map5"], **fkw)
+    for new_r, new_flat in ((r_b3.clone(), r_flat.clone()), (other, other_flat)):
+        r_b3.copy_(new_r)
+        r_flat.copy_(new_flat)
+        graph.replay()
+        torch.cuda.synchronize(device)
+        same(C, cuda_counts.counts_from_r_multi_ref(r_b3, *big[1:]), True)
+        same(Cf, cuda_flat.counts_from_r_ref(r_flat, flat["qidx"], flat["map5"], **fkw), True)
+    return {"max_abs_err": worst[0], "profiled_kernels": names}
+
+
 @pytest.fixture
 def cuda_device():
     import shutil
@@ -418,6 +530,11 @@ def test_scores_wrapper_rejects_bad_inputs(cuda_device):
 @pytest.mark.parametrize("name", sorted(COUNTS_CASES))
 def test_counts_kernel_matches_plain(cuda_device, name):
     check_counts(COUNTS_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+def test_counts_calls_one_kernel_workspace_and_graph(cuda_device):
+    check_counts_calls(cuda_device)
 
 
 @pytest.mark.cuda

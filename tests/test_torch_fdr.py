@@ -219,18 +219,28 @@ def test_group_matches_per_seed_short_and_empty_rows():
     _assert_same(ref, new)
 
 
-def test_cgs_raises_before_work(fdr_data):
-    """CGS is an engine FDR accepts (by name, or from params.CGS); an unknown
-    engine raises before any work."""
-    sset, _neg, _jbg, bg, psset, _pneg = fdr_data
+def test_cgs_raises_before_work(fdr_data, tmp_path):
+    """CGS is an engine FDR accepts (by name, or from params.CGS), EM the
+    default.  Any other engine scores the seeds unrefined, as the
+    reference's FDR does for a string it does not know: 'Gibbs' and 'cgs'
+    give the .stats of 'none', through the group and the per-seed paths."""
+    sset, _neg, _jbg, bg, psset, pneg = fdr_data
     ms = [convert.motif(m) for m in _jseeds(sset)]
     assert fdr._resolve(PParams(FDR=True, CGS=True), None)[1] == "CGS"
     assert fdr._resolve(None, "CGS")[1] == "CGS"
+    assert fdr._resolve(PParams(FDR=True), None)[1] == "EM"
+    params = PParams(FDR=True, CGS=True, cvFold=3, q=0.5, maxCGSIterations=4)
+    none = fdr.evaluate_motifs(ms, bg, psset, params, refine="none", neg_set=pneg)
+    expect = [[open(p).read() for p in r.write(str(tmp_path / "none"), f"s{i}")]
+              for i, r in enumerate(none)]
     for refine in ("Gibbs", "cgs"):
-        with pytest.raises(ValueError, match="refine must be"):
-            fdr.evaluate_motifs(ms, bg, psset, PParams(FDR=True, CGS=True), refine=refine)
-        with pytest.raises(ValueError, match="refine must be"):
-            fdr.evaluate_motif(ms[0], bg, psset, PParams(FDR=True, CGS=True), refine=refine)
+        group = fdr.evaluate_motifs(ms, bg, psset, params, refine=refine, neg_set=pneg)
+        solo = [fdr.evaluate_motif(ms[0], bg, psset, params, refine=refine, neg_set=pneg)]
+        for res in (group, solo):
+            assert [r.fold_iterations for r in res] == [[0, 0, 0]] * len(res)
+            for i, r in enumerate(res):
+                got = [open(p).read() for p in r.write(str(tmp_path / refine), f"s{i}")]
+                assert got == expect[i], (refine, i)
 
 
 def test_fdr_cgs_matches_jax(fdr_data):

@@ -196,11 +196,17 @@ def test_launch_plans():
     assert cuda_flat.em_plan(5 ** 4, 12) == (True, True)
     # K=4 (150 KB): the counts stay, the LUT is read through the cache
     assert cuda_flat.em_plan(5 ** 5, 12) == (False, True)
-    assert cuda_flat.scores_plan(5 ** 5, 12) and cuda_flat.counts_plan(5 ** 5, 12)
+    assert cuda_flat.scores_plan(5 ** 5, 12)
     # K=5 (750 KB) and A=4, K=4, W=30 (375 KB): global memory
     assert cuda_flat.em_plan(5 ** 6, 12) == (False, False)
-    assert not cuda_flat.scores_plan(5 ** 6, 12) and not cuda_flat.counts_plan(5 ** 6, 12)
+    assert not cuda_flat.scores_plan(5 ** 6, 12)
     assert cuda_flat.em_plan(5 ** 5, 30) == (False, False)
+    # counts from r land in combined rows: K=4's [R1, W] (65 KB) stays in
+    # shared memory, map5 through L1; K=5's (262 KB) in global memory
+    R1 = {K: encode.num_rows(4, K) + 1 for K in (2, 4, 5)}
+    assert cuda_flat.counts_plan(5 ** 3, R1[2], 12) == (True, True)
+    assert cuda_flat.counts_plan(5 ** 5, R1[4], 12) == (True, False)
+    assert cuda_flat.counts_plan(5 ** 6, R1[5], 12) == (False, False)
 
 
 def test_plain_versions_reject_width_beyond_length():

@@ -74,10 +74,12 @@ def test_cgs_ab_summary_rank_tests(shift, distinct):
 @pytest.mark.parametrize("design", sorted(kernel_variants.DESIGNS))
 def test_kernel_variant_edits_apply_to_this_source(design):
     """Every variant's edits apply exactly once to this checkout's kernel
-    source, and each variant but ``as_is`` changes it."""
+    source (its headers but common.cuh written into it), and each variant
+    but ``as_is`` changes it."""
     source, _kernel, variants = kernel_variants.DESIGNS[design]
-    with open(os.path.join(ROOT, "bammmotif2_tpu_torch", "csrc", f"{source}.cu")) as fh:
-        src = fh.read()
+    csrc = os.path.join(ROOT, "bammmotif2_tpu_torch", "csrc")
+    with open(os.path.join(csrc, f"{source}.cu")) as fh:
+        src = kernel_variants.inline_headers(fh.read(), csrc)
     for name, edits in variants.items():
         out = kernel_variants.variant_source(src, edits)
         assert (out == src) == (name == "as_is"), name

@@ -1,12 +1,14 @@
-"""The launch plans of the E+M and window-score kernels (``ops/cuda_em.py``,
-``ops/cuda_scores.py``), checked on the CPU: a plan never asks for more
+"""The launch plans of the E+M, window-score and counts-from-r kernels
+(``ops/cuda_em.py``, ``ops/cuda_scores.py``, ``ops/cuda_counts.py``,
+``ops/cuda_flat.py``), checked on the CPU: a plan never asks for more
 shared memory than one H100 block may opt into, puts a table in shared
 memory only where it fits, and takes the global fallbacks where it must.
-Imports no JAX."""
+Also the counts wrappers' per-stream workspace.  Imports no JAX."""
 
 import pytest
+import torch
 
-from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores, encode
+from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, encode
 from bammmotif2_tpu_torch.tools import kernel_variants
 
 SMEM_MAX = cuda_em.SMEM_MAX
@@ -82,3 +84,51 @@ def test_plan_sweep_alternatives(case):
         assert sorted(p.team for p in plans.values()) == [32, 256]
         assert {p._replace(team=0, codes_cap=0) for p in plans.values()} == {
             base._replace(team=0, codes_cap=0)}
+
+
+@pytest.mark.parametrize("W", (8, 12, 30))
+@pytest.mark.parametrize("A", (4, 5))
+@pytest.mark.parametrize("K", range(6))
+def test_counts_launch_plans(K, A, W):
+    """B3 privatises one seed's combined [R1, W] counts per block where they
+    fit; B4c does the same on the same table (its counts land in combined
+    rows) and stages map5 beside them only within SMEM_TARGET, so at A=4,
+    W=12 the map is read through L1 from K=4 on."""
+    R1 = encode.num_rows(A, K) + 1
+    Q = (A + 1) ** (K + 1)
+    static = cuda_counts.STATIC_SMEM
+    smem_counts = cuda_counts.launch_plan(R1, W)
+    assert smem_counts == (R1 * W * 4 + static <= SMEM_MAX)
+    flat_counts, smem_map = cuda_flat.counts_plan(Q, R1, W)
+    assert flat_counts == smem_counts
+    table = R1 * W * 4 if smem_counts else 0
+    assert table + (Q * 4 if smem_map else 0) + static <= SMEM_MAX
+    assert smem_map == (table + Q * 4 <= cuda_em.SMEM_TARGET)
+    if A == 4 and W == 12:
+        assert smem_counts == (K <= 4)  # 262 KB a seed at K=5
+        assert smem_map == (K <= 3)
+    assert cuda_flat.counts_plan(Q, R1, W) is cuda_flat.counts_plan(Q, R1, W)  # cached
+
+
+def test_counts_workspace_grows_and_keeps_retired_buffers():
+    """One zeroed (acc, tickets) pair per (device, stream): reused while it
+    fits, grown (never shrunk) when a call needs more, with the outgrown
+    buffers kept alive for CUDA graphs that captured them."""
+    dev = torch.device("cpu")
+    key = (dev.index, 12345)
+    cuda_counts._WORKSPACES.pop(key, None)
+    try:
+        acc, tickets = cuda_counts.workspace(dev, 12345, 100, 2)
+        assert acc.dtype == torch.float64 and tickets.dtype == torch.int32
+        assert acc.numel() == 100 and tickets.numel() == 2
+        assert not acc.any() and not tickets.any()
+        again = cuda_counts.workspace(dev, 12345, 50, 1)
+        assert again[0] is acc and again[1] is tickets
+        grown = cuda_counts.workspace(dev, 12345, 40, 7)
+        assert grown[0].numel() == 100 and grown[1].numel() == 7
+        assert any(t is acc for t in cuda_counts._WORKSPACES[key][2])
+        other = cuda_counts.workspace(dev, 54321, 10, 1)
+        assert other[0] is not grown[0]
+    finally:
+        cuda_counts._WORKSPACES.pop(key, None)
+        cuda_counts._WORKSPACES.pop((dev.index, 54321), None)
