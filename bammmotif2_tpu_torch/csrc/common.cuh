@@ -1,7 +1,9 @@
 // Device helpers, reductions and launch arithmetic shared by the kernels of
 // csrc/ (em_counts.cu, window_scores.cu, counts_from_r.cu, flat.cu).  Each
-// source keeps its own __global__ passes and C entry points; ops/_build.py
-// rebuilds every library when this header changes.
+// source keeps its own __global__ passes and C entry points; the passes
+// themselves live in em.cuh, scores.cuh and counts.cuh, each shared by a
+// combined-layout kernel and its flat-layout twin; ops/_build.py rebuilds
+// every library when a header changes.
 
 #pragma once
 
@@ -15,6 +17,24 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;  // escore.NEG_INF
+
+// How a pass turns a code it reads into the row of its combined tables
+// (LUT, counts): the combined layout's codes are rows already; the flat
+// layout's base-(A+1) codes go through the table map5, from shared memory
+// or through L1.  map5[qidx] == cidx, so a pass gives the same results on
+// either.
+struct CombinedRows {
+  __device__ __forceinline__ int operator()(int c) const { return c; }
+};
+
+template <bool kSmem>
+struct MappedRows {
+  const int* map;
+  __device__ __forceinline__ int operator()(int c) const {
+    if constexpr (kSmem) return map[c];
+    else return __ldg(map + c);
+  }
+};
 
 // (m, s) <- logsumexp merge of (m, s) and (m2, s2); s holds sum exp(x - m)
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {

@@ -50,19 +50,6 @@ constexpr int kWarpDrainAt = 128;                           // queued values tha
 // a warp's queue: kWarpDrainAt, a chunk's values of a warp, the head and tail
 constexpr int kWarpQueue = kWarpDrainAt + 32 * kCountsUnroll * 4 + 8;
 
-struct CombinedRows {  // the code is the combined row
-  __device__ __forceinline__ int operator()(int c) const { return c; }
-};
-
-template <bool kSmem>
-struct MappedRows {  // the row is map[code], from shared memory or through L1
-  const int* map;
-  __device__ __forceinline__ int operator()(int c) const {
-    if constexpr (kSmem) return map[c];
-    else return __ldg(map + c);
-  }
-};
-
 // One block's share of a seed's counts, then, in the seed's last block, C.
 // Cs: the block's zeroed shared [R1*W] f32 table, or nullptr to add to acc
 // directly.  acc [R1*W] f64 and *ticket are zero on entry and are left zero.

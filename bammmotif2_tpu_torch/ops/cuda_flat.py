@@ -1,4 +1,4 @@
-"""The three passes on base-(A+1) k-mer codes: the CUDA kernels' bindings.
+"""The three passes on base-(A+1) codes: the CUDA kernels' bindings.
 
 Port of ``tools/pallas_flat.py`` (the Pallas TPU kernels ``_em_kernel``,
 ``_scores_kernel`` and ``_counts_kernel``), with its three public functions'
@@ -11,24 +11,28 @@ signatures and layouts, minus ``interpret``:
 They read base-(A+1) codes ``qidx`` (``encode.strand_base5_indices``) and
 the static map ``map5`` (``encode.map_base5_to_combined``) instead of the
 combined rows ``cidx``: ``map5[qidx] == cidx``, so order truncation is a
-lookup, and the LUT the kernels read is ``s5 = s_flat[map5]`` [Q, W],
-gathered here.  The E+M pass returns base-(A+1) counts that are folded back
-into the combined rows here, in float64, and rounded once (an f32
-``index_add_`` on the card adds with atomics in a varying order); the
-counts-from-r kernel adds into the combined rows through ``map5`` itself
-and rounds in the same launch, so that call is one kernel (the streaming
-pass of ``csrc/counts.cuh``, shared with ``cuda_counts``).  The kernels are
-in ``csrc/flat.cu``.  On CPU tensors each function runs its
-plain PyTorch version (``*_ref``); on CUDA tensors it launches its kernel or
-raises.
+lookup.  Each kernel (``csrc/flat.cu``) runs its combined-layout
+counterpart's pass (``csrc/em.cuh``, ``scores.cuh``, ``counts.cuh``) and maps
+each code through ``map5`` where the pass stages it, so the LUT is ``s_flat``
+[R+1, W] itself and the counts land in the combined rows: no gather of the
+LUT, no fold of the counts.  Their launch plans are the counterparts' for
+one seed (``em_plan``, ``scores_plan``, ``counts_plan``).  The E+M kernel
+reads ``map5`` through L1; the scores kernel stages it in shared memory
+where that costs an SM no resident block, and the counts kernel beside its
+counts where both fit.
+A call enqueues its kernel and nothing else (the E+M call also zeroes its
+float64 counts and runs the counterpart's rounding and fixed-order ll
+kernels), and the launchers make the tensors' device current themselves.
+On CPU tensors each function runs its plain PyTorch version (``*_ref``); on
+CUDA tensors it launches its kernel or raises.
 
 Not ported: the TPU module's layout helpers (``_geometry``, ``supported``,
 ``_split_terms_xla``, ``_lhs_terms``, ``_prep``, ``_skew_bits``,
 ``_escore_group``, ``_window_sums``, ``_mstep_group``).  The G-row lane
 flattening, the log-skew rolls, the bf16 term splits of the LUT and r and
 the VMEM budget all exist because the TPU has no fast gather; Hopper
-gathers from shared memory, so the kernels index ``s5`` directly and there
-is no block padding (hence no pad-row correction of ll).
+gathers from shared memory, so there is no block padding (hence no pad-row
+correction of ll).
 """
 
 from __future__ import annotations
@@ -38,34 +42,26 @@ import functools
 
 import torch
 
-from bammmotif2_tpu_torch.ops import _build, cuda_counts, escore
+from bammmotif2_tpu_torch.ops import _build, cuda_counts, cuda_em, cuda_scores, encode, escore
 from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, SMEM_TARGET
 
-# codes flat_scores_kernel stages per work item: whole rows up to this
-# length, tiles of one row with a W-1 halo beyond it
-TILE_CODES = 4096
 
-_SCRATCH = 2 * 8 * 4  # the E+M kernel's (max, sum) reduction slots, 8 warps
-
-
-def em_plan(Q: int, W: int) -> tuple:
-    """(smem_lut, smem_counts) of the E+M kernel for a [Q, W] table.
-
-    The counts are privatised in shared memory first (a global f64 atomic
-    per window and offset is the dearer miss), the LUT beside them when
-    both fit; A=4, K=4, W=12 keeps the 150 KB counts and reads the LUT
-    through the cache, K=5 keeps neither.
-    """
-    table = Q * W * 4
-    smem_counts = table + _SCRATCH <= SMEM_MAX
-    smem_lut = table * (1 + smem_counts) + _SCRATCH <= SMEM_MAX
-    return smem_lut, smem_counts
+def em_plan(R1: int, W: int, S: int, L: int):
+    """The E+M kernel's plan for codes [S, N, L]: the combined kernel's for
+    one seed (``cuda_em.launch_plan(1, R1, W, S, L)``).  map5 takes no shared
+    memory: the kernel reads it through L1."""
+    return cuda_em.launch_plan(1, R1, W, S, L)
 
 
-def scores_plan(Q: int, W: int) -> bool:
-    """Whether the scores kernel stages the [Q, W] LUT in shared memory
-    (beside its TILE_CODES codes)."""
-    return Q * W * 4 + TILE_CODES * 4 <= SMEM_MAX
+@functools.cache
+def scores_plan(Q: int, R1: int, W: int) -> tuple:
+    """(smem_lut, map_fits) of the window-score kernel: the combined
+    kernel's plan for one seed (``cuda_scores.launch_plan(1, R1, W)``), and
+    whether map5 ([Q] int32) fits in shared memory beside it under SMEM_MAX.
+    Where it fits, the launcher stages it if that costs an SM no resident
+    block (by the CUDA occupancy query), else reads it through L1."""
+    _spb, smem_lut = cuda_scores.launch_plan(1, R1, W)
+    return smem_lut, cuda_scores.smem_bytes(1, smem_lut, R1, W) + 4 * Q <= SMEM_MAX
 
 
 @functools.cache
@@ -83,9 +79,9 @@ def counts_plan(Q: int, R1: int, W: int) -> tuple:
 def library() -> ctypes.CDLL:
     lib = _build.load("flat")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flat_em_launch.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.flat_em_launch.argtypes = [p] * 9 + [i] * 10 + [p]
     lib.flat_em_launch.restype = i
-    lib.flat_scores_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.flat_scores_launch.argtypes = [p] * 6 + [i] * 10 + [p]
     lib.flat_scores_launch.restype = i
     lib.flat_counts_launch.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 7 + [p]
     lib.flat_counts_launch.restype = i
@@ -101,7 +97,9 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 def _check(named: tuple, A: int, K: int, W: int, R: int | None, s_flat=None, map5=None) -> None:
     """Device, dtype, contiguity and shape checks shared by the wrappers;
-    ``named`` holds (name, tensor, dtype) triples, all on one CUDA device."""
+    ``named`` holds (name, tensor, dtype) triples, all on one CUDA device.
+    The kernels index the combined tables through map5, so R, where given,
+    and s_flat's rows must be those of (A, K)."""
     dev = named[0][1].device
     for name, t, dtype in named:
         if t.device != dev or dev.type != "cuda":
@@ -112,23 +110,25 @@ def _check(named: tuple, A: int, K: int, W: int, R: int | None, s_flat=None, map
             raise ValueError(f"{name} must be contiguous")
     if A < 1 or K < 0 or W < 1:
         raise ValueError(f"want A >= 1, K >= 0, W >= 1, got A={A}, K={K}, W={W}")
-    Q = (A + 1) ** (K + 1)
+    Q, rows = (A + 1) ** (K + 1), encode.num_rows(A, K)
+    if R is not None and R != rows:
+        raise ValueError(f"want R = {rows} for A={A}, K={K}, got R={R}")
     if map5 is not None and tuple(map5.shape) != (Q,):
         raise ValueError(f"want map5 [{Q}] for A={A}, K={K}, got {tuple(map5.shape)}")
-    if s_flat is not None and (s_flat.dim() != 2 or s_flat.shape[1] != W
-                               or (R is not None and s_flat.shape[0] != R + 1)):
-        raise ValueError(f"want s_flat [R+1, {W}], got {tuple(s_flat.shape)}")
+    if s_flat is not None and tuple(s_flat.shape) != (rows + 1, W):
+        raise ValueError(f"want s_flat [{rows + 1}, {W}], got {tuple(s_flat.shape)}")
 
 
 def _fold(Cq: torch.Tensor, map5: torch.Tensor, R: int) -> torch.Tensor:
     """Base-(A+1) counts [Q, W] (float64) summed into combined rows
-    [R+1, W] in float64 and rounded once to float32."""
+    [R+1, W] in float64 and rounded once to float32 (the plain versions)."""
     C = torch.zeros((R + 1, Cq.shape[1]), dtype=torch.float64, device=Cq.device)
     return C.index_add_(0, map5.to(torch.int64), Cq).to(torch.float32)
 
 
 def _lut(s_flat: torch.Tensor, map5: torch.Tensor) -> torch.Tensor:
-    """s5 = s_flat[map5]: the LUT on base-(A+1) codes, [Q, W]."""
+    """s5 = s_flat[map5]: the LUT on base-(A+1) codes, [Q, W] (the plain
+    versions)."""
     return s_flat[map5.to(torch.int64)].contiguous()
 
 
@@ -157,25 +157,25 @@ def em_counts(s_flat: torch.Tensor, qidx: torch.Tensor, lens: torch.Tensor, q,
         raise ValueError(f"want lens [{N}], got {tuple(lens.shape)}")
     if L - W + 1 <= 0:
         raise ValueError(f"motif width {W} exceeds padded length {L}")
-    dev = qidx.device
-    Q = map5.shape[0]
-    Cq = torch.zeros((Q, W), dtype=torch.float64, device=dev)
-    ll = torch.zeros((1,), dtype=torch.float32, device=dev)
+    dev, R1 = qidx.device, R + 1
     if N == 0:
-        return _fold(Cq, map5, R), ll[0]
-    s5 = _lut(s_flat, map5)
+        return (torch.zeros((R1, W), dtype=torch.float32, device=dev),
+                torch.zeros((), dtype=torch.float32, device=dev))
+    C = torch.empty((R1, W), dtype=torch.float32, device=dev)
+    ll = torch.empty((1,), dtype=torch.float32, device=dev)
+    Cd = torch.zeros((R1, W), dtype=torch.float64, device=dev)
     logz = torch.empty((N,), dtype=torch.float32, device=dev)
-    smem_lut, smem_counts = em_plan(Q, W)
+    plan = em_plan(R1, W, S, L)
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.flat_em_launch(
-            qidx.data_ptr(), lens.data_ptr(), s5.data_ptr(), q.data_ptr(), Cq.data_ptr(),
-            logz.data_ptr(), ll.data_ptr(), S, N, L, W, Q, int(smem_lut), int(smem_counts),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = lib.flat_em_launch(
+        qidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), q.data_ptr(), map5.data_ptr(),
+        C.data_ptr(), Cd.data_ptr(), logz.data_ptr(), ll.data_ptr(), S, N, L, W, R1,
+        int(plan.smem_lut), plan.counts, plan.team, plan.codes_cap, dev.index,
+        cuda_counts.current_stream(dev),
+    )
     _raise_on(lib, err, "flat em_counts")
     em_counts.launches += 1
-    return _fold(Cq, map5, R), ll[0]
+    return C, ll[0]
 
 
 em_counts.launches = 0
@@ -213,22 +213,20 @@ def window_scores(s_flat: torch.Tensor, qidx: torch.Tensor, lens: torch.Tensor,
     n_win = L - W + 1
     if n_win <= 0:
         raise ValueError(f"motif width {W} exceeds padded length {L}")
-    if W > TILE_CODES:
-        raise ValueError(f"motif width {W} exceeds the kernel's tile of {TILE_CODES} codes")
-    dev = qidx.device
+    if W + 16 > cuda_scores.ROWS_CAP:
+        raise ValueError(f"motif width {W} exceeds the kernel's tile of {cuda_scores.ROWS_CAP} codes")
+    dev, R1, Q = qidx.device, s_flat.shape[0], map5.shape[0]
     scores = torch.empty((S, N, n_win), dtype=torch.float32, device=dev)
     if N == 0:
         return scores, escore.window_mask(lens, n_win, W)
     mask = torch.empty((N, n_win), dtype=torch.bool, device=dev)
-    Q = map5.shape[0]
-    s5 = _lut(s_flat, map5)
+    smem_lut, map_fits = scores_plan(Q, R1, W)
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.flat_scores_launch(
-            qidx.data_ptr(), lens.data_ptr(), s5.data_ptr(), scores.data_ptr(), mask.data_ptr(),
-            S, N, L, W, Q, int(scores_plan(Q, W)), TILE_CODES,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    err = lib.flat_scores_launch(
+        qidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), map5.data_ptr(), scores.data_ptr(),
+        mask.data_ptr(), S, N, L, W, R1, Q, int(smem_lut), int(map_fits), cuda_scores.ROWS_CAP,
+        dev.index, cuda_counts.current_stream(dev),
+    )
     _raise_on(lib, err, "flat window_scores")
     window_scores.launches += 1
     return scores, mask

@@ -22,6 +22,8 @@ cannot drift apart.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,8 +36,10 @@ def order_offsets(A: int, K: int) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
 
 
+@functools.cache
 def num_rows(A: int, K: int) -> int:
-    """R: number of combined-LUT rows excluding the sentinel row."""
+    """R: number of combined-LUT rows excluding the sentinel row (cached:
+    the flat wrappers check it on every call)."""
     return int(order_offsets(A, K)[-1])
 
 

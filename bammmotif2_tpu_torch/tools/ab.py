@@ -1,7 +1,7 @@
 """A/B between two checkouts on one GPU, in interleaved processes, with rank
 tests.
 
-    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,kernels} BASE_DIR CHANGE_DIR [--rounds N]
+    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,flat,kernels} BASE_DIR CHANGE_DIR [--rounds N]
 
 Each directory is the root of a checkout holding ``chip_smoke.py``.  Every
 round starts one process per checkout, one at a time, base first in even
@@ -19,16 +19,25 @@ measures, through that checkout's code:
   posterior's, as ``_frac``) and ``cuda_flat.counts_from_r``.
   For each, the device ms of its ``__global__`` (``counts_kernel``,
   ``flat_counts_kernel``) and of every operation the call enqueues
-  (``chip_smoke.device_ms``), the wrapper's ms by CUDA events over
-  back-to-back calls (``chip_smoke.time_cuda``) and its host µs a call
+  (``device_ms``, which drops a profiler window that lost events), the
+  wrapper's ms by CUDA events over back-to-back calls
+  (``chip_smoke.time_cuda``) and its host µs a call
   (``host_us``); each device operation a call enqueues (``device_ops``)
   goes beside the metrics.
 
+``flat``: the flat E+M and window-score wrappers beside the combined ones
+  on the same sequences and LUT: ``cuda_flat.em_counts`` at bench's
+  geometry (W=12, S=2) at K=2 and K=4 beside ``cuda_em.em_counts_multi``
+  (M=1, ``em_K2_M1``, ``em_K4_M1``), and ``cuda_flat.window_scores`` at
+  K=2, 3 and 4 on bench's 10k set and at K=2 on config 5's 100k set
+  (``chip_smoke.c5_inputs``) beside ``cuda_scores.window_scores_multi``
+  (M=1).  For each, the metrics ``counts`` records.
+
 ``kernels``: ``em_counts_kernel``'s and ``window_scores_kernel``'s device
-  ms (``chip_smoke.device_ms``: torch.profiler, 10 calls) on the E+M cases
+  ms (``device_ms``: torch.profiler, 10 calls) on the E+M cases
   of ``chip_smoke.EM_DEVICE_CASES`` (bench's geometry at K=2 and 4, M=1 and
   4, and K=2 on homopolymer rows) and config 5's geometry (100k x 200 bp,
-  K=2) at M=1 and M=10; everything ``counts`` measures; ``--EM``
+  K=2) at M=1 and M=10; everything ``counts`` and ``flat`` measure; ``--EM``
   iterations/s at bench's geometry (``chip_smoke.time_em``); config 4's
   EM-FDR seconds per (W, K) group, converged, through the kernels
   (``chip_smoke.config4_problem`` and ``run_cli``).
@@ -64,20 +73,22 @@ C4_ARGS = ["--maxPWM", "10", "--EM", "--optimizeQ", "--FDR", "-q", "0.5", "--mFo
 COUNTS_GEOMETRY = dict(N=10_000, L=200, W=12, K=2, S=2)
 
 
-def host_us(fn, n: int = 1000) -> float:
-    """The host's µs a call over n back-to-back calls with no
-    synchronisation (time.perf_counter, after a warm-up): what a wrapper
-    costs its caller while the device keeps up."""
+def host_us(fn, n: int = 300) -> float:
+    """The host's µs a call: time.perf_counter around each of n calls after
+    a warm-up, the device drained before each call and outside the timed
+    span, so that no call waits on a full launch queue: what a wrapper
+    costs its caller on the host, whatever its device time."""
     import torch
 
     fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    total = 0.0
     for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-    dt = time.perf_counter() - t0
+        total += time.perf_counter() - t0
     torch.cuda.synchronize()
-    return dt / n * 1e6
+    return total / n * 1e6
 
 
 def device_ops(fn, n: int = 10) -> dict:
@@ -97,30 +108,78 @@ def device_ops(fn, n: int = 10) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+def device_ms(fn, n: int, kernel: str, attempts: int = 4) -> dict:
+    """Device time per call under torch.profiler over n calls after one
+    warm-up: of the __global__ function ``kernel`` alone, and of every
+    device operation the call enqueues (the wrapper's torch ops included).
+
+    A profiler window of a long process sometimes drops device events, which
+    would read low.  So a window counts only if it traced ``kernel`` exactly
+    n times and every other device operation a whole multiple of n times;
+    otherwise it is retried, ``attempts`` windows in all, and both times are
+    "not measured" if none counts."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
+        if sum(e.count for e in own) == n and all(e.count % n == 0 for e in evs):
+            return {"kernel_device_ms": sum(e.self_device_time_total for e in own) / n / 1e3,
+                    "call_device_ms": sum(e.self_device_time_total for e in evs) / n / 1e3}
+        print(f"device_ms: window {attempt + 1} of {attempts} traced "
+              f"{ {e.key[:60]: e.count for e in evs} }, want {kernel} {n} times",
+              file=sys.stderr, flush=True)
+    return {"kernel_device_ms": "not measured", "call_device_ms": "not measured"}
+
+
 def make_inputs(out_dir: str, measure: str) -> None:
     """Saves the cases' inputs (CPU tensors) as <case>.pt."""
     import torch
 
     sys.path.insert(0, os.getcwd())
     import chip_smoke
+    from bammmotif2_tpu_torch.ops import encode
+
+    def save(obj, name):
+        torch.save(obj, os.path.join(out_dir, f"{name}.pt"))
 
     checks = chip_smoke.load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
-    for M in (1, 10):
-        for kind, tag in (("01", ""), ("frac", "_frac")):
-            torch.save(checks.counts_inputs(**COUNTS_GEOMETRY, M=M, r=kind),
-                       os.path.join(out_dir, f"counts_M{M}{tag}.pt"))
-    x = checks.flat_inputs(**COUNTS_GEOMETRY)
-    torch.save((x["r"]["01"], x["qidx"], x["map5"], dict(A=x["A"], K=x["K"], W=x["W"], R=x["R"])),
-               os.path.join(out_dir, "flat_counts_K2.pt"))
+    if measure in ("counts", "kernels"):
+        for M in (1, 10):
+            for kind, tag in (("01", ""), ("frac", "_frac")):
+                save(checks.counts_inputs(**COUNTS_GEOMETRY, M=M, r=kind), f"counts_M{M}{tag}")
+        x = checks.flat_inputs(**COUNTS_GEOMETRY)
+        save((x["r"]["01"], x["qidx"], x["map5"], dict(A=x["A"], K=x["K"], W=x["W"], R=x["R"])),
+             "flat_counts_K2")
     if measure == "counts":
         return
-    for name in chip_smoke.EM_DEVICE_CASES:
-        torch.save(chip_smoke.em_inputs(name, "cpu"), os.path.join(out_dir, f"em_{name}.pt"))
+    for K in (2, 3, 4):  # flat_inputs' sequences and LUT are em_inputs' at M=1
+        x = checks.flat_inputs(**{**COUNTS_GEOMETRY, "K": K})
+        kw = dict(A=x["A"], K=K, W=x["W"])
+        if K != 3:
+            save((x["s_flat"], x["qidx"], x["lens"], x["q"], x["map5"], {**kw, "R": x["R"]}),
+                 f"flat_em_K{K}")
+            save(chip_smoke.em_inputs(f"K{K}_M1", "cpu"), f"em_K{K}_M1")
+        save((x["s_flat"], x["qidx"], x["lens"], x["map5"], kw), f"flat_scores_10k_K{K}")
+        save((x["s_multi"], x["cidx"], x["lens"]), f"scores_10k_K{K}_M1")
     with tempfile.TemporaryDirectory() as tmp:
-        cidx, lens, base, _sset = chip_smoke.c5_inputs("cpu", tmp)
-    for M in (1, 10):
-        torch.save((chip_smoke.c5_luts(base, M), cidx, lens),
-                   os.path.join(out_dir, f"scores_c5_M{M}.pt"))
+        cidx, lens, base, sset = chip_smoke.c5_inputs("cpu", tmp)
+    map5 = torch.as_tensor(encode.map_base5_to_combined(4, 2))
+    save((base, encode.strand_base5_indices(sset, 2, False, "cpu"), lens, map5,
+          dict(A=4, K=2, W=base.shape[1])), "flat_scores_c5")
+    save((chip_smoke.c5_luts(base, 1), cidx, lens), "scores_c5_M1")
+    if measure == "kernels":
+        for name in chip_smoke.EM_DEVICE_CASES:
+            save(chip_smoke.em_inputs(name, "cpu"), f"em_{name}")
+        save((chip_smoke.c5_luts(base, 10), cidx, lens), "scores_c5_M10")
 
 
 def measure_cgs(chip_smoke, dev, _inputs) -> tuple:
@@ -140,13 +199,18 @@ def case_call(name: str, args):
         return (lambda: cuda_scores.window_scores_multi(*args)), "window_scores_kernel"
     if name.startswith("counts_"):
         return (lambda: cuda_counts.counts_from_r_multi(*args)), "counts_kernel"
-    r, qidx, map5, kw = args
-    return (lambda: cuda_flat.counts_from_r(r, qidx, map5, **kw)), "flat_counts_kernel"
+    *tensors, kw = args
+    if name.startswith("flat_em_"):
+        return (lambda: cuda_flat.em_counts(*tensors, **kw)), "flat_em_kernel"
+    if name.startswith("flat_scores_"):
+        return (lambda: cuda_flat.window_scores(*tensors, **kw)), "flat_scores_kernel"
+    return (lambda: cuda_flat.counts_from_r(*tensors, **kw)), "flat_counts_kernel"
 
 
-def measure_cases(chip_smoke, dev, inputs) -> tuple:
-    """Every saved case's kernel device ms; for the counts wrappers also the
-    call's device ms, events ms, host µs and device operations."""
+def measure_cases(chip_smoke, dev, inputs, full=("counts_", "flat_")) -> tuple:
+    """Every saved case's kernel device ms; for the cases whose name starts
+    with one of ``full`` also the call's device ms, events ms, host µs and
+    device operations."""
     import torch
 
     metrics, ops = {}, {}
@@ -154,8 +218,8 @@ def measure_cases(chip_smoke, dev, inputs) -> tuple:
         name = f[:-3]
         args = torch.load(os.path.join(inputs, f), map_location=dev)
         fn, kernel = case_call(name, args)
-        dev_ms = chip_smoke.device_ms(fn, 10, kernel)
-        if kernel in ("counts_kernel", "flat_counts_kernel"):
+        dev_ms = device_ms(fn, 10, kernel)
+        if name.startswith(full):
             metrics[f"call_device_ms_{name}"] = dev_ms["call_device_ms"]
             metrics[f"wrapper_ms_{name}"] = chip_smoke.time_cuda(fn, 30)
             metrics[f"host_us_{name}"] = host_us(fn)
@@ -164,6 +228,10 @@ def measure_cases(chip_smoke, dev, inputs) -> tuple:
         del args, fn
         torch.cuda.empty_cache()
     return metrics, {"device_ops": ops}
+
+
+def measure_flat(chip_smoke, dev, inputs) -> tuple:
+    return measure_cases(chip_smoke, dev, inputs, full=("",))
 
 
 def measure_kernels(chip_smoke, dev, inputs) -> tuple:
@@ -179,7 +247,8 @@ def measure_kernels(chip_smoke, dev, inputs) -> tuple:
                      "config4_em_iterations": [e["iterations"] for e in run["events"]["em_done"]]}
 
 
-MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "kernels": measure_kernels}
+MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "flat": measure_flat,
+            "kernels": measure_kernels}
 
 
 def one(measure: str, root: str, inputs: str) -> None:
@@ -207,7 +276,9 @@ def run(measure: str, root: str, inputs: str, timeout: float) -> dict:
     if proc.returncode != 0 or not lines:
         raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stdout[-2000:]}"
                            f"\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1][len("AB "):])
+    res = json.loads(lines[-1][len("AB "):])
+    res["dropped_profiler_windows"] = proc.stderr.count("device_ms: window")
+    return res
 
 
 def _median(xs: list) -> float:
@@ -215,25 +286,32 @@ def _median(xs: list) -> float:
 
 
 def summary(procs: list) -> dict:
-    """Rank tests over the processes' metrics (see the module docstring)."""
+    """Rank tests over the processes' metrics (see the module docstring).  A
+    process whose metric is not a number ("not measured") is left out of
+    that metric's tests and counted; a test without values on both sides is
+    null."""
     from scipy import stats
+
+    def mw(a, b):
+        return float(stats.mannwhitneyu(a, b, alternative="two-sided").pvalue) if a and b else None
 
     out = {}
     for k in procs[0]["metrics"]:
-        by = {t: [x["metrics"][k] for x in procs if x["tree"] == t] for t in ("base", "change")}
-        paired = [c["metrics"][k] - b["metrics"][k] for b, c in zip(
-            (x for x in procs if x["tree"] == "base"), (x for x in procs if x["tree"] == "change"))]
-        first = [x["metrics"][k] for x in procs if x["position"] == 0]
-        second = [x["metrics"][k] for x in procs if x["position"] == 1]
+        got = [x for x in procs if isinstance(x["metrics"][k], (int, float))]
+        by = {t: [x["metrics"][k] for x in got if x["tree"] == t] for t in ("base", "change")}
+        rounds = {t: {x["round"]: x["metrics"][k] for x in got if x["tree"] == t}
+                  for t in ("base", "change")}
+        paired = [c - rounds["base"][r] for r, c in rounds["change"].items() if r in rounds["base"]]
+        first = [x["metrics"][k] for x in got if x["position"] == 0]
+        second = [x["metrics"][k] for x in got if x["position"] == 1]
         out[k] = {
-            "base": by["base"], "change": by["change"],
-            "median_base": _median(by["base"]), "median_change": _median(by["change"]),
-            "mannwhitney_p_change_vs_base": float(
-                stats.mannwhitneyu(by["change"], by["base"], alternative="two-sided").pvalue),
-            "wilcoxon_p_paired_rounds": float(stats.wilcoxon(paired).pvalue),
-            "median_paired_change_minus_base": _median(paired),
-            "mannwhitney_p_first_vs_second": float(
-                stats.mannwhitneyu(first, second, alternative="two-sided").pvalue),
+            "base": by["base"], "change": by["change"], "not_measured": len(procs) - len(got),
+            "median_base": _median(by["base"]) if by["base"] else None,
+            "median_change": _median(by["change"]) if by["change"] else None,
+            "mannwhitney_p_change_vs_base": mw(by["change"], by["base"]),
+            "wilcoxon_p_paired_rounds": float(stats.wilcoxon(paired).pvalue) if paired else None,
+            "median_paired_change_minus_base": _median(paired) if paired else None,
+            "mannwhitney_p_first_vs_second": mw(first, second),
         }
     return out
 

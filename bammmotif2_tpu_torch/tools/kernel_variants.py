@@ -6,7 +6,8 @@ plan, timed on one GPU.
 
 SOURCE_ROOT is the root of a checkout whose ``csrc/`` holds the design D
 names.  The tool writes copies of that source beside its ``common.cuh`` in a
-scratch directory, with its other headers (``counts.cuh``) written into it,
+scratch directory, with its other headers (``em.cuh``, ``scores.cuh``,
+``counts.cuh``, which hold the passes) written into it,
 edited by exact string replacement (each edit must apply once), builds each
 with ``ops/_build.NVCC_FLAGS`` (one nvcc each, all started together), loads
 it with ctypes and times it on the card.  The variants that drop or fake
@@ -82,7 +83,7 @@ _PR5_CARRY = """const unsigned xl = (unsigned)x, old = atomicAdd(lo, xl);
     if (hi) atomicAdd(lo + table_floats, hi);"""
 
 _STAGES = "constexpr int kStages = 2;"
-_ROWS_CAP = "Kernel kern = kernel_for_width(W, smem_lut != 0);"
+_ROWS_CAP = "auto kern = KernelWidths::kernel(W, smem_lut != 0, pick);"
 
 DESIGNS = {  # design -> (source, __global__, {variant: edits})
     "em_pr5": ("em_counts", "em_counts_kernel", {
@@ -95,8 +96,8 @@ DESIGNS = {  # design -> (source, __global__, {variant: edits})
     }),
     "scores_pr5": ("window_scores", "window_scores_kernel", {
         "as_is": [],
-        "generic_width": [("constexpr auto kernel_for_width = kernel_for<6, 8, 10, 12, 14, 16, 18, 20, 24, 30>;",
-                           "constexpr auto kernel_for_width = kernel_for<>;")],
+        "generic_width": [("using KernelWidths = Widths<6, 8, 10, 12, 14, 16, 18, 20, 24, 30>;",
+                           "using KernelWidths = Widths<>;")],
         "stages3": [(_STAGES, "constexpr int kStages = 3;")],
         "rows2048": [(_ROWS_CAP, "rows_cap = 2048;\n  " + _ROWS_CAP)],
         "rows2048_stages4": [(_STAGES, "constexpr int kStages = 4;"),
@@ -311,21 +312,14 @@ def counts_caller(lib_path: str, args: tuple):
 
 
 def device_us(fn, kernel: str, n: int = 10) -> float:
-    """Mean device microseconds of ``kernel`` per call under torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
+    """Mean device microseconds of ``kernel`` per call under torch.profiler
+    (``ab.device_ms``, which keeps only windows that traced every call)."""
+    from bammmotif2_tpu_torch.tools.ab import device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    own = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
-    if not own:
-        raise RuntimeError(f"no device event of {kernel}")
-    return sum(e.self_device_time_total for e in own) / n
+    ms = device_ms(fn, n, kernel)["kernel_device_ms"]
+    if not isinstance(ms, float):
+        raise RuntimeError(f"no profiler window traced {kernel} {n} times")
+    return ms * 1e3
 
 
 def main() -> int:

@@ -12,10 +12,12 @@ Phases (any failure exits non-zero):
                KERNEL_CASES / check_kernel, SCORE_CASES / check_scores,
                COUNTS_CASES / check_counts, FLAT_CASES / check_flat; the
                last also holds the flat kernels to the combined-layout ones
-               on the same sequences), and check_counts_calls: each
+               on the same sequences), check_counts_calls: each
                counts-from-r call is one kernel, its workspace cleans
                itself across calls, shapes and streams, and a CUDA graph
-               of a call replays right.
+               of a call replays right; and check_flat_calls: a flat
+               window-score call is one kernel, a flat E+M call enqueues no
+               more than the combined one and no gather or fold.
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
                just before each run and read just after:
@@ -73,9 +75,10 @@ Phases (any failure exits non-zero):
                M=1 and M=10 (also the kernel's and the whole call's device
                time and the wrapper's host µs a call); the flat kernels at
                bench's geometry at K=2, 3 and 4 beside the combined-layout
-               kernels on the same sequences (CUDA events, and each
-               kernel's device time under torch.profiler; the counts'
-               host µs), and flat window scores at config 5's; the
+               kernels on the same sequences (CUDA events, each kernel's
+               and each call's device time under torch.profiler, each
+               wrapper's host µs a call), and flat window scores at config
+               5's; the
                E+M kernel's device time at bench's geometry at K=2 and 4,
                M=1 and 4 (and on homopolymer rows), the window-score
                kernel's at config 5's at M=1 and 10; each
@@ -317,6 +320,8 @@ def phase_kernel(device) -> dict:
     for k in ("counts_from_r", "flat_counts_from_r"):
         worst[k] = max(worst[k], res["max_abs_err"])
     log("kernel counts calls (one kernel a call, workspace, CUDA graph): " + json.dumps(res))
+    log("kernel flat calls (what an E+M and a scores call enqueue): "
+        + json.dumps(checks.check_flat_calls(device)))
     return worst
 
 
@@ -839,6 +844,7 @@ def em_device_times(device) -> dict:
     """em_counts_kernel's device time (torch.profiler, 10 calls) and its
     launch plan on each of EM_DEVICE_CASES."""
     from bammmotif2_tpu_torch.ops import cuda_em
+    from bammmotif2_tpu_torch.tools.ab import device_ms
 
     out = {}
     for name in EM_DEVICE_CASES:
@@ -889,10 +895,11 @@ def time_scores(device, tmp) -> dict:
     with the bytes it moves (cidx read, scores and mask written), its bound,
     the kernel's device time (torch.profiler) and, at M=1, the library
     call's time and the flat window-score kernel on the same sequences and
-    LUT."""
+    LUT (CUDA events, and its device time)."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_flat, cuda_scores, encode
+    from bammmotif2_tpu_torch.tools.ab import device_ms
 
     cidx, lens, base, sset = c5_inputs(device, tmp)
     out = {}
@@ -921,6 +928,8 @@ def time_scores(device, tmp) -> dict:
         "ms": time_cuda(lambda: cuda_flat.window_scores(*args, **kw), N_TIMED),
         "plain_ms": time_cuda(lambda: cuda_flat.window_scores_ref(*args, **kw), 5),
         "combined_ms": out["M1"]["ms"],
+        **device_ms(lambda: cuda_flat.window_scores(*args, **kw), 10, "flat_scores_kernel"),
+        "combined_kernel_device_ms": out["M1"]["kernel_device_ms"],
         **scores_bound(qidx, lens, base.shape[0], W, 1, extra=map5.numel() * 4),
     }
     log("timing window_scores (config 5 geometry 100k x 200 bp, W=12, K=2, S=2): "
@@ -935,7 +944,7 @@ def time_counts(device) -> dict:
     whole call (torch.profiler), the bound, and the index_add_ call's ms
     with its index built beforehand and inside the timed call."""
     from bammmotif2_tpu_torch.ops import cuda_counts
-    from bammmotif2_tpu_torch.tools.ab import host_us
+    from bammmotif2_tpu_torch.tools.ab import device_ms, host_us
 
     checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
     out = {}
@@ -960,47 +969,17 @@ def time_counts(device) -> dict:
     return out
 
 
-def device_ms(fn, n: int, kernel: str, attempts: int = 3) -> dict:
-    """Device time per call under torch.profiler over n calls after one
-    warm-up: of the __global__ function ``kernel`` alone, and of every
-    kernel the call launches (the wrapper's torch ops included).  A window
-    that traced no event of ``kernel`` (the profiler of a long process
-    sometimes returns no device event at all) is retried, ``attempts``
-    times in all."""
-    import torch
-    from torch.autograd import DeviceType
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(attempts):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
-        if own:
-            break
-        log(f"device_ms: no device event of {kernel} among {[e.key[:60] for e in evs]} "
-            f"(window {attempt + 1} of {attempts})")
-    if not own:
-        return {"kernel_device_ms": "not measured", "call_device_ms": "not measured"}
-    return {"kernel_device_ms": sum(e.self_device_time_total for e in own) / n / 1e3,
-            "call_device_ms": sum(e.self_device_time_total for e in evs) / n / 1e3}
-
-
 def time_flat(device) -> dict:
     """The flat kernels (ops/cuda_flat.py) against their plain versions and
     the combined-layout kernels (B1-B3) on the same sequences and LUT, at
     bench's geometry (10k x 200 bp, W=12) at K=2, 3 and 4, with the
-    sampler's 0/1 r for the counts: the wrapper's time (CUDA events), the
-    device time of the hand-written kernel alone and of the whole call
-    (torch.profiler), each function's bound and, for scores and counts, the
-    library call's time (for the counts also with its index built inside
-    the timed call, and the wrapper's host µs a call)."""
+    sampler's 0/1 r for the counts: the wrapper's time (CUDA events) and
+    host µs a call (tools/ab.py's host_us), the device time of the
+    hand-written kernel alone and of the whole call (torch.profiler), each
+    function's bound and, for scores and counts, the library call's time
+    (for the counts also with its index built inside the timed call)."""
     from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
-    from bammmotif2_tpu_torch.tools.ab import host_us
+    from bammmotif2_tpu_torch.tools.ab import device_ms, host_us
 
     checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
     out = {}
@@ -1032,6 +1011,7 @@ def time_flat(device) -> dict:
                 "ms": time_cuda(flat_fn, N_TIMED),
                 "plain_ms": time_cuda(plain[fn_name], 10),
                 "combined_ms": time_cuda(comb_fn, N_TIMED),
+                "host_us": host_us(flat_fn),
                 **fdev,
                 "combined_kernel_device_ms": cdev["kernel_device_ms"],
                 "combined_call_device_ms": cdev["call_device_ms"],
@@ -1041,7 +1021,6 @@ def time_flat(device) -> dict:
         res["scores"].update(scores_bound(x["qidx"], x["lens"], R + 1, W, 1, extra=map_bytes),
                              library_ms=library_scores_ms(s5, x["qidx"], W))
         res["counts"].update(counts_bound(x["r"]["01"], x["qidx"], R + 1, W, extra=map_bytes),
-                             host_us=host_us(calls["counts"][0]),
                              library_ms=library_counts_ms(x["r"]["01"], x["cidx"], R + 1, W),
                              library_with_index_ms=library_counts_ms(
                                  x["r"]["01"], x["cidx"], R + 1, W, index_inside=True))

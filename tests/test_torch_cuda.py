@@ -11,7 +11,8 @@ for the E+M kernel, ``SCORE_CASES`` / ``check_scores`` for the window-score
 kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel,
 ``FLAT_CASES`` / ``check_flat`` for the three kernels on base-(A+1) codes,
 ``check_counts_calls`` for the two counts-from-r wrappers' one-kernel
-calls, their workspace and CUDA-graph capture) at the main path's shapes.
+calls, their workspace and CUDA-graph capture, ``check_flat_calls`` for
+what a flat E+M or window-score call enqueues) at the main path's shapes.
 This module imports no JAX.
 """
 
@@ -274,13 +275,24 @@ def check_scores(case: dict, device) -> dict:
 # equal and from fractional r by CR_ATOL, CR_RTOL.  ``combined`` cases also
 # hold them against the combined-layout kernels on the same sequences:
 # scores bit-equal to B2, 0/1 counts equal to B3, E+M within B1's bar.
+# The flat kernels run B1's, B2's and B3's plans for one seed (ops/
+# cuda_flat.py's em_plan, scores_plan, counts_plan).  The E+M kernel reads
+# map5 through L1, the scores kernel stages it where that costs an SM no
+# resident block, the counts kernel beside its counts where both fit.  The
+# comments name the branches a case reaches beyond the common one (a warp a
+# sequence, LUT and counts in shared memory, the scores' map staged).
 FLAT_CASES = {
     "bench_K2": dict(N=10_000, L=200, W=12, K=2, S=2, combined=True),
+    # counts from r: map5 through L1 (beside K=4's counts it passes SMEM_TARGET)
     "bench_K4": dict(N=10_000, L=200, W=12, K=4, S=2, combined=True),
     "K0": dict(N=2_000, L=200, W=8, K=0, S=2),
     "K1": dict(N=2_000, L=200, W=12, K=1, S=2),
     "K3": dict(N=2_000, L=200, W=12, K=3, S=2),
-    "K4_W30_global": dict(N=2_000, L=200, W=30, K=4, S=2),
+    # E+M: float shared counts ([R1, W] is 164 KB as float and does not fit
+    # as fixed point), the LUT through L1
+    "K4_W30_float_counts": dict(N=2_000, L=200, W=30, K=4, S=2),
+    # E+M: f64 global counts; every LUT through L1; scores: map5 through L1
+    # (staged, its 62.5 KB would halve the blocks an SM)
     "K5_global": dict(N=2_000, L=200, W=12, K=5, S=2, combined=True),
     "ss": dict(N=2_000, L=200, W=12, K=2, S=1),
     "A5": dict(N=300, L=60, W=8, K=3, S=2, A=5),
@@ -288,6 +300,7 @@ FLAT_CASES = {
     "W8": dict(N=2_000, L=200, W=8, K=2, S=2),
     "W30": dict(N=2_000, L=200, W=30, K=2, S=2),
     "short_and_empty_rows": dict(N=500, L=60, W=10, K=2, S=2, ragged=True),
+    # E+M: a block a sequence, in tiles of one strand
     "long_rows": dict(N=40, L=9_000, W=12, K=2, S=2, ragged=True),
     # the counts kernel reads map5 (62.5 KB) through L1, counts to global f64
     "K5_map_through_L1": dict(N=2_000, L=200, W=12, K=5, S=2, ragged=True),
@@ -367,22 +380,49 @@ def check_flat(case: dict, device) -> dict:
     return out
 
 
-def one_kernel_a_call(fn, kernel: str) -> list:
-    """Every device operation of three calls of ``fn`` after a warm-up
-    (torch.profiler); asserts that each call enqueued exactly one, the
-    kernel ``kernel``.  Returns their names."""
+def device_op_names(fn, calls: int = 3) -> list:
+    """The names of every device operation of ``calls`` calls of ``fn``
+    after a warm-up (torch.profiler)."""
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def one_kernel_a_call(fn, kernel: str) -> list:
+    """Every device operation of three calls of ``fn`` after a warm-up;
+    asserts that each call enqueued exactly one, the kernel ``kernel``.
+    Returns their names."""
+    names = device_op_names(fn)
     assert len(names) == 3 and all(f"::{kernel}" in n for n in names), names
     return names
+
+
+def check_flat_calls(device) -> dict:
+    """What one flat E+M call and one flat window-score call enqueue (three
+    calls each, torch.profiler): the scores call its kernel and nothing
+    else; the E+M call no more operations than ``cuda_em.em_counts_multi``
+    at M=1, only fills, its kernel and the combined pass's rounding and ll
+    kernels: no gather of the LUT, no fold of the counts.  Raises
+    AssertionError otherwise; returns the names of one call's operations."""
+    x = flat_inputs(N=2_000, L=200, W=12, K=2, S=2, device=device)
+    kw = dict(A=4, K=2, W=12)
+    scores = one_kernel_a_call(lambda: cuda_flat.window_scores(
+        x["s_flat"], x["qidx"], x["lens"], x["map5"], **kw), "flat_scores_kernel")
+    em = device_op_names(lambda: cuda_flat.em_counts(
+        x["s_flat"], x["qidx"], x["lens"], x["q"], x["map5"], R=x["R"], **kw))
+    b1 = device_op_names(lambda: cuda_em.em_counts_multi(x["s_multi"], x["cidx"], x["lens"], x["q"]))
+    allowed = ("::flat_em_kernel<", "::round_counts_kernel(", "::ll_reduce_kernel(", "FillFunctor")
+    assert len(em) <= len(b1) and all(any(a in n for a in allowed) for n in em), (em, b1)
+    assert sum("::flat_em_kernel<" in n for n in em) == 3, em
+    return {"flat_window_scores": scores[:1], "flat_em_counts": em[: len(em) // 3],
+            "em_counts_multi_ops": len(b1) // 3}
 
 
 def offset_copy(t: torch.Tensor) -> torch.Tensor:
@@ -556,6 +596,11 @@ def test_counts_wrapper_rejects_bad_inputs(cuda_device):
 @pytest.mark.parametrize("name", sorted(FLAT_CASES))
 def test_flat_kernels_match_plain(cuda_device, name):
     check_flat(FLAT_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+def test_flat_calls_enqueue_their_kernel_and_no_gather(cuda_device):
+    check_flat_calls(cuda_device)
 
 
 @pytest.mark.cuda

@@ -191,19 +191,26 @@ def test_zero_rows_and_short_rows_contribute_log1m_q():
 
 
 def test_launch_plans():
-    # A=4, W=12: K=2 (6 KB) and K=3 (30 KB) keep both tables in shared memory
-    assert cuda_flat.em_plan(5 ** 3, 12) == (True, True)
-    assert cuda_flat.em_plan(5 ** 4, 12) == (True, True)
-    # K=4 (150 KB): the counts stay, the LUT is read through the cache
-    assert cuda_flat.em_plan(5 ** 5, 12) == (False, True)
-    assert cuda_flat.scores_plan(5 ** 5, 12)
-    # K=5 (750 KB) and A=4, K=4, W=30 (375 KB): global memory
-    assert cuda_flat.em_plan(5 ** 6, 12) == (False, False)
-    assert not cuda_flat.scores_plan(5 ** 6, 12)
-    assert cuda_flat.em_plan(5 ** 5, 30) == (False, False)
+    """The flat kernels run the combined kernels' plans for one seed (A=4,
+    W=12, bench's rows of 200 bp on both strands); the E+M kernel reads map5
+    through L1, and the scores kernel's map fits beside its plan."""
+    R1 = {K: encode.num_rows(4, K) + 1 for K in (2, 3, 4, 5)}
+    for K in (2, 3, 4, 5):
+        plan = cuda_flat.em_plan(R1[K], 12, 2, 200)
+        assert plan == cuda_em.launch_plan(1, R1[K], 12, 2, 200)
+        # fixed-point shared counts with the LUT beside them up to K=4; K=5
+        # adds to global counts
+        assert plan.counts == (2 if K <= 4 else 0) and plan.smem_lut == (K <= 4)
+    # window scores: the LUT beside B2's buffers up to K=4, through L1 at K=5;
+    # the map fits beside them (62.5 KB at K=5)
+    for K in (2, 3, 4):
+        assert cuda_flat.scores_plan(5 ** (K + 1), R1[K], 12) == (True, True)
+    assert cuda_flat.scores_plan(5 ** 6, R1[5], 12) == (False, True)
+    # A=4, K=4, W=30: float counts ([R1, W] 164 KB), the LUT through L1
+    plan = cuda_flat.em_plan(R1[4], 30, 2, 200)
+    assert (plan.smem_counts, plan.fixed_counts, plan.smem_lut) == (True, False, False)
     # counts from r land in combined rows: K=4's [R1, W] (65 KB) stays in
     # shared memory, map5 through L1; K=5's (262 KB) in global memory
-    R1 = {K: encode.num_rows(4, K) + 1 for K in (2, 4, 5)}
     assert cuda_flat.counts_plan(5 ** 3, R1[2], 12) == (True, True)
     assert cuda_flat.counts_plan(5 ** 5, R1[4], 12) == (True, False)
     assert cuda_flat.counts_plan(5 ** 6, R1[5], 12) == (False, False)

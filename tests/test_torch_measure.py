@@ -71,6 +71,28 @@ def test_cgs_ab_summary_rank_tests(shift, distinct):
     assert out["sweeps_per_s_plain"]["mannwhitney_p_change_vs_base"] > 0.01
 
 
+def test_ab_summary_leaves_out_processes_not_measured():
+    """A device time that device_ms could not read ("not measured") is left
+    out of its metric's tests and counted; its round drops out of the paired
+    test, and a metric with no value on one side gets null tests."""
+    procs = []
+    for rnd in range(4):
+        order = ("base", "change") if rnd % 2 == 0 else ("change", "base")
+        for pos, tree in enumerate(order):
+            lost = tree == "change" and rnd == 1
+            procs.append({"tree": tree, "round": rnd, "position": pos, "metrics": {
+                "device_ms": "not measured" if lost else 0.1 + rnd * 0.01 + (tree == "change"),
+                "never": "not measured" if tree == "base" else 1.0}})
+    out = ab.summary(procs)
+    dev = out["device_ms"]
+    assert dev["not_measured"] == 1 and len(dev["base"]) == 4 and len(dev["change"]) == 3
+    assert dev["median_paired_change_minus_base"] == pytest.approx(1.0)
+    assert dev["mannwhitney_p_change_vs_base"] < 0.1
+    never = out["never"]
+    assert never["not_measured"] == 4 and never["median_base"] is None
+    assert never["mannwhitney_p_change_vs_base"] is None and never["wilcoxon_p_paired_rounds"] is None
+
+
 @pytest.mark.parametrize("design", sorted(kernel_variants.DESIGNS))
 def test_kernel_variant_edits_apply_to_this_source(design):
     """Every variant's edits apply exactly once to this checkout's kernel

@@ -2,7 +2,8 @@
 (``ops/cuda_em.py``, ``ops/cuda_scores.py``, ``ops/cuda_counts.py``,
 ``ops/cuda_flat.py``), checked on the CPU: a plan never asks for more
 shared memory than one H100 block may opt into, puts a table in shared
-memory only where it fits, and takes the global fallbacks where it must.
+memory only where it fits, and takes the global fallbacks where it must;
+the flat kernels run the combined kernels' plans.
 Also the counts wrappers' per-stream workspace.  Imports no JAX."""
 
 import pytest
@@ -108,6 +109,30 @@ def test_counts_launch_plans(K, A, W):
         assert smem_counts == (K <= 4)  # 262 KB a seed at K=5
         assert smem_map == (K <= 3)
     assert cuda_flat.counts_plan(Q, R1, W) is cuda_flat.counts_plan(Q, R1, W)  # cached
+
+
+@pytest.mark.parametrize("W", (8, 12, 30))
+@pytest.mark.parametrize("A", (4, 5))
+@pytest.mark.parametrize("K", range(6))
+def test_flat_launch_plans(K, A, W):
+    """B4a runs B1's plan and B4b B2's, each for one seed, never downgraded
+    for map5.  B4a reads the map through L1, so its plan's own bytes fit
+    under SMEM_MAX; B4b may stage it only where its bytes fit under SMEM_MAX
+    beside that plan (the launcher then asks the occupancy query)."""
+    R1 = encode.num_rows(A, K) + 1
+    Q = (A + 1) ** (K + 1)
+    for S, L in GEOMETRIES:
+        plan = cuda_flat.em_plan(R1, W, S, L)
+        assert plan == cuda_em.launch_plan(1, R1, W, S, L)
+        assert cuda_em.smem_bytes(plan, R1, W) <= SMEM_MAX, (S, L)
+    smem_lut, map_fits = cuda_flat.scores_plan(Q, R1, W)
+    assert (1, smem_lut) == cuda_scores.launch_plan(1, R1, W)
+    base = cuda_scores.smem_bytes(1, smem_lut, R1, W)
+    assert base <= SMEM_MAX and map_fits == (base + 4 * Q <= SMEM_MAX)
+    if A == 4 and W == 12:  # bench's rows: the LUT in shared memory up to K=4
+        assert smem_lut == (K <= 4) and map_fits
+        assert cuda_flat.em_plan(R1, W, 2, 200).smem_lut == (K <= 4)
+    assert cuda_flat.scores_plan(Q, R1, W) is cuda_flat.scores_plan(Q, R1, W)  # cached
 
 
 def test_counts_workspace_grows_and_keeps_retired_buffers():
