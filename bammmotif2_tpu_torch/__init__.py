@@ -10,7 +10,11 @@ one EM iteration (``csrc/em_counts.cu``, bound in ``ops.cuda_em``), the
 seed-stacked window scores of scanning and FDR (``csrc/window_scores.cu``,
 ``ops.cuda_scores``), the counts of a Gibbs sweep
 (``csrc/counts_from_r.cu``, ``ops.cuda_counts``), and the three passes on
-base-(A+1) k-mer codes (``csrc/flat.cu``, ``ops.cuda_flat``).
+base-(A+1) k-mer codes (``csrc/flat.cu``, ``ops.cuda_flat``).  Under a
+multi-process launch ``parallel`` shards EM and CGS over the ranks with
+``torch.distributed`` (``parallel.distributed``, ``parallel.mesh``).  Entry
+points run on the current CUDA device unless given ``device="cpu"``
+(``utils.device.resolve``).
 
 The port imports neither ``jax`` nor anything of ``bammmotif2_tpu``.  It
 keeps its own copies of the reference's host modules: ``utils.{alphabet,

@@ -13,8 +13,15 @@ by cross-validated FDR (``--FDR``, refining each fold by CGS under
         --EM --FDR --scoreSeqset -k 2 -K 2 -q 0.9 --mFold 10 --cvFold 5
 
 ``--profile DIR`` records the run with ``torch.profiler`` and writes a
-Chrome trace into DIR.  The run is single-device: --single-device is
-accepted and has no effect.
+Chrome trace into DIR.
+
+Under a multi-process launch (``torchrun --nproc-per-node N -m
+bammmotif2_tpu_torch.cli ...``) every rank joins the process group
+(``parallel.distributed``) and EM and CGS shard over a mesh of the ranks:
+rows over its data axis, EM's seeds over its seed axis.  Scanning and FDR
+run whole on every rank, as in the reference.  Only rank 0 writes files
+and prints; the other ranks compute the same models.  ``--single-device``
+runs each process on its own and joins nothing.
 """
 
 from __future__ import annotations
@@ -37,10 +44,12 @@ from bammmotif2_tpu_torch.evaluation.prcurve import average_recall
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motifset import load_motifs
+from bammmotif2_tpu_torch.parallel import distributed
 from bammmotif2_tpu_torch.refinement.em import run_em
 from bammmotif2_tpu_torch.refinement.gibbs import run_gibbs_multi
 from bammmotif2_tpu_torch.refinement.multi import run_em_multi
 from bammmotif2_tpu_torch.scoring import scan
+from bammmotif2_tpu_torch.utils.device import resolve
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -133,16 +142,18 @@ def params_from_args(argv: list) -> Params:
     return Params(**{k: v for k, v in d.items() if k in Params.__dataclass_fields__})
 
 
-def run_pipeline(params: Params, device) -> dict:
+def run_pipeline(params: Params, device, mesh=None) -> dict:
     """Execute the pipeline; returns a dict of produced artifacts.
 
-    With ``params.profile`` set, the whole run is recorded by
+    ``mesh`` (``parallel.mesh.Mesh``): shard EM and CGS over the ranks; on
+    ranks other than 0 nothing is written or printed and ``files`` stays
+    empty.  With ``params.profile`` set, the whole run is recorded by
     ``torch.profiler`` (CPU, and CUDA on a CUDA device) and its Chrome
     trace written into that directory (``<host>_<pid>.<time>.pt.trace.json``,
     readable by TensorBoard or chrome://tracing); with ``params.jsonl``
     every stage appends one event to ``BASENAME.metrics.jsonl``.
     """
-    if params.profile:
+    if params.profile and distributed.is_main():
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.device(device).type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -150,30 +161,36 @@ def run_pipeline(params: Params, device) -> dict:
             activities=acts,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(params.profile),
         ):
-            return _run_pipeline(params, device)
-    return _run_pipeline(params, device)
+            return _run_pipeline(params, device, mesh)
+    return _run_pipeline(params, device, mesh)
 
 
-def _run_pipeline(params: Params, device) -> dict:
+def _run_pipeline(params: Params, device, mesh) -> dict:
     t_start = time.perf_counter()
-    os.makedirs(params.outputDirectory, exist_ok=True)
+    writer = distributed.is_main()
+    if writer:
+        os.makedirs(params.outputDirectory, exist_ok=True)
     alphabet = Alphabet.from_type(params.alphabetType)
     basename = params.basename or os.path.splitext(
         os.path.basename(params.posSequenceFile)
     )[0]
     metrics = MetricsLogger(
         os.path.join(params.outputDirectory, f"{basename}.metrics.jsonl")
-        if params.jsonl
+        if params.jsonl and writer
         else None
     )
     try:
-        return _pipeline_stages(params, device, metrics, alphabet, basename, t_start)
+        return _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
+                                t_start)
     finally:
         metrics.close()
 
 
-def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> dict:
+def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
+                     t_start) -> dict:
+    """The stages; ``writer``: this process writes files and prints."""
     out: dict = {"motifs": [], "files": []}
+    verbose = params.verbose and writer
     metrics.event("run_start", params={
         # identity checks: an explicitly-set falsy override (-q 0) must log
         k: v for k, v in dataclasses.asdict(params).items()
@@ -190,7 +207,7 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
         if params.negSequenceFile
         else None
     )
-    if params.verbose:
+    if verbose:
         print(
             f"Loaded {pos_set.n} positive sequences "
             f"(len {pos_set.min_len}..{pos_set.max_len})"
@@ -206,13 +223,14 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
             alpha=params.bgModelAlpha,
             ss=params.ss,
         )
-    out["files"] += list(bg.write(params.outputDirectory, basename))
+    if writer:
+        out["files"] += list(bg.write(params.outputDirectory, basename))
     out["bg"] = bg
 
     motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
     out["motifs"] = motifs
 
-    if params.saveInitialBaMMs:
+    if params.saveInitialBaMMs and writer:
         for m in motifs:
             out["files"] += list(
                 m.write(params.outputDirectory, f"{basename}_init_{m.name}")
@@ -225,16 +243,17 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
             results = []
             for m in motifs:
                 def _ckpt(motif=None, iteration=0, _m=m):
-                    (_m if motif is None else motif).write(
-                        params.outputDirectory, f"{basename}_{_m.name}"
-                    )
+                    if writer:
+                        (_m if motif is None else motif).write(
+                            params.outputDirectory, f"{basename}_{_m.name}"
+                        )
                     metrics.event("em_checkpoint", motif=_m.name, iteration=iteration)
 
                 results.append(
-                    run_em(m, bg, pos_set, params, checkpoint_fn=_ckpt, device=device)
+                    run_em(m, bg, pos_set, params, checkpoint_fn=_ckpt, device=device, mesh=mesh)
                 )
         else:
-            results = run_em_multi(motifs, bg, pos_set, params, device=device)
+            results = run_em_multi(motifs, bg, pos_set, params, device=device, mesh=mesh)
         out["em_results"] = results
         for m, r in zip(motifs, results):
             metrics.event(
@@ -243,7 +262,7 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
                 windows_per_sec=round(r.windows_per_sec),
                 seconds=round(r.seconds, 3),
             )
-            if params.verbose:
+            if verbose:
                 print(
                     f"EM {m.name}: {r.iterations} iters, ll={r.ll:.2f}, "
                     f"q={r.q:.3f}, {r.windows_per_sec:,.0f} windows/s"
@@ -254,32 +273,36 @@ def _pipeline_stages(params, device, metrics, alphabet, basename, t_start) -> di
         # Gibbs-refines the EM-refined models; all seeds of a (W, K) group
         # sweep together.  cgs_done carries this seed's share of its group's
         # seconds (as em_done does).
-        out["cgs_results"] = run_gibbs_multi(motifs, bg, pos_set, params, device=device)
+        out["cgs_results"] = run_gibbs_multi(motifs, bg, pos_set, params, device=device,
+                                             mesh=mesh)
         for m, r in zip(motifs, out["cgs_results"]):
             metrics.event(
                 "cgs_done", motif=m.name, iterations=r.iterations, q=r.q,
                 seconds=round(r.seconds, 3),
             )
 
-    if params.saveBaMMs:
+    if params.saveBaMMs and writer:
         for m in motifs:
             out["files"] += list(
                 m.write(params.outputDirectory, f"{basename}_{m.name}")
             )
 
     if params.scoreSeqset:
-        _scan_stage(params, device, metrics, out, pos_set, neg_set, bg, motifs, basename)
+        _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, motifs,
+                    basename)
     if params.FDR:
-        _fdr_stage(params, device, metrics, out, pos_set, neg_set, bg, alphabet, basename)
+        _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
+                   basename)
 
     out["runtime_seconds"] = time.perf_counter() - t_start
     metrics.event("run_done", runtime_seconds=round(out["runtime_seconds"], 3))
-    if params.verbose:
+    if verbose:
         print(f"Runtime: {out['runtime_seconds']:.2f}s")
     return out
 
 
-def _scan_stage(params, device, metrics, out, pos_set, neg_set, bg, motifs, basename) -> None:
+def _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, motifs,
+                basename) -> None:
     """--scoreSeqset: per-window occurrence p-values against the negatives'
     per-window scores (user negatives when given, else sampled from a
     background fit to the positives), one .occurrence file per motif.  Each
@@ -306,31 +329,33 @@ def _scan_stage(params, device, metrics, out, pos_set, neg_set, bg, motifs, base
     for m, res, neg_res in pairs:
         # passing the negatives' ScanResult keeps their pool on the device
         occs = scan.find_occurrences(res, pos_set, neg_res, params.pvalCutoff)
-        path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.occurrence")
-        scan.write_occurrences(path, occs)
-        out["files"].append(path)
+        if writer:
+            path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.occurrence")
+            scan.write_occurrences(path, occs)
+            out["files"].append(path)
         metrics.event(
             "scan_done", motif=m.name, hits=len(occs),
             windows=int(np.sum(np.maximum(pos_set.lens - m.W + 1, 0)))
             * (1 if params.ss else 2),
             seconds=round(time.perf_counter() - t0, 3),
         )
-        if params.saveLogOdds:
+        if params.saveLogOdds and writer:
             lo_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.logOdds")
             scan.write_logodds(lo_path, res, pos_set)
             out["files"].append(lo_path)
 
 
-def _fdr_stage(params, device, metrics, out, pos_set, neg_set, bg, alphabet, basename) -> None:
+def _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
+               basename) -> None:
     """--FDR: cross-validated evaluation of the (unrefined) seeds; the seeds
     of a (W, K) group are refined (by CGS under --CGS, else EM) and scored
     together in every fold."""
     seed_motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
     fdr_list = evaluate_motifs(seed_motifs, bg, pos_set, params, neg_set=neg_set, device=device)
     for m, res in zip(seed_motifs, fdr_list):
-        if params.savePRs:
+        if params.savePRs and writer:
             out["files"] += res.write(params.outputDirectory, f"{basename}_{m.name}")
-        if params.savePvalues:
+        if params.savePvalues and writer:
             pv_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.pvalues")
             np.savetxt(pv_path, res.pos_pvalues, fmt="%.4e")
             out["files"].append(pv_path)
@@ -343,15 +368,38 @@ def _fdr_stage(params, device, metrics, out, pos_set, neg_set, bg, alphabet, bas
         )
 
 
+def _estimate_n_seeds(params: Params) -> int:
+    """Cheap seed-count estimate for the mesh's seed-axis width: the MOTIF
+    lines of --PWMFile or the --pattern list, capped by --maxPWM (a copy of
+    the reference's rule)."""
+    n = 1
+    try:
+        if params.PWMFile:
+            with open(params.PWMFile) as fh:
+                n = sum(1 for line in fh if line.startswith("MOTIF"))
+        elif params.pattern:
+            n = len([p for p in params.pattern.split(";") if p.strip()])
+    except OSError:
+        pass  # an unreadable file errors meaningfully later, in load_motifs
+    if params.maxPWM:
+        n = min(n, params.maxPWM)
+    return max(n, 1)
+
+
 def main(argv=None, device=None) -> int:
-    """Run the CLI on ``device`` (default: the first CUDA device; raises when
-    CUDA is absent — pass ``device="cpu"`` to run the plain path on the CPU)."""
+    """Run the CLI on ``device`` (default: the current CUDA device; raises
+    when CUDA is absent — pass ``device="cpu"`` to run the plain path on the
+    CPU).  Under a launcher's environment it joins the process group first
+    (unless --single-device) and shards over a mesh of the ranks."""
     params = params_from_args(sys.argv[1:] if argv is None else argv)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-        device = "cuda"
-    run_pipeline(params, torch.device(device))
+    mesh = None
+    if params.multiDevice and distributed.initialize(device=device):
+        mesh = distributed.auto_mesh(n_seeds=_estimate_n_seeds(params))
+        if params.verbose and mesh is not None and distributed.is_main():
+            world = torch.distributed.get_world_size()
+            hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
+            print(f"mesh {mesh.shape} over {world} devices ({hosts} hosts)")
+    run_pipeline(params, resolve(device), mesh)
     return 0
 
 

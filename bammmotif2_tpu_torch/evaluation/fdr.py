@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.device import resolve
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.evaluation import prcurve
 from bammmotif2_tpu_torch.generator import seqgen
@@ -109,7 +110,7 @@ def evaluate_motifs(
     params: Params | None = None,
     refine: str | None = None,
     neg_set: SequenceSet | None = None,
-    device="cpu",
+    device=None,
 ) -> list:
     """k-fold CV FDR analysis for a whole MotifSet, seeds of equal
     (W, K, alphabet, f_bg) evaluated as one stacked group.
@@ -122,8 +123,10 @@ def evaluate_motifs(
 
     ``refine``: 'EM', 'CGS', or 'none' or any other string (score the seeds
     as-is); None derives it from ``params`` ('CGS' under params.CGS, else
-    'EM').
+    'EM').  ``device``: None runs on the current CUDA device; pass "cpu" for
+    the CPU.
     """
+    device = resolve(device)
     params, refine = _resolve(params, refine)
     n_folds = max(1, params.cvFold)
     if n_folds < 2 or sset.n < n_folds:
@@ -151,7 +154,7 @@ def evaluate_motif(
     params: Params | None = None,
     refine: str | None = None,
     neg_set: SequenceSet | None = None,
-    device="cpu",
+    device=None,
     index: int = 0,
 ) -> FDRResult:
     """k-fold CV FDR analysis of one seed (``FDR::evaluateMotif``).
@@ -162,8 +165,10 @@ def evaluate_motif(
     (``refinement.gibbs.run_gibbs``, its chain seeded from ``index``, the
     seed's position in its MotifSet).  ``neg_set``: user-provided
     negatives, folded round-robin like the positives; when absent,
-    negatives are sampled per fold.
+    negatives are sampled per fold.  ``device``: None runs on the current
+    CUDA device; pass "cpu" for the CPU.
     """
+    device = resolve(device)
     params, refine = _resolve(params, refine)
     if sset.n == 0:
         empty = np.zeros(0)

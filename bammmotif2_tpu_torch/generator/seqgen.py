@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bammmotif2_tpu_torch.utils.device import resolve
 from bammmotif2_tpu_torch.utils.fasta import PAD, SequenceSet
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif
@@ -94,7 +95,7 @@ def generate_neg_set(
     name_prefix: str = "neg",
     n_pad: int | None = None,
     pad_len: int | None = None,
-    device="cpu",
+    device=None,
 ) -> SequenceSet:
     """Sample a negative set (``SeqGenerator::generateNegSeqSet``): lengths =
     positive lengths repeated m_fold times, bases from the order-sOrder model
@@ -102,7 +103,10 @@ def generate_neg_set(
 
     ``n_pad`` / ``pad_len``: pad the sequence count (with zero-length rows)
     and the length axis to fixed sizes, as the FDR fold loop does.
+    ``device``: None samples on the current CUDA device; pass "cpu" for the
+    CPU.
     """
+    device = resolve(device)
     lens_rep, L = _neg_lengths(lens, m_fold, n_pad, pad_len)
     codes = _sample(bg_fit, lens_rep, L, seed, device).cpu().numpy()
     headers = [f"{name_prefix}_{i + 1}" for i in range(len(lens_rep))]
@@ -132,14 +136,16 @@ def generate_neg_data(
     ss: bool,
     n_pad: int | None = None,
     pad_len: int | None = None,
-    device="cpu",
+    device=None,
 ):
     """Sampled-negative index tensors on the device.
 
     The sampling contract of generate_neg_set (the same seed gives the same
     sequences), but the codes never visit the host.  Returns (cidx
-    [S, N, L] int32 on ``device``, lens [N] host int32).
+    [S, N, L] int32 on ``device``, lens [N] host int32).  ``device``: None
+    samples on the current CUDA device; pass "cpu" for the CPU.
     """
+    device = resolve(device)
     lens_rep, L = _neg_lengths(lens, m_fold, n_pad, pad_len)
     cidx = _sample_encode(bg_fit, lens_rep, L, seed, K=K, ss=ss, device=device)
     return cidx, lens_rep
@@ -171,7 +177,7 @@ def mask_motif(
     m_fold: int = 10,
     seed: int = 7,
     ss: bool = False,
-    device="cpu",
+    device=None,
 ) -> SequenceSet:
     """Motif-masked positives: resample every significant motif window from
     the background's mono-nucleotide conditionals (``SeqGenerator`` masked
@@ -179,10 +185,12 @@ def mask_motif(
 
     Windows whose log-odds beats the empirical p-value cutoff, ranked
     against the per-window scores of ``m_fold`` sampled negatives, are
-    replaced.
+    replaced.  ``device``: None runs on the current CUDA device; pass "cpu"
+    for the CPU.
     """
     from bammmotif2_tpu_torch.scoring import scan as scan_mod
 
+    device = resolve(device)
     res = scan_mod.score_set(motif, bg, sset, ss=ss, device=device)
     neg = generate_neg_set(bg, sset.lens, m_fold=m_fold, seed=seed, device=device)
     neg_res = scan_mod.score_set(motif, bg, neg, ss=ss, device=device)

@@ -135,7 +135,7 @@ def _check(s_flat, cidx, lens, q) -> None:
 
 
 def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor,
-                    q: torch.Tensor) -> tuple:
+                    q: torch.Tensor, unrounded: bool = False) -> tuple:
     """Seed-stacked fused E+M data pass.
 
     Args:
@@ -146,20 +146,22 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
       q: f32 [M] per-seed ZOOPS priors.
 
     Returns (C f32 [M, R+1, W] fractional counts with the sentinel row's
-    mass kept, ll f32 [M] ZOOPS log-likelihoods).  ``em_counts_multi.
-    launches`` counts kernel launches.
+    mass kept, ll f32 [M] ZOOPS log-likelihoods); with ``unrounded`` C is
+    the float64 sums the kernel rounds from (a sharded run adds them over
+    its ranks before rounding once).  ``em_counts_multi.launches`` counts
+    kernel launches.
     """
     if all(t.device.type == "cpu" for t in (s_flat, cidx, lens, q)):
-        return em_counts_multi_ref(s_flat, cidx, lens, q)
+        return em_counts_multi_ref(s_flat, cidx, lens, q, unrounded)
     _check(s_flat, cidx, lens, q)
     M, R1, W = s_flat.shape
     S, N, L = cidx.shape
     dev = cidx.device
     C = torch.zeros((M, R1, W), dtype=torch.float32, device=dev)
     ll = torch.zeros((M,), dtype=torch.float32, device=dev)
-    if M == 0:
-        return C, ll
     Cd = torch.zeros((M, R1, W), dtype=torch.float64, device=dev)
+    if M == 0:
+        return (Cd if unrounded else C), ll
     logz = torch.empty((M, N), dtype=torch.float32, device=dev)
     plan = launch_plan(M, R1, W, S, L)
     lib = library()
@@ -176,14 +178,14 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
             f"em_counts launch failed: {lib.em_counts_error_string(err).decode()}"
         )
     em_counts_multi.launches += 1
-    return C, ll
+    return (Cd if unrounded else C), ll
 
 
 em_counts_multi.launches = 0
 
 
 def em_counts_multi_ref(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor,
-                        q: torch.Tensor) -> tuple:
+                        q: torch.Tensor, unrounded: bool = False) -> tuple:
     """The plain PyTorch version of ``em_counts_multi`` (escore ops, one seed
     at a time); same arguments and results, on any device."""
     M, R1, W = s_flat.shape
@@ -191,6 +193,7 @@ def em_counts_multi_ref(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Te
     for m in range(M):
         scores, mask = escore.window_scores(s_flat[m], cidx, lens, W)
         r, _r0, ll = escore.zoops_posterior(scores, mask, q[m])
-        Cs.append(escore.mstep_counts(r, cidx, R1 - 1, W))
+        Cs.append(escore.mstep_counts_f64(r, cidx, R1 - 1, W))
         lls.append(ll)
-    return torch.stack(Cs), torch.stack(lls)
+    C = torch.stack(Cs)
+    return (C if unrounded else C.to(s_flat.dtype)), torch.stack(lls)

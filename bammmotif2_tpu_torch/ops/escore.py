@@ -80,10 +80,15 @@ def mstep_counts(r: torch.Tensor, cidx: torch.Tensor, R: int, W: int) -> torch.T
     a 1e-4 relative error per EM iteration (0.9 at |C| ~ 8000 on an H100),
     and slowly converging EM accumulates such errors ~30-fold.
     """
+    return mstep_counts_f64(r, cidx, R, W).to(r.dtype)
+
+
+def mstep_counts_f64(r: torch.Tensor, cidx: torch.Tensor, R: int, W: int) -> torch.Tensor:
+    """``mstep_counts``' float64 sums before their rounding, [R+1, W]."""
     n_win = r.shape[-1]
     rf = r.reshape(-1).to(torch.float64)
     C = torch.zeros((R + 1, W), dtype=torch.float64, device=r.device)
     for j in range(W):
         idx = cidx[:, :, j : j + n_win].reshape(-1).to(torch.int64)
         C[:, j].index_add_(0, idx, rf)
-    return C.to(r.dtype)
+    return C

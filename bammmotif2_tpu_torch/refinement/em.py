@@ -15,6 +15,12 @@ Two data paths produce the same counts and likelihood:
 
 The convergence loop runs on the host with one device sync per iteration
 (two f32 scalars decide the stop rule).
+
+With a mesh (``parallel.mesh``) the rows shard over the data axis: each
+rank runs the data pass on its block, and one all-reduce an iteration sums
+the float64 counts and the likelihoods over the data group, which are
+rounded to float32 once, as a single process rounds its sums.  Every rank
+then holds the same sums and takes the same stop decision.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from bammmotif2_tpu_torch.models import motif as motif_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif
 from bammmotif2_tpu_torch.ops import cuda_em, encode
+from bammmotif2_tpu_torch.parallel import distributed
+from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+from bammmotif2_tpu_torch.utils.device import resolve
 
 
 @dataclasses.dataclass
@@ -82,6 +91,21 @@ def counts_fn(path: str):
     return cuda_em.em_counts_multi if path == "cuda" else cuda_em.em_counts_multi_ref
 
 
+def data_pass(path: str, s_flat, data: dict, q, mesh=None) -> tuple:
+    """(C f32 [M, R+1, W], ll f32 [M]) of the E+M data pass for M seeds.
+
+    With a mesh: this rank's rows, then one all-reduce over the data group
+    of the float64 counts and the likelihoods, rounded to float32 once.
+    """
+    if mesh is None:
+        return counts_fn(path)(s_flat, data["cidx"], data["lens"], q)
+    Cd, ll = counts_fn(path)(s_flat, data["cidx"], data["lens"], q, unrounded=True)
+    M = q.shape[0]
+    buf = mesh_mod.all_reduce(torch.cat([Cd.reshape(-1), ll.to(torch.float64)]),
+                              mesh.data_group)
+    return buf[:-M].reshape(Cd.shape).to(torch.float32), buf[-M:].to(torch.float32)
+
+
 def em_step(
     v: tuple,
     q: torch.Tensor,
@@ -95,17 +119,20 @@ def em_step(
     W: int,
     optimize_q: bool,
     path: str = "plain",
+    mesh=None,
 ):
     """One EM iteration. Returns (v_new, q_new, ll, v_diff), all tensors.
 
     ``n_real``: number of real sequences when some rows of ``data`` are
     masked with length 0; each such row contributes exactly log(1-q) to the
-    likelihood and 1 to the q denominator, both corrected here.
+    likelihood and 1 to the q denominator, both corrected here.  With a
+    ``mesh``, ``data`` is this rank's block (``parallel.mesh.shard_em_data``)
+    and the counts and ll are the whole set's.
     """
     R = encode.num_rows(A, K)
-    lens = data["lens"]
+    n_rows = data.get("n_padded", data["lens"].shape[0])
     s_flat = motif_mod.log_odds_lut(v, data["bg_flat"])
-    C, ll = counts_fn(path)(s_flat[None], data["cidx"], lens, q.reshape(1))
+    C, ll = data_pass(path, s_flat[None], data, q.reshape(1), mesh)
     C, ll = C[0], ll[0]
     counts = motif_mod.counts_from_combined(C[:R], A, K)
     v_new = motif_mod.update_v(counts, alphas, f_bg)
@@ -113,12 +140,12 @@ def em_step(
         # every window deposits one count at motif position 0 (possibly in
         # the sentinel row), so column 0 of the full count tensor is the
         # total occurrence responsibility (EM::optimizeQ)
-        denom = lens.shape[0] if n_real is None else n_real
+        denom = n_rows if n_real is None else n_real
         q_new = torch.clamp(C.sum(dim=0)[0] / denom, 1e-4, 1.0 - 1e-4)
     else:
         q_new = q
     if n_real is not None:
-        ll = ll - (lens.shape[0] - n_real) * torch.log1p(-q)
+        ll = ll - (n_rows - n_real) * torch.log1p(-q)
     # parameter-change convergence statistic: L1 change over all orders
     v_diff = sum((vn - vo).abs().sum() for vn, vo in zip(v_new, v))
     return v_new, q_new, ll, v_diff
@@ -140,6 +167,7 @@ def em_optimize(
     optimize_q: bool,
     path: str,
     max_iters: int,
+    mesh=None,
 ):
     """The EM convergence loop: stop when v_diff < eps or |dll| < eps
     (EM::optimize), capped at ``max_iters``.  The comparison is in float32
@@ -156,7 +184,7 @@ def em_optimize(
     while it < max_iters and bool(vd >= epsilon):
         v, q, ll_new, vd2 = em_step(
             v, q, data, alphas, f_bg, n_real,
-            A=A, K=K, W=W, optimize_q=optimize_q, path=path,
+            A=A, K=K, W=W, optimize_q=optimize_q, path=path, mesh=mesh,
         )
         vd = torch.minimum(vd2, (ll_new - ll).abs())
         ll = ll_new
@@ -195,12 +223,18 @@ def run_em(
     verbose: bool | None = None,
     checkpoint_fn=None,
     n_real: int | None = None,
-    device="cpu",
+    device=None,
+    mesh=None,
 ) -> EMResult:
     """Refine ``motif`` in place with ZOOPS EM (``EM::optimize``).
 
-    ``n_real``: number of real sequences in ``data`` when some rows are
-    masked out with length 0; defaults to the row count.
+    ``device``: where it runs (None: the current CUDA device; pass "cpu"
+    for the CPU).  ``n_real``: number of real sequences in ``data`` when
+    some rows are masked out with length 0; defaults to the row count.
+
+    With ``mesh`` (``parallel.mesh.Mesh``): the rows shard over its data
+    axis and every iteration sums the counts over the data group; every
+    rank ends with the same model.  Only rank 0 prints under ``verbose``.
 
     ``checkpoint_fn(motif=, iteration=)``: when set together with
     ``params.checkpointEvery > 0``, the loop runs in chunks of that many
@@ -210,6 +244,7 @@ def run_em(
     params = params or Params(EM=True)
     verbose = params.verbose if verbose is None else verbose
     A, K, W = motif.A, motif.K, motif.W
+    device = resolve(device)
     if data is None:
         data = prepare_data(sset, bg, K, params.ss, device)
     device = data["cidx"].device
@@ -217,6 +252,8 @@ def run_em(
     n_real = int(data["lens"].shape[0]) if n_real is None else int(n_real)
     lens_np = data["lens"].cpu().numpy()
     n_win = int(data["cidx"].shape[0]) * int(np.maximum(lens_np - W + 1, 0).sum())
+    if mesh is not None:
+        data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
 
     def f32(x):
         return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
@@ -228,7 +265,7 @@ def run_em(
     eps = f32(params.epsilon)
     path = choose_path(params, device)
     compile_seconds = build_seconds(path)
-    statics = dict(A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path)
+    statics = dict(A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh)
     ll_hist: list = []
     seconds = 0.0
 
@@ -280,7 +317,8 @@ def run_em(
             ll, v_diff = float(ll_dev), float(vd_dev)
             seconds += time.perf_counter() - t0
             ll_hist.append(ll)
-            print(f"  EM iter {it:4d}  ll={ll:.4f}  dv={v_diff:.3e}  q={float(q):.4f}")
+            if distributed.is_main():
+                print(f"  EM iter {it:4d}  ll={ll:.4f}  dv={v_diff:.3e}  q={float(q):.4f}")
             if ckpt_every > 0 and it % ckpt_every == 0:
                 _sync_motif()
                 checkpoint_fn(motif=motif, iteration=it)

@@ -36,6 +36,15 @@ reference, the sampled path by distribution.
 
 The sweep loop makes no host sync: CGS has a fixed number of sweeps and no
 stop test, and the ll history stays on the device until the end.
+
+With a mesh (``parallel.mesh``) each rank scores and counts its block of
+rows, and one all-reduce a sweep sums the counts, the occupied-row counts
+and the ll over the data group (sums of 0/1 occupancies, exact in float32).
+Each chain still draws one uniform for every row of the whole set and the
+rank keeps its block's, so z does not depend on the layout; every rank
+then draws q and takes the alpha step from the same sums with the same
+generator state.  The seed axis does not split the chains: the ranks of
+other seed indices run the same chains on their own data blocks.
 """
 
 from __future__ import annotations
@@ -54,8 +63,10 @@ from bammmotif2_tpu_torch.models.motif import (
 )
 from bammmotif2_tpu_torch.ops import cuda_counts, cuda_scores, encode
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
+from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, synchronize
 from bammmotif2_tpu_torch.scoring.scan import score_fn
+from bammmotif2_tpu_torch.utils.device import resolve
 
 ALPHA_LR = 0.05
 GRAD_CLIP = 10.0
@@ -164,18 +175,24 @@ def flat_logits(scores: torch.Tensor, mask: torch.Tensor, q: torch.Tensor) -> to
     return torch.cat([absent, log_w.permute(0, 2, 1, 3).reshape(M, N, S * n_win)], dim=2)
 
 
-def draw_z(flat: torch.Tensor, gens: list, sample: bool) -> torch.Tensor:
+def draw_z(flat: torch.Tensor, gens: list, sample: bool, rows: tuple | None = None) -> torch.Tensor:
     """z [M, N] int64: 0 = no occurrence, else 1 + the flat window index.
 
     Sampled: the inverse CDF of each row's softmax at one uniform per row
     from the chain's generator (the CDF in float64, so the target u * total
     stays below the total and never lands on a zero-probability column).
-    Else the argmax (first on ties).
+    Else the argmax (first on ties).  ``rows`` = (row0, n_global): ``flat``
+    holds rows row0.. of a set of n_global rows (a shard); each chain draws
+    for all n_global rows and keeps these, and rows past n_global (shard
+    padding, no window, z = 0 whatever the draw) take 0.
     """
     if not sample:
         return flat.argmax(dim=-1)
     M, N, _ = flat.shape
-    u = torch.stack([torch.rand(N, generator=g, device=flat.device) for g in gens])
+    row0, n_global = rows or (0, N)
+    u = torch.stack([torch.rand(n_global, generator=g, device=flat.device) for g in gens])
+    u = u[:, row0 : row0 + N]
+    u = torch.nn.functional.pad(u, (0, N - u.shape[1]))
     p = torch.exp(flat - flat.amax(dim=-1, keepdim=True))
     cdf = torch.cumsum(p.to(torch.float64), dim=-1)
     target = (u.to(torch.float64) * cdf[..., -1]).unsqueeze(-1)
@@ -227,12 +244,14 @@ def gibbs_step_multi(
     learn_alpha: bool,
     path: str = "plain",
     alpha_lr: float = ALPHA_LR,
+    mesh=None,
 ):
     """One batch-synchronous CGS sweep for M chains.
 
     v: tuple of [M, A^(k+1), W]; q [M]; log_alphas, default_alphas
     [M, K+1, W]; gens: one generator per chain; data: {cidx, lens,
-    bg_flat} (``refinement.em.prepare_data``); n_real: the number of real
+    bg_flat} (``refinement.em.prepare_data``, or with ``mesh`` this rank's
+    block from ``parallel.mesh.shard_em_data``); n_real: the number of real
     rows (zero-length mask rows excluded).
 
     Returns (v, q, log_alphas, ll [M], n_occ [M], counts tuple of
@@ -246,10 +265,14 @@ def gibbs_step_multi(
     _M, S, N, n_win = scores.shape
 
     flat = flat_logits(scores, mask, q)
-    z = draw_z(flat, gens, sample_z)
-    occupied = z > 0
-    n_occ = occupied.sum(dim=1).to(torch.float32)
+    z = draw_z(flat, gens, sample_z, None if mesh is None else (data["row0"], data["n_global"]))
+    n_occ = (z > 0).sum(dim=1).to(torch.float32)
     C = counts_fn(path)(occupancy(z, S, L, n_win), cidx, R, W)
+    ll = torch.logsumexp(flat, dim=-1).sum(dim=-1)
+    if mesh is not None:
+        M = q.shape[0]
+        buf = mesh_mod.all_reduce(torch.cat([C.reshape(-1), n_occ, ll]), mesh.data_group)
+        C, n_occ, ll = buf[: -2 * M].reshape(C.shape), buf[-2 * M : -M], buf[-M:]
     counts = counts_from_combined(C[:, :R], A, K)
 
     if sample_q:
@@ -262,7 +285,7 @@ def gibbs_step_multi(
     v_new = update_v(counts, torch.exp(log_alphas), f_bg)
 
     # the ZOOPS ll with this sweep's q; each zero-length row adds log(1-q)
-    ll = torch.logsumexp(flat, dim=-1).sum(dim=-1) - (N - n_real) * torch.log1p(-q)
+    ll = ll - (data.get("n_padded", N) - n_real) * torch.log1p(-q)
     return v_new, q_new, log_alphas, ll, n_occ, counts
 
 
@@ -297,6 +320,7 @@ def gibbs_optimize(
     path: str,
     n_iters: int,
     burn_in: int = 0,
+    mesh=None,
 ):
     """The whole CGS run of M chains: ``n_iters`` sweeps, no host sync.
 
@@ -314,7 +338,7 @@ def gibbs_optimize(
         v, q, log_alphas, ll, n_occ, counts = gibbs_step_multi(
             v, q, log_alphas, gens, data, f_bg, default_alphas, n_real,
             A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
-            learn_alpha=learn_alpha, path=path,
+            learn_alpha=learn_alpha, path=path, mesh=mesh,
         )
         if i >= burn_in:
             acc = tuple(a + c for a, c in zip(acc, counts))
@@ -328,7 +352,7 @@ def gibbs_optimize(
 
 
 def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
-                 A: int, K: int, W: int, path: str):
+                 A: int, K: int, W: int, path: str, mesh=None):
     """CGS for M stacked chains as the flags say: log alpha starts at
     log(alphas), the InvGamma prior is centred on ``alphas``, and with
     --cgsBurnIn the model is the Rao-Blackwell mean over the kept sweeps.
@@ -340,7 +364,7 @@ def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
         A=A, K=K, W=W,
         sample_z=not params.noZSampling, sample_q=not params.noQSampling,
         learn_alpha=not params.noAlphaOptimization,
-        path=path, n_iters=n_iters, burn_in=burn_in,
+        path=path, n_iters=n_iters, burn_in=burn_in, mesh=mesh,
     )
     if burn_in > 0:
         v = update_v(acc, torch.exp(la), f_bg)
@@ -348,10 +372,13 @@ def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
 
 
 def _run_group(group: list, indices: list, data: dict, n_real: int, params: Params,
-               solo: bool) -> list:
+               solo: bool, mesh=None) -> list:
     """Refine the motifs of one (W, K, f_bg) group in place; returns their
     GibbsResults.  ``indices``: the motifs' global input indices, which
-    seed their chains."""
+    seed their chains.  With ``mesh``, ``data`` is the whole set and each
+    rank sweeps its block of it."""
+    if mesh is not None:
+        data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(group[0].A, group[0].K))
     A, K, W = group[0].A, group[0].K, group[0].W
     M = len(group)
     dev = data["cidx"].device
@@ -369,7 +396,7 @@ def _run_group(group: list, indices: list, data: dict, n_real: int, params: Para
 
     t0 = time.perf_counter()
     v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), gens, params,
-                                 A=A, K=K, W=W, path=path)
+                                 A=A, K=K, W=W, path=path, mesh=mesh)
     synchronize(dev)
     seconds = time.perf_counter() - t0
 
@@ -403,18 +430,21 @@ def run_gibbs(
     params: Params | None = None,
     data: dict | None = None,
     n_real: int | None = None,
-    device="cpu",
+    device=None,
     index: int = 0,
 ) -> GibbsResult:
     """Refine ``motif`` in place by CGS (``GibbsSampling::optimize``).
 
-    ``n_real``: number of real sequences when ``data`` rows are masked out
-    with length 0 (CV fold masking).  ``index``: the motif's global input
+    ``device``: None runs on the current CUDA device; pass "cpu" for the
+    CPU (``data``, when given, keeps its own).  ``n_real``: number of real
+    sequences when ``data`` rows are masked out with length 0 (CV fold
+    masking).  ``index``: the motif's global input
     index, which seeds its chain (``chain_seed(params.seed, index)``), so
     ``run_gibbs(motifs[i], ..., index=i)`` reproduces member i of
     ``run_gibbs_multi``.
     """
     params = params or Params(CGS=True)
+    device = resolve(device)
     if data is None:
         data = prepare_data(sset, bg, motif.K, params.ss, device)
     if n_real is None:
@@ -427,7 +457,8 @@ def run_gibbs_multi(
     bg: BackgroundModel,
     sset: SequenceSet,
     params: Params | None = None,
-    device="cpu",
+    device=None,
+    mesh=None,
 ) -> list:
     """Batched CGS over a MotifSet; refines every motif in place.
 
@@ -435,9 +466,12 @@ def run_gibbs_multi(
     launch per sweep for the whole group.  The motif at input position i
     samples from ``chain_seed(params.seed, i)``: global, not group-local,
     indices, so the m-th members of two groups are independent chains.
-    Returns a list of GibbsResult aligned with ``motifs``.
+    ``device``: None runs on the current CUDA device; pass "cpu" for the
+    CPU.  ``mesh``: rows shard over its data axis, with the same draws as
+    one process.  Returns a list of GibbsResult aligned with ``motifs``.
     """
     params = params or Params(CGS=True)
+    device = resolve(device)
     results: list = [None] * len(motifs)
     groups: dict = {}
     for i, m in enumerate(motifs):
@@ -449,7 +483,7 @@ def run_gibbs_multi(
         data = prepare_data(sset, bg, K, params.ss, device)
         group = [motifs[i] for i in idxs]
         res = _run_group(group, idxs, data, int(data["lens"].shape[0]), params,
-                         solo=len(idxs) == 1)
+                         solo=len(idxs) == 1, mesh=mesh)
         for i, r in zip(idxs, res):
             results[i] = r
     return results

@@ -6,6 +6,11 @@ its seeds (``ops.cuda_em.em_counts_multi`` stacks the M LUTs into one
 kernel launch), and the model update runs batched over the seed axis.
 The loop steps until every seed froze (v_diff or |dll| under epsilon) or
 the iteration cap hits; a frozen seed keeps its state and iteration count.
+
+With a mesh (``parallel.mesh``) the rows shard over the data axis as in
+``refinement.em``, and the seeds over the seed axis: the group pads to a
+multiple of the seed axis by repeating its last member, each seed index
+refines its slice, and after the loop every rank gathers the whole group.
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import motif as motif_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement.em import (
-    EMResult, build_seconds, choose_path, counts_fn, prepare_data, synchronize,
+    EMResult, build_seconds, choose_path, data_pass, prepare_data, synchronize,
 )
+from bammmotif2_tpu_torch.utils.device import resolve
 
 # ll-trace slots kept per seed; longer runs record every stride-th iteration
 HIST_CAP = 256
@@ -33,13 +40,18 @@ def run_em_multi(
     bg: BackgroundModel,
     sset: SequenceSet,
     params: Params | None = None,
-    device="cpu",
+    device=None,
+    mesh=None,
 ) -> list:
     """Batched EM over a MotifSet; refines every motif in place.
 
-    Returns a list of EMResult aligned with ``motifs``.
+    ``device``: None runs on the current CUDA device; pass "cpu" for the
+    CPU.  ``mesh``: shard rows over its data axis and seeds over its seed
+    axis; every rank ends with every refined motif.  Returns a list of
+    EMResult aligned with ``motifs``.
     """
     params = params or Params(EM=True)
+    device = resolve(device)
     results: list = [None] * len(motifs)
 
     groups: dict = {}
@@ -58,6 +70,8 @@ def run_em_multi(
         n_win = int(data["cidx"].shape[0]) * int(
             np.maximum(data["lens"].cpu().numpy() - W + 1, 0).sum()
         )
+        if mesh is not None:
+            data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
 
         def f32(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
@@ -67,6 +81,15 @@ def run_em_multi(
         q = torch.full((M,), params.q, dtype=torch.float32, device=dev)
         alphas = f32(np.stack([m.alphas for m in group]))
         f_bg = f32(group[0].f_bg)
+        if mesh is not None:
+            # pad to a multiple of the seed axis with copies of the last
+            # member (they step as it does; sliced off below); keep this
+            # seed index's slice
+            per = -(-M // mesh.n_seed)
+            keep = torch.arange(mesh.seed_index * per, (mesh.seed_index + 1) * per, device=dev)
+            keep = keep.clamp(max=M - 1)
+            v = tuple(vk[keep] for vk in v)
+            q, alphas = q[keep], alphas[keep]
         path = choose_path(params, dev)
         build_seconds(path)
 
@@ -76,7 +99,7 @@ def run_em_multi(
         def step(v, q):
             return batched_step(
                 v, q, data, alphas, f_bg, n_real,
-                A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path,
+                A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh,
             )
 
         t0 = time.perf_counter()
@@ -84,6 +107,10 @@ def run_em_multi(
             step, v, q, f32(params.epsilon), params.maxEMIterations,
             n_hist_slots=n_slots, hist_stride=stride,
         )
+        if mesh is not None:
+            *v, q, lls, vds, its, hist = mesh_mod.all_gather_seeds(
+                mesh, *v, q, lls, vds, its, hist.T)
+            hist = hist.T
         synchronize(dev)
         seconds = time.perf_counter() - t0
 
@@ -94,7 +121,7 @@ def run_em_multi(
         its = its.cpu().numpy()
         lls, vds, q = lls.cpu().numpy(), vds.cpu().numpy(), q.cpu().numpy()
         hist = hist.cpu().numpy()
-        total_its = max(int(its.sum()), 1)
+        total_its = max(int(its[:M].sum()), 1)
         for gi, i in enumerate(idxs):
             motifs[i].v = [v[k][gi].cpu().numpy().astype(np.float64) for k in range(K + 1)]
             n_rec = -(-int(its[gi]) // stride)
@@ -112,14 +139,15 @@ def run_em_multi(
     return results
 
 
-def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path):
+def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path, mesh=None):
     """One EM iteration for a seed-stacked group: (v, q) with a leading seed
     axis M -> (v_new, q_new, ll [M], v_diff [M]).  One E+M data pass serves
-    all M seeds; the model update runs batched over the seed axis."""
+    all M seeds (with a mesh: this rank's rows, summed over the data group);
+    the model update runs batched over the seed axis."""
     R = encode.num_rows(A, K)
-    lens = data["lens"]
+    n_rows = data.get("n_padded", data["lens"].shape[0])
     s_flat = motif_mod.log_odds_lut(v, data["bg_flat"])  # [M, R+1, W]
-    C, ll = counts_fn(path)(s_flat, data["cidx"], lens, q)
+    C, ll = data_pass(path, s_flat, data, q, mesh)
     counts = motif_mod.counts_from_combined(C[:, :R], A, K)
     v_new = motif_mod.update_v(counts, alphas, f_bg)
     if optimize_q:
@@ -128,7 +156,7 @@ def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path)
         q_new = q
     vd = sum((a - b).abs().sum(dim=(-2, -1)) for a, b in zip(v_new, v))
     # zero-length pad rows each contribute log(1-q) (cf. em_step)
-    ll = ll - (lens.shape[0] - n_real) * torch.log1p(-q)
+    ll = ll - (n_rows - n_real) * torch.log1p(-q)
     return v_new, q_new, ll, vd
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from bammmotif2_tpu_torch.utils.config import Params
+from bammmotif2_tpu_torch.utils.device import resolve
 from bammmotif2_tpu_torch.utils.fasta import PAD, SequenceSet
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
@@ -198,7 +199,7 @@ def score_set_multi(
     ss: bool = False,
     batch: int = 16384,
     keep_bytes: int = KEEP_BYTES,
-    device="cpu",
+    device=None,
     use_pallas: bool = True,
 ) -> list:
     """score_set for several motifs of equal (W, K) in ONE stacked pass.
@@ -208,8 +209,10 @@ def score_set_multi(
     per-motif ``ScoreSeqSet::calcLogOdds`` loop.  Returns a list of
     ScanResult aligned with ``motifs``.  When the retained-chunk budget is
     exceeded, each result's ``iter_chunks`` re-scores its own seed plane
-    (never all M per chunk).
+    (never all M per chunk).  ``device``: None runs on the current CUDA
+    device; pass "cpu" for the CPU.
     """
+    device = resolve(device)
     M = len(motifs)
     K, W, A = motifs[0].K, motifs[0].W, motifs[0].A
     S = 1 if ss else 2
@@ -222,7 +225,6 @@ def score_set_multi(
                        n_windows=0, W=W, _chunks=[], _mi=i)
             for i in range(M)
         ]
-    device = torch.device(device)
     s_flat = _stacked_luts(motifs, bg, device)
     path = choose_path(Params(use_pallas=use_pallas), device)
     # the retained tensors' window axis is set by the PADDED length, not by
@@ -283,11 +285,12 @@ def score_set(
     ss: bool = False,
     batch: int = 16384,
     keep_bytes: int = KEEP_BYTES,
-    device="cpu",
+    device=None,
     use_pallas: bool = True,
 ) -> ScanResult:
     """Log-odds-score every window of every sequence (ScoreSeqSet::calcLogOdds):
     ``score_set_multi`` with one motif."""
+    device = resolve(device)
     return score_set_multi([motif], bg, sset, ss=ss, batch=batch, keep_bytes=keep_bytes,
                            device=device, use_pallas=use_pallas)[0]
 

@@ -68,7 +68,27 @@ Phases (any failure exits non-zero):
                  planted consensus, scores are bit-equal to the combined
                  window-score kernel's, counts equal to the combined
                  counts kernel's.
-  4. timing  : each kernel against its plain version (CUDA events): E+M at
+  4. parallel: parallel/ (torch.distributed) on the one card, each rank a
+               subprocess of this script with torchrun's variables set:
+               - a one-rank NCCL group: FIXED_ITERS EM iterations and
+                 PARALLEL_SWEEPS CGS sweeps on the planted 10k x 200 bp set
+                 at K=2 on a (1, 1) mesh, every all-reduce through NCCL, are
+                 bit-equal to the unsharded runs (a one-rank f64 sum is the
+                 identity, rounded once); B1, B2 and B3 launched once per
+                 iteration or sweep at least;
+               - two ranks over gloo (NCCL refuses two ranks on one card),
+                 CUDA tensors staged through host memory by parallel.mesh:
+                 --EM at FIXED_ITERS and --CGS at PARALLEL_SWEEPS on the same
+                 set through cli.run_pipeline on a (2, 1) mesh; rank 0's files
+                 within tests/torch_outputs.py's bars of the single process's
+                 (CGS: equal, the draws are the same), rank 1 writes none,
+                 each rank launched B1, or B2 and B3, once per iteration or
+                 sweep at least;
+               - the all-reduce's µs an iteration (CUDA events around the
+                 reduce of an iteration's buffer, NCCL one rank, gloo two
+                 ranks) and EM iterations/s and CGS sweeps/s at world size
+                 1 and 2.
+  5. timing  : each kernel against its plain version (CUDA events): E+M at
                bench.py's geometry (10k x 200 bp, W=12, K=2), window scores
                at config 5's (100k x 200 bp, W=12, K=2) at M=1 and M=10,
                counts-from-r at bench's geometry with the sampler's 0/1 r at
@@ -102,6 +122,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -761,6 +782,233 @@ def phase_slice(device, tmp) -> dict:
             "config5": c5, "config4": c4, "cgs": cgs, "flat": flat}
 
 
+PARALLEL_SWEEPS = 20  # CGS sweeps of the parallel phase
+PARALLEL_TIMEOUT = 300  # seconds a group of parallel workers may take
+PARALLEL_COMMANDS = {  # the two-rank CLI commands on the planted 10k set
+    "em": ["--EM", "-k", "2", "-K", "2", "--maxEMIterations", str(FIXED_ITERS)],
+    "cgs": ["--CGS", "-k", "2", "-K", "2", "--maxCGSIterations", str(PARALLEL_SWEEPS)],
+}
+
+
+def reduce_us(group, numel: int, dtype, device, n: int = 50) -> float:
+    """Mean µs of ``parallel.mesh.all_reduce`` over ``group`` on a buffer of
+    ``numel`` entries on ``device`` (CUDA events around n calls after one
+    warm-up); every rank of the group calls it alike."""
+    import torch
+
+    from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+
+    buf = torch.zeros(numel, dtype=dtype, device=device)
+    mesh_mod.all_reduce(buf, group)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        mesh_mod.all_reduce(buf, group)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n * 1e3
+
+
+def reduce_times(group, device) -> dict:
+    """The all-reduce of one iteration of the 10k slice: EM sums f64 counts
+    [R+1, W] and ll (M=1, K=2, W=12), CGS f32 counts, n_occ and ll.  On a
+    gloo group also the EM reduce of a host tensor (host clock), which
+    leaves out the staging through host memory."""
+    import torch
+    import torch.distributed as dist
+
+    from bammmotif2_tpu_torch.ops import encode
+
+    cells = (encode.num_rows(4, 2) + 1) * W
+    out = {"em_allreduce_us": reduce_us(group, cells + 1, torch.float64, device),
+           "cgs_allreduce_us": reduce_us(group, cells + 2, torch.float32, device)}
+    if dist.get_backend(group) == "gloo":
+        buf = torch.zeros(cells + 1, dtype=torch.float64)
+        dist.all_reduce(buf, group=group)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            dist.all_reduce(buf, group=group)
+        out["em_allreduce_host_tensor_us"] = (time.perf_counter() - t0) / 50 * 1e6
+    return out
+
+
+def parallel_worker(kind: str, tmp: str) -> int:
+    """One rank of the parallel phase, started by ``phase_parallel`` with
+    torchrun's variables set; writes its results to TMP/parallel_KIND_RANK.json.
+
+    nccl: a one-rank NCCL group; FIXED_ITERS EM iterations and
+    PARALLEL_SWEEPS CGS sweeps on the planted 10k set, unsharded and on a
+    (1, 1) mesh whose every all-reduce goes through NCCL.
+    gloo: one of two ranks on one card over gloo; PARALLEL_COMMANDS through
+    ``cli.run_pipeline`` on a (2, 1) mesh.
+    Each runs twice and reports the second round: the first loads the
+    kernels and makes the communicators inside its timed loops.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from bammmotif2_tpu_torch import cli
+    from bammmotif2_tpu_torch.models import seeds as seeds_mod
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+    from bammmotif2_tpu_torch.parallel import distributed
+    from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+    from bammmotif2_tpu_torch.refinement.em import run_em
+    from bammmotif2_tpu_torch.refinement.gibbs import run_gibbs_multi
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    rank = int(os.environ["RANK"])
+    out: dict = {"rank": rank}
+    if kind == "nccl":
+        if not distributed.initialize():
+            raise AssertionError("nccl: no process group came up")
+        out["backend"] = dist.get_backend()
+        if out["backend"] != "nccl":
+            raise AssertionError(f"nccl: the backend is {out['backend']}")
+        device = torch.device("cuda", torch.cuda.current_device())
+        os.makedirs(os.path.join(tmp, "nccl"), exist_ok=True)
+        sset, _, _, planted, _pos, _has = planted_problem(os.path.join(tmp, "nccl"))
+        bg = BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)
+        pwm = np.full((W, 4), 0.1)
+        pwm[np.arange(W), planted] = 0.7
+        seed = seeds_mod.motif_from_pwm(pwm, K=2, f_bg=sset.base_frequencies())
+        mesh = mesh_mod.make_mesh(1, 1)
+        em_params = Params(EM=True, maxEMIterations=FIXED_ITERS, epsilon=0.0)
+        cgs_params = Params(CGS=True, maxCGSIterations=PARALLEL_SWEEPS)
+        runs = {}
+        for name, m in (("unsharded", None), ("mesh", mesh)) * 2:  # round 1 warms up
+            em_m, cgs_m = seed.copy(), seed.copy()
+            reset_launches()
+            em_r = run_em(em_m, bg, sset, em_params, device=device, mesh=m)
+            cgs_r = run_gibbs_multi([cgs_m], bg, sset, cgs_params, device=device, mesh=m)[0]
+            runs[name] = (em_m, em_r, cgs_m, cgs_r, launches())
+        (em0, r0, cgs0, g0, _), (em1, r1, cgs1, g1, n1) = runs["unsharded"], runs["mesh"]
+        out.update({
+            "em_iterations": r1.iterations,
+            "em_bit_equal": all(np.array_equal(a, b) for a, b in zip(em0.v, em1.v))
+            and (r0.ll, r0.q) == (r1.ll, r1.q),
+            "cgs_bit_equal": all(np.array_equal(a, b) for a, b in zip(cgs0.v, cgs1.v))
+            and g0.q == g1.q,
+            "launches": n1,
+            "em_iters_per_s": {"unsharded": r0.iterations / r0.seconds,
+                               "mesh_1x1": r1.iterations / r1.seconds},
+            "cgs_sweeps_per_s": {"unsharded": g0.iterations / g0.seconds,
+                                 "mesh_1x1": g1.iterations / g1.seconds},
+            **reduce_times(mesh.data_group, device),
+        })
+    else:
+        if not distributed.initialize(backend="gloo"):
+            raise AssertionError("gloo: no process group came up")
+        device = torch.device("cuda", torch.cuda.current_device())
+        mesh = distributed.auto_mesh(1)
+        out["mesh"] = mesh.shape
+        for tag, extra in [*PARALLEL_COMMANDS.items()] * 2:  # round 1 warms up
+            outdir = os.path.join(tmp, f"parallel_{tag}_rank{rank}")
+            params = cli.params_from_args([outdir, os.path.join(tmp, "parallel.fasta"), "--PWMFile",
+                                           os.path.join(tmp, "parallel.meme"), "--jsonl", *extra])
+            reset_launches()
+            res = cli.run_pipeline(params, device, mesh)
+            r = res["em_results" if tag == "em" else "cgs_results"][0]
+            out[tag] = {"launches": launches(), "iterations": r.iterations,
+                        "per_s": r.iterations / r.seconds, "files": len(res["files"])}
+        out.update(reduce_times(mesh.data_group, device))
+    with open(os.path.join(tmp, f"parallel_{kind}_{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def run_workers(kind: str, world: int, tmp: str) -> list:
+    """Start ``world`` ranks of ``parallel_worker(kind)`` (LOCAL_RANK 0: one
+    card; OMP_NUM_THREADS 1 unless set, as torchrun sets it), wait for them
+    within PARALLEL_TIMEOUT (killing all if one hangs), and return their
+    results; raises if any failed."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "1"),
+                   WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0",
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker", kind, tmp],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + PARALLEL_TIMEOUT
+    try:
+        logs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel {kind} rank {rank} failed ({p.returncode}):\n"
+                                 f"{text[-4000:]}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f"parallel_{kind}_{rank}.json")) as fh:
+            results.append(json.load(fh))
+    return results
+
+
+def phase_parallel(device, tmp) -> dict:
+    """parallel/ on the one card: a one-rank NCCL group, then two ranks over
+    gloo, each against the single process (module docstring, phase 4)."""
+    outputs = load_by_path("bamm_torch_outputs", "tests/torch_outputs.py")
+    (nccl,) = run_workers("nccl", 1, tmp)
+    if not (nccl["em_bit_equal"] and nccl["cgs_bit_equal"]):
+        raise AssertionError(f"parallel nccl: the (1, 1) mesh run differs: {nccl}")
+    n = nccl["launches"]
+    if min(n["em_counts"], n["window_scores"], n["counts_from_r"]) < min(
+            nccl["em_iterations"], PARALLEL_SWEEPS) or nccl["em_iterations"] != FIXED_ITERS:
+        raise AssertionError(f"parallel nccl: launches {n} for {FIXED_ITERS} iterations and "
+                             f"{PARALLEL_SWEEPS} sweeps")
+    log("parallel nccl, one rank, (1, 1) mesh: " + json.dumps(nccl))
+
+    _, fasta, meme, _planted, _pos, _has = planted_problem(tmp, tag="parallel")
+    ranks = run_workers("gloo", 2, tmp)
+    out = {"nccl_1rank": nccl, "gloo_2rank": ranks, "single": {}}
+    kernels = {"em": ("em_counts",), "cgs": ("window_scores", "counts_from_r")}
+    for tag, extra in PARALLEL_COMMANDS.items():
+        single = run_cli(os.path.join(tmp, f"parallel_{tag}_single"), fasta, meme, extra, device)
+        done = single["events"][f"{tag}_done"][0]
+        out["single"][tag] = {"launches": single["launches"], "iterations": done["iterations"],
+                              "per_s": done["iterations"] / done["seconds"]}
+        for r in ranks:
+            got = r[tag]
+            if got["iterations"] != done["iterations"] or any(
+                    got["launches"][k] < got["iterations"] for k in kernels[tag]):
+                raise AssertionError(f"parallel gloo {tag} rank {r['rank']}: {got} against "
+                                     f"{done['iterations']} single-process iterations")
+        if ranks[1][tag]["files"] or os.path.exists(os.path.join(tmp, f"parallel_{tag}_rank1")):
+            raise AssertionError(f"parallel gloo {tag}: rank 1 wrote files")
+        dirs = (os.path.join(tmp, f"parallel_{tag}_rank0"),
+                os.path.join(tmp, f"parallel_{tag}_single"))
+        cmp = outputs.compare_dirs(*dirs, refined=True)
+        out[f"{tag}_max_abs_dp"] = cmp["max_dp"]
+        out[f"{tag}_files_equal"] = files_equal(*dirs)
+    if not out["cgs_files_equal"]:
+        raise AssertionError("parallel gloo cgs: rank 0's files differ from the single process's")
+    rates = {
+        "em_iters_per_s": {"world1": out["single"]["em"]["per_s"],
+                           "world1_nccl_mesh": nccl["em_iters_per_s"]["mesh_1x1"],
+                           "world2_gloo": [r["em"]["per_s"] for r in ranks]},
+        "cgs_sweeps_per_s": {"world1": out["single"]["cgs"]["per_s"],
+                             "world1_nccl_mesh": nccl["cgs_sweeps_per_s"]["mesh_1x1"],
+                             "world2_gloo": [r["cgs"]["per_s"] for r in ranks]},
+        "allreduce_us": {"nccl_1rank": {k: v for k, v in nccl.items() if k.endswith("_us")},
+                         "gloo_2rank": [{k: v for k, v in r.items() if k.endswith("_us")}
+                                        for r in ranks]},
+        "gpu": nvidia_smi(),
+    }
+    log("parallel gloo, two ranks on one card, (2, 1) mesh: " + json.dumps(
+        {k: v for k, v in out.items() if k != "nccl_1rank"}))
+    log("parallel rates (10k x 200 bp, K=2, W=12; CLI loop seconds): " + json.dumps(rates))
+    out["rates"] = rates
+    return out
+
+
 def time_cuda(fn, n: int) -> float:
     """Mean ms per call over n calls after one warm-up (CUDA events)."""
     import torch
@@ -1137,6 +1385,9 @@ def main() -> int:
         slices = phase_slice(device, tmp)
         phase_secs["slice"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        phase_parallel(device, tmp)
+        phase_secs["parallel"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         timing = phase_timing(device, tmp, slices)
         phase_secs["timing"] = time.perf_counter() - t0
     phase_secs["total"] = time.perf_counter() - t_all
@@ -1176,4 +1427,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.path.insert(0, ROOT)
+        sys.exit(parallel_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

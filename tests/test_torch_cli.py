@@ -40,7 +40,7 @@ def _em_events(outdir):
     ["-k", "2", "--checkpointEvery", "4"],
 ], ids=["k0", "k2", "k2_ss", "k2_checkpoint"])
 def test_cli_matches_jax(tmp_path, extra):
-    # --single-device keeps the reference on one device (the port ignores it)
+    # --single-device: both packages run as one process on one device
     argv = [POS, "--PWMFile", MEME, "--EM", "--jsonl", "--single-device", *extra]
     jout, out = str(tmp_path / "jax"), str(tmp_path / "torch")
     jcli.main([jout, *argv])

@@ -112,7 +112,7 @@ def test_fdr_unrefined_matches_jax(fdr_data, tmp_path):
     jms = _jseeds(sset)
     jres = jfdr.evaluate_motifs(jms, jbg, sset, params, refine="none", neg_set=neg)
     res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
-                              refine="none", neg_set=pneg)
+                              refine="none", neg_set=pneg, device="cpu")
     n_neg = {"zoops": neg.n, "mops": 2 * int(np.maximum(neg.lens - 8 + 1, 0).sum())}
     for i, (r, jr) in enumerate(zip(res, jres)):
         assert r.fold_iterations == [0, 0, 0]
@@ -152,7 +152,7 @@ def test_fdr_em_matches_jax(fdr_data):
     jms = _jseeds(sset)
     jres = jfdr.evaluate_motifs(jms, jbg, sset, params, neg_set=neg)
     res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
-                              neg_set=pneg)
+                              neg_set=pneg, device="cpu")
     # the reference's per-fold iteration counts: its single-seed EM on the
     # same train-masked lengths (its fused group loop returns none)
     jdata = jem.prepare_data(sset, jbg, 2, False)
@@ -192,8 +192,8 @@ def test_group_matches_per_seed(fdr_data, negatives):
     params = PParams(FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=12)
     neg_set = pneg if negatives == "user" else None
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
-    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set) for m in ms]
-    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set)
+    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set, device="cpu") for m in ms]
+    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set, device="cpu")
     _assert_same(ref, new)
     assert all(it > 0 for it in new[0].fold_iterations)
 
@@ -214,8 +214,8 @@ def test_group_matches_per_seed_short_and_empty_rows():
     params = PParams(FDR=True, cvFold=3, mFold=2, q=0.5, sOrder=1, maxEMIterations=6, ss=True)
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF,), K=1)]
     psset = convert.sequence_set(sset)
-    ref = [fdr.evaluate_motif(ms[0].copy(), bg, psset, params)]
-    new = fdr.evaluate_motifs([ms[0].copy()], bg, psset, params)
+    ref = [fdr.evaluate_motif(ms[0].copy(), bg, psset, params, device="cpu")]
+    new = fdr.evaluate_motifs([ms[0].copy()], bg, psset, params, device="cpu")
     _assert_same(ref, new)
 
 
@@ -230,12 +230,12 @@ def test_cgs_raises_before_work(fdr_data, tmp_path):
     assert fdr._resolve(None, "CGS")[1] == "CGS"
     assert fdr._resolve(PParams(FDR=True), None)[1] == "EM"
     params = PParams(FDR=True, CGS=True, cvFold=3, q=0.5, maxCGSIterations=4)
-    none = fdr.evaluate_motifs(ms, bg, psset, params, refine="none", neg_set=pneg)
+    none = fdr.evaluate_motifs(ms, bg, psset, params, refine="none", neg_set=pneg, device="cpu")
     expect = [[open(p).read() for p in r.write(str(tmp_path / "none"), f"s{i}")]
               for i, r in enumerate(none)]
     for refine in ("Gibbs", "cgs"):
-        group = fdr.evaluate_motifs(ms, bg, psset, params, refine=refine, neg_set=pneg)
-        solo = [fdr.evaluate_motif(ms[0], bg, psset, params, refine=refine, neg_set=pneg)]
+        group = fdr.evaluate_motifs(ms, bg, psset, params, refine=refine, neg_set=pneg, device="cpu")
+        solo = [fdr.evaluate_motif(ms[0], bg, psset, params, refine=refine, neg_set=pneg, device="cpu")]
         for res in (group, solo):
             assert [r.fold_iterations for r in res] == [[0, 0, 0]] * len(res)
             for i, r in enumerate(res):
@@ -254,7 +254,7 @@ def test_fdr_cgs_matches_jax(fdr_data):
     jms = _jseeds(sset)
     jres = jfdr.evaluate_motifs(jms, jbg, sset, params, neg_set=neg)
     res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
-                              neg_set=pneg)
+                              neg_set=pneg, device="cpu")
     for i, (r, jr) in enumerate(zip(res, jres)):
         assert r.fold_iterations == [params.maxCGSIterations] * 3
         for tag in ("zoops", "mops"):
@@ -273,24 +273,24 @@ def test_cgs_group_matches_per_seed(fdr_data, negatives):
     params = PParams(FDR=True, CGS=True, cvFold=3, mFold=2, q=0.5, maxCGSIterations=6)
     neg_set = pneg if negatives == "user" else None
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
-    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set, index=i)
+    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set, index=i, device="cpu")
            for i, m in enumerate(ms)]
-    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set)
+    new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set, device="cpu")
     for r, n in zip(ref, new):
         np.testing.assert_array_equal(r.pos_pvalues, n.pos_pvalues)
         for k in SWEEP_KEYS:
             np.testing.assert_array_equal(r.zoops[k], n.zoops[k])
             np.testing.assert_array_equal(r.mops[k], n.mops[k])
     # chains differ between seeds: the same seed at index 1 is another chain
-    other = fdr.evaluate_motif(ms[0].copy(), bg, psset, params, neg_set=neg_set, index=1)
+    other = fdr.evaluate_motif(ms[0].copy(), bg, psset, params, neg_set=neg_set, index=1, device="cpu")
     assert not np.array_equal(other.zoops["score"], ref[0].zoops["score"])
 
 
 def test_cvfold1_and_empty_set(fdr_data):
     sset, _neg, _jbg, bg, psset, _pneg = fdr_data
     m = convert.motif(_jseeds(sset)[0])
-    res = fdr.evaluate_motifs([m], bg, psset, PParams(FDR=True, cvFold=1, mFold=2))
+    res = fdr.evaluate_motifs([m], bg, psset, PParams(FDR=True, cvFold=1, mFold=2), device="cpu")
     # one fold holds every row out, so nothing trains and the seed is scored as is
     assert res[0].zoops["score"].size == psset.n * 3 and res[0].fold_iterations == [0]
-    empty = fdr.evaluate_motif(m, bg, PSequenceSet.from_sequences([]), PParams(FDR=True, cvFold=3))
+    empty = fdr.evaluate_motif(m, bg, PSequenceSet.from_sequences([]), PParams(FDR=True, cvFold=3), device="cpu")
     assert empty.pos_pvalues.size == 0 and empty.zoops["score"].size == 0

@@ -236,7 +236,7 @@ def test_run_gibbs_deterministic_matches_jax(small, burn_in):
                                                   learn_alpha=True)
     jm, m = seeds[0].copy(), convert.motif(seeds[0])
     jres = jgibbs.run_gibbs(jm, jbg, sset, params)
-    res = gibbs.run_gibbs(m, bg, convert.sequence_set(sset), convert.params(params))
+    res = gibbs.run_gibbs(m, bg, convert.sequence_set(sset), convert.params(params), device="cpu")
     assert res.iterations == jres.iterations == params.maxCGSIterations
     for a, b in zip(m.v, jm.v):
         np.testing.assert_allclose(a, b, atol=1e-5)
@@ -251,11 +251,11 @@ def test_stacked_member_equals_solo_run(small):
     sset, _jbg, bg, seeds = small
     sset, params = convert.sequence_set(sset), PParams(CGS=True, q=0.5, maxCGSIterations=5, seed=9)
     stacked = [convert.motif(m) for m in seeds]
-    res = gibbs.run_gibbs_multi(stacked, bg, sset, params)
+    res = gibbs.run_gibbs_multi(stacked, bg, sset, params, device="cpu")
     assert res[0].group_seconds > 0
     for i, m in enumerate(seeds):
         solo = convert.motif(m)
-        r = gibbs.run_gibbs(solo, bg, sset, params, index=i)
+        r = gibbs.run_gibbs(solo, bg, sset, params, index=i, device="cpu")
         for a, b in zip(solo.v, stacked[i].v):
             np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(solo.alphas, stacked[i].alphas)
@@ -361,13 +361,13 @@ def test_chains_of_two_groups_differ(small):
                                                    f_bg=sset.base_frequencies()))
 
     m8, m6 = mk("TGACTCAG"), mk("TGACTC")  # two (W, K) groups
-    gibbs.run_gibbs_multi([m8, m6], bg, sset, params)
+    gibbs.run_gibbs_multi([m8, m6], bg, sset, params, device="cpu")
     solo6 = mk("TGACTC")
-    gibbs.run_gibbs(solo6, bg, sset, params, index=1)
+    gibbs.run_gibbs(solo6, bg, sset, params, index=1, device="cpu")
     for a, b in zip(m6.v, solo6.v):
         np.testing.assert_array_equal(a, b)
     local6 = mk("TGACTC")
-    gibbs.run_gibbs(local6, bg, sset, params, index=0)
+    gibbs.run_gibbs(local6, bg, sset, params, index=0, device="cpu")
     assert not all(np.allclose(a, b, atol=1e-6) for a, b in zip(m6.v, local6.v))
     assert gibbs.chain_seed(11, 0) != gibbs.chain_seed(11, 1) != gibbs.chain_seed(12, 1)
 
@@ -384,7 +384,7 @@ def test_sampled_cgs_on_the_planted_set():
     seed = jseeds.motif_from_pwm(jseeds.iupac_to_pwm(MOTIF, soft=0.6), K=2, f_bg=sset.base_frequencies())
     params = Params(CGS=True, q=0.5, maxCGSIterations=30, seed=0)
     m = convert.motif(seed)
-    res = gibbs.run_gibbs(m, convert.background(jbg), convert.sequence_set(sset), convert.params(params))
+    res = gibbs.run_gibbs(m, convert.background(jbg), convert.sequence_set(sset), convert.params(params), device="cpu")
     assert "".join("ACGT"[i] for i in m.v[0].argmax(axis=0)) == MOTIF
     assert np.all(m.alphas > 0) and not np.allclose(m.alphas, seed.alphas)
     for k, vk in enumerate(m.v):

@@ -106,8 +106,8 @@ def trained():
 def test_score_set_multi_matches_jax(trained, keep_bytes):
     t = trained
     jres = jscan.score_set_multi(t["jms"], t["jbg"], t["sset"], keep_bytes=keep_bytes, batch=50)
-    res = scan.score_set_multi(t["ms"], t["bg"], t["psset"], keep_bytes=keep_bytes, batch=50)
-    retained = scan.score_set_multi(t["ms"], t["bg"], t["psset"], batch=50)
+    res = scan.score_set_multi(t["ms"], t["bg"], t["psset"], keep_bytes=keep_bytes, batch=50, device="cpu")
+    retained = scan.score_set_multi(t["ms"], t["bg"], t["psset"], batch=50, device="cpu")
     for r, jr, kept in zip(res, jres, retained):
         assert (r._chunks is None) == (keep_bytes == 0)
         assert r.n_windows == jr.n_windows == kept.n_windows
@@ -119,7 +119,7 @@ def test_score_set_multi_matches_jax(trained, keep_bytes):
         np.testing.assert_array_equal(r.max_scores, kept.max_scores)
         np.testing.assert_array_equal(r.all_window_scores(), kept.all_window_scores())
     # chunking does not change the reductions
-    small = scan.score_set(t["ms"][0], t["bg"], t["psset"], batch=17)
+    small = scan.score_set(t["ms"][0], t["bg"], t["psset"], batch=17, device="cpu")
     np.testing.assert_array_equal(small.max_scores, retained[0].max_scores)
 
 
@@ -134,8 +134,8 @@ def test_find_occurrences_matches_jax(trained, cutoff):
     jres = jscan.score_set(jm, t["jbg"], t["sset"])
     jneg = jscan.score_set(jm, t["jbg"], t["neg"])
     jocc = jscan.find_occurrences(jres, t["sset"], jneg, cutoff)
-    res = scan.score_set(m, t["bg"], t["psset"], batch=50)
-    neg = scan.score_set(m, t["bg"], t["pneg"], batch=64, keep_bytes=0)
+    res = scan.score_set(m, t["bg"], t["psset"], batch=50, device="cpu")
+    neg = scan.score_set(m, t["bg"], t["pneg"], batch=64, keep_bytes=0, device="cpu")
     occ_dev = scan.find_occurrences(res, t["psset"], neg, cutoff)        # device pool
     occ_host = scan.find_occurrences(res, t["psset"], neg.all_window_scores(), cutoff)
     assert len(jocc) > 0
@@ -151,7 +151,7 @@ def test_writers_match_jax(trained, tmp_path):
     t = trained
     m, jm = t["ms"][0], t["jms"][0]
     jres = jscan.score_set(jm, t["jbg"], t["sset"])
-    res = scan.score_set(m, t["bg"], t["psset"])
+    res = scan.score_set(m, t["bg"], t["psset"], device="cpu")
     neg = np.random.default_rng(0).normal(-8, 3, 2000)
     jscan.write_occurrences(tmp_path / "j.occurrence", jscan.find_occurrences(jres, t["sset"], neg, 1e-2))
     scan.write_occurrences(tmp_path / "t.occurrence", scan.find_occurrences(res, t["psset"], neg, 1e-2))
@@ -184,14 +184,14 @@ class TestScanEdgeCases:
         short = SequenceSet.from_sequences(["ACGTACGTACGT"])  # len 12
         jm = jseeds.motif_from_pwm(jseeds.iupac_to_pwm("TGACTCAGTGACTCAGTGAC", soft=0.6), 2,
                                    short.base_frequencies())  # W=20 > 12
-        res = scan.score_set(convert.motif(jm), trained["bg"], short)
+        res = scan.score_set(convert.motif(jm), trained["bg"], short, device="cpu")
         assert res.n_windows == 0
         assert res.max_scores.shape == (1,)
         assert scan.find_occurrences(res, short, np.zeros(10), 0.01) == []
 
     def test_empty_set(self, trained):
         empty = SequenceSet.from_sequences([])
-        res = scan.score_set(trained["ms"][0], trained["bg"], empty)
+        res = scan.score_set(trained["ms"][0], trained["bg"], empty, device="cpu")
         assert res.n_windows == 0 and res.max_scores.size == 0
         assert res.scores.shape[1] == 0
         assert res.mask.shape[0] == 0
@@ -206,7 +206,7 @@ class TestScanEdgeCases:
                                  alphabet=trained["psset"].alphabet)
         # padded chunks: 2 * 300 * (4000-8+1) * 4 B = 9.6 MB > a 1 MB budget,
         # while a lens-based estimate (30-8+1 windows) would say retain
-        res = scan.score_set(m, trained["bg"], short_wide, keep_bytes=1 << 20)
+        res = scan.score_set(m, trained["bg"], short_wide, keep_bytes=1 << 20, device="cpu")
         assert res._chunks is None and res._rescan is not None
         assert res.n_windows == 300 * (30 - m.W + 1) * 2
 
@@ -214,7 +214,7 @@ class TestScanEdgeCases:
         """The reference's quirk, kept for parity (ROADMAP C): a --ss scan
         with no chunks reports S = 2 in ``scores`` when the set has rows."""
         res = scan.score_set(trained["ms"][0], trained["bg"], SequenceSet.from_sequences(["ACGTAC"]),
-                             ss=True)
+                             ss=True, device="cpu")
         jres = jscan.score_set(trained["jms"][0], trained["jbg"], JSequenceSet.from_sequences(["ACGTAC"]),
                                ss=True)
         assert res.scores.shape == jres.scores.shape == (2, 1, 0)

@@ -51,7 +51,7 @@ def test_lengths_and_padding():
     lens = sset.lens.copy()
     lens[:3] = [0, 5, 60]
     bg_fit = BackgroundModel.from_sequence_set(sset, order=2)
-    neg = seqgen.generate_neg_set(bg_fit, lens, m_fold=3, seed=1, n_pad=160, pad_len=70)
+    neg = seqgen.generate_neg_set(bg_fit, lens, m_fold=3, seed=1, n_pad=160, pad_len=70, device="cpu")
     assert neg.n == 160 and neg.codes.shape == (160, 70)
     np.testing.assert_array_equal(neg.lens, np.concatenate([np.tile(lens, 3), np.zeros(10)]))
     pad = np.arange(70)[None, :] >= neg.lens[:, None]
@@ -59,17 +59,17 @@ def test_lengths_and_padding():
     assert neg.codes[~pad].min() >= 0 and neg.codes[~pad].max() <= 3
     assert neg.headers[0] == "neg_1" and len(neg.headers) == 160
     with pytest.raises(ValueError):
-        seqgen.generate_neg_set(bg_fit, lens, m_fold=3, n_pad=10)
+        seqgen.generate_neg_set(bg_fit, lens, m_fold=3, n_pad=10, device="cpu")
     with pytest.raises(ValueError):
-        seqgen.generate_neg_set(bg_fit, lens, m_fold=1, pad_len=50)
+        seqgen.generate_neg_set(bg_fit, lens, m_fold=1, pad_len=50, device="cpu")
 
 
 def test_same_seed_same_set():
     sset = planted_set(n=40, l=50)
     bg_fit = BackgroundModel.from_sequence_set(sset, order=2)
-    a = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=2, seed=7)
-    b = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=2, seed=7)
-    c = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=2, seed=8)
+    a = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=2, seed=7, device="cpu")
+    b = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=2, seed=7, device="cpu")
+    c = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=2, seed=8, device="cpu")
     np.testing.assert_array_equal(a.codes, b.codes)
     assert not np.array_equal(a.codes, c.codes)
 
@@ -82,7 +82,7 @@ def test_matches_background_distribution(order):
     seqs = ["".join(rng.choice(list("ACGT"), p=[0.4, 0.1, 0.1, 0.4], size=200)) for _ in range(50)]
     sset = SequenceSet.from_sequences(seqs)
     bg_fit = BackgroundModel.from_sequence_set(sset, order=order, ss=True)
-    neg = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=10, seed=2)
+    neg = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=10, seed=2, device="cpu")
     np.testing.assert_allclose(neg.base_frequencies(), sset.base_frequencies(), atol=0.02)
     k = order + 1
     # the order-k model's joint (k)-mer probabilities (.hbp) vs the sample
@@ -93,7 +93,7 @@ def test_order1_transition_structure():
     """An (almost) deterministic AC-repeat source: after an A comes a C."""
     sset = SequenceSet.from_sequences(["ACACACACAC" * 10 for _ in range(20)])
     bg_fit = BackgroundModel.from_sequence_set(sset, order=1, ss=True)
-    neg = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=1, seed=3)
+    neg = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=1, seed=3, device="cpu")
     a_pos = neg.codes[:, :-1] == 0
     frac = (a_pos & (neg.codes[:, 1:] == 1)).sum() / max(a_pos.sum(), 1)
     assert frac > 0.9
@@ -111,8 +111,8 @@ def test_neg_data_equals_encoded_neg_set(ss):
     sset = SequenceSet(codes, lens, [f"s{i}" for i in range(30)], alphabet)
     bg_fit = BackgroundModel.from_sequence_set(sset, order=2, ss=ss)
     cidx, nlens = seqgen.generate_neg_data(bg_fit, sset.lens, m_fold=3, seed=11, K=3, ss=ss,
-                                           n_pad=95, pad_len=45)
-    neg = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=3, seed=11, n_pad=95, pad_len=45)
+                                           n_pad=95, pad_len=45, device="cpu")
+    neg = seqgen.generate_neg_set(bg_fit, sset.lens, m_fold=3, seed=11, n_pad=95, pad_len=45, device="cpu")
     ref, ref_lens = encode.strand_indices(neg, 3, ss, "cpu")
     np.testing.assert_array_equal(nlens, neg.lens)
     assert cidx.dtype == torch.int32 and torch.equal(cidx, ref)
@@ -137,19 +137,19 @@ def test_embed_and_mask_motif():
     bg = BackgroundModel.from_sequence_set(sset, order=2)
     motif = seeds_mod.motif_from_pwm(seeds_mod.iupac_to_pwm(MOTIF, soft=0.8), K=0,
                                      f_bg=sset.base_frequencies())
-    neg = seqgen.generate_neg_set(bg, sset.lens, m_fold=1, seed=4)
+    neg = seqgen.generate_neg_set(bg, sset.lens, m_fold=1, seed=4, device="cpu")
     emb = seqgen.embed_motif(neg, motif, q=1.0, seed=5)
-    assert scan.score_set(motif, bg, emb).max_scores.mean() > \
-        scan.score_set(motif, bg, neg).max_scores.mean() + 2.0
+    assert scan.score_set(motif, bg, emb, device="cpu").max_scores.mean() > \
+        scan.score_set(motif, bg, neg, device="cpu").max_scores.mean() + 2.0
 
     def hits(s):
         # ranked against the negatives' per-sequence maxima, as the
         # reference's test ranks them (a stricter pool than mask_motif's)
-        res = scan.score_set(motif, bg, s)
-        pool = seqgen.generate_neg_set(bg, s.lens, m_fold=5, seed=3)
-        return len(scan.find_occurrences(res, s, scan.score_set(motif, bg, pool).max_scores, 0.01))
+        res = scan.score_set(motif, bg, s, device="cpu")
+        pool = seqgen.generate_neg_set(bg, s.lens, m_fold=5, seed=3, device="cpu")
+        return len(scan.find_occurrences(res, s, scan.score_set(motif, bg, pool, device="cpu").max_scores, 0.01))
 
     before = hits(sset)
-    after = hits(seqgen.mask_motif(sset, motif, bg, pval_cutoff=0.01, m_fold=5))
+    after = hits(seqgen.mask_motif(sset, motif, bg, pval_cutoff=0.01, m_fold=5, device="cpu"))
     assert before > 100
     assert after < before * 0.1
