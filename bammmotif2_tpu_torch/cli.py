@@ -142,8 +142,11 @@ def params_from_args(argv: list) -> Params:
     return Params(**{k: v for k, v in d.items() if k in Params.__dataclass_fields__})
 
 
-def run_pipeline(params: Params, device, mesh=None) -> dict:
+def run_pipeline(params: Params, device, mesh=None, graphs: bool = True) -> dict:
     """Execute the pipeline; returns a dict of produced artifacts.
+
+    ``graphs``: False runs the EM and CGS loops eagerly on a CUDA device
+    too (``refinement.graphs``); the tools and tests compare the two.
 
     ``mesh`` (``parallel.mesh.Mesh``): shard EM and CGS over the ranks; on
     ranks other than 0 nothing is written or printed and ``files`` stays
@@ -161,11 +164,11 @@ def run_pipeline(params: Params, device, mesh=None) -> dict:
             activities=acts,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(params.profile),
         ):
-            return _run_pipeline(params, device, mesh)
-    return _run_pipeline(params, device, mesh)
+            return _run_pipeline(params, device, mesh, graphs)
+    return _run_pipeline(params, device, mesh, graphs)
 
 
-def _run_pipeline(params: Params, device, mesh) -> dict:
+def _run_pipeline(params: Params, device, mesh, graphs: bool) -> dict:
     t_start = time.perf_counter()
     writer = distributed.is_main()
     if writer:
@@ -181,13 +184,13 @@ def _run_pipeline(params: Params, device, mesh) -> dict:
     )
     try:
         return _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
-                                t_start)
+                                t_start, graphs)
     finally:
         metrics.close()
 
 
 def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
-                     t_start) -> dict:
+                     t_start, graphs) -> dict:
     """The stages; ``writer``: this process writes files and prints."""
     out: dict = {"motifs": [], "files": []}
     verbose = params.verbose and writer
@@ -250,10 +253,12 @@ def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
                     metrics.event("em_checkpoint", motif=_m.name, iteration=iteration)
 
                 results.append(
-                    run_em(m, bg, pos_set, params, checkpoint_fn=_ckpt, device=device, mesh=mesh)
+                    run_em(m, bg, pos_set, params, checkpoint_fn=_ckpt, device=device, mesh=mesh,
+                           graphs=graphs)
                 )
         else:
-            results = run_em_multi(motifs, bg, pos_set, params, device=device, mesh=mesh)
+            results = run_em_multi(motifs, bg, pos_set, params, device=device, mesh=mesh,
+                                   graphs=graphs)
         out["em_results"] = results
         for m, r in zip(motifs, results):
             metrics.event(
@@ -274,7 +279,7 @@ def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
         # sweep together.  cgs_done carries this seed's share of its group's
         # seconds (as em_done does).
         out["cgs_results"] = run_gibbs_multi(motifs, bg, pos_set, params, device=device,
-                                             mesh=mesh)
+                                             mesh=mesh, graphs=graphs)
         for m, r in zip(motifs, out["cgs_results"]):
             metrics.event(
                 "cgs_done", motif=m.name, iterations=r.iterations, q=r.q,
@@ -292,7 +297,7 @@ def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
                     basename)
     if params.FDR:
         _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
-                   basename)
+                   basename, graphs)
 
     out["runtime_seconds"] = time.perf_counter() - t_start
     metrics.event("run_done", runtime_seconds=round(out["runtime_seconds"], 3))
@@ -346,12 +351,13 @@ def _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, moti
 
 
 def _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
-               basename) -> None:
+               basename, graphs) -> None:
     """--FDR: cross-validated evaluation of the (unrefined) seeds; the seeds
     of a (W, K) group are refined (by CGS under --CGS, else EM) and scored
     together in every fold."""
     seed_motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
-    fdr_list = evaluate_motifs(seed_motifs, bg, pos_set, params, neg_set=neg_set, device=device)
+    fdr_list = evaluate_motifs(seed_motifs, bg, pos_set, params, neg_set=neg_set, device=device,
+                               graphs=graphs)
     for m, res in zip(seed_motifs, fdr_list):
         if params.savePRs and writer:
             out["files"] += res.write(params.outputDirectory, f"{basename}_{m.name}")
@@ -386,11 +392,12 @@ def _estimate_n_seeds(params: Params) -> int:
     return max(n, 1)
 
 
-def main(argv=None, device=None) -> int:
+def main(argv=None, device=None, graphs: bool = True) -> int:
     """Run the CLI on ``device`` (default: the current CUDA device; raises
     when CUDA is absent — pass ``device="cpu"`` to run the plain path on the
     CPU).  Under a launcher's environment it joins the process group first
-    (unless --single-device) and shards over a mesh of the ranks."""
+    (unless --single-device) and shards over a mesh of the ranks.
+    ``graphs``: see ``run_pipeline``."""
     params = params_from_args(sys.argv[1:] if argv is None else argv)
     mesh = None
     if params.multiDevice and distributed.initialize(device=device):
@@ -399,7 +406,7 @@ def main(argv=None, device=None) -> int:
             world = torch.distributed.get_world_size()
             hosts = world // int(os.environ.get("LOCAL_WORLD_SIZE", world))
             print(f"mesh {mesh.shape} over {world} devices ({hosts} hosts)")
-    run_pipeline(params, resolve(device), mesh)
+    run_pipeline(params, resolve(device), mesh, graphs)
     return 0
 
 

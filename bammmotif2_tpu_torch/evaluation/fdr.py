@@ -17,7 +17,8 @@ training rows keep their place while the held-out rows get length 0 (the EM
 loop corrects for them through ``n_real``).  The held-out rows are gathered
 by index for scoring.  The reference fused the fold loop of a seed group
 into one device program to save TPU dispatches; here it is a plain Python
-loop.  Every fold runs the seed-stacked EM loop (``refinement.multi``) or
+loop whose refinement loops replay one captured CUDA graph per (W, K)
+group across the folds (``refinement.graphs``).  Every fold runs the seed-stacked EM loop (``refinement.multi``) or
 the stacked CGS chains (``refinement.gibbs``) for all seeds of a (W, K,
 f_bg) group, then scores the held-out positives and the fold's negatives
 with one window-score launch each, and the MOPS sweep sorts and ranks on
@@ -45,7 +46,7 @@ from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
 from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, run_em
-from bammmotif2_tpu_torch.refinement.multi import batched_step, batched_while_loop
+from bammmotif2_tpu_torch.refinement.multi import batched_while_loop, group_step
 from bammmotif2_tpu_torch.scoring.scan import empirical_pvalues, score_fn
 
 
@@ -111,6 +112,7 @@ def evaluate_motifs(
     refine: str | None = None,
     neg_set: SequenceSet | None = None,
     device=None,
+    graphs: bool = True,
 ) -> list:
     """k-fold CV FDR analysis for a whole MotifSet, seeds of equal
     (W, K, alphabet, f_bg) evaluated as one stacked group.
@@ -124,14 +126,16 @@ def evaluate_motifs(
     ``refine``: 'EM', 'CGS', or 'none' or any other string (score the seeds
     as-is); None derives it from ``params`` ('CGS' under params.CGS, else
     'EM').  ``device``: None runs on the current CUDA device; pass "cpu" for
-    the CPU.
+    the CPU.  ``graphs``: False runs the refinement loops eagerly on a CUDA
+    device too.
     """
     device = resolve(device)
     params, refine = _resolve(params, refine)
     n_folds = max(1, params.cvFold)
     if n_folds < 2 or sset.n < n_folds:
         return [evaluate_motif(m, bg, sset, params, refine=refine, neg_set=neg_set,
-                               device=device, index=i) for i, m in enumerate(seed_motifs)]
+                               device=device, index=i, graphs=graphs)
+                for i, m in enumerate(seed_motifs)]
     results: list = [None] * len(seed_motifs)
     groups: dict = {}
     for i, m in enumerate(seed_motifs):
@@ -142,7 +146,7 @@ def evaluate_motifs(
     for idxs in groups.values():
         group = [seed_motifs[i] for i in idxs]
         for i, res in zip(idxs, _evaluate_group(group, idxs, bg, sset, params, refine, neg_set,
-                                                device, stacked=True)):
+                                                device, stacked=True, graphs=graphs)):
             results[i] = res
     return results
 
@@ -156,6 +160,7 @@ def evaluate_motif(
     neg_set: SequenceSet | None = None,
     device=None,
     index: int = 0,
+    graphs: bool = True,
 ) -> FDRResult:
     """k-fold CV FDR analysis of one seed (``FDR::evaluateMotif``).
 
@@ -166,7 +171,8 @@ def evaluate_motif(
     seed's position in its MotifSet).  ``neg_set``: user-provided
     negatives, folded round-robin like the positives; when absent,
     negatives are sampled per fold.  ``device``: None runs on the current
-    CUDA device; pass "cpu" for the CPU.
+    CUDA device; pass "cpu" for the CPU.  ``graphs``: False runs the
+    refinement loops eagerly on a CUDA device too.
     """
     device = resolve(device)
     params, refine = _resolve(params, refine)
@@ -176,7 +182,7 @@ def evaluate_motif(
         return FDRResult(zoops=sweep, mops=dict(sweep), pos_pvalues=empty,
                          m_fold=params.mFold)
     return _evaluate_group([seed_motif], [index], bg, sset, params, refine, neg_set, device,
-                           stacked=False)[0]
+                           stacked=False, graphs=graphs)[0]
 
 
 def _score_rows(s_flat, cidx, lens, rows, path) -> tuple:
@@ -194,7 +200,7 @@ def _score_rows(s_flat, cidx, lens, rows, path) -> tuple:
 
 
 def _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train, params, path, stacked,
-              bg, sset) -> tuple:
+              bg, sset, graphs) -> tuple:
     """One fold's CGS refinement of the group on the train-masked rows:
     stacked chains, or (one seed) ``run_gibbs``.  Returns v [M, ...]."""
     A, K, W = group[0].A, group[0].K, group[0].W
@@ -202,23 +208,24 @@ def _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train, params, path
     if stacked:
         gens = gibbs.chain_generators(params.seed, indices, dev)
         v, _q, _la, _lls = gibbs.gibbs_chains(v0, q0, alphas, f_bg, tdata, float(n_train), gens,
-                                              params, A=A, K=K, W=W, path=path)
+                                              params, A=A, K=K, W=W, path=path, graphs=graphs)
         return v
     m = group[0].copy()
     gibbs.run_gibbs(m, bg, sset, params, data=tdata, n_real=n_train, device=dev,
-                    index=indices[0])
+                    index=indices[0], graphs=graphs)
     return tuple(torch.as_tensor(vk, dtype=torch.float32, device=dev)[None] for vk in m.v)
 
 
 def _evaluate_group(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
                     params: Params, refine: str, neg_set: SequenceSet | None, device, *,
-                    stacked: bool) -> list:
+                    stacked: bool, graphs: bool = True) -> list:
     """The fold loop for one (W, K, f_bg) seed group.
 
     ``indices``: the seeds' input indices (their CGS chains' seeds).
     ``stacked``: refine all seeds in one batched EM loop or one set of
     stacked CGS chains per fold; else (one seed) with ``run_em`` /
-    ``run_gibbs``.
+    ``run_gibbs``.  ``graphs``: False runs those loops eagerly on a CUDA
+    device too.
     """
     t0 = time.perf_counter()
     A, K, W = group[0].A, group[0].K, group[0].W
@@ -271,19 +278,21 @@ def _evaluate_group(group: list, indices: list, bg: BackgroundModel, sset: Seque
             n_train = int(train_sel.sum())
             if refine == "CGS":
                 v = _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train,
-                              params, path, stacked, bg, sset)
+                              params, path, stacked, bg, sset, graphs)
                 its = [params.maxCGSIterations] * M
             elif stacked:
-                def step(v, q, tdata=tdata, n_train=n_train):
-                    return batched_step(v, q, tdata, alphas, f_bg, n_train, A=A, K=K, W=W,
-                                        optimize_q=params.optimizeQ, path=path)
-
+                # every fold's data has one shape (held-out rows have length
+                # 0), so the folds replay one captured loop with their lens
+                step, inputs, key = group_step(tdata, alphas, f_bg, n_train, A=A, K=K, W=W,
+                                               optimize_q=params.optimizeQ, path=path)
                 v, _q, _lls, _vds, its_t, _h = batched_while_loop(
-                    step, v0, q0, eps, params.maxEMIterations)
+                    step, v0, q0, eps, params.maxEMIterations, inputs=inputs, key=key,
+                    graphs=graphs)
                 its = [int(x) for x in its_t.cpu()]
             else:
                 m = group[0].copy()
-                r = run_em(m, bg, sset, params, data=tdata, n_real=n_train, device=dev)
+                r = run_em(m, bg, sset, params, data=tdata, n_real=n_train, device=dev,
+                           graphs=graphs)
                 v = tuple(f32(vk)[None] for vk in m.v)
                 its = [r.iterations]
         fold_its.append(its)

@@ -13,8 +13,10 @@ Two data paths produce the same counts and likelihood:
   * ``"plain"``: the PyTorch escore ops, on the CPU or on the card
     (``--no-pallas``).
 
-The convergence loop runs on the host with one device sync per iteration
-(two f32 scalars decide the stop rule).
+The convergence loop is ``refinement.multi.batched_while_loop`` with one
+seed: on the card a replayed CUDA graph of the iteration, with one host read
+of the stop flag per ``multi.SYNC_EVERY`` iterations (``--verbose`` prints,
+so reads, every iteration).
 
 With a mesh (``parallel.mesh``) the rows shard over the data axis: each
 rank runs the data pass on its block, and one all-reduce an iteration sums
@@ -39,6 +41,7 @@ from bammmotif2_tpu_torch.models.motif import Motif
 from bammmotif2_tpu_torch.ops import cuda_em, encode
 from bammmotif2_tpu_torch.parallel import distributed
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.utils.device import resolve
 
 
@@ -168,28 +171,37 @@ def em_optimize(
     path: str,
     max_iters: int,
     mesh=None,
+    graphs: bool = True,
 ):
     """The EM convergence loop: stop when v_diff < eps or |dll| < eps
     (EM::optimize), capped at ``max_iters``.  The comparison is in float32
-    on the device, as in the JAX loop; one host sync per iteration.
+    on the device, as in the JAX loop.  ``refinement.multi.
+    batched_while_loop`` runs ``em_step`` with one seed: one host read per
+    ``multi.SYNC_EVERY`` iterations, a replayed CUDA graph on the card
+    (``graphs``: False runs it eagerly).
 
     ``ll0``: the likelihood the first iteration's dll compares against
     (-inf for a fresh run; the previous chunk's ll under --checkpointEvery).
 
     Returns (v, q, ll, v_diff, iterations).
     """
-    ll = ll0
-    vd = torch.tensor(float("inf"), dtype=torch.float32, device=q.device)
-    it = 0
-    while it < max_iters and bool(vd >= epsilon):
-        v, q, ll_new, vd2 = em_step(
-            v, q, data, alphas, f_bg, n_real,
-            A=A, K=K, W=W, optimize_q=optimize_q, path=path, mesh=mesh,
-        )
-        vd = torch.minimum(vd2, (ll_new - ll).abs())
-        ll = ll_new
-        it += 1
-    return v, q, ll, vd, it
+    from bammmotif2_tpu_torch.refinement.multi import batched_while_loop
+
+    tensors, consts = graphs_mod.split(data)
+    inputs = {**tensors, "alphas": alphas, "f_bg": f_bg}
+    statics = dict(A=A, K=K, W=W, optimize_q=optimize_q, path=path)
+
+    def step(vm, qm):
+        v2, q2, ll, vd = em_step(tuple(x[0] for x in vm), qm[0], {**data, **inputs},
+                                 inputs["alphas"], inputs["f_bg"], n_real, mesh=mesh, **statics)
+        return tuple(x[None] for x in v2), q2.reshape(1), ll.reshape(1), vd.reshape(1)
+
+    key = ("em_step", float(n_real), consts, tuple(sorted(statics.items())))
+    v, q, lls, vds, its, _hist = batched_while_loop(
+        step, tuple(vk[None] for vk in v), q.reshape(1), epsilon, max_iters,
+        inputs=inputs, key=key, ll0=ll0.reshape(1), mesh=mesh, graphs=graphs,
+    )
+    return tuple(vk[0] for vk in v), q[0], lls[0], vds[0], int(its[0])
 
 
 def choose_path(params: Params, device) -> str:
@@ -225,6 +237,7 @@ def run_em(
     n_real: int | None = None,
     device=None,
     mesh=None,
+    graphs: bool = True,
 ) -> EMResult:
     """Refine ``motif`` in place with ZOOPS EM (``EM::optimize``).
 
@@ -235,6 +248,9 @@ def run_em(
     With ``mesh`` (``parallel.mesh.Mesh``): the rows shard over its data
     axis and every iteration sums the counts over the data group; every
     rank ends with the same model.  Only rank 0 prints under ``verbose``.
+
+    ``graphs``: False runs the loop eagerly on a CUDA device too
+    (``em_optimize``).
 
     ``checkpoint_fn(motif=, iteration=)``: when set together with
     ``params.checkpointEvery > 0``, the loop runs in chunks of that many
@@ -285,7 +301,7 @@ def run_em(
             t0 = time.perf_counter()
             v, q, ll_dev, vd_dev, it_chunk = em_optimize(
                 v, q, data, alphas, f_bg, n_real, eps, ll_carry,
-                max_iters=chunk, **statics,
+                max_iters=chunk, graphs=graphs, **statics,
             )
             synchronize(device)
             seconds += time.perf_counter() - t0
@@ -300,7 +316,7 @@ def run_em(
         t0 = time.perf_counter()
         v, q, ll_dev, vd_dev, it = em_optimize(
             v, q, data, alphas, f_bg, n_real, eps, f32(float("-inf")),
-            max_iters=params.maxEMIterations, **statics,
+            max_iters=params.maxEMIterations, graphs=graphs, **statics,
         )
         synchronize(device)
         seconds = time.perf_counter() - t0

@@ -35,7 +35,9 @@ deterministic path (--noZSampling --noQSampling) is compared with the
 reference, the sampled path by distribution.
 
 The sweep loop makes no host sync: CGS has a fixed number of sweeps and no
-stop test, and the ll history stays on the device until the end.
+stop test, and the ll history stays on the device until the end.  On the
+card a sweep is one replay of a captured CUDA graph (``refinement.graphs``,
+``gibbs_optimize``), the counterpart of the reference's ``lax.scan``.
 
 With a mesh (``parallel.mesh``) each rank scores and counts its block of
 rows, and one all-reduce a sweep sums the counts, the occupied-row counts
@@ -64,6 +66,7 @@ from bammmotif2_tpu_torch.models.motif import (
 from bammmotif2_tpu_torch.ops import cuda_counts, cuda_scores, encode
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, synchronize
 from bammmotif2_tpu_torch.scoring.scan import score_fn
 from bammmotif2_tpu_torch.utils.device import resolve
@@ -321,38 +324,66 @@ def gibbs_optimize(
     n_iters: int,
     burn_in: int = 0,
     mesh=None,
+    graphs: bool = True,
 ):
     """The whole CGS run of M chains: ``n_iters`` sweeps, no host sync.
+
+    The sweep is one in-place body (``refinement.graphs.Loop``), the
+    reference's ``lax.scan`` body: a step counter on the device indexes the
+    ll and occupied-row histories, and the burn-in mean adds ``counts *
+    (i >= burn_in)``.  On a CUDA device it is captured once and replayed
+    n_iters - 1 times after the first sweep, unless ``graphs`` is False or
+    ``mesh``'s data group runs gloo (``graphs.enabled``).
 
     Returns (v, q, log_alphas, ll_history [n_iters, M], n_occ_history
     [n_iters, M], avg_counts), all on the device; avg_counts averages the
     per-order counts of sweeps i >= burn_in (used when burn_in > 0).
     """
     M = q.shape[0]
-    acc = tuple(
-        torch.zeros((M, A ** (k + 1), W), dtype=torch.float32, device=q.device)
-        for k in range(K + 1)
-    )
-    lls, n_occs = [], []
-    for i in range(n_iters):
-        v, q, log_alphas, ll, n_occ, counts = gibbs_step_multi(
-            v, q, log_alphas, gens, data, f_bg, default_alphas, n_real,
-            A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
-            learn_alpha=learn_alpha, path=path, mesh=mesh,
+    dev = q.device
+    state = {
+        "v": tuple(vk.clone() for vk in v),
+        "q": q.clone(),
+        "la": log_alphas.clone(),
+        "acc": tuple(torch.zeros((M, A ** (k + 1), W), dtype=torch.float32, device=dev)
+                     for k in range(K + 1)),
+        "i": torch.zeros((1,), dtype=torch.int64, device=dev),
+        "lls": torch.zeros((n_iters, M), dtype=torch.float32, device=dev),
+        "n_occs": torch.zeros((n_iters, M), dtype=torch.float32, device=dev),
+    }
+    tensors, consts = graphs_mod.split(data)
+    inputs = {**tensors, "f_bg": f_bg, "default_alphas": default_alphas}
+    statics = dict(A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
+                   learn_alpha=learn_alpha, path=path)
+
+    def body(s, gens):
+        v2, q2, la2, ll, n_occ, counts = gibbs_step_multi(
+            s["v"], s["q"], s["la"], gens, {**data, **inputs}, inputs["f_bg"],
+            inputs["default_alphas"], n_real, mesh=mesh, **statics,
         )
-        if i >= burn_in:
-            acc = tuple(a + c for a, c in zip(acc, counts))
-        lls.append(ll)
-        n_occs.append(n_occ)
-    n_avg = max(n_iters - burn_in, 1)
-    acc = tuple(a / n_avg for a in acc)
-    empty = torch.zeros((0, M), dtype=torch.float32, device=q.device)
-    return (v, q, log_alphas, torch.stack(lls) if lls else empty,
-            torch.stack(n_occs) if n_occs else empty, acc)
+        take = (s["i"] >= burn_in).to(torch.float32)
+        for a, c in zip(s["acc"], counts):
+            a.add_(take * c)
+        s["lls"].index_copy_(0, s["i"], ll[None])
+        s["n_occs"].index_copy_(0, s["i"], n_occ[None])
+        for a, b in zip(s["v"], v2):
+            a.copy_(b)
+        s["q"].copy_(q2)
+        s["la"].copy_(la2)
+        s["i"].add_(1)
+
+    key = ("gibbs_step_multi", float(n_real), burn_in, consts, tuple(sorted(statics.items())))
+    with graphs_mod.Loop("CGS sweep loop", key, state, inputs, body, gens=gens, mesh=mesh,
+                         graphs=graphs) as loop:
+        loop.run(n_iters)
+        s = loop.state
+        n_avg = max(n_iters - burn_in, 1)
+        return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["la"].clone(),
+                s["lls"].clone(), s["n_occs"].clone(), tuple(a / n_avg for a in s["acc"]))
 
 
 def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
-                 A: int, K: int, W: int, path: str, mesh=None):
+                 A: int, K: int, W: int, path: str, mesh=None, graphs: bool = True):
     """CGS for M stacked chains as the flags say: log alpha starts at
     log(alphas), the InvGamma prior is centred on ``alphas``, and with
     --cgsBurnIn the model is the Rao-Blackwell mean over the kept sweeps.
@@ -364,7 +395,7 @@ def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
         A=A, K=K, W=W,
         sample_z=not params.noZSampling, sample_q=not params.noQSampling,
         learn_alpha=not params.noAlphaOptimization,
-        path=path, n_iters=n_iters, burn_in=burn_in, mesh=mesh,
+        path=path, n_iters=n_iters, burn_in=burn_in, mesh=mesh, graphs=graphs,
     )
     if burn_in > 0:
         v = update_v(acc, torch.exp(la), f_bg)
@@ -372,7 +403,7 @@ def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
 
 
 def _run_group(group: list, indices: list, data: dict, n_real: int, params: Params,
-               solo: bool, mesh=None) -> list:
+               solo: bool, mesh=None, graphs: bool = True) -> list:
     """Refine the motifs of one (W, K, f_bg) group in place; returns their
     GibbsResults.  ``indices``: the motifs' global input indices, which
     seed their chains.  With ``mesh``, ``data`` is the whole set and each
@@ -396,7 +427,7 @@ def _run_group(group: list, indices: list, data: dict, n_real: int, params: Para
 
     t0 = time.perf_counter()
     v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), gens, params,
-                                 A=A, K=K, W=W, path=path, mesh=mesh)
+                                 A=A, K=K, W=W, path=path, mesh=mesh, graphs=graphs)
     synchronize(dev)
     seconds = time.perf_counter() - t0
 
@@ -432,6 +463,7 @@ def run_gibbs(
     n_real: int | None = None,
     device=None,
     index: int = 0,
+    graphs: bool = True,
 ) -> GibbsResult:
     """Refine ``motif`` in place by CGS (``GibbsSampling::optimize``).
 
@@ -441,7 +473,8 @@ def run_gibbs(
     masking).  ``index``: the motif's global input
     index, which seeds its chain (``chain_seed(params.seed, index)``), so
     ``run_gibbs(motifs[i], ..., index=i)`` reproduces member i of
-    ``run_gibbs_multi``.
+    ``run_gibbs_multi``.  ``graphs``: False runs the sweeps eagerly on a
+    CUDA device too (``gibbs_optimize``).
     """
     params = params or Params(CGS=True)
     device = resolve(device)
@@ -449,7 +482,7 @@ def run_gibbs(
         data = prepare_data(sset, bg, motif.K, params.ss, device)
     if n_real is None:
         n_real = int(data["lens"].shape[0])
-    return _run_group([motif], [index], data, n_real, params, solo=True)[0]
+    return _run_group([motif], [index], data, n_real, params, solo=True, graphs=graphs)[0]
 
 
 def run_gibbs_multi(
@@ -459,6 +492,7 @@ def run_gibbs_multi(
     params: Params | None = None,
     device=None,
     mesh=None,
+    graphs: bool = True,
 ) -> list:
     """Batched CGS over a MotifSet; refines every motif in place.
 
@@ -468,7 +502,8 @@ def run_gibbs_multi(
     indices, so the m-th members of two groups are independent chains.
     ``device``: None runs on the current CUDA device; pass "cpu" for the
     CPU.  ``mesh``: rows shard over its data axis, with the same draws as
-    one process.  Returns a list of GibbsResult aligned with ``motifs``.
+    one process.  ``graphs``: False runs the sweeps eagerly on a CUDA
+    device too.  Returns a list of GibbsResult aligned with ``motifs``.
     """
     params = params or Params(CGS=True)
     device = resolve(device)
@@ -483,7 +518,7 @@ def run_gibbs_multi(
         data = prepare_data(sset, bg, K, params.ss, device)
         group = [motifs[i] for i in idxs]
         res = _run_group(group, idxs, data, int(data["lens"].shape[0]), params,
-                         solo=len(idxs) == 1, mesh=mesh)
+                         solo=len(idxs) == 1, mesh=mesh, graphs=graphs)
         for i, r in zip(idxs, res):
             results[i] = r
     return results

@@ -26,6 +26,7 @@ from bammmotif2_tpu_torch.models import motif as motif_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.ops import encode
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import (
     EMResult, build_seconds, choose_path, data_pass, prepare_data, synchronize,
 )
@@ -33,6 +34,11 @@ from bammmotif2_tpu_torch.utils.device import resolve
 
 # ll-trace slots kept per seed; longer runs record every stride-th iteration
 HIST_CAP = 256
+# EM iterations the host runs between two reads of the loop's stop flag.
+# On an H100 at bench's geometry, 4 against 8: 1-1.5% fewer iterations/s
+# at a fixed budget, 1-16% more on a run that converges in 20 iterations,
+# whose masked overshoot costs more than the reads save (PERF.md, PR 9)
+SYNC_EVERY = 4
 
 
 def run_em_multi(
@@ -42,13 +48,15 @@ def run_em_multi(
     params: Params | None = None,
     device=None,
     mesh=None,
+    graphs: bool = True,
 ) -> list:
     """Batched EM over a MotifSet; refines every motif in place.
 
     ``device``: None runs on the current CUDA device; pass "cpu" for the
     CPU.  ``mesh``: shard rows over its data axis and seeds over its seed
-    axis; every rank ends with every refined motif.  Returns a list of
-    EMResult aligned with ``motifs``.
+    axis; every rank ends with every refined motif.  ``graphs``: False
+    runs the loop eagerly on a CUDA device too (``batched_while_loop``).
+    Returns a list of EMResult aligned with ``motifs``.
     """
     params = params or Params(EM=True)
     device = resolve(device)
@@ -96,16 +104,13 @@ def run_em_multi(
         stride = max(1, -(-params.maxEMIterations // HIST_CAP))
         n_slots = -(-params.maxEMIterations // stride)
 
-        def step(v, q):
-            return batched_step(
-                v, q, data, alphas, f_bg, n_real,
-                A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh,
-            )
-
+        step, inputs, key = group_step(data, alphas, f_bg, n_real, A=A, K=K, W=W,
+                                       optimize_q=params.optimizeQ, path=path, mesh=mesh)
         t0 = time.perf_counter()
         v, q, lls, vds, its, hist = batched_while_loop(
             step, v, q, f32(params.epsilon), params.maxEMIterations,
-            n_hist_slots=n_slots, hist_stride=stride,
+            n_hist_slots=n_slots, hist_stride=stride, inputs=inputs, key=key, mesh=mesh,
+            graphs=graphs,
         )
         if mesh is not None:
             *v, q, lls, vds, its, hist = mesh_mod.all_gather_seeds(
@@ -139,6 +144,23 @@ def run_em_multi(
     return results
 
 
+def group_step(data, alphas, f_bg, n_real, **statics) -> tuple:
+    """(step, inputs, key) of ``batched_step`` on ``data`` for
+    ``batched_while_loop``: step(v, q) reads the tensors of ``data``,
+    ``alphas`` and ``f_bg`` through ``inputs``, and ``key`` holds the rest
+    (``n_real``, the data's row bounds, ``statics``)."""
+    tensors, consts = graphs_mod.split(data)
+    inputs = {**tensors, "alphas": alphas, "f_bg": f_bg}
+
+    def step(v, q):
+        return batched_step(v, q, {**data, **inputs}, inputs["alphas"], inputs["f_bg"], n_real,
+                            **statics)
+
+    key = ("batched_step", float(n_real), consts,
+           tuple(sorted((k, x) for k, x in statics.items() if k != "mesh")))
+    return step, inputs, key
+
+
 def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path, mesh=None):
     """One EM iteration for a seed-stacked group: (v, q) with a leading seed
     axis M -> (v_new, q_new, ll [M], v_diff [M]).  One E+M data pass serves
@@ -161,34 +183,77 @@ def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path,
 
 
 def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
-                       n_hist_slots: int = 0, hist_stride: int = 1):
-    """The batched EM convergence loop.
+                       n_hist_slots: int = 0, hist_stride: int = 1, *, inputs=None, key=None,
+                       ll0=None, mesh=None, graphs: bool = True):
+    """The batched EM convergence loop (the reference's ``lax.while_loop``).
 
     ``step(v, q) -> (v, q, ll, v_diff)`` with a leading seed axis.  A seed
     freezes once v_diff OR |dll| drops under epsilon; the loop exits when
-    all froze or the cap hits (one host sync per iteration).
-    ``n_hist_slots > 0`` keeps an ll trace, one slot per ``hist_stride``
-    iterations (last write wins).  Returns (v, q, lls, vds, its,
-    hist [n_hist_slots, M]).
+    all froze or the cap hits.  ``n_hist_slots > 0`` keeps an ll trace, one
+    slot per ``hist_stride`` iterations (last write wins).  ``ll0`` [M]: the
+    likelihoods the first dll compares against (default -inf).
+
+    The iteration is one in-place body (``graphs.Loop``): every seed steps,
+    and only those still active (the group running, the seed not frozen:
+    the reference's ``cond`` and its per-seed ``where``) take the new
+    state, so a step past a seed's exit, or past the group's inside a
+    chunk, changes nothing.  The host runs SYNC_EVERY iterations, then
+    reads one flag.  On a CUDA device the body is a replayed CUDA graph
+    unless ``graphs`` is False or ``mesh``'s data group runs gloo
+    (``graphs.enabled``).  ``step`` reads the tensors of ``inputs`` (name
+    -> tensor) through that dict, and ``key`` holds every constant ``step``
+    depends on: together they let a later loop of the same key replay the
+    same graph.  Without ``key`` the loop runs eagerly.
+
+    Returns (v, q, lls, vds, its, hist [n_hist_slots, M]).
     """
     M = q0.shape[0]
     dev = q0.device
-    v, q = v0, q0
-    lls = torch.full((M,), float("-inf"), dtype=torch.float32, device=dev)
-    vds = torch.full((M,), float("inf"), dtype=torch.float32, device=dev)
-    its = torch.zeros((M,), dtype=torch.int32, device=dev)
-    hist = torch.full((max(n_hist_slots, 1), M), float("nan"), dtype=torch.float32, device=dev)
-    seeds = torch.arange(M, device=dev)
-    while bool((its.max() < max_iters) & (vds.max() >= epsilon)):
-        active = vds >= epsilon
-        v2, q2, ll2, vd2 = step(v, q)
-        vd_eff = torch.minimum(vd2, (ll2 - lls).abs())
-        v = tuple(torch.where(active[:, None, None], a, b) for a, b in zip(v2, v))
+    state = {
+        "v": tuple(vk.clone() for vk in v0),
+        "q": q0.clone(),
+        "lls": torch.full((M,), float("-inf"), dtype=torch.float32, device=dev)
+        if ll0 is None else ll0.to(torch.float32).clone(),
+        "vds": torch.full((M,), float("inf"), dtype=torch.float32, device=dev),
+        "its": torch.zeros((M,), dtype=torch.int32, device=dev),
+        "hist": torch.full((max(n_hist_slots, 1), M), float("nan"), dtype=torch.float32,
+                           device=dev),
+        "eps": torch.as_tensor(epsilon, dtype=torch.float32, device=dev).clone(),
+        "cap": torch.full((), max_iters, dtype=torch.int32, device=dev),
+    }
+    state["running"] = _running(state)
+
+    def body(s, _gens):
+        active = s["running"] & (s["vds"] >= s["eps"])
+        v2, q2, ll2, vd2 = step(s["v"], s["q"])
+        vd_eff = torch.minimum(vd2, (ll2 - s["lls"]).abs())
+        for a, b in zip(s["v"], v2):
+            a.copy_(torch.where(active[:, None, None], b, a))
         if n_hist_slots > 0:
-            slot = torch.clamp(its // hist_stride, max=n_hist_slots - 1).long()
-            hist[slot, seeds] = torch.where(active, ll2, hist[slot, seeds])
-        q = torch.where(active, q2, q)
-        lls = torch.where(active, ll2, lls)
-        vds = torch.where(active, vd_eff, vds)
-        its = its + active.to(torch.int32)
-    return v, q, lls, vds, its, hist
+            slot = torch.clamp(s["its"] // hist_stride, max=n_hist_slots - 1).long()
+            seeds = torch.arange(M, device=dev)
+            s["hist"][slot, seeds] = torch.where(active, ll2, s["hist"][slot, seeds])
+        s["q"].copy_(torch.where(active, q2, s["q"]))
+        s["lls"].copy_(torch.where(active, ll2, s["lls"]))
+        s["vds"].copy_(torch.where(active, vd_eff, s["vds"]))
+        s["its"].add_(active.to(torch.int32))
+        s["running"].copy_(_running(s))
+
+    with graphs_mod.Loop("EM loop", key, state, inputs or {}, body, mesh=mesh,
+                         graphs=graphs and key is not None) as loop:
+        s = loop.state
+        done = 0
+        # past the cap every step is a no-op, so no chunk runs beyond it
+        while done < max_iters:
+            n = min(SYNC_EVERY, max_iters - done)
+            loop.run(n)
+            done += n
+            if done < max_iters and not bool(s["running"]):  # the chunk's one host read
+                break
+        return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["lls"].clone(),
+                s["vds"].clone(), s["its"].clone(), s["hist"].clone())
+
+
+def _running(s: dict) -> torch.Tensor:
+    """The group's loop condition (the reference's ``cond``), on the device."""
+    return (s["its"].max() < s["cap"]) & (s["vds"].max() >= s["eps"])

@@ -1,7 +1,7 @@
 """A/B between two checkouts on one GPU, in interleaved processes, with rank
 tests.
 
-    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,flat,kernels} BASE_DIR CHANGE_DIR [--rounds N]
+    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,flat,kernels,loops} BASE_DIR CHANGE_DIR [--rounds N]
 
 Each directory is the root of a checkout holding ``chip_smoke.py``.  Every
 round starts one process per checkout, one at a time, base first in even
@@ -41,6 +41,16 @@ measures, through that checkout's code:
   iterations/s at bench's geometry (``chip_smoke.time_em``); config 4's
   EM-FDR seconds per (W, K) group, converged, through the kernels
   (``chip_smoke.config4_problem`` and ``run_cli``).
+
+``loops``: the EM and CGS loops run eagerly (in BASE_DIR's processes) against
+  the same loops as replayed CUDA graphs (in CHANGE_DIR's; pass one checkout
+  twice to compare its own two modes): ``chip_smoke.loop_rates`` (EM its/s
+  at a fixed budget at M=1 and M=4 through run_em / run_em_multi and through
+  the CLI's --EM stage, CGS sweeps/s at M=1, each loop's capture ms) after
+  the first-use cost, measured first in the fresh process
+  (``chip_smoke.first_use_runs``: the --CGS stage's seconds, kernel path
+  first in even rounds and plain path first in odd ones, in the process's
+  mode).  Bench's problem throughout (10k x 200 bp, W=12, K=2).
 
 The kernels' inputs are made once, before the first round, by this
 checkout's ``chip_smoke`` and ``tests/test_torch_cuda.py`` (numpy and
@@ -247,12 +257,30 @@ def measure_kernels(chip_smoke, dev, inputs) -> tuple:
                      "config4_em_iterations": [e["iterations"] for e in run["events"]["em_done"]]}
 
 
+def measure_loops(chip_smoke, dev, _inputs, graphed: bool, first: str) -> tuple:
+    """First use of --CGS in this fresh process (``first``: kernel_first or
+    plain_first), then the loops' rates in the process's mode."""
+    with tempfile.TemporaryDirectory() as tmp:
+        prob = chip_smoke.loops_problem(tmp)
+        fu = chip_smoke.first_use_runs(dev, tmp, prob["fasta"], prob["meme"], first)
+        metrics = chip_smoke.loop_rates(dev, tmp, prob, graphed)
+    for order in ("kernel_first", "plain_first"):
+        lead, then = order.split("_")[0], "plain" if order == "kernel_first" else "kernel"
+        got = order == first
+        metrics[f"first_use_{order}_{lead}_cgs_s"] = fu[lead]["cgs_seconds"] if got else "not measured"
+        metrics[f"first_use_{order}_{then}_after_cgs_s"] = (fu[then]["cgs_seconds"] if got
+                                                            else "not measured")
+    return metrics, {"graphed": graphed, "first_use": fu}
+
+
 MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "flat": measure_flat,
-            "kernels": measure_kernels}
+            "kernels": measure_kernels, "loops": measure_loops}
 
 
-def one(measure: str, root: str, inputs: str) -> None:
-    """Measure with ``root``'s checkout and print one JSON line."""
+def one(measure: str, root: str, inputs: str, graphed: bool = True,
+        first: str = "kernel_first") -> None:
+    """Measure with ``root``'s checkout and print one JSON line
+    (``graphed`` and ``first`` are the ``loops`` measure's mode)."""
     import torch
 
     root = os.path.abspath(root)
@@ -264,14 +292,15 @@ def one(measure: str, root: str, inputs: str) -> None:
     for mod in (chip_smoke, bammmotif2_tpu_torch):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"imported {mod.__file__}, not from {root}")
-    metrics, extra = MEASURES[measure](chip_smoke, torch.device("cuda"), inputs)
+    opts = (graphed, first) if measure == "loops" else ()
+    metrics, extra = MEASURES[measure](chip_smoke, torch.device("cuda"), inputs, *opts)
     print("AB " + json.dumps({"metrics": metrics, **extra}), flush=True)
 
 
-def run(measure: str, root: str, inputs: str, timeout: float) -> dict:
+def run(measure: str, root: str, inputs: str, timeout: float, mode: tuple = ()) -> dict:
     # run by path, so that only ``root``'s packages are importable in it
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), measure, root, inputs,
-                           "--one"], capture_output=True, text=True, timeout=timeout)
+                           "--one", *mode], capture_output=True, text=True, timeout=timeout)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
     if proc.returncode != 0 or not lines:
         raise RuntimeError(f"{root}: exit {proc.returncode}\n{proc.stdout[-2000:]}"
@@ -324,21 +353,27 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=12)
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds per process")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--eager", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--first", default="kernel_first", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:  # base is the checkout, change the inputs' directory
-        one(args.measure, args.base, args.change)
+        one(args.measure, args.base, args.change, not args.eager, args.first)
         return 0
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     trees = {"base": args.base, "change": args.change}
     procs = []
     with tempfile.TemporaryDirectory() as inputs:
-        if args.measure != "cgs":
+        if args.measure not in ("cgs", "loops"):
             make_inputs(inputs, args.measure)
         for rnd in range(args.rounds):
             order = ("base", "change") if rnd % 2 == 0 else ("change", "base")
             for pos, tree in enumerate(order):
-                res = run(args.measure, trees[tree], inputs, args.timeout)
+                mode = ()
+                if args.measure == "loops":  # base eager, change graphed
+                    mode = (*(("--eager",) if tree == "base" else ()),
+                            "--first", ("kernel_first", "plain_first")[rnd % 2])
+                res = run(args.measure, trees[tree], inputs, args.timeout, mode)
                 res.update(tree=tree, round=rnd, position=pos)
                 print("process " + json.dumps(res), flush=True)
                 procs.append(res)

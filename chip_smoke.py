@@ -17,14 +17,24 @@ Phases (any failure exits non-zero):
                itself across calls, shapes and streams, and a CUDA graph
                of a call replays right; and check_flat_calls: a flat
                window-score call is one kernel, a flat E+M call enqueues no
-               more than the combined one and no gather or fold.
+               more than the combined one and no gather or fold; and
+               check_loops: the EM and CGS loops as replayed CUDA graphs
+               (refinement/graphs.py) against their eager loops (CGS bit
+               for bit, EM within the bars at a fixed budget), one host
+               read a chunk of multi.SYNC_EVERY EM iterations, B1-B3
+               counted once an iteration or sweep, a capture that fails
+               raises.
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
-               just before each run and read just after:
+               just before each run and read just after; the EM and CGS
+               loops of both run as replayed CUDA graphs, each run starting
+               with an empty graph cache (its captures are reported):
                - --EM on examples/ and on a planted 10k x 200 bp set at -k 2
                  and -k 4: written models agree, the refined consensus is
                  the planted motif, the E+M kernel launched at least once per
-                 iteration.  The 10k comparisons run a fixed budget of
+                 iteration; at -k 2 the kernel path's loop also runs eagerly:
+                 equal iterations, files within the bars.  The 10k
+                 comparisons run a fixed budget of
                  FIXED_ITERS: at ll ~ 7e4 the f32 spacing (0.0078) exceeds
                  epsilon (1e-3), so the |dll| < epsilon stop fires when two
                  f32 lls round equal and a converged run's iteration count
@@ -48,11 +58,12 @@ Phases (any failure exits non-zero):
                  >= 0.25 for the three unperturbed seeds, both kernels
                  launched;
                - --CGS -k 2 -K 2 on the planted 10k x 200 bp set at the
-                 default 100 sweeps: written files agree (equal files are
-                 expected: both paths draw the same numbers, window scores
-                 are bit-equal and 0/1 counts exact), the consensus is the
-                 planted motif, the window-score and counts-from-r kernels
-                 launched at least once per sweep;
+                 default 100 sweeps: written files equal byte for byte
+                 (both paths draw the same numbers, window scores are
+                 bit-equal and 0/1 counts exact), and equal to the kernel
+                 path's eager sweep loop; the consensus is the planted motif,
+                 the window-score and counts-from-r kernels launched at least
+                 once per sweep;
                - --EM --CGS on examples/: files agree, all three kernels
                  launched;
                - config 4 with --CGS --FDR (per-fold CGS) compared at
@@ -75,7 +86,8 @@ Phases (any failure exits non-zero):
                  at K=2 on a (1, 1) mesh, every all-reduce through NCCL, are
                  bit-equal to the unsharded runs (a one-rank f64 sum is the
                  identity, rounded once); B1, B2 and B3 launched once per
-                 iteration or sweep at least;
+                 iteration or sweep at least; both loops captured (NCCL's
+                 all-reduce joins the graph);
                - two ranks over gloo (NCCL refuses two ranks on one card),
                  CUDA tensors staged through host memory by parallel.mesh:
                  --EM at FIXED_ITERS and --CGS at PARALLEL_SWEEPS on the same
@@ -83,7 +95,8 @@ Phases (any failure exits non-zero):
                  within tests/torch_outputs.py's bars of the single process's
                  (CGS: equal, the draws are the same), rank 1 writes none,
                  each rank launched B1, or B2 and B3, once per iteration or
-                 sweep at least;
+                 sweep at least; no loop captured (gloo stages through host
+                 memory, so the loops run eagerly);
                - the all-reduce's µs an iteration (CUDA events around the
                  reduce of an iteration's buffer, NCCL one rank, gloo two
                  ranks) and EM iterations/s and CGS sweeps/s at world size
@@ -108,10 +121,16 @@ Phases (any failure exits non-zero):
                index built beforehand, index_add_ for counts from r with its
                index built beforehand and, beside it, inside the timed
                call), that call's time; EM windows/s and iterations/s; CGS sweeps/s at
-               bench's geometry (kernel and plain, and the device's busy
-               share under torch.profiler); config 5's end-to-end scan
-               windows/s and config 4's EM-FDR and CGS-FDR seconds per
-               (W, K) group.
+               bench's geometry (kernel and plain, each graphed and eager,
+               and the device's busy share under torch.profiler over 10
+               graphed and 10 eager sweeps); the loops (time_loops): EM
+               its/s eager against graphed at M=1 and 4 through run_em /
+               run_em_multi and through the CLI's --EM stage, the
+               multi.SYNC_EVERY sweep, capture ms, the captures of the
+               slices' CLI runs, and the first-use cost of --CGS in fresh
+               processes (kernel path first, plain path first); config 5's
+               end-to-end scan windows/s and config 4's EM-FDR and CGS-FDR
+               seconds per (W, K) group.
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; the last line is {"ok": true, "device": {...}}.
 Imports no JAX.
@@ -343,6 +362,8 @@ def phase_kernel(device) -> dict:
     log("kernel counts calls (one kernel a call, workspace, CUDA graph): " + json.dumps(res))
     log("kernel flat calls (what an E+M and a scores call enqueue): "
         + json.dumps(checks.check_flat_calls(device)))
+    log("kernel loops (graphed against eager, host reads, counters, failed capture): "
+        + json.dumps(checks.check_loops(device)))
     return worst
 
 
@@ -423,19 +444,25 @@ def runs_events(tmp: str, tag: str, base: str) -> dict:
     return events
 
 
-def run_cli(outdir: str, fasta: str, meme: str, extra: list, device) -> dict:
-    """One CLI run; returns its metrics events by kind (lists), the launches
-    each kernel made in it (counts zeroed just before) and its seconds."""
+def run_cli(outdir: str, fasta: str, meme: str, extra: list, device, graphs: bool = True) -> dict:
+    """One CLI run (``graphs``: False runs its loops eagerly); returns its
+    metrics events by kind (lists), the launches each kernel made in it
+    (counts zeroed just before), its seconds and the loops it captured
+    (``refinement.graphs.stats``: the cache emptied just before, as a fresh
+    process starts)."""
     from bammmotif2_tpu_torch import cli
+    from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 
+    graphs_mod.clear()
     reset_launches()
     t0 = time.perf_counter()
-    cli.main([outdir, fasta, "--PWMFile", meme, "--jsonl", *extra], device=device)
+    cli.main([outdir, fasta, "--PWMFile", meme, "--jsonl", *extra], device=device, graphs=graphs)
     secs = time.perf_counter() - t0
     n = launches()
     base = os.path.splitext(os.path.basename(fasta))[0]
     events = runs_events(os.path.dirname(outdir), os.path.basename(outdir), base)
-    return {"events": events, "launches": n, "seconds": secs, "base": base}
+    return {"events": events, "launches": n, "seconds": secs, "base": base,
+            "captures": graphs_mod.stats()}
 
 
 def run_pair(tag: str, fasta: str, meme: str, extra: list, device, tmp: str) -> tuple:
@@ -457,10 +484,14 @@ def check_consensus(tag: str, dirs: tuple, base: str, motif: str, planted) -> No
             raise AssertionError(f"{tag}: consensus {consensus} != planted {planted}")
 
 
-def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None) -> dict:
-    """The --EM slice through the kernel, then under --no-pallas; checks
-    launches, (with ``compare``) agreement of the two paths with equal
-    iteration counts, and (with ``planted``) the refined consensus."""
+def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None,
+             eager=False) -> dict:
+    """The --EM slice through the kernel, then under --no-pallas, both with
+    their loops graphed; checks launches, (with ``compare``) agreement of
+    the two paths with equal iteration counts, (with ``planted``) the
+    refined consensus, and (with ``eager``) the kernel path's loop run
+    eagerly against the graphed one: equal iterations, files within
+    tests/torch_outputs.py's bars."""
     outputs = load_by_path("bamm_torch_outputs", "tests/torch_outputs.py")
     k, p = run_pair(tag, fasta, meme, ["--EM", *extra], device, tmp)
     ev_k, ev_p = k["events"]["em_done"], p["events"]["em_done"]
@@ -482,8 +513,26 @@ def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None) -> dic
                     for f in os.listdir(dirs[0]) if f.endswith((".ihbcp", ".ihbp")))
     if planted is not None:
         check_consensus(tag, dirs, k["base"], ev_k[0]["motif"], planted)
+    graphed_vs_eager = None
+    if eager:
+        e = run_cli(os.path.join(tmp, tag + "_eager"), fasta, meme, ["--EM", *extra], device,
+                    graphs=False)
+        pairs = [(a["iterations"], b["iterations"])
+                 for a, b in zip(ev_k, e["events"]["em_done"], strict=True)]
+        if any(a != b for a, b in pairs) or e["captures"]:
+            raise AssertionError(f"{tag}: iterations (graphed, eager) {pairs}, "
+                                 f"eager captures {e['captures']}")
+        graphed_vs_eager = {
+            "max_abs_dp": outputs.compare_dirs(dirs[0], os.path.join(tmp, tag + "_eager"),
+                                               refined=True)["max_dp"],
+            "em_seconds_graphed": [x["seconds"] for x in ev_k],
+            "em_seconds_eager": [x["seconds"] for x in e["events"]["em_done"]]}
+    if not k["captures"]:
+        raise AssertionError(f"{tag}: the kernel run's EM loop was not graphed")
     out = {
         "compared": compare,
+        "captures": k["captures"],
+        "graphed_vs_eager": graphed_vs_eager,
         "launches": n,
         "iterations_kernel": [e["iterations"] for e in ev_k],
         "iterations_plain": [e["iterations"] for e in ev_p],
@@ -520,6 +569,7 @@ def full_slice(tag, fasta, meme, extra, device, tmp, m_fold,
     cmp = outputs.compare_dirs(*dirs, refined=True, m_fold=m_fold)
     out = {
         "launches": k["launches"],
+        "captures": k["captures"],
         "files_compared": cmp["files"],
         "files_equal": files_equal(*dirs),
         "max_abs_dp": cmp["max_dp"],
@@ -606,6 +656,7 @@ def config4_slice(device, tmp) -> dict:
     out = {
         "fixed": fixed,
         "converged_launches": conv["launches"],
+        "captures": conv["captures"],
         "converged_em_iterations": [e["iterations"] for e in conv["events"]["em_done"]],
         "avrec_zoops": avrec,
         "fdr_group_seconds_kernel": groups,
@@ -622,6 +673,17 @@ def cgs_slices(device, tmp) -> dict:
     _, fasta, meme, planted, _pos, _has = planted_problem(tmp, tag="cgs")
     k, main = full_slice("cgs_10k", fasta, meme, ["--CGS", "-k", "2", "-K", "2"], device, tmp,
                          m_fold=1, kernels=("window_scores", "counts_from_r"))
+    # graphed: equal to --no-pallas (graphed too) and to the eager loop, byte for byte
+    e = run_cli(os.path.join(tmp, "cgs_10k_eager"), fasta, meme, ["--CGS", "-k", "2", "-K", "2"],
+                device, graphs=False)
+    main["files_equal_eager"] = files_equal(os.path.join(tmp, "cgs_10k_kernel"),
+                                            os.path.join(tmp, "cgs_10k_eager"))
+    main["cgs_seconds_eager"] = e["events"]["cgs_done"][0]["seconds"]
+    if not (main["files_equal"] and main["files_equal_eager"]) or not k["captures"] \
+            or e["captures"]:
+        raise AssertionError(f"cgs_10k: files equal to --no-pallas {main['files_equal']}, to "
+                             f"the eager loop {main['files_equal_eager']}; captures "
+                             f"{k['captures']}, eager {e['captures']}")
     sweeps = k["events"]["cgs_done"][0]["iterations"]
     if min(k["launches"]["window_scores"], k["launches"]["counts_from_r"]) < sweeps:
         raise AssertionError(f"cgs_10k: {k['launches']} for {sweeps} sweeps")
@@ -653,6 +715,7 @@ def cgs_slices(device, tmp) -> dict:
     c4 = {
         "fixed": fixed,
         "launches": full["launches"],
+        "captures": full["captures"],
         "avrec_zoops": avrec,
         "cgs_fdr_group_seconds_kernel": {f"W{e['W']}_K{e['K']}": e["group_seconds"] for e in fdr},
         "cli_seconds": full["seconds"],
@@ -753,7 +816,7 @@ def phase_slice(device, tmp) -> dict:
     budget = ["--maxEMIterations", str(FIXED_ITERS)]
     for k in ("2", "4"):
         em_slice(f"10k_k{k}_fixed", fasta, meme, ["-k", k, "-K", "2", *budget],
-                 device, tmp, True, planted)
+                 device, tmp, True, planted, eager=k == "2")
     conv = em_slice("10k_k2_converged", fasta, meme, ["-k", "2", "-K", "2"],
                     device, tmp, False, planted)
     secs["em"] = time.perf_counter() - t0
@@ -775,7 +838,8 @@ def phase_slice(device, tmp) -> dict:
     flat = flat_slice(device, tmp)
     secs["flat"] = time.perf_counter() - t0
     log("slice seconds: " + json.dumps(secs))
-    return {"launches": {"em_counts": conv["launches"],
+    return {"em_converged": conv,
+            "launches": {"em_counts": conv["launches"],
                          "window_scores": c5["launches"]["window_scores"],
                          "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
                          **flat["launches"]},
@@ -853,6 +917,7 @@ def parallel_worker(kind: str, tmp: str) -> int:
     from bammmotif2_tpu_torch.models.background import BackgroundModel
     from bammmotif2_tpu_torch.parallel import distributed
     from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
+    from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
     from bammmotif2_tpu_torch.refinement.em import run_em
     from bammmotif2_tpu_torch.refinement.gibbs import run_gibbs_multi
     from bammmotif2_tpu_torch.utils.config import Params
@@ -876,12 +941,19 @@ def parallel_worker(kind: str, tmp: str) -> int:
         em_params = Params(EM=True, maxEMIterations=FIXED_ITERS, epsilon=0.0)
         cgs_params = Params(CGS=True, maxCGSIterations=PARALLEL_SWEEPS)
         runs = {}
-        for name, m in (("unsharded", None), ("mesh", mesh)) * 2:  # round 1 warms up
+        graphs_mod.clear()
+        # round 1 warms up (and captures); round 2 replays the cached graphs
+        for name, m in (("unsharded", None), ("mesh", mesh)) * 2:
             em_m, cgs_m = seed.copy(), seed.copy()
             reset_launches()
             em_r = run_em(em_m, bg, sset, em_params, device=device, mesh=m)
             cgs_r = run_gibbs_multi([cgs_m], bg, sset, cgs_params, device=device, mesh=m)[0]
             runs[name] = (em_m, em_r, cgs_m, cgs_r, launches())
+        # the rule: NCCL's all-reduce joins the graph; each loop captured once
+        # unsharded and once on the mesh, and replayed by round 2
+        got = sorted((c["name"], c["calls"]) for c in graphs_mod.stats())
+        if got != [("CGS sweep loop", 2)] * 2 + [("EM loop", 2)] * 2:
+            raise AssertionError(f"nccl: loops captured {graphs_mod.stats()}")
         (em0, r0, cgs0, g0, _), (em1, r1, cgs1, g1, n1) = runs["unsharded"], runs["mesh"]
         out.update({
             "em_iterations": r1.iterations,
@@ -906,8 +978,11 @@ def parallel_worker(kind: str, tmp: str) -> int:
             outdir = os.path.join(tmp, f"parallel_{tag}_rank{rank}")
             params = cli.params_from_args([outdir, os.path.join(tmp, "parallel.fasta"), "--PWMFile",
                                            os.path.join(tmp, "parallel.meme"), "--jsonl", *extra])
+            graphs_mod.clear()
             reset_launches()
             res = cli.run_pipeline(params, device, mesh)
+            if graphs_mod.stats():  # the rule: gloo stages through host memory, eager
+                raise AssertionError(f"gloo {tag}: loops captured {graphs_mod.stats()}")
             r = res["em_results" if tag == "em" else "cgs_results"][0]
             out[tag] = {"launches": launches(), "iterations": r.iterations,
                         "per_s": r.iterations / r.seconds, "files": len(res["files"])}
@@ -1278,12 +1353,39 @@ def time_flat(device) -> dict:
     return out
 
 
-def time_cgs(device, tmp) -> dict:
-    """CGS sweeps/s at bench's geometry (one chain), kernel path and plain,
-    and a torch.profiler window over the kernel path's sweeps: the device's
-    busy share and its largest kernels."""
+def profile_window(fn) -> dict:
+    """torch.profiler over one call of ``fn``: wall ms, the device's busy
+    ms and idle share, kernels launched and the largest kernels' ms."""
     import torch
     from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1 - busy_us / wall_us if busy_us else "not measured",
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
+    }
+
+
+def time_cgs(device, tmp) -> dict:
+    """CGS sweeps/s at bench's geometry (one chain), kernel path and plain,
+    each with its sweep loop graphed (the default: ``sweeps_per_s_PATH``)
+    and eager (``..._eager``), in turns, every timed run after an untimed
+    one of the same length (so the graphed one replays a cached capture);
+    torch.profiler windows over 10 sweeps of the kernel path, graphed and
+    eager: the device's busy share and its largest kernels.  Every run is
+    under torch.cuda.set_sync_debug_mode("error"): the sweep loop, its
+    capture included, must not synchronise."""
+    import torch
 
     from bammmotif2_tpu_torch.models import seeds as seeds_mod
     from bammmotif2_tpu_torch.models.background import BackgroundModel
@@ -1300,39 +1402,30 @@ def time_cgs(device, tmp) -> dict:
     v0 = tuple(f32(vk)[None] for vk in motif.v)
     alphas, f_bg, q0 = f32(motif.alphas)[None], f32(motif.f_bg), f32([0.9])
 
-    def sweeps(path, n):
+    def sweeps(path, n, graphed):
         gens = gibbs.chain_generators(0, [0], device)
         torch.cuda.set_sync_debug_mode("error")  # the sweep loop must not sync
         try:
             out = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas,
                                        float(N_SEQS), A=4, K=2, W=W, sample_z=True,
-                                       sample_q=True, learn_alpha=True, path=path, n_iters=n)
+                                       sample_q=True, learn_alpha=True, path=path, n_iters=n,
+                                       graphs=graphed)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         return out
 
     out = {}
-    for path in ("cuda", "plain", "cuda", "plain"):
-        sweeps(path, 2)
+    runs = [("cuda", True), ("cuda", False), ("plain", True), ("plain", False)]
+    for path, graphed in runs + runs[::-1]:
+        sweeps(path, N_TIMED, graphed)
         t0 = time.perf_counter()
-        sweeps(path, N_TIMED)
-        out.setdefault(f"sweeps_per_s_{path}", []).append(N_TIMED / (time.perf_counter() - t0))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        sweeps("cuda", 10)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    out["profiled_10_sweeps"] = {
-        "wall_ms": wall_us / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1 - busy_us / wall_us if busy_us else "not measured",
-        "kernel_launches": sum(e.count for e in kernels),
-        "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top},
-    }
+        sweeps(path, N_TIMED, graphed)
+        key = f"sweeps_per_s_{path}" + ("" if graphed else "_eager")
+        out.setdefault(key, []).append(N_TIMED / (time.perf_counter() - t0))
+    for tag, graphed in (("graphed", True), ("eager", False)):
+        sweeps("cuda", 10, graphed)
+        out[f"profiled_10_sweeps_{tag}"] = profile_window(lambda: sweeps("cuda", 10, graphed))
     # does a CUDA generator give row n the same uniform when rows follow it?
     u = [torch.rand(N_SEQS + extra, generator=torch.Generator(device=device).manual_seed(1),
                     device=device)[:N_SEQS] for extra in (0, 7)]
@@ -1341,9 +1434,187 @@ def time_cgs(device, tmp) -> dict:
     return out
 
 
+LOOP_ITERS = 200  # EM iterations of a fixed-budget timing run (epsilon 0)
+SYNC_SWEEP = (1, 4, 8, 16)  # multi.SYNC_EVERY values timed
+FIRST_USE_ORDERS = ("kernel_first", "plain_first", "plain_first", "kernel_first")
+
+
+def loops_problem(tmp: str) -> dict:
+    """The loops' timing problem: bench's planted set (FASTA, its planted
+    PWM's MEME), a MEME of four width-W seeds (the planted PWM, then softer
+    ones: 0.7 - 0.05 m on the planted base) and the set's background."""
+    from bammmotif2_tpu_torch.models import seeds as seeds_mod
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+
+    sset, fasta, meme, planted, _pos, _has = planted_problem(tmp, tag="loops")
+    pwms = []
+    for m in range(4):
+        pwm = np.full((W, 4), (0.3 + 0.05 * m) / 3)
+        pwm[np.arange(W), planted] = 0.7 - 0.05 * m
+        pwms.append((f"seed{m + 1}", pwm))
+    meme4 = os.path.join(tmp, "loops4.meme")
+    write_meme(meme4, pwms)
+    return {"sset": sset, "fasta": fasta, "meme": meme, "meme4": meme4,
+            "bg": BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False),
+            "seeds": [seeds_mod.motif_from_pwm(p, K=2, f_bg=sset.base_frequencies())
+                      for _, p in pwms]}
+
+
+def em_rate(device, prob: dict, M: int, graphed: bool, params=None) -> tuple:
+    """(its/s of the loop's seconds, iterations) of one EM run of the first
+    M seeds of ``prob``: run_em at M=1, run_em_multi else; ``params``
+    defaults to LOOP_ITERS iterations at epsilon 0."""
+    from bammmotif2_tpu_torch.refinement import multi
+    from bammmotif2_tpu_torch.refinement.em import run_em
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    params = params or Params(EM=True, maxEMIterations=LOOP_ITERS, epsilon=0.0, optimizeQ=True)
+    seeds, sset, bg = prob["seeds"], prob["sset"], prob["bg"]
+    if M == 1:
+        r = run_em(seeds[0].copy(), bg, sset, params, device=device, graphs=graphed)
+        return r.iterations / r.seconds, r.iterations
+    rs = multi.run_em_multi([m.copy() for m in seeds[:M]], bg, sset, params, device=device,
+                            graphs=graphed)
+    return max(r.iterations for r in rs) / rs[0].group_seconds, max(r.iterations for r in rs)
+
+
+def loop_rates(device, tmp: str, prob: dict, graphed: bool) -> dict:
+    """One mode's loop rates on ``loops_problem``, each timed run after an
+    untimed one of the same shape (so a graphed run replays a cached
+    capture): EM its/s at a fixed budget (LOOP_ITERS, epsilon 0) at M=1
+    (run_em) and M=4 (run_em_multi); the CLI's --EM stage at M=1 and 4
+    (em_done: the slowest seed's iterations over the group's seconds; the
+    graph cache emptied first, as a fresh process starts); CGS sweeps/s of
+    gibbs_optimize (N_TIMED sweeps, M=1, the kernel path); graphed, the
+    capture ms of the EM loops and the CGS loop."""
+    import torch
+
+    from bammmotif2_tpu_torch.refinement import gibbs
+    from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
+    from bammmotif2_tpu_torch.refinement.em import prepare_data
+
+    out = {}
+    graphs_mod.clear()
+    for M in (1, 4):
+        em_rate(device, prob, M, graphed)
+        out[f"em_its_per_s_M{M}"] = em_rate(device, prob, M, graphed)[0]
+    data = prepare_data(prob["sset"], prob["bg"], 2, False, device)
+    seed = prob["seeds"][0]
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
+    alphas = f32(seed.alphas)[None]
+
+    def sweeps():
+        gibbs.gibbs_optimize(tuple(f32(vk)[None] for vk in seed.v), f32([0.9]), torch.log(alphas),
+                             gibbs.chain_generators(0, [0], device), data, f32(seed.f_bg), alphas,
+                             float(N_SEQS), A=4, K=2, W=W, sample_z=True, sample_q=True,
+                             learn_alpha=True, path="cuda", n_iters=N_TIMED, graphs=graphed)
+        torch.cuda.synchronize()
+
+    sweeps()
+    t0 = time.perf_counter()
+    sweeps()
+    out["cgs_sweeps_per_s_M1"] = N_TIMED / (time.perf_counter() - t0)
+    caps = {c["name"]: c["capture_ms"] for c in graphs_mod.stats()}
+    for name in ("EM loop", "CGS sweep loop"):
+        out[f"capture_ms_{name.split()[0]}"] = caps.get(name, "not measured")
+    for M, meme in ((1, prob["meme"]), (4, prob["meme4"])):
+        r = run_cli(os.path.join(tmp, f"loops_cli_M{M}_{time.monotonic_ns()}"), prob["fasta"],
+                    meme, ["--EM", "-k", "2", "-K", "2", "-e", "0", "--maxEMIterations",
+                           str(LOOP_ITERS), "--optimizeQ"], device, graphs=graphed)
+        ev = r["events"]["em_done"]
+        out[f"cli_em_its_per_s_M{M}"] = (max(e["iterations"] for e in ev)
+                                         / sum(e["seconds"] for e in ev))
+    return out
+
+
+def first_use_runs(device, tmp: str, fasta: str, meme: str, order: str) -> dict:
+    """The --CGS stage through the kernels and under --no-pallas, in
+    ``order`` (kernel_first or plain_first): each run's cgs_done seconds and
+    CLI seconds.  Its point is a fresh process: call it first."""
+    runs = ("kernel", "plain") if order == "kernel_first" else ("plain", "kernel")
+    out = {"order": order}
+    for run in runs:
+        extra = ["--CGS", "-k", "2", "-K", "2"] + (["--no-pallas"] if run == "plain" else [])
+        r = run_cli(os.path.join(tmp, f"first_use_{os.getpid()}_{run}"), fasta, meme, extra,
+                    device)
+        out[run] = {"cgs_seconds": r["events"]["cgs_done"][0]["seconds"],
+                    "cli_seconds": r["seconds"]}
+    return out
+
+
+def first_use_worker(order: str, tmp: str) -> int:
+    """A fresh process's ``first_use_runs`` on the planted 10k set of
+    ``cgs_slices`` (TMP/cgs.fasta, TMP/cgs.meme); prints one line
+    ``FIRST_USE {...}``."""
+    import torch
+
+    out = first_use_runs(torch.device("cuda"), tmp, os.path.join(tmp, "cgs.fasta"),
+                         os.path.join(tmp, "cgs.meme"), order)
+    print("FIRST_USE " + json.dumps(out), flush=True)
+    return 0
+
+
+def first_use(tmp: str) -> list:
+    """FIRST_USE_ORDERS, one fresh process each, one after the other."""
+    results = []
+    for order in FIRST_USE_ORDERS:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-use", order, tmp],
+                              cwd=ROOT, capture_output=True, text=True, timeout=PARALLEL_TIMEOUT)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FIRST_USE ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"first-use {order} failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        results.append(json.loads(lines[-1][len("FIRST_USE "):]))
+    return results
+
+
+def time_loops(device, tmp, slices: dict) -> dict:
+    """The device-resident loops (refinement/graphs.py) on bench's problem:
+    ``loop_rates`` eager and graphed in turns (eager, graphed, graphed,
+    eager) in this process; the converged run_em (the default epsilon) and
+    the fixed budget at each multi.SYNC_EVERY of SYNC_SWEEP, graphed; the
+    captures and graphed loop calls of the slices' CLI runs; and first use:
+    the --CGS stage seconds of fresh processes, kernel path first and plain
+    path first (FIRST_USE_ORDERS)."""
+    from bammmotif2_tpu_torch.refinement import multi
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    prob = loops_problem(tmp)
+    out: dict = {"rates": {}, "sync_every": {}}
+    for graphed in (False, True, True, False):
+        for k, x in loop_rates(device, tmp, prob, graphed).items():
+            out["rates"].setdefault(f"{k}_{'graphed' if graphed else 'eager'}", []).append(x)
+    saved = multi.SYNC_EVERY
+    try:
+        for sync in SYNC_SWEEP:
+            multi.SYNC_EVERY = sync
+            conv = [em_rate(device, prob, 1, True, Params(EM=True, optimizeQ=True))
+                    for _ in range(2)]
+            out["sync_every"][sync] = {
+                "fixed_its_per_s": [em_rate(device, prob, 1, True)[0] for _ in range(2)],
+                "converged_its_per_s": [c[0] for c in conv],
+                "converged_iterations": [c[1] for c in conv]}
+    finally:
+        multi.SYNC_EVERY = saved
+    cgs = slices["cgs"]
+    out["captures_per_cli_run"] = {
+        name: {"captures": len(c), "loop_calls": sum(x["calls"] for x in c),
+               "capture_ms": [x["capture_ms"] for x in c]}
+        for name, c in (("em_10k_converged", slices["em_converged"]["captures"]),
+                        ("cgs_10k", cgs["cgs_10k"]["captures"]),
+                        ("config4_em_fdr", slices["config4"]["captures"]),
+                        ("config4_cgs_fdr", cgs["config4_cgs"]["captures"]))}
+    out["first_use_cgs_stage"] = first_use(tmp)
+    out["gpu"] = nvidia_smi()
+    log("timing loops (bench geometry 10k x 200 bp, W=12, K=2; eager against graphed): "
+        + json.dumps(out))
+    return out
+
+
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
-           "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp)}
+           "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
+           "loops": time_loops(device, tmp, slices)}
     c5, c4 = slices["config5"], slices["config4"]
     e2e = {
         "config5_scan_windows_per_s_kernel": c5["scan_windows_per_s_kernel"],
@@ -1430,4 +1701,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         sys.path.insert(0, ROOT)
         sys.exit(parallel_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--first-use"]:
+        sys.path.insert(0, ROOT)
+        sys.exit(first_use_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -12,7 +12,8 @@ kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel,
 ``FLAT_CASES`` / ``check_flat`` for the three kernels on base-(A+1) codes,
 ``check_counts_calls`` for the two counts-from-r wrappers' one-kernel
 calls, their workspace and CUDA-graph capture, ``check_flat_calls`` for
-what a flat E+M or window-score call enqueues) at the main path's shapes.
+what a flat E+M or window-score call enqueues, ``check_loops`` for the EM
+and CGS loops as replayed CUDA graphs) at the main path's shapes.
 This module imports no JAX.
 """
 
@@ -380,19 +381,29 @@ def check_flat(case: dict, device) -> dict:
     return out
 
 
-def device_op_names(fn, calls: int = 3) -> list:
+def device_op_names(fn, calls: int = 3, attempts: int = 4) -> list:
     """The names of every device operation of ``calls`` calls of ``fn``
-    after a warm-up (torch.profiler)."""
+    after a warm-up (torch.profiler).  A profiler window sometimes drops
+    device events (PERF.md §7), which reads as a call that enqueued less:
+    a window in which some operation did not occur a whole multiple of
+    ``calls`` times is taken again, ``attempts`` windows in all, and the
+    last one is returned if none was whole."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names and all(n % calls == 0 for n in Counter(names).values()):
+            break
+    return names
 
 
 def one_kernel_a_call(fn, kernel: str) -> list:
@@ -511,6 +522,135 @@ def check_counts_calls(device) -> dict:
     return {"max_abs_err": worst[0], "profiled_kernels": names}
 
 
+# Graphed EM against the eager loop: the same iterations, models within
+# LOOP_V_ATOL (tests/torch_outputs.py's PROB_TOL): B1's float64 atomics add
+# in an order that varies from run to run, so two eager runs differ alike.
+LOOP_V_ATOL = 1e-4
+LOOP_ITERS, LOOP_SWEEPS = 40, 12
+
+
+def loop_inputs(N, L, W, K, M, seed=0, device="cpu") -> tuple:
+    """``planted_set``'s sequences with M seeds (the planted PWM, then
+    softer ones): (data of ``refinement.em.prepare_data``, v [M, ...],
+    alphas [M, K+1, W], f_bg [A])."""
+    from bammmotif2_tpu_torch.refinement.em import prepare_data
+
+    rng = np.random.default_rng(seed)
+    sset, planted = planted_set(N, L, W, 4, False, rng)
+    bg = BackgroundModel.from_sequence_set(sset, order=min(2, K))
+    motifs = []
+    for m in range(M):
+        pwm = np.full((W, 4), (0.3 + 0.1 * m) / 3)
+        pwm[np.arange(W), planted] = 0.7 - 0.1 * m
+        motifs.append(seeds_mod.motif_from_pwm(pwm, K, sset.base_frequencies()))
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
+    v = tuple(f32(np.stack([mo.v[k] for mo in motifs])) for k in range(K + 1))
+    return (prepare_data(sset, bg, K, False, device), v,
+            f32(np.stack([mo.alphas for mo in motifs])), f32(motifs[0].f_bg))
+
+
+def check_loops(device) -> dict:
+    """The device-resident loops (refinement/graphs.py) on the card, at
+    bench's geometry (10k x 200 bp, W=12, K=2) with M=2:
+
+    - CGS, graphed against eager, on the kernel and plain paths, for a
+      first capture and for a cached graph replayed with other chains: the
+      same results and generator states bit for bit; B2 and B3 launched
+      once a sweep by the counters;
+    - EM at a fixed budget (epsilon 0), graphed against eager on both
+      paths: the same iterations, models within LOOP_V_ATOL; B1 launched
+      once an iteration; one host read a chunk of multi.SYNC_EVERY
+      iterations (counted under torch.cuda.set_sync_debug_mode("warn")),
+      at SYNC_EVERY 8 and 4;
+    - a body that synchronises inside the capture raises CaptureError
+      naming its line, after one eager iteration and no more.
+
+    Raises AssertionError on a mismatch; returns what it measured."""
+    import warnings
+
+    from bammmotif2_tpu_torch.refinement import gibbs, graphs, multi
+
+    data, v0, alphas, f_bg = loop_inputs(10_000, 200, 12, 2, 2, device=device)
+    M = alphas.shape[0]
+    q0 = torch.full((M,), 0.9, device=device)
+    out: dict = {"cgs": {}, "em": {}}
+
+    def cgs(path, seed, use):
+        gens = gibbs.chain_generators(seed, range(M), device)
+        before = (cuda_scores.window_scores_multi.launches, cuda_counts.counts_from_r_multi.launches)
+        res = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas, 10_000.0,
+                                   A=4, K=2, W=12, sample_z=True, sample_q=True, learn_alpha=True,
+                                   path=path, n_iters=LOOP_SWEEPS, burn_in=3, graphs=use)
+        torch.cuda.synchronize(device)
+        n = (cuda_scores.window_scores_multi.launches - before[0],
+             cuda_counts.counts_from_r_multi.launches - before[1])
+        flat = [*res[0], *res[1:5], *res[5]]
+        return flat, [g.get_state() for g in gens], n
+
+    for path in ("cuda", "plain"):
+        for seed in (0, 1):  # 1: the cached graph, other chains
+            e, ge, _ = cgs(path, seed, False)
+            g, gg, n = cgs(path, seed, True)
+            same = all(torch.equal(a, b) for a, b in zip(e + ge, g + gg))
+            out["cgs"][f"{path}_{seed}"] = {"bit_equal": same, "launches_b2_b3": n}
+            assert same, (path, seed)
+            assert n == ((LOOP_SWEEPS, LOOP_SWEEPS) if path == "cuda" else (0, 0)), n
+
+    eps = torch.zeros((), device=device)
+
+    def em(path, use, sync):
+        step, inputs, key = multi.group_step(data, alphas, f_bg, 10_000, A=4, K=2, W=12,
+                                             optimize_q=True, path=path)
+        saved = multi.SYNC_EVERY
+        multi.SYNC_EVERY = sync
+        before = cuda_em.em_counts_multi.launches
+        torch.cuda.synchronize(device)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = multi.batched_while_loop(step, v0, q0, eps, LOOP_ITERS, inputs=inputs,
+                                               key=key, graphs=use)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            multi.SYNC_EVERY = saved
+        reads = sum("synchroniz" in str(w.message) for w in caught)
+        return res, reads, cuda_em.em_counts_multi.launches - before
+
+    for path in ("cuda", "plain"):
+        for sync in (8, 4, 4):  # the second at 4: a cached graph
+            (ve, _q, _l, _d, its_e, _h), reads_e, _n = em(path, False, sync)
+            (vg, _q, _l, _d, its_g, _h), reads_g, n = em(path, True, sync)
+            dv = max((a - b).abs().max().item() for a, b in zip(ve, vg))
+            want = -(-LOOP_ITERS // sync) - 1
+            out["em"][f"{path}_sync{sync}"] = {"its": its_g.tolist(), "max_abs_dv": dv,
+                                               "host_reads": [reads_e, reads_g], "launches": n}
+            assert its_e.tolist() == its_g.tolist() == [LOOP_ITERS] * M
+            assert dv <= LOOP_V_ATOL, dv
+            assert reads_e == reads_g == want, (reads_e, reads_g, want)
+            assert n == (LOOP_ITERS if path == "cuda" else 0), n
+
+    state = {"q": torch.zeros(2, device=device)}
+
+    def syncing_body(s, _gens):
+        s["q"].add_(1)
+        if s["q"].sum().item() < 0:  # a host read: illegal under capture
+            s["q"].zero_()
+
+    loop = graphs.Loop("sync test loop", ("sync test",), state, {}, syncing_body)
+    try:
+        loop.run(3)
+    except graphs.CaptureError as err:
+        message = str(err)
+    else:
+        raise AssertionError("a body that syncs inside the capture did not raise")
+    assert "sync test loop" in message and "s[\"q\"].sum().item()" in message, message
+    assert state["q"].tolist() == [1.0, 1.0], state["q"]  # the warm-up, nothing after
+    assert all(e["name"] != "sync test loop" for e in graphs.stats())
+    out["capture_error"] = message.splitlines()[0]
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     import shutil
@@ -621,3 +761,8 @@ def test_flat_wrappers_reject_bad_inputs(cuda_device):
         cuda_flat.counts_from_r(x["r"]["01"][:, :-1].contiguous(), x["qidx"], x["map5"], R=x["R"], **kw)
     with pytest.raises(ValueError):
         cuda_flat.counts_from_r(x["r"]["01"], x["qidx"], x["map5"], R=x["R"], A=4, K=1, W=31)
+
+
+@pytest.mark.cuda
+def test_loops_graphed_equal_eager_one_read_a_chunk_and_failed_captures_raise(cuda_device):
+    check_loops(cuda_device)

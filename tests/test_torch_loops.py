@@ -1,0 +1,320 @@
+"""The device-resident loops (``refinement/graphs.py``) on the CPU, where
+their body runs eagerly: the chunked, masked EM loop and the in-place CGS
+sweep loop against per-iteration stepping (bit-equal: the same body in the
+same order) and the EM loops against the JAX package's (within
+tests/test_torch_em.py's bars), and the rule that decides between a CUDA
+graph and the eager loop.  The graphed loops on the card: ``check_loops``
+in tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from bammmotif2_tpu.models import background as jbackground
+from bammmotif2_tpu.models import seeds as jseeds
+from bammmotif2_tpu.refinement import em as jem
+from bammmotif2_tpu.refinement import multi as jmulti
+from bammmotif2_tpu.utils.config import Params
+from bammmotif2_tpu_torch import convert
+from bammmotif2_tpu_torch.models.background import BackgroundModel
+from bammmotif2_tpu_torch.parallel.mesh import Mesh
+from bammmotif2_tpu_torch.refinement import em, gibbs, graphs, multi
+
+from tests.test_em import planted_set
+
+torch.set_num_threads(1)
+
+MOTIF = "TGACTCAG"
+# three width-8 seeds that freeze at different iterations on the planted set
+SEEDS = [(MOTIF, 0.8), ("TGASTCAG", 0.5), ("TGACTCAT", 0.6)]
+# SYNC_EVERY values; "past_cap" is max_iters + 5: one chunk for the whole run
+SYNCS = [1, 2, 3, 8, "past_cap"]
+
+
+@pytest.fixture(scope="module")
+def planted():
+    """(JAX set, JAX background, port background, the port's copy of the set)."""
+    sset = planted_set(n=80, l=60, motif=MOTIF, q=0.8, seed=3)
+    psset = convert.sequence_set(sset)
+    return sset, jbackground.BackgroundModel.from_sequence_set(sset, order=2), \
+        BackgroundModel.from_sequence_set(psset, order=2), psset
+
+
+def _seed(sset, pattern, soft, K=2):
+    return jseeds.motif_from_pwm(jseeds.iupac_to_pwm(pattern, soft=soft), K, sset.base_frequencies())
+
+
+def _sync(monkeypatch, sync, max_iters):
+    monkeypatch.setattr(multi, "SYNC_EVERY", max_iters + 5 if sync == "past_cap" else sync)
+
+
+def per_iteration_loop(step, v0, q0, epsilon, max_iters, n_hist_slots=0, hist_stride=1,
+                       ll0=None):
+    """The batched EM loop as the port stepped it before its loops stayed on
+    the device: the stop test read on the host before every iteration."""
+    M = q0.shape[0]
+    v, q = v0, q0
+    lls = torch.full((M,), float("-inf")) if ll0 is None else ll0.clone()
+    vds = torch.full((M,), float("inf"))
+    its = torch.zeros((M,), dtype=torch.int32)
+    hist = torch.full((max(n_hist_slots, 1), M), float("nan"))
+    seeds = torch.arange(M)
+    while bool((its.max() < max_iters) & (vds.max() >= epsilon)):
+        active = vds >= epsilon
+        v2, q2, ll2, vd2 = step(v, q)
+        vd_eff = torch.minimum(vd2, (ll2 - lls).abs())
+        v = tuple(torch.where(active[:, None, None], a, b) for a, b in zip(v2, v))
+        if n_hist_slots > 0:
+            slot = torch.clamp(its // hist_stride, max=n_hist_slots - 1).long()
+            hist[slot, seeds] = torch.where(active, ll2, hist[slot, seeds])
+        q = torch.where(active, q2, q)
+        lls = torch.where(active, ll2, lls)
+        vds = torch.where(active, vd_eff, vds)
+        its = its + active.to(torch.int32)
+    return v, q, lls, vds, its, hist
+
+
+def _assert_equal(got, ref):
+    for a, b in zip(got, ref):
+        if isinstance(a, tuple):
+            _assert_equal(a, b)
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a.numpy(), b.numpy())  # NaN-aware, bit-equal
+
+
+def _group(planted, max_iters):
+    """A three-seed group on the planted set: (jms, step, inputs, key, v0,
+    q0, eps, hist slots, hist stride)."""
+    sset, _jbg, bg, psset = planted
+    jms = [_seed(sset, p, soft) for p, soft in SEEDS]
+    data = em.prepare_data(psset, bg, 2, False, "cpu")
+    v0 = tuple(torch.as_tensor(np.stack([m.v[k] for m in jms]), dtype=torch.float32)
+               for k in range(3))
+    alphas = torch.as_tensor(np.stack([m.alphas for m in jms]), dtype=torch.float32)
+    f_bg = torch.as_tensor(jms[0].f_bg, dtype=torch.float32)
+    step, inputs, key = multi.group_step(data, alphas, f_bg, psset.n, A=4, K=2, W=8,
+                                         optimize_q=True, path="plain")
+    stride = max(1, -(-max_iters // multi.HIST_CAP))
+    slots = -(-max_iters // stride)
+    q0 = torch.full((3,), 0.9)
+    return jms, step, inputs, key, v0, q0, torch.tensor(1e-3), slots, stride
+
+
+@pytest.mark.parametrize("max_iters", [600, 10], ids=["freeze", "cap"])
+@pytest.mark.parametrize("sync", SYNCS)
+def test_batched_loop_chunks_equal_per_iteration(planted, monkeypatch, sync, max_iters):
+    """Seeds that freeze at different iterations (mid-chunk), and a cap that
+    lands inside a chunk, give the per-iteration loop's results bit for bit."""
+    _jms, step, inputs, key, v0, q0, eps, slots, stride = _group(planted, max_iters)
+    ref = per_iteration_loop(step, v0, q0, eps, max_iters, slots, stride)
+    _sync(monkeypatch, sync, max_iters)
+    got = multi.batched_while_loop(step, v0, q0, eps, max_iters, slots, stride,
+                                   inputs=inputs, key=key)
+    _assert_equal(got, ref)
+    its = got[4].tolist()
+    if max_iters == 10:
+        assert its == [10, 10, 10]
+    else:
+        assert len(set(its)) == 3 and max(its) < max_iters, its
+
+
+@pytest.mark.parametrize("sync", [1, 3, 8])
+def test_batched_loop_matches_jax(planted, monkeypatch, sync):
+    """The chunked loop against the reference's ``lax.while_loop`` on the
+    gather path, within tests/test_torch_em.py's bars."""
+    max_iters = 600
+    jms, step, inputs, key, v0, q0, eps, slots, stride = _group(planted, max_iters)
+    sset, jbg, _bg, _psset = planted
+    jdata = jem.prepare_data(sset, jbg, 2, False)
+    jout = jmulti.batched_while_loop(
+        jmulti.make_batched_step(4, 2, 8, True, "gather"),
+        tuple(jnp.asarray(vk.numpy()) for vk in v0), jnp.asarray(q0.numpy()), jdata,
+        jnp.asarray(np.stack([m.alphas for m in jms]), jnp.float32),
+        jnp.asarray(jms[0].f_bg, jnp.float32), jnp.float32(sset.n), jnp.float32(1e-3),
+        max_iters, n_hist_slots=slots, hist_stride=stride)
+    _sync(monkeypatch, sync, max_iters)
+    v, q, lls, _vds, its, hist = multi.batched_while_loop(step, v0, q0, eps, max_iters, slots,
+                                                          stride, inputs=inputs, key=key)
+    assert its.tolist() == np.asarray(jout[4]).tolist()
+    np.testing.assert_allclose(lls.numpy(), np.asarray(jout[2]), rtol=1e-5)
+    np.testing.assert_allclose(q.numpy(), np.asarray(jout[1]), rtol=1e-5)
+    np.testing.assert_allclose(hist.numpy(), np.asarray(jout[5]), rtol=1e-5)
+    for a, b in zip(v, jout[0]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def _single(planted, ll0):
+    sset, jbg, bg, psset = planted
+    jm = _seed(sset, MOTIF, 0.6)
+    data = em.prepare_data(psset, bg, 2, False, "cpu")
+    v, alphas, f_bg = convert.motif_state(jm, "cpu")
+    args = (v, torch.tensor(0.8), data, alphas, f_bg, psset.n, torch.tensor(1e-3),
+            torch.tensor(ll0, dtype=torch.float32))
+    statics = dict(A=4, K=2, W=jm.W, optimize_q=True, path="plain")
+    return jm, args, statics
+
+
+def per_iteration_em(v, q, data, alphas, f_bg, n_real, epsilon, ll0, *, max_iters, **statics):
+    """``em_optimize`` as the port stepped it before: one host sync per
+    iteration."""
+    ll, vd, it = ll0, torch.tensor(float("inf")), 0
+    while it < max_iters and bool(vd >= epsilon):
+        v, q, ll_new, vd2 = em.em_step(v, q, data, alphas, f_bg, n_real, **statics)
+        vd = torch.minimum(vd2, (ll_new - ll).abs())
+        ll = ll_new
+        it += 1
+    return v, q, ll, vd, it
+
+
+@pytest.mark.parametrize("ll0", [float("-inf"), -300.0], ids=["fresh", "carried_ll"])
+@pytest.mark.parametrize("max_iters", [300, 7], ids=["converged", "cap"])
+@pytest.mark.parametrize("sync", SYNCS)
+def test_em_optimize_chunks_equal_per_iteration(planted, monkeypatch, sync, max_iters, ll0):
+    _jm, args, statics = _single(planted, ll0)
+    ref = per_iteration_em(*args, max_iters=max_iters, **statics)
+    _sync(monkeypatch, sync, max_iters)
+    got = em.em_optimize(*args, max_iters=max_iters, **statics)
+    assert got[4] == ref[4] and (got[4] == max_iters) == (max_iters == 7)
+    _assert_equal(got[:4], ref[:4])
+
+
+@pytest.mark.parametrize("sync", [1, 8])
+def test_em_optimize_matches_jax(planted, monkeypatch, sync):
+    sset, jbg, _bg, _psset = planted
+    jm, args, statics = _single(planted, float("-inf"))
+    jdata = jem.prepare_data(sset, jbg, 2, False)
+    jout = jem.em_optimize(tuple(jnp.asarray(vk, jnp.float32) for vk in jm.v), jnp.float32(0.8),
+                           jdata, jnp.asarray(jm.alphas, jnp.float32),
+                           jnp.asarray(jm.f_bg, jnp.float32), jnp.float32(sset.n),
+                           jnp.float32(1e-3), jnp.float32(-jnp.inf), max_iters=300,
+                           **{**statics, "path": "gather"})
+    _sync(monkeypatch, sync, 300)
+    v, q, ll, _vd, it = em.em_optimize(*args, max_iters=300, **statics)
+    assert it == int(jout[4])
+    np.testing.assert_allclose(float(ll), float(jout[2]), rtol=1e-5)
+    np.testing.assert_allclose(float(q), float(jout[1]), rtol=1e-5)
+    for a, b in zip(v, jout[0]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+@pytest.mark.parametrize("sync,every", [(3, 5), (8, 5), (8, 3), (4, 10), (8, 16)])
+def test_checkpoint_chunks_stay_exact(planted, monkeypatch, sync, every):
+    """--checkpointEvery chunks that are not multiples of SYNC_EVERY give
+    the run of SYNC_EVERY = 1 (per-iteration stepping) bit for bit: the
+    same callbacks, iterations, likelihoods and models."""
+    sset, _jbg, bg, psset = planted
+    params = convert.params(Params(EM=True, modelOrder=2, optimizeQ=True, q=0.8,
+                                   checkpointEvery=every))
+    runs = []
+    for s in (1, sync):
+        monkeypatch.setattr(multi, "SYNC_EVERY", s)
+        m = convert.motif(_seed(sset, MOTIF, 0.6))
+        calls = []
+        res = em.run_em(m, bg, psset, params, device="cpu",
+                        checkpoint_fn=lambda motif, iteration: calls.append(iteration))
+        runs.append((res, m, calls))
+    (r1, m1, c1), (r2, m2, c2) = runs
+    assert c1 == c2 and len(c1) > 1
+    assert (r1.iterations, r1.ll, r1.q, r1.v_diff, r1.converged, r1.ll_history) == \
+        (r2.iterations, r2.ll, r2.q, r2.v_diff, r2.converged, r2.ll_history)
+    for a, b in zip(m1.v, m2.v):
+        np.testing.assert_array_equal(a, b)
+
+
+def per_sweep_loop(v, q, log_alphas, gens, data, f_bg, default_alphas, n_real, *, A, K, W,
+                   n_iters, burn_in, **statics):
+    """``gibbs_optimize`` as the port stepped it before: a Python loop with a
+    host-side branch on the sweep index for the burn-in mean."""
+    M = q.shape[0]
+    acc = tuple(torch.zeros((M, A ** (k + 1), W)) for k in range(K + 1))
+    lls, n_occs = [], []
+    for i in range(n_iters):
+        v, q, log_alphas, ll, n_occ, counts = gibbs.gibbs_step_multi(
+            v, q, log_alphas, gens, data, f_bg, default_alphas, n_real, A=A, K=K, W=W, **statics)
+        if i >= burn_in:
+            acc = tuple(a + c for a, c in zip(acc, counts))
+        lls.append(ll)
+        n_occs.append(n_occ)
+    n_avg = max(n_iters - burn_in, 1)
+    return v, q, log_alphas, torch.stack(lls), torch.stack(n_occs), tuple(a / n_avg for a in acc)
+
+
+@pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "deterministic"])
+@pytest.mark.parametrize("burn_in", [0, 3])
+def test_gibbs_loop_equals_python_loop(planted, burn_in, sampled):
+    """Three stacked chains: the histories written by the device step
+    counter and the burn-in mean by ``counts * (i >= burn_in)`` equal the
+    Python loop's bit for bit, and the chains' generators end in the same
+    state."""
+    sset, _jbg, bg, psset = planted
+    jms = [_seed(sset, p, soft) for p, soft in SEEDS]
+    data = em.prepare_data(psset, bg, 2, False, "cpu")
+    v = tuple(torch.as_tensor(np.stack([m.v[k] for m in jms]), dtype=torch.float32)
+              for k in range(3))
+    alphas = torch.as_tensor(np.stack([m.alphas for m in jms]), dtype=torch.float32)
+    args = (v, torch.full((3,), 0.9), torch.log(alphas))
+    rest = (data, torch.as_tensor(jms[0].f_bg, dtype=torch.float32), alphas, float(psset.n))
+    kw = dict(A=4, K=2, W=8, sample_z=sampled, sample_q=sampled, learn_alpha=True,
+              path="plain", n_iters=9, burn_in=burn_in)
+    gens_ref = gibbs.chain_generators(7, [0, 1, 2], "cpu")
+    ref = per_sweep_loop(*args, gens_ref, *rest, **kw)
+    gens = gibbs.chain_generators(7, [0, 1, 2], "cpu")
+    got = gibbs.gibbs_optimize(*args, gens, *rest, **kw)
+    _assert_equal(got, ref)
+    assert got[3].shape == (9, 3)
+    for a, b in zip(gens, gens_ref):
+        assert torch.equal(a.get_state(), b.get_state())
+
+
+def test_gibbs_loop_of_no_sweeps(planted):
+    _sset, _jbg, bg, psset = planted
+    data = em.prepare_data(psset, bg, 0, False, "cpu")
+    v = (torch.full((2, 4, 6), 0.25),)
+    out = gibbs.gibbs_optimize(v, torch.full((2,), 0.9), torch.zeros((2, 1, 6)),
+                               gibbs.chain_generators(0, [0, 1], "cpu"), data,
+                               torch.full((4,), 0.25), torch.ones((2, 1, 6)), float(psset.n),
+                               A=4, K=0, W=6, sample_z=True, sample_q=True, learn_alpha=True,
+                               path="plain", n_iters=0)
+    assert out[3].shape == out[4].shape == (0, 2)
+    assert torch.equal(out[0][0], v[0]) and torch.equal(out[5][0], torch.zeros((2, 4, 6)))
+
+
+@pytest.mark.parametrize("device,backend,graphed", [
+    ("cpu", None, False), ("cpu", "gloo", False), ("cuda", None, True),
+    ("cuda", "gloo", False), ("cuda", "nccl", True),
+], ids=["cpu", "cpu_gloo_mesh", "cuda", "cuda_gloo_mesh", "cuda_nccl_mesh"])
+def test_graph_or_eager_rule(monkeypatch, device, backend, graphed):
+    """Graphs iff the device is CUDA and there is no mesh or its data group
+    runs NCCL (gloo stages through host memory and cannot be captured)."""
+    mesh = None
+    if backend is not None:
+        group = object()
+        mesh = Mesh(1, 1, 0, 0, data_group=group, seed_group=object())
+        monkeypatch.setattr(torch.distributed, "get_backend",
+                            lambda g=None: backend if g is group else "other")
+    assert graphs.enabled(torch.device(device), mesh) is graphed
+
+
+def test_cpu_loop_runs_the_body_eagerly_on_its_state():
+    """On the CPU the loop runs the body on the caller's tensors, caches
+    nothing and leaves the inputs and the generators as they are."""
+    state = {"q": torch.zeros(2), "v": (torch.ones(3),)}
+    inputs = {"x": torch.full((2,), 2.0)}
+    gens = [torch.Generator().manual_seed(1)]
+    before = len(graphs.stats())
+
+    def body(s, g):
+        s["q"].add_(inputs["x"] + torch.rand(2, generator=g[0]))
+        s["v"][0].mul_(2)
+
+    with graphs.Loop("test loop", ("k",), state, inputs, body, gens=gens) as loop:
+        loop.run(3)
+        assert not loop.graphed and loop.state is state and loop.gens[0] is gens[0]
+    ref, g = torch.zeros(2), torch.Generator().manual_seed(1)
+    for _ in range(3):
+        ref.add_(torch.full((2,), 2.0) + torch.rand(2, generator=g))
+    assert torch.equal(state["q"], ref) and torch.equal(gens[0].get_state(), g.get_state())
+    assert state["v"][0].tolist() == [8.0] * 3 and len(graphs.stats()) == before
