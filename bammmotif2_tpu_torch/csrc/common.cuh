@@ -190,13 +190,17 @@ class DeviceScope {
 
 // Grid x for a persistent launch of `kern` at `smem` bytes of dynamic shared
 // memory whose grid y holds `chunks` seed chunks: the resident block count
-// split over the chunks, capped by the work items available, at least 1.
+// split over the chunks, rounded down, capped by the work items available,
+// at least 1.  Rounded up, the blocks past the resident ones ran their whole
+// share in a second wave: at M=16, K=4 (132 resident blocks, 9 a seed) the
+// E+M pass took 1.7x as long as four launches of four seeds (PERF.md §6,
+// the seed-stack sweep).
 template <typename Kern>
 cudaError_t resident_grid(Kern kern, size_t smem, long long work, int chunks, int* grid) {
   long long resident = 0;
   cudaError_t err = resident_blocks(kern, smem, &resident);
   if (err != cudaSuccess) return err;
-  long long g = (resident + chunks - 1) / chunks;
+  long long g = resident / chunks;
   g = work < g ? work : g;
   *grid = (int)(g < 1 ? 1 : g);
   return cudaSuccess;

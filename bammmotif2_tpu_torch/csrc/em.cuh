@@ -193,8 +193,10 @@ __device__ __forceinline__ void em_pass(const int* __restrict__ codes, const int
   extern __shared__ __align__(16) float smem[];
   constexpr int kTeams = kThreads / kTeam;
   const int RW = R1 * W;
-  const int m0 = blockIdx.y * seeds_per_block;
-  const int m1 = min(M, m0 + seeds_per_block);
+  // chunk blockIdx.y of gridDim.y balanced chunks (sizes differ by at most
+  // one, the largest at most seeds_per_block: the launcher's ceil(M / spb))
+  const int m0 = (int)((long long)blockIdx.y * M / gridDim.y);
+  const int m1 = (int)((long long)(blockIdx.y + 1) * M / gridDim.y);
   float* red = smem;                                       // 2 * kWarps (block teams)
   float* lut_s = red + 2 * kWarps;                         // [spb, W, R1] with kSmemLut
   float* Cs = lut_s + (kSmemLut ? table_floats : 0);       // [spb, W, R1], kCounts' words

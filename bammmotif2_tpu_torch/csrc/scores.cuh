@@ -184,8 +184,10 @@ __device__ __forceinline__ void scores_pass(const int* __restrict__ cidx,
   __shared__ __align__(8) unsigned long long bars[kStages];
   const int nwin = L - W + 1;
   const int Wp = W | 1;  // the shared LUT's row stride
-  const int m0 = blockIdx.y * seeds_per_block;
-  const int m1 = min(M, m0 + seeds_per_block);
+  // chunk blockIdx.y of gridDim.y balanced chunks (sizes differ by at most
+  // one, the largest at most seeds_per_block: the launcher's ceil(M / spb))
+  const int m0 = (int)((long long)blockIdx.y * M / gridDim.y);
+  const int m1 = (int)((long long)(blockIdx.y + 1) * M / gridDim.y);
   const Tiling tl = tiling(N, L, W, rows_cap);
   const int Lp = tl.whole_rows ? row_stride(L) : rows_cap;  // laid-out row stride
   int lp_shift = 0;

@@ -8,6 +8,12 @@ whose r is the sampler's 0/1 occupancy.  On CPU tensors it runs the plain
 PyTorch version ``counts_from_r_multi_ref``; on CUDA tensors it launches the
 kernel or raises.
 
+All M seeds go in that one launch, a seed's blocks beside the others' on
+grid y: at M = 4-33 it was 2-13% faster than the best split into
+consecutive balanced launches of 16, 8 or 4 seeds and up to 2.2x faster
+than a launch a seed (bench's set, 0/1 r, K=2 and 4; PERF.md §6, the
+seed-stack sweep).
+
 A call enqueues exactly one kernel and no other device operation: the
 kernel sums across its blocks in a float64 accumulator that it leaves zero,
 held in a per-stream ``workspace`` (shared with ``cuda_flat.counts_from_r``).
@@ -120,7 +126,7 @@ def counts_from_r_multi(r: torch.Tensor, cidx: torch.Tensor, R: int, W: int) -> 
     Returns C f32 [M, R+1, W] with C[m, cidx[s, n, i+j], j] += r[m, s, n, i]
     and the sentinel row's mass kept.  No ``lens``: mass on a window past a
     row's end lands in the row cidx holds there.  ``counts_from_r_multi.
-    launches`` counts kernel launches.
+    launches`` counts kernel launches: one a call.
     """
     if r.device.type == "cpu" and cidx.device.type == "cpu":
         return counts_from_r_multi_ref(r, cidx, R, W)

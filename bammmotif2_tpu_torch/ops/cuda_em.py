@@ -6,6 +6,13 @@ strand for M seeds, forms the ZOOPS posterior per sequence and scatters the
 responsibilities into combined count rows, in one launch
 (``csrc/em_counts.cu``).  On CPU tensors it runs the plain PyTorch version
 ``em_counts_multi_ref``; on CUDA tensors it launches the kernel or raises.
+
+The seed stack (``launch_plan``, ``seed_launches``): every seed has blocks
+of its own, one launch's grid holds the M seeds' blocks side by side with
+the resident blocks split evenly over them (rounded down, so no block waits
+for a second wave); where the counts are summed in float each seed gets a
+launch of its own, in turn on the stream (PERF.md §6, the seed-stack
+sweep).
 """
 
 from __future__ import annotations
@@ -29,10 +36,6 @@ _SCRATCH = 2 * 8 * 4  # the kernel's (max, sum) reduction slots, 8 warps
 # block 1.2x (PERF.md, PR 5, plan sweep).
 WARP_ROW_CODES = 800
 BLOCK_CODES = 4096
-# The tables of the seeds that share a block stay within this: more seeds a
-# block cost resident blocks (PERF.md, PR 5: all four seeds of M=4 in one
-# block were slower than a block each).
-TABLES_TARGET = 16 * 1024
 
 
 class Plan(NamedTuple):
@@ -61,6 +64,15 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def seed_chunks(M: int, cap: int) -> list:
+    """[(m0, m1), ...]: M seeds in ceil(M / cap) consecutive chunks whose
+    sizes differ by at most one (chunk y holds seeds y*M//n to
+    (y+1)*M//n, as the kernels split a launch's seeds over grid y), so 7
+    seeds at a cap of 6 run as 3 + 4, never 6 + 1; none for M = 0."""
+    n = -(-M // max(cap, 1))
+    return [(y * M // n, (y + 1) * M // n) for y in range(n)]
+
+
 def smem_bytes(plan: Plan, R1: int, W: int) -> int:
     """The dynamic shared memory a block of ``plan`` asks for, as
     em_counts_launch computes it."""
@@ -77,10 +89,14 @@ def launch_plan(M: int, R1: int, W: int, S: int = 2, L: int = 200) -> Plan:
     fits beside the teams' buffers: as 64-bit fixed point where that fits
     (exact block sums, and faster: at K=4 too), else as float (A=4, K=4,
     W=30).  The LUT joins them where it fits too (faster than L1 at K=2 and
-    K=4).  As many seeds share a block as their tables fit in TABLES_TARGET
-    (at least one).  Where counts do not fit (A=4, K=5 needs 262 KB) each
-    seed gets its own blocks, reads its LUT through L1 and adds to the
-    float64 global counts directly.
+    K=4).  Where counts do not fit (A=4, K=5 needs 262 KB) the LUT is read
+    through L1 and every count adds to the float64 global counts directly.
+
+    One seed a block, whatever M: on bench's set (K=0-4, W=8/12/20, M=1-33)
+    it was within 6% of the fastest seeds a block in every case and 1.0-1.7%
+    off on average, while sharing lost up to 2.8x at K>=2 (shared tables cost
+    resident blocks; staging the codes once saves little beside scoring and
+    scattering every seed).  PERF.md §6, the seed-stack sweep.
     """
     team = 32 if S * L <= WARP_ROW_CODES else 256
     codes_cap = _round4(S * L) if team == 32 else max(BLOCK_CODES, _round4(W))
@@ -91,12 +107,21 @@ def launch_plan(M: int, R1: int, W: int, S: int = 2, L: int = 200) -> Plan:
     counts = need(1, False, True, False) <= SMEM_MAX
     fixed = counts and need(1, False, True, True) <= SMEM_MAX
     lut = counts and need(1, True, True, fixed) <= SMEM_MAX
-    spb = 1
-    if counts:
-        spb = max(1, min(M, TABLES_TARGET // (R1 * W * 4 * (int(lut) + 1 + int(fixed)))))
-        while spb > 1 and need(spb, lut, counts, fixed) > SMEM_MAX:
-            spb -= 1
-    return Plan(spb, lut, counts, fixed, team, codes_cap)
+    return Plan(1, lut, counts, fixed, team, codes_cap)
+
+
+def seed_launches(plan: Plan, M: int) -> list:
+    """The (m0, m1) seed ranges ``em_counts_multi`` launches in turn: all M
+    seeds at once, or a launch a seed where the plan sums counts in float
+    (where fixed point does not fit: A=4, K=4, W >= 19).  A float table's
+    error grows with the rows a block sums, and a stack of s seeds in one
+    launch leaves each seed 1/s of the grid: on bench's set at K=4, W=20
+    the counts missed the bar at 33 seeds a launch (|dC| 1.6x 1e-4 + 1e-5
+    |C|) and reached 0.24x and 0.47x of it at 4 and 8, against 0.07x at one
+    seed a launch, which sums no more rows a block than M=1 and took 10%
+    longer than launches of 4 (13.5 against 12.2 ms at M=16).  PERF.md §6,
+    the seed-stack sweep."""
+    return seed_chunks(M, 1 if plan.smem_counts and not plan.fixed_counts else M)
 
 
 def library() -> ctypes.CDLL:
@@ -149,7 +174,8 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
     mass kept, ll f32 [M] ZOOPS log-likelihoods); with ``unrounded`` C is
     the float64 sums the kernel rounds from (a sharded run adds them over
     its ranks before rounding once).  ``em_counts_multi.launches`` counts
-    kernel launches.
+    kernel launches: one a call, or one a seed where ``seed_launches``
+    gives each seed its own.
     """
     if all(t.device.type == "cpu" for t in (s_flat, cidx, lens, q)):
         return em_counts_multi_ref(s_flat, cidx, lens, q, unrounded)
@@ -166,18 +192,19 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
     plan = launch_plan(M, R1, W, S, L)
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.em_counts_launch(
-            cidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), q.data_ptr(),
-            C.data_ptr(), Cd.data_ptr(), logz.data_ptr(), ll.data_ptr(),
-            S, N, L, W, R1, M, plan.seeds_per_block, int(plan.smem_lut), plan.counts,
-            plan.team, plan.codes_cap,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"em_counts launch failed: {lib.em_counts_error_string(err).decode()}"
-        )
-    em_counts_multi.launches += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for m0, m1 in seed_launches(plan, M):
+            err = lib.em_counts_launch(
+                cidx.data_ptr(), lens.data_ptr(), s_flat[m0].data_ptr(), q[m0:].data_ptr(),
+                C[m0].data_ptr(), Cd[m0].data_ptr(), logz[m0].data_ptr(), ll[m0:].data_ptr(),
+                S, N, L, W, R1, m1 - m0, plan.seeds_per_block, int(plan.smem_lut), plan.counts,
+                plan.team, plan.codes_cap, stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"em_counts launch failed: {lib.em_counts_error_string(err).decode()}"
+                )
+            em_counts_multi.launches += 1
     return (Cd if unrounded else C), ll
 
 

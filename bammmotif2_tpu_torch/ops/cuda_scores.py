@@ -15,13 +15,21 @@ import ctypes
 import torch
 
 from bammmotif2_tpu_torch.ops import _build, escore
-from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, SMEM_TARGET
+from bammmotif2_tpu_torch.ops.cuda_em import SMEM_MAX, seed_chunks
 
 # codes an item lays out in shared memory: whole rows at a power-of-two
 # stride >= L + 16 (16 rows at L=200), tiles of one row beyond that
 ROWS_CAP = 4096
 STAGES = 2  # the kernel's bulk-copy buffers: one item streams in while one is scored
 _STATIC = 64  # the kernel's static shared memory (its buffers' barriers), rounded up
+# The LUTs of the seeds that share a block stay within this many bytes: a
+# block scores each staged row for all its seeds, so sharing saves code
+# loads and staging, while more LUT bytes cost resident blocks.  On config
+# 5's 100k x 200 bp (K=0-4, M=1-33, W=12) the plan at 144 KB was 1.3% off
+# the fastest seeds a block on average and at most 12%; at 48 KB 3.7% and
+# 26% (K=4, M=32: one seed a block where two fit).  PERF.md §6, the
+# seed-stack sweep.
+LUT_TARGET = 144 * 1024
 
 
 def smem_bytes(seeds_per_block: int, smem_lut: bool, R1: int, W: int) -> int:
@@ -37,16 +45,20 @@ def launch_plan(M: int, R1: int, W: int) -> tuple:
     """(seeds_per_block, smem_lut) for LUTs of shape [M, R1, W].
 
     A seed's LUT is staged in shared memory when it fits beside the code
-    buffers; as many seeds share a block as fit SMEM_TARGET (at least
-    one).  Above SMEM_MAX (A=4, K=5, W=12 needs 262 KB) the LUT is read
-    through the read-only cache and every seed shares one block's codes.
+    buffers (through L1 it took 1.8-2.7x as long at K=0-2 and 2.2-13x at
+    K=3-4).  The seeds then share blocks in balanced chunks of at most as
+    many as fit LUT_TARGET and SMEM_MAX (at least one): 16 seeds of a cap
+    of 11 run as 8 + 8, never 11 + 5 (``cuda_em.seed_chunks``; the kernel
+    splits a launch's seeds over grid y the same way).  Above SMEM_MAX
+    (A=4, K=5, W=12 needs 262 KB) the LUT is read through the read-only
+    cache and every seed shares one block's codes.
     """
     if smem_bytes(1, True, R1, W) > SMEM_MAX:
         return max(M, 1), False
-    spb = max(1, min(M, SMEM_TARGET // (R1 * (W | 1) * 4)))
-    while spb > 1 and smem_bytes(spb, True, R1, W) > SMEM_MAX:
-        spb -= 1
-    return spb, True
+    cap = max(1, min(M, LUT_TARGET // (R1 * (W | 1) * 4)))
+    while cap > 1 and smem_bytes(cap, True, R1, W) > SMEM_MAX:
+        cap -= 1
+    return max(b - a for a, b in seed_chunks(M, cap)) if M else 1, True
 
 
 def library() -> ctypes.CDLL:
@@ -96,7 +108,8 @@ def window_scores_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Te
 
     Returns (scores f32 [M, S, N, L-W+1] with escore.NEG_INF on invalid
     windows, mask bool [N, L-W+1]).  ``window_scores_multi.launches``
-    counts kernel launches.
+    counts kernel launches: one a call, all M seeds in balanced chunks of
+    ``launch_plan``'s seeds a block.
     """
     if all(t.device.type == "cpu" for t in (s_flat, cidx, lens)):
         return window_scores_multi_ref(s_flat, cidx, lens)

@@ -2,6 +2,7 @@
 tests.
 
     python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,flat,kernels,loops} BASE_DIR CHANGE_DIR [--rounds N]
+        [--M 1 4 10 16]
 
 Each directory is the root of a checkout holding ``chip_smoke.py``.  Every
 round starts one process per checkout, one at a time, base first in even
@@ -39,8 +40,14 @@ measures, through that checkout's code:
   4, and K=2 on homopolymer rows) and config 5's geometry (100k x 200 bp,
   K=2) at M=1 and M=10; everything ``counts`` and ``flat`` measure; ``--EM``
   iterations/s at bench's geometry (``chip_smoke.time_em``); config 4's
-  EM-FDR seconds per (W, K) group, converged, through the kernels
-  (``chip_smoke.config4_problem`` and ``run_cli``).
+  EM-FDR and CGS-FDR seconds per (W, K) group, converged, through the
+  kernels (``chip_smoke.config4_problem`` and ``run_cli``); config 5's scan
+  windows/s through the kernels (the --scoreSeqset stage: 100k x 200 bp
+  and 1M sampled negatives, ``chip_smoke.config5_slice``'s count).  With
+  ``--M``, the E+M cases are bench's geometry at K=2 and 4 at each M
+  (and on homopolymer rows at M=1), the window-score cases config 5's at
+  each M and the counts cases bench's 0/1 r at each M (fractional r at M=1
+  and 10 as without it).
 
 ``loops``: the EM and CGS loops run eagerly (in BASE_DIR's processes) against
   the same loops as replayed CUDA graphs (in CHANGE_DIR's; pass one checkout
@@ -50,7 +57,12 @@ measures, through that checkout's code:
   the first-use cost, measured first in the fresh process
   (``chip_smoke.first_use_runs``: the --CGS stage's seconds, kernel path
   first in even rounds and plain path first in odd ones, in the process's
-  mode).  Bench's problem throughout (10k x 200 bp, W=12, K=2).
+  mode).  Bench's problem throughout (10k x 200 bp, W=12, K=2).  With
+  ``--M``, both checkouts run their loops graphed (parent against change):
+  EM its/s at a fixed ``chip_smoke.LOOP_ITERS`` iterations (epsilon 0)
+  through run_em (M=1) or run_em_multi on bench's set at K=2 and 4 for
+  each M (``seeds_problem``: the planted PWM, then softer ones), and CGS
+  sweeps/s at M=1 (``cgs_rate``); no first-use runs.
 
 The kernels' inputs are made once, before the first round, by this
 checkout's ``chip_smoke`` and ``tests/test_torch_cuda.py`` (numpy and
@@ -79,6 +91,8 @@ import time
 
 C4_ARGS = ["--maxPWM", "10", "--EM", "--optimizeQ", "--FDR", "-q", "0.5", "--mFold", "10",
            "--cvFold", "5"]
+C4_CGS_ARGS = ["--maxPWM", "10", "--CGS", "--FDR", "-q", "0.5", "--mFold", "10", "--cvFold", "5"]
+C5_ARGS = ["--scoreSeqset", "--mFold", "10", "--pvalCutoff", "1e-4", "-k", "2", "-K", "2"]
 # bench.py's geometry (chip_smoke.N_SEQS, SEQ_LEN, W) with the sampler's 0/1 r
 COUNTS_GEOMETRY = dict(N=10_000, L=200, W=12, K=2, S=2)
 
@@ -118,14 +132,16 @@ def device_ops(fn, n: int = 10) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def device_ms(fn, n: int, kernel: str, attempts: int = 4) -> dict:
+def device_ms(fn, n: int, kernel: str, attempts: int = 4, per_call: int = 1) -> dict:
     """Device time per call under torch.profiler over n calls after one
-    warm-up: of the __global__ function ``kernel`` alone, and of every
-    device operation the call enqueues (the wrapper's torch ops included).
+    warm-up: of the __global__ function ``kernel`` alone (its ``per_call``
+    launches a call summed), and of every device operation the call
+    enqueues (the wrapper's torch ops included).
 
     A profiler window of a long process sometimes drops device events, which
     would read low.  So a window counts only if it traced ``kernel`` exactly
-    n times and every other device operation a whole multiple of n times;
+    n * per_call times and every other device operation a whole multiple of
+    n times;
     otherwise it is retried, ``attempts`` windows in all, and both times are
     "not measured" if none counts."""
     import torch
@@ -141,17 +157,18 @@ def device_ms(fn, n: int, kernel: str, attempts: int = 4) -> dict:
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
-        if sum(e.count for e in own) == n and all(e.count % n == 0 for e in evs):
+        if sum(e.count for e in own) == n * per_call and all(e.count % n == 0 for e in evs):
             return {"kernel_device_ms": sum(e.self_device_time_total for e in own) / n / 1e3,
                     "call_device_ms": sum(e.self_device_time_total for e in evs) / n / 1e3}
         print(f"device_ms: window {attempt + 1} of {attempts} traced "
-              f"{ {e.key[:60]: e.count for e in evs} }, want {kernel} {n} times",
+              f"{ {e.key[:60]: e.count for e in evs} }, want {kernel} {n * per_call} times",
               file=sys.stderr, flush=True)
     return {"kernel_device_ms": "not measured", "call_device_ms": "not measured"}
 
 
-def make_inputs(out_dir: str, measure: str) -> None:
-    """Saves the cases' inputs (CPU tensors) as <case>.pt."""
+def make_inputs(out_dir: str, measure: str, Ms=None) -> None:
+    """Saves the cases' inputs (CPU tensors) as <case>.pt (``Ms``: the
+    seed counts of ``kernels --M``)."""
     import torch
 
     sys.path.insert(0, os.getcwd())
@@ -166,6 +183,8 @@ def make_inputs(out_dir: str, measure: str) -> None:
         for M in (1, 10):
             for kind, tag in (("01", ""), ("frac", "_frac")):
                 save(checks.counts_inputs(**COUNTS_GEOMETRY, M=M, r=kind), f"counts_M{M}{tag}")
+        for M in Ms or ():
+            save(checks.counts_inputs(**COUNTS_GEOMETRY, M=M, r="01"), f"counts_M{M}")
         x = checks.flat_inputs(**COUNTS_GEOMETRY)
         save((x["r"]["01"], x["qidx"], x["map5"], dict(A=x["A"], K=x["K"], W=x["W"], R=x["R"])),
              "flat_counts_K2")
@@ -186,7 +205,15 @@ def make_inputs(out_dir: str, measure: str) -> None:
     save((base, encode.strand_base5_indices(sset, 2, False, "cpu"), lens, map5,
           dict(A=4, K=2, W=base.shape[1])), "flat_scores_c5")
     save((chip_smoke.c5_luts(base, 1), cidx, lens), "scores_c5_M1")
-    if measure == "kernels":
+    if measure == "kernels" and Ms:
+        for K in (2, 4):
+            for M in Ms:
+                save(checks.kernel_inputs(N=chip_smoke.N_SEQS, L=chip_smoke.SEQ_LEN,
+                                          W=chip_smoke.W, K=K, M=M, S=2), f"em_K{K}_M{M}")
+        save(chip_smoke.em_inputs("K2_M1_homopolymer", "cpu"), "em_K2_M1_homopolymer")
+        for M in Ms:
+            save((chip_smoke.c5_luts(base, M), cidx, lens), f"scores_c5_M{M}")
+    elif measure == "kernels":
         for name in chip_smoke.EM_DEVICE_CASES:
             save(chip_smoke.em_inputs(name, "cpu"), f"em_{name}")
         save((chip_smoke.c5_luts(base, 10), cidx, lens), "scores_c5_M10")
@@ -250,16 +277,90 @@ def measure_kernels(chip_smoke, dev, inputs) -> tuple:
         metrics["em_iters_per_s"] = chip_smoke.time_em(dev, tmp)["em_iters_per_s_cuda"]
         fasta, meme = chip_smoke.config4_problem(tmp)
         run = chip_smoke.run_cli(os.path.join(tmp, "c4"), fasta, meme, C4_ARGS, dev)
+        cgs = chip_smoke.run_cli(os.path.join(tmp, "c4_cgs"), fasta, meme, C4_CGS_ARGS, dev)
+        _s, fasta5, meme5, *_ = chip_smoke.planted_problem(tmp, chip_smoke.C5_SEQS, "c5")
+        scan = chip_smoke.run_cli(os.path.join(tmp, "c5"), fasta5, meme5, C5_ARGS, dev)
     for e in run["events"]["fdr_done"]:
         metrics[f"config4_fdr_seconds_W{e['W']}_K{e['K']}"] = e["group_seconds"]
+    for e in cgs["events"]["fdr_done"]:
+        metrics[f"config4_cgs_fdr_seconds_W{e['W']}_K{e['K']}"] = e["group_seconds"]
     metrics["config4_cli_seconds"] = run["seconds"]
+    ev = scan["events"]["scan_done"][0]
+    metrics["config5_scan_windows_per_s"] = ev["windows"] * (1 + chip_smoke.C5_MFOLD) / ev["seconds"]
     return metrics, {**extra,
                      "config4_em_iterations": [e["iterations"] for e in run["events"]["em_done"]]}
 
 
-def measure_loops(chip_smoke, dev, _inputs, graphed: bool, first: str) -> tuple:
+def seeds_problem(chip_smoke, tmp: str, K: int, M: int) -> dict:
+    """Bench's planted set with M width-W seeds at order K (the planted PWM,
+    then softer ones: 0.7 - 0.02 m on the planted base), in the form
+    ``chip_smoke.em_rate`` takes."""
+    import numpy as np
+
+    from bammmotif2_tpu_torch.models import seeds as seeds_mod
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+
+    sset, _fasta, _meme, planted, _pos, _has = chip_smoke.planted_problem(tmp, tag=f"seeds_K{K}")
+    W = chip_smoke.W
+    seeds = []
+    for m in range(M):
+        pwm = np.full((W, 4), (0.3 + 0.02 * m) / 3)
+        pwm[np.arange(W), planted] = 0.7 - 0.02 * m
+        seeds.append(seeds_mod.motif_from_pwm(pwm, K=K, f_bg=sset.base_frequencies()))
+    return {"sset": sset, "seeds": seeds,
+            "bg": BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)}
+
+
+def cgs_rate(chip_smoke, dev, prob: dict) -> float:
+    """CGS sweeps/s of gibbs_optimize on ``prob``'s first seed (K=2, one
+    chain, the kernel path, graphed): N_TIMED sweeps after an untimed run
+    of the same length."""
+    import numpy as np
+    import torch
+
+    from bammmotif2_tpu_torch.refinement import gibbs
+    from bammmotif2_tpu_torch.refinement.em import prepare_data
+
+    data = prepare_data(prob["sset"], prob["bg"], 2, False, dev)
+    seed = prob["seeds"][0]
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
+    alphas = f32(seed.alphas)[None]
+
+    def sweeps():
+        gibbs.gibbs_optimize(tuple(f32(vk)[None] for vk in seed.v), f32([0.9]), torch.log(alphas),
+                             gibbs.chain_generators(0, [0], dev), data, f32(seed.f_bg), alphas,
+                             float(chip_smoke.N_SEQS), A=4, K=2, W=chip_smoke.W, sample_z=True,
+                             sample_q=True, learn_alpha=True, path="cuda",
+                             n_iters=chip_smoke.N_TIMED, graphs=True)
+        torch.cuda.synchronize()
+
+    sweeps()
+    t0 = time.perf_counter()
+    sweeps()
+    return chip_smoke.N_TIMED / (time.perf_counter() - t0)
+
+
+def measure_seed_loops(chip_smoke, dev, Ms: list) -> tuple:
+    """``loops --M``: graphed EM its/s at K=2 and 4 for each M, and CGS
+    sweeps/s at M=1, each timed run after an untimed one of its shape."""
+    metrics = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for K in (2, 4):
+            prob = seeds_problem(chip_smoke, tmp, K, max(Ms))
+            for M in Ms:
+                chip_smoke.em_rate(dev, prob, M, True)
+                metrics[f"em_its_per_s_K{K}_M{M}"] = chip_smoke.em_rate(dev, prob, M, True)[0]
+            if K == 2:
+                metrics["cgs_sweeps_per_s_M1"] = cgs_rate(chip_smoke, dev, prob)
+    return metrics, {"graphed": True}
+
+
+def measure_loops(chip_smoke, dev, _inputs, graphed: bool, first: str, Ms=None) -> tuple:
     """First use of --CGS in this fresh process (``first``: kernel_first or
-    plain_first), then the loops' rates in the process's mode."""
+    plain_first), then the loops' rates in the process's mode; with ``Ms``,
+    ``measure_seed_loops``."""
+    if Ms:
+        return measure_seed_loops(chip_smoke, dev, Ms)
     with tempfile.TemporaryDirectory() as tmp:
         prob = chip_smoke.loops_problem(tmp)
         fu = chip_smoke.first_use_runs(dev, tmp, prob["fasta"], prob["meme"], first)
@@ -278,9 +379,9 @@ MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "flat": measure_flat,
 
 
 def one(measure: str, root: str, inputs: str, graphed: bool = True,
-        first: str = "kernel_first") -> None:
+        first: str = "kernel_first", Ms=None) -> None:
     """Measure with ``root``'s checkout and print one JSON line
-    (``graphed`` and ``first`` are the ``loops`` measure's mode)."""
+    (``graphed``, ``first`` and ``Ms`` are the ``loops`` measure's mode)."""
     import torch
 
     root = os.path.abspath(root)
@@ -292,7 +393,7 @@ def one(measure: str, root: str, inputs: str, graphed: bool = True,
     for mod in (chip_smoke, bammmotif2_tpu_torch):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise RuntimeError(f"imported {mod.__file__}, not from {root}")
-    opts = (graphed, first) if measure == "loops" else ()
+    opts = (graphed, first, Ms) if measure == "loops" else ()
     metrics, extra = MEASURES[measure](chip_smoke, torch.device("cuda"), inputs, *opts)
     print("AB " + json.dumps({"metrics": metrics, **extra}), flush=True)
 
@@ -352,12 +453,14 @@ def main(argv=None) -> int:
     ap.add_argument("change")
     ap.add_argument("--rounds", type=int, default=12)
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds per process")
+    ap.add_argument("--M", type=int, nargs="+", default=None,
+                    help="loops, kernels: seed counts (see the measures)")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--eager", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--first", default="kernel_first", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one:  # base is the checkout, change the inputs' directory
-        one(args.measure, args.base, args.change, not args.eager, args.first)
+        one(args.measure, args.base, args.change, not args.eager, args.first, args.M)
         return 0
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -365,12 +468,13 @@ def main(argv=None) -> int:
     procs = []
     with tempfile.TemporaryDirectory() as inputs:
         if args.measure not in ("cgs", "loops"):
-            make_inputs(inputs, args.measure)
+            make_inputs(inputs, args.measure, args.M)
+        seeds = ("--M", *map(str, args.M)) if args.M else ()
         for rnd in range(args.rounds):
             order = ("base", "change") if rnd % 2 == 0 else ("change", "base")
             for pos, tree in enumerate(order):
-                mode = ()
-                if args.measure == "loops":  # base eager, change graphed
+                mode = seeds if args.measure == "loops" else ()
+                if args.measure == "loops" and not args.M:  # base eager, change graphed
                     mode = (*(("--eager",) if tree == "base" else ()),
                             "--first", ("kernel_first", "plain_first")[rnd % 2])
                 res = run(args.measure, trees[tree], inputs, args.timeout, mode)

@@ -2,7 +2,8 @@
 plan, timed on one GPU.
 
     python -m bammmotif2_tpu_torch.tools.kernel_variants SOURCE_ROOT --design D [--M 1 4]
-        [--homopolymer]
+        [--K 0 1 2] [--W 12] [--chunks-from 16] [--homopolymer] [--tag T]
+    python -m bammmotif2_tpu_torch.tools.kernel_variants summarize FILE...
 
 SOURCE_ROOT is the root of a checkout whose ``csrc/`` holds the design D
 names.  The tool writes copies of that source beside its ``common.cuh`` in a
@@ -22,12 +23,41 @@ work give wrong results and are only timed.
   plain_add    a count add is a plain read-add-write (racy).
 
 ``em_plans``: the E+M source unchanged, launched with other plans than
-``cuda_em.launch_plan``'s (every one that fits ``cuda_em.SMEM_MAX``), on
-the cases of ``PLAN_CASES``: at K=2 and K=4 the LUT in shared memory or
-through L1, float, fixed-point or global counts, and at M=4 the seeds a
-block; at K=2, M=1 and rows of 200 to 1,600 bp (N * L held at 2M codes a
-strand) a warp against a block a sequence.  ``--M`` and
-``--homopolymer`` do not apply.
+``cuda_em.launch_plan``'s (every one that fits ``cuda_em.SMEM_MAX``).
+With ``--K``: on bench's set (10k x 200 bp, S=2) at each K, W (``--W``)
+and M, launch_plan's team and tables at every seeds a block
+(``seed_caps``; the kernel splits a launch's seeds over grid y in
+balanced chunks).  Without it, the cases of ``PLAN_CASES``: at K=2 and
+K=4 the LUT in shared memory or through L1, float, fixed-point or global
+counts, and at M=4 the seeds a block; at K=2, M=1 and rows of 200 to
+1,600 bp (N * L held at 2M codes a strand) a warp against a block a
+sequence.
+
+``scores_plans``: the window-score source unchanged on ``--rows`` x 200
+bp (S=2, W=12; config 5's geometry at 100k, kernel_inputs' planted set)
+at each K and M, at every seeds a block, the LUT in shared memory (where
+it fits) and (unless ``--lut smem``) through L1.
+
+``counts_plans``: the counts-from-r source unchanged on bench's geometry
+with the sampler's 0/1 r (``counts_inputs``) at each K and M.
+
+The three plan designs also time, from M = ``--chunks-from`` on, the M
+seeds as consecutive balanced launches (``cuda_em.seed_chunks``) of the
+fastest variant's seeds a block and of 4, 8 and 16 seeds (counts: 1, 4,
+8, 16), and hold every variant's result to the plain version (E+M within
+tests/test_torch_cuda.py's bars, scores bit-equal, 0/1 counts equal).  A
+variant's times: its kernel's device µs a call (all its launches) and
+every device operation's (``ab.device_ms``), and the call's µs by CUDA
+events, in two rounds.
+
+``fdr_rows``: one FDR fold's E+M pass at BASELINE config 4's groups
+(10k x 200 bp, K=2, W=8/10/12 with 4/3/3 seeds, ``FDR_GROUPS``) on all
+rows with the held-out fifth at length 0 against the training rows
+compacted.
+
+``summarize FILE...`` merges the JSON of several processes' plan sweeps:
+per case and variant the median device and events µs, each process's
+median (the spread), the fastest variant and launch_plan's against it.
 
 ``scores_pr5``: the window-score kernel of PR 5, with this checkout's
 ``cuda_scores.launch_plan``:
@@ -52,15 +82,16 @@ strand) a warp against a block a sequence.  ``--M`` and
   drain_every_chunk  a warp drains its queue after every chunk that queued a value;
   global_acc   no shared-memory table: every count an f64 atomic on acc.
 
-E+M designs run on bench.py's geometry (10k x 200 bp, S=2, W=12, K=2;
-tests/test_torch_cuda.py's ``kernel_inputs``, with ``--homopolymer`` on rows
-of one base), the scores design on BASELINE config 5's (100k x 200 bp,
-``chip_smoke.c5_inputs``; ``--rows`` keeps its first rows), at each M
-given.  A variant's device time is its ``__global__``'s under
-``torch.profiler`` over 10 calls after a warm-up, in two rounds: in the
-order listed, then reversed.  The card's name and power limit and a JSON
-summary are printed and written to
-``chiprun_out/kernel_variants_<design>[_homopolymer].json``.  Imports no JAX.
+The source-edit designs run on bench.py's geometry (10k x 200 bp, S=2,
+W=12, K=2; tests/test_torch_cuda.py's ``kernel_inputs``, with
+``--homopolymer`` on rows of one base), the scores design on BASELINE
+config 5's (100k x 200 bp, ``chip_smoke.c5_inputs``; ``--rows`` keeps its
+first rows), at each M given.  A variant's device time is its
+``__global__``'s under ``torch.profiler`` over 10 calls after a warm-up,
+in two rounds: in the order listed, then reversed.  The card's name and
+power limit and a JSON summary are printed and written to
+``chiprun_out/kernel_variants_<design>[_homopolymer][_rows][_tag].json``.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -108,6 +139,9 @@ DESIGNS = {  # design -> (source, __global__, {variant: edits})
                      "const bool mask_here = false;")],
     }),
     "em_plans": ("em_counts", "em_counts_kernel", {"as_is": []}),
+    "scores_plans": ("window_scores", "window_scores_kernel", {"as_is": []}),
+    "counts_plans": ("counts_from_r", "counts_kernel", {"as_is": []}),
+    "fdr_rows": ("em_counts", "em_counts_kernel", {"as_is": []}),
     "counts_stream": ("counts_from_r", "counts_kernel", {
         "as_is": [],
         "stream_only": [("    bool keep = x != 0.f;", "    bool keep = false;"),
@@ -144,6 +178,12 @@ PLAN_CASES = {
     **{f"K2_M1_L{L}": dict(N=2_000_000 // L, L=L, W=12, K=2, M=1)
        for L in (300, 400, 512, 800, 1_200, 1_600)},
 }
+
+
+def seed_caps(M: int) -> list:
+    """The seeds a block (or a launch) that split M seeds differently in
+    balanced chunks: ceil(M / n) for n = 1..M, largest first."""
+    return sorted({-(-M // n) for n in range(1, M + 1)}, reverse=True)
 
 
 def variant_source(src: str, edits: list) -> str:
@@ -193,9 +233,12 @@ def build(source_root: str, out_dir: str, source: str, variants: dict) -> dict:
         return dict(ex.map(nvcc, jobs.items()))
 
 
-def em_caller(lib_path: str, args: tuple, plan):
-    """One launch of the library's em_counts_launch on args = (s_flat,
-    cidx, lens, q) with ``plan`` (a ``cuda_em.Plan``)."""
+def em_caller(lib_path: str, args: tuple, plan, launches=None):
+    """A call of the library's em_counts_launch on args = (s_flat, cidx,
+    lens, q) with ``plan`` (a ``cuda_em.Plan``): a launch a (m0, m1) range
+    of ``launches`` in turn on the stream (each at the plan's seeds a block,
+    capped at its range's; by default ``cuda_em.seed_launches``, as
+    ``em_counts_multi`` launches).  Returns (C, ll)."""
     import torch
 
     lib = ctypes.CDLL(lib_path)
@@ -206,19 +249,25 @@ def em_caller(lib_path: str, args: tuple, plan):
     M, R1, W = s_flat.shape
     S, N, L = cidx.shape
     dev = cidx.device
+    from bammmotif2_tpu_torch.ops import cuda_em
+
+    ranges = launches or cuda_em.seed_launches(plan, M)
 
     def call():
         C = torch.zeros((M, R1, W), dtype=torch.float32, device=dev)
         ll = torch.zeros((M,), dtype=torch.float32, device=dev)
         Cd = torch.zeros((M, R1, W), dtype=torch.float64, device=dev)
         logz = torch.empty((M, N), dtype=torch.float32, device=dev)
-        err = lib.em_counts_launch(
-            cidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), q.data_ptr(), C.data_ptr(),
-            Cd.data_ptr(), logz.data_ptr(), ll.data_ptr(), S, N, L, W, R1, M,
-            plan.seeds_per_block, int(plan.smem_lut), plan.counts, plan.team, plan.codes_cap,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: {err}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for m0, m1 in ranges:
+            err = lib.em_counts_launch(
+                cidx.data_ptr(), lens.data_ptr(), s_flat[m0].data_ptr(), q[m0:].data_ptr(),
+                C[m0].data_ptr(), Cd[m0].data_ptr(), logz[m0].data_ptr(), ll[m0:].data_ptr(),
+                S, N, L, W, R1, m1 - m0, min(plan.seeds_per_block, m1 - m0),
+                int(plan.smem_lut), plan.counts, plan.team, plan.codes_cap, stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: {err}")
+        return C, ll
 
     return call
 
@@ -229,22 +278,29 @@ def plan_tag(plan) -> str:
             f"_counts_{['global', 'float', 'fixed'][plan.counts]}")
 
 
-def alternative_plans(M: int, R1: int, W: int, S: int, L: int, teams_only: bool) -> dict:
+def alternative_plans(M: int, R1: int, W: int, S: int, L: int, teams_only: bool,
+                      spb_only: bool = False) -> dict:
     """tag -> plan: launch_plan's (tagged ``plan:...``) and each other
-    choice of team, LUT place, counts kind and (M > 1) seeds a block that
-    fits SMEM_MAX; with ``teams_only``, launch_plan's tables with either
-    team."""
+    choice of team, LUT place, counts kind and (M > 1) seeds a block
+    (``seed_caps``: every cap that splits the M seeds differently,
+    in balanced chunks) that fits SMEM_MAX; with ``teams_only``, launch_plan's
+    tables and seeds a block with either team; with ``spb_only``,
+    launch_plan's team and tables with every seeds a block that fits."""
     from bammmotif2_tpu_torch.ops import cuda_em
 
     base = cuda_em.launch_plan(M, R1, W, S, L)
     tables = ((False, False, False), (False, True, False), (False, True, True),
               (True, True, False), (True, True, True))
-    if teams_only:
+    teams = ((32, cuda_em._round4(S * L)), (256, max(cuda_em.BLOCK_CODES, W)))
+    if teams_only or spb_only:
         tables = ((base.smem_lut, base.smem_counts, base.fixed_counts),)
+    if spb_only:
+        teams = ((base.team, base.codes_cap),)
     out = {}
-    for team, cap in ((32, cuda_em._round4(S * L)), (256, max(cuda_em.BLOCK_CODES, W))):
+    for team, cap in teams:
         for lut, counts, fixed in tables:
-            spbs = {base.seeds_per_block} if teams_only else {1, M} if counts else {1}
+            spbs = ({base.seeds_per_block} if teams_only else
+                    set(seed_caps(M)) if counts else {1})
             for spb in sorted(spbs):
                 plan = cuda_em.Plan(spb, lut, counts, fixed, team, cap)
                 if cuda_em.smem_bytes(plan, R1, W) <= cuda_em.SMEM_MAX:
@@ -252,9 +308,12 @@ def alternative_plans(M: int, R1: int, W: int, S: int, L: int, teams_only: bool)
     return out
 
 
-def scores_caller(lib_path: str, args: tuple):
-    """One launch of the library's window_scores_launch on args = (s_flat,
-    cidx, lens), with cuda_scores.launch_plan's plan."""
+def scores_caller(lib_path: str, args: tuple, spb: int, smem_lut: bool, launches=None):
+    """A call of the library's window_scores_launch on args = (s_flat,
+    cidx, lens) at ``spb`` seeds a block, the LUT in shared memory or
+    through L1: one launch of all M seeds, or one a (m0, m1) range of
+    ``launches`` in turn (each at ``spb`` capped at its range's; every
+    launch writes the mask).  Returns (scores, mask)."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_scores
@@ -266,25 +325,29 @@ def scores_caller(lib_path: str, args: tuple):
     s_flat, cidx, lens = args
     M, R1, W = s_flat.shape
     S, N, L = cidx.shape
-    spb, smem_lut = cuda_scores.launch_plan(M, R1, W)
-    scores = torch.empty((M, S, N, L - W + 1), dtype=torch.float32, device=cidx.device)
-    mask = torch.empty((N, L - W + 1), dtype=torch.bool, device=cidx.device)
+    ranges = launches or [(0, M)]
 
     def call():
-        err = lib.window_scores_launch(
-            cidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), scores.data_ptr(),
-            mask.data_ptr(), S, N, L, W, R1, M, spb, int(smem_lut), cuda_scores.ROWS_CAP,
-            torch.cuda.current_stream(cidx.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: {err}")
+        scores = torch.empty((M, S, N, L - W + 1), dtype=torch.float32, device=cidx.device)
+        mask = torch.empty((N, L - W + 1), dtype=torch.bool, device=cidx.device)
+        stream = torch.cuda.current_stream(cidx.device).cuda_stream
+        for m0, m1 in ranges:
+            err = lib.window_scores_launch(
+                cidx.data_ptr(), lens.data_ptr(), s_flat[m0].data_ptr(), scores[m0].data_ptr(),
+                mask.data_ptr(), S, N, L, W, R1, m1 - m0, min(spb, m1 - m0), int(smem_lut),
+                cuda_scores.ROWS_CAP, stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: {err}")
+        return scores, mask
 
     return call
 
 
-def counts_caller(lib_path: str, args: tuple):
-    """One launch of the library's counts_from_r_launch on args = (r, cidx,
-    R, W), with cuda_counts.launch_plan's plan and a zeroed workspace of its
-    own."""
+def counts_caller(lib_path: str, args: tuple, launches=None):
+    """A call of the library's counts_from_r_launch on args = (r, cidx, R,
+    W), with cuda_counts.launch_plan's plan and a zeroed workspace of its
+    own (each launch leaves it zero): one launch of all M seeds, or one a
+    (m0, m1) range of ``launches`` in turn.  Returns C."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_counts
@@ -299,14 +362,18 @@ def counts_caller(lib_path: str, args: tuple):
     C = torch.empty((M, R1, W), dtype=torch.float32, device=dev)
     acc = torch.zeros(M * R1 * W, dtype=torch.float64, device=dev)
     tickets = torch.zeros(M, dtype=torch.int32, device=dev)
+    ranges = launches or [(0, M)]
 
     def call():
-        err = lib.counts_from_r_launch(
-            r.data_ptr(), cidx.data_ptr(), C.data_ptr(), acc.data_ptr(), tickets.data_ptr(),
-            S * N * L, L, W, R1, M, int(cuda_counts.launch_plan(R1, W)), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: {err}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for m0, m1 in ranges:
+            err = lib.counts_from_r_launch(
+                r[m0].data_ptr(), cidx.data_ptr(), C[m0].data_ptr(), acc.data_ptr(),
+                tickets.data_ptr(), S * N * L, L, W, R1, m1 - m0,
+                int(cuda_counts.launch_plan(R1, W)), dev.index, stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: {err}")
+        return C
 
     return call
 
@@ -322,16 +389,290 @@ def device_us(fn, kernel: str, n: int = 10) -> float:
     return ms * 1e3
 
 
+def timed(fn, kernel: str, per_call: int = 1) -> dict:
+    """A plan's times: ``kernel``'s device µs a call summed over its
+    ``per_call`` launches and every device operation's (``ab.device_ms``,
+    10 calls; "not measured" where no whole window was traced), and the
+    call's µs by CUDA events over 10 back-to-back calls (gaps between
+    launches included)."""
+    import chip_smoke
+    from bammmotif2_tpu_torch.tools.ab import device_ms
+
+    d = device_ms(fn, 10, kernel, per_call=per_call)
+    us = {k: v * 1e3 if isinstance(v, float) else v for k, v in d.items()}
+    return {"device_us": us["kernel_device_ms"], "call_device_us": us["call_device_ms"],
+            "events_us": chip_smoke.time_cuda(fn, 10) * 1e3}
+
+
+def em_error(got: tuple, ref: tuple, checks) -> float:
+    """max |dC| / (C_ATOL + C_RTOL |C|) and ll's relative error over
+    LL_RTOL, the larger (tests/test_torch_cuda.py's bars: at most 1)."""
+    (C, ll), (C_ref, ll_ref) = got, ref
+    dc = ((C - C_ref).abs() / (checks.C_ATOL + checks.C_RTOL * C_ref.abs())).max().item()
+    dl = ((ll - ll_ref).abs() / ll_ref.abs()).max().item() / checks.LL_RTOL
+    return max(dc, dl)
+
+
+def median(xs: list) -> float:
+    xs = sorted(x for x in xs if isinstance(x, float))
+    return xs[len(xs) // 2] if xs else float("inf")
+
+
+def run_variants(calls: dict, kernel: str, check) -> dict:
+    """tag -> times of each (call, launches a call) of ``calls`` in two
+    rounds (in order, then reversed) and ``check``'s error of its first
+    output (a plan that gives a wrong result stops the sweep)."""
+    import torch
+
+    runs = {t: {"launches": n, "error": check(fn())} for t, (fn, n) in calls.items()}
+    for t, r in runs.items():
+        if r["error"] > 1.0:
+            raise AssertionError(f"{t}: error {r['error']} over its bar")
+    torch.cuda.synchronize()
+    names = list(calls)
+    for order in (names, names[::-1]):
+        for t in order:
+            for k, v in timed(calls[t][0], kernel, calls[t][1]).items():
+                runs[t].setdefault(k, []).append(v)
+    return runs
+
+
+def chunk_calls(runs: dict, M: int, make, caps=(4, 8, 16)) -> dict:
+    """Consecutive balanced launches (``cuda_em.seed_chunks``) of launch
+    caps {the fastest variant's seeds a block} and ``caps`` below M, each
+    launch at that variant's seeds a block (capped at its chunk's):
+    ``make(spb, smem_lut, launches)`` -> a call.  ``runs``' tags name the
+    seeds a block as ``spb<n>`` and the LUT as ``lut_l1`` where it is read
+    through L1."""
+    from bammmotif2_tpu_torch.ops import cuda_em
+
+    best = min(runs, key=lambda t: median(runs[t]["device_us"]))
+    spb = int(best.split("spb")[1].split("_")[0]) if "spb" in best else 1
+    lut = "lut_l1" not in best
+    out = {}
+    for cap in sorted({spb, *caps}):
+        if cap < M:
+            launches = cuda_em.seed_chunks(M, cap)
+            out[f"launches{len(launches)}_cap{cap}_from_{best.removeprefix('plan:')}"] = (
+                make(min(spb, cap), lut, launches), len(launches))
+    return out
+
+
+def sweep_em(a, lib: str, checks, dev) -> dict:
+    """em_plans: E+M under every plan of ``alternative_plans`` (launch_plan's
+    team and tables, every seeds a block, where --K is given; PLAN_CASES
+    else), and at M >= --chunks-from consecutive balanced launches."""
+    import chip_smoke
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_em
+
+    out = {}
+    if a.K is None:
+        groups = [(c, o, [o["M"]]) for c, o in PLAN_CASES.items()]
+    else:
+        groups = [(None, dict(N=10_000, L=200, W=W, K=K), a.M) for K in a.K for W in a.W]
+    for case, opts, Ms in groups:
+        full = checks.kernel_inputs(**{**opts, "M": max(Ms)}, S=2, device=dev,
+                                    **({"homopolymer": True} if a.homopolymer else {}))
+        ref_full = cuda_em.em_counts_multi_ref(*full)
+        for M in Ms:
+            args = (full[0][:M].contiguous(), full[1], full[2], full[3][:M].contiguous())
+            ref = (ref_full[0][:M], ref_full[1][:M])
+            _M, R1, W = args[0].shape
+            S, _N, L = args[1].shape
+            name = case or f"K{opts['K']}_W{W}_M{M}"
+            plans = alternative_plans(M, R1, W, S, L, teams_only="_L" in name,
+                                      spb_only=case is None)
+            calls = {t: (em_caller(lib, args, pl), len(cuda_em.seed_launches(pl, M)))
+                     for t, pl in plans.items()}
+            check = lambda got: em_error(got, ref, checks)  # noqa: E731
+            runs = run_variants(calls, "em_counts_kernel", check)
+            if case is None and M >= a.chunks_from:
+                base = cuda_em.launch_plan(M, R1, W, S, L)
+                make = lambda spb, _lut, ln: em_caller(lib, args, base._replace(  # noqa: E731
+                    seeds_per_block=spb), ln)
+                runs.update(run_variants(chunk_calls(runs, M, make), "em_counts_kernel", check))
+            out[name] = {"K": opts["K"], "W": W, "M": M,
+                         **chip_smoke.em_bound(args[1], args[2], R1, W, M), "variants": runs}
+            print(name, json.dumps(out[name]), flush=True)
+        del full, ref_full
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep_scores(a, lib: str, checks, dev) -> dict:
+    """scores_plans: window scores on --rows x 200 bp at W=12 at every seeds
+    a block with the LUT in shared memory (where it fits) and through L1,
+    and at M >= --chunks-from consecutive balanced launches; every result
+    bit-equal to the plain version."""
+    import chip_smoke
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores
+
+    out = {}
+    for K in a.K or (2,):
+        full = checks.kernel_inputs(N=a.rows, L=200, W=12, K=K, M=max(a.M), S=2, device=dev)[:3]
+        ref_full = cuda_scores.window_scores_multi_ref(*full)
+        for M in a.M:
+            args = (full[0][:M].contiguous(), full[1], full[2])
+            _M, R1, W = args[0].shape
+            plan = cuda_scores.launch_plan(M, R1, W)
+
+            def check(got, M=M):
+                same = torch.equal(got[0], ref_full[0][:M]) and torch.equal(got[1], ref_full[1])
+                return 0.0 if same else float("inf")
+
+            calls = {}
+            for lut in (True, False)[: 1 if a.lut == "smem" else 2]:
+                for spb in seed_caps(M):
+                    if lut and cuda_scores.smem_bytes(spb, True, R1, W) > cuda_em.SMEM_MAX:
+                        continue
+                    tag = f"spb{spb}_lut_{'smem' if lut else 'l1'}"
+                    calls[("plan:" if (spb, lut) == plan else "") + tag] = (
+                        scores_caller(lib, args, spb, lut), 1)
+            runs = run_variants(calls, "window_scores_kernel", check)
+            if M >= a.chunks_from:
+                make = lambda spb, lut, ln: scores_caller(lib, args, spb, lut, ln)  # noqa: E731
+                runs.update(run_variants(chunk_calls(runs, M, make), "window_scores_kernel",
+                                         check))
+            name = f"K{K}_M{M}"
+            out[name] = {"K": K, "W": W, "M": M, "rows": a.rows,
+                         **chip_smoke.scores_bound(args[1], args[2], R1, W, M), "variants": runs}
+            print(name, json.dumps(out[name]), flush=True)
+            del calls, runs
+            torch.cuda.empty_cache()
+        del full, ref_full
+        torch.cuda.empty_cache()
+    return out
+
+
+def sweep_counts(a, lib: str, checks, dev) -> dict:
+    """counts_plans: counts from the sampler's 0/1 r at bench's geometry in
+    one launch and in consecutive balanced launches of 1, 4, 8 and 16
+    seeds; every result equal to the plain version."""
+    import chip_smoke
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em
+
+    out = {}
+    for K in a.K or (2,):
+        full = checks.counts_inputs(N=10_000, L=200, W=12, K=K, M=max(a.M), S=2, r="01",
+                                    device=dev)
+        ref_full = cuda_counts.counts_from_r_multi_ref(*full)
+        for M in a.M:
+            r, cidx, R, W = full[0][:M], *full[1:]
+            args = (r, cidx, R, W)
+            check = lambda got, M=M: 0.0 if torch.equal(got, ref_full[:M]) else float("inf")  # noqa: E731
+            calls = {"plan:one_launch": (counts_caller(lib, args), 1)}
+            for cap in (1, 4, 8, 16):
+                if cap < M:
+                    ln = cuda_em.seed_chunks(M, cap)
+                    calls[f"launches{len(ln)}_cap{cap}"] = (counts_caller(lib, args, ln), len(ln))
+            runs = run_variants(calls, "counts_kernel", check)
+            name = f"K{K}_M{M}"
+            out[name] = {"K": K, "W": W, "M": M, **chip_smoke.counts_bound(r, cidx, R + 1, W),
+                         "variants": runs}
+            print(name, json.dumps(out[name]), flush=True)
+        del full, ref_full
+        torch.cuda.empty_cache()
+    return out
+
+
+# fdr_rows: BASELINE config 4's (W, seeds) groups (chip_smoke.C4_MOTIFS,
+# C4_SEEDS: seed s has motif s % 3's width) at K=2, --cvFold 5
+FDR_GROUPS = ((8, 4), (10, 3), (12, 3))
+FDR_FOLDS = 5
+
+
+def sweep_fdr(a, lib: str, checks, dev) -> dict:
+    """fdr_rows: one FDR fold's E+M pass at config 4's geometry (10k x 200
+    bp, K=2) on all N rows with the held-out fifth at length 0 (``masked``,
+    as evaluation/fdr.py runs it) against the training rows alone
+    (``compacted``; at N = 10k every fold trains on 8,000 rows, so padding
+    to the largest fold adds none).  The two give the same counts (a row
+    of length 0 adds log(1-q) to ll, which the check takes out)."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_em
+
+    out = {}
+    for W, M in FDR_GROUPS:
+        s_flat, cidx, lens, q = checks.kernel_inputs(N=10_000, L=200, W=W, K=2, M=M, S=2,
+                                                     device=dev)
+        train = torch.arange(lens.shape[0], device=dev) % FDR_FOLDS != 0
+        masked = (s_flat, cidx, torch.where(train, lens, 0), q)
+        compact = (s_flat, cidx[:, train].contiguous(), lens[train].contiguous(), q)
+        n_out = int((~train).sum().item())
+        ref = cuda_em.em_counts_multi_ref(*compact)
+        check = lambda got, ref=ref: em_error(got, ref, checks)  # noqa: E731
+        plan = cuda_em.launch_plan(M, s_flat.shape[1], W, 2, 200)
+        masked_call = em_caller(lib, masked, plan)
+        calls = {
+            "masked": ((lambda f=masked_call, n=n_out, q=q: (
+                lambda C, ll: (C, ll - n * torch.log1p(-q)))(*f())), 1),
+            "compacted": (em_caller(lib, compact, plan), 1)}
+        runs = run_variants(calls, "em_counts_kernel", check)
+        out[f"W{W}_M{M}"] = {"W": W, "M": M, "K": 2, "plan": plan._asdict(), "variants": runs}
+        print(f"W{W}_M{M}", json.dumps(out[f"W{W}_M{M}"]), flush=True)
+    return out
+
+
+def summarize(paths: list) -> dict:
+    """The plan sweeps of several processes (their JSON files) merged: per
+    case and variant the median of every round's device µs and events µs,
+    each process's median device µs (their spread), the fastest variant
+    and launch_plan's (``plan:``) against it."""
+    runs = [json.load(open(p)) for p in paths]
+    out = {"gpu": sorted({r["gpu"] for r in runs}), "processes": len(runs), "cases": {}}
+    for case in runs[0]["cases"]:
+        got = [r["cases"][case] for r in runs if case in r["cases"]]
+        rows = {}
+        for tag in got[0]["variants"]:
+            per = [g["variants"][tag] for g in got if tag in g["variants"]]
+            dev = [x for v in per for x in v["device_us"] if isinstance(x, float)]
+            rows[tag] = {"device_us": median(dev),
+                         "events_us": median([x for v in per for x in v["events_us"]]),
+                         "process_device_us": [median(v["device_us"]) for v in per],
+                         "launches": per[0]["launches"],
+                         "max_error": max(v["error"] for v in per)}
+        best = min(rows, key=lambda t: rows[t]["device_us"])
+        plan = next((t for t in rows if t.startswith("plan:")), None)
+        out["cases"][case] = {
+            **{k: got[0][k] for k in ("K", "W", "M", "bound_ms") if k in got[0]},
+            "best": best, "plan": plan,
+            "plan_over_best": rows[plan]["device_us"] / rows[best]["device_us"] if plan else None,
+            "variants": rows}
+    return out
+
+
+SWEEPS = {"em_plans": sweep_em, "scores_plans": sweep_scores, "counts_plans": sweep_counts,
+          "fdr_rows": sweep_fdr}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["summarize"]:
+        print(json.dumps(summarize(sys.argv[2:]), indent=1))
+        return 0
     import torch
 
     ap = argparse.ArgumentParser()
     ap.add_argument("source_root")
     ap.add_argument("--design", choices=sorted(DESIGNS), required=True)
     ap.add_argument("--M", type=int, nargs="+", default=[1, 4])
+    ap.add_argument("--K", type=int, nargs="+", default=None,
+                    help="plan sweeps: model orders (em_plans: with --W and --M, else PLAN_CASES)")
+    ap.add_argument("--W", type=int, nargs="+", default=[12], help="em_plans: motif widths")
+    ap.add_argument("--chunks-from", type=int, default=16,
+                    help="plan sweeps: time consecutive balanced launches from this M on")
     ap.add_argument("--rows", type=int, default=100_000, help="scores designs: rows of the set")
+    ap.add_argument("--lut", choices=("both", "smem"), default="both",
+                    help="scores_plans: time the LUT through L1 too, or in shared memory only")
     ap.add_argument("--homopolymer", action="store_true",
                     help="E+M designs: rows of one base (kernel_inputs' homopolymer)")
+    ap.add_argument("--tag", default="", help="suffix of the output file's name")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -340,7 +681,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import chip_smoke
 
-    from bammmotif2_tpu_torch.ops import cuda_em
+    from bammmotif2_tpu_torch.ops import cuda_em, cuda_scores
 
     source, kernel, variants = DESIGNS[a.design]
     dev = torch.device("cuda")
@@ -349,16 +690,21 @@ def main() -> int:
         out["rows"] = a.rows
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(os.path.abspath(a.source_root), tmp, source, variants)
-        if source == "window_scores":
+        checks = chip_smoke.load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+        if a.design in SWEEPS:
+            out["cases"] = SWEEPS[a.design](a, libs["as_is"], checks, dev)
+            cases = {}
+        elif source == "window_scores":
             cidx, lens, base, _sset = chip_smoke.c5_inputs(dev, tmp)
             cidx, lens = cidx[:, : a.rows].contiguous(), lens[: a.rows].contiguous()
-        checks = chip_smoke.load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
-        cases = PLAN_CASES if a.design == "em_plans" else {
-            f"M{M}": dict(N=10_000, L=200, W=12, K=2, M=M) for M in a.M}
+            cases = {f"M{M}": dict(M=M) for M in a.M}
+        else:
+            cases = {f"M{M}": dict(N=10_000, L=200, W=12, K=2, M=M) for M in a.M}
         for case, opts in cases.items():
             if source == "window_scores":
                 args = (chip_smoke.c5_luts(base, opts["M"]), cidx, lens)
-                calls = {n: scores_caller(path, args) for n, path in libs.items()}
+                spb, lut = cuda_scores.launch_plan(*args[0].shape)
+                calls = {n: scores_caller(path, args, spb, lut) for n, path in libs.items()}
             elif source == "counts_from_r":
                 args = checks.counts_inputs(S=2, device=dev, r="01", **opts)
                 calls = {n: counts_caller(path, args) for n, path in libs.items()}
@@ -367,12 +713,8 @@ def main() -> int:
                                             **({"homopolymer": True} if a.homopolymer else {}))
                 M, R1, W = args[0].shape
                 S, _N, L = args[1].shape
-                if a.design == "em_plans":
-                    plans = alternative_plans(M, R1, W, S, L, teams_only="_L" in case)
-                    calls = {t: em_caller(libs["as_is"], args, pl) for t, pl in plans.items()}
-                else:
-                    plan = cuda_em.launch_plan(M, R1, W, S, L)
-                    calls = {n: em_caller(path, args, plan) for n, path in libs.items()}
+                plan = cuda_em.launch_plan(M, R1, W, S, L)
+                calls = {n: em_caller(path, args, plan) for n, path in libs.items()}
             names = list(calls)
             runs = {n: [] for n in names}
             for order in (names, names[::-1]):
@@ -392,6 +734,7 @@ def main() -> int:
     os.makedirs("chiprun_out", exist_ok=True)
     tag = f"{a.design}{'_homopolymer' if a.homopolymer else ''}"
     tag += f"_{a.rows}" if source == "window_scores" else ""
+    tag += f"_{a.tag}" if a.tag else ""
     with open(os.path.join("chiprun_out", f"kernel_variants_{tag}.json"), "w") as fh:
         fh.write(line + "\n")
     return 0

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
                csrc/counts_from_r.cu and csrc/flat.cu in parallel; prints
                the toolchain, the card and the ptxas resource reports.
   2. kernel  : each of the six kernels against its plain PyTorch version on
-               the card at the main paths' geometries (tests/test_torch_cuda.py:
+               the card at the main paths' geometries, seed stacks of 16,
+               32 and 33 at K=0 and K=2 among them (tests/test_torch_cuda.py:
                KERNEL_CASES / check_kernel, SCORE_CASES / check_scores,
                COUNTS_CASES / check_counts, FLAT_CASES / check_flat; the
                last also holds the flat kernels to the combined-layout ones
@@ -22,8 +23,9 @@ Phases (any failure exits non-zero):
                (refinement/graphs.py) against their eager loops (CGS bit
                for bit, EM within the bars at a fixed budget), one host
                read a chunk of multi.SYNC_EVERY EM iterations, B1-B3
-               counted once an iteration or sweep, a capture that fails
-               raises.
+               counted once an iteration or sweep (each wrapper's launches
+               a call), a capture that fails raises, and the same at a
+               33-seed stack (check_chunked_loops).
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
                just before each run and read just after; the EM and CGS
@@ -33,8 +35,12 @@ Phases (any failure exits non-zero):
                  and -k 4: written models agree, the refined consensus is
                  the planted motif, the E+M kernel launched at least once per
                  iteration; at -k 2 the kernel path's loop also runs eagerly:
-                 equal iterations, files within the bars.  The 10k
-                 comparisons run a fixed budget of
+                 equal iterations, files within the bars; MULTI_SEEDS
+                 (16) seeds in one group at each of MULTI_SEED_ORDERS
+                 (-k 0 and -k 2), a stack the E+M launch splits over its
+                 grid (cuda_em.launch_plan, seed_launches), compared at
+                 the same budget.
+                 The 10k comparisons run a fixed budget of
                  FIXED_ITERS: at ll ~ 7e4 the f32 spacing (0.0078) exceeds
                  epsilon (1e-3), so the |dll| < epsilon stop fires when two
                  f32 lls round equal and a converged run's iteration count
@@ -162,6 +168,9 @@ C4_MOTIFS = ["TGACTCAG", "CACGTGACTT", "GGGGCGGGGCCA"]  # W = 8, 10, 12
 C4_SEEDS = 10
 CGS_FIXED_SWEEPS = 20  # config 4's CGS-FDR comparison budget
 FLAT_ITERS = 40  # EM iterations of the flat slice, compared at a fixed budget
+# the chunked multi-seed --EM runs: one group of MULTI_SEEDS seeds on bench's
+# set at each model order of MULTI_SEED_ORDERS
+MULTI_SEEDS, MULTI_SEED_ORDERS = 16, ("0", "2")
 # the card's peaks (H100 SXM datasheet, 700 W): device
 # memory bandwidth, and f32 arithmetic outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -399,6 +408,19 @@ def planted_problem(outdir: str, n_seqs: int = N_SEQS, tag: str = "planted") -> 
     meme = os.path.join(outdir, f"{tag}.meme")
     write_meme(meme, [("planted", pwm)])
     return sset, fasta, meme, motif_codes, pos, has
+
+
+def seeds_meme(outdir: str, planted, M: int, tag: str) -> str:
+    """A MEME of M width-W seeds on ``planted``'s motif: the planted PWM's
+    shape, softer with m (0.7 - 0.02 m on the planted base)."""
+    pwms = []
+    for m in range(M):
+        pwm = np.full((W, 4), (0.3 + 0.02 * m) / 3)
+        pwm[np.arange(W), planted] = 0.7 - 0.02 * m
+        pwms.append((f"seed{m + 1}", pwm))
+    path = os.path.join(outdir, f"{tag}.meme")
+    write_meme(path, pwms)
+    return path
 
 
 def config4_problem(outdir: str) -> tuple:
@@ -819,6 +841,10 @@ def phase_slice(device, tmp) -> dict:
                  device, tmp, True, planted, eager=k == "2")
     conv = em_slice("10k_k2_converged", fasta, meme, ["-k", "2", "-K", "2"],
                     device, tmp, False, planted)
+    meme_m = seeds_meme(tmp, planted, MULTI_SEEDS, "multi")
+    for k in MULTI_SEED_ORDERS:
+        em_slice(f"10k_M{MULTI_SEEDS}_k{k}_fixed", fasta, meme_m, ["-k", k, "-K", "2", *budget],
+                 device, tmp, True)
     secs["em"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     full_slice("examples_scan_fdr", ex_fa, ex_meme,

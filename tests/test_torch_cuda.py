@@ -56,6 +56,13 @@ KERNEL_CASES = {
     # every lane of a warp on one count address
     "homopolymer_M2": dict(N=2_000, L=200, W=12, K=2, M=2, S=2, homopolymer=True),
     "K4_M4": dict(N=2_000, L=200, W=12, K=4, M=4, S=2),  # FDR's group
+    # seed stacks (cuda_em.launch_plan, seed_launches): the grid split over
+    # 16, 32 and 33 seeds at K=0 and K=2, one launch each
+    **{f"{'bench' if K == 2 else 'K0'}_M{M}": dict(N=10_000, L=200, W=12, K=K, M=M, S=2)
+       for K in (0, 2) for M in (16, 32, 33)},
+    # float counts, LUT through L1: a launch a seed (one launch of the stack
+    # left each seed 1/33 of the grid and missed the bar)
+    "K4_W20_M33_float_counts": dict(N=10_000, L=200, W=20, K=4, M=33, S=2),
 }
 
 
@@ -83,6 +90,9 @@ SCORE_CASES = {
     "homopolymer": dict(N=2_000, L=200, W=12, K=2, M=2, S=2, homopolymer=True),
     # a width with no kernel of its own: the sliding loop over the shared LUT
     "W11_any_width": dict(N=2_000, L=200, W=11, K=2, M=2, S=2),
+    # seed stacks (cuda_scores.launch_plan): balanced chunks of seeds a block
+    **{f"{'10k' if K == 2 else '10k_K0'}_M{M}": dict(N=10_000, L=200, W=12, K=K, M=M, S=2)
+       for K in (0, 2) for M in (16, 32, 33)},
 }
 
 
@@ -115,6 +125,10 @@ COUNTS_CASES = {
     # planes of 333 x 61 floats: seeds 1 and 2 start off a 16-byte boundary
     "misaligned_L61_S1_01": dict(N=333, L=61, W=12, K=2, M=3, S=1, r="01"),
     "misaligned_L61_S1_frac": dict(N=333, L=61, W=12, K=2, M=3, S=1, r="frac"),
+    # seed stacks: one launch, a seed's blocks beside the others' on grid y
+    **{f"{'bench' if K == 2 else 'K0'}_M{M}_01": dict(N=10_000, L=200, W=12, K=K, M=M, S=2,
+                                                       r="01")
+       for K in (0, 2) for M in (16, 32, 33)},
 }
 
 
@@ -224,7 +238,9 @@ def check_kernel(case: dict, device) -> dict:
     launches = cuda_em.em_counts_multi.launches
     C, ll = cuda_em.em_counts_multi(s_flat, cidx, lens, q)
     torch.cuda.synchronize(device)
-    assert cuda_em.em_counts_multi.launches == launches + 1
+    M, R1, W = s_flat.shape
+    plan = cuda_em.launch_plan(M, R1, W, cidx.shape[0], cidx.shape[2])
+    assert cuda_em.em_counts_multi.launches == launches + len(cuda_em.seed_launches(plan, M))
     C_ref, ll_ref = cuda_em.em_counts_multi_ref(s_flat, cidx, lens, q)
     C64, _ = cuda_em.em_counts_multi_ref(s_flat.double(), cidx, lens, q.double())
     dC = (C - C_ref).abs()
@@ -450,8 +466,9 @@ def check_counts_calls(device) -> dict:
     cuda_flat.counts_from_r) across calls: each call one kernel and no other
     device operation; calls in a row and at two shapes interleaved on one
     stream, whose workspace must clean itself and grow; r starting off a
-    16-byte boundary; a call on a side stream; a CUDA graph of one call,
-    captured, then replayed on two r.  0/1 counts must equal the plain
+    16-byte boundary; a call on a side stream; a CUDA graph of one call
+    each (one of a 33-seed stack among them), captured, then replayed on two
+    r.  0/1 counts must equal the plain
     version's, fractional ones lie within CR_ATOL, CR_RTOL.  Raises
     AssertionError on a mismatch; returns the worst error."""
     worst = [0.0]
@@ -465,6 +482,7 @@ def check_counts_calls(device) -> dict:
 
     small = counts_inputs(N=500, L=60, W=10, K=2, M=3, S=2, r="frac", device=device)
     big = counts_inputs(N=800, L=120, W=12, K=4, M=4, S=2, r="01", device=device)
+    stack = counts_inputs(N=800, L=120, W=12, K=0, M=33, S=2, r="01", device=device)
     flat = flat_inputs(N=400, L=80, W=8, K=3, S=2, device=device)
     fkw = dict(A=4, K=3, W=8, R=flat["R"])
 
@@ -476,7 +494,8 @@ def check_counts_calls(device) -> dict:
                 cuda_flat.counts_from_r_ref(r, flat["qidx"], flat["map5"], **fkw))
 
     # in a row, then two shapes and both wrappers interleaved on one stream
-    for args, exact in ((small, False), (small, False), (big, True), (small, False), (big, True)):
+    for args, exact in ((small, False), (small, False), (big, True), (small, False), (big, True),
+                        (stack, True), (small, False)):
         same(*b3(args), exact)
         same(*b4c(flat["r"]["01"]), True)
         same(*b4c(flat["r"]["frac"]), False)
@@ -498,7 +517,7 @@ def check_counts_calls(device) -> dict:
              "B4c": one_kernel_a_call(lambda: cuda_flat.counts_from_r(
                  flat["r"]["01"], flat["qidx"], flat["map5"], **fkw), "flat_counts_kernel")}
     # a CUDA graph of one call each, replayed on the captured r, then on new r
-    r_b3, r_flat = big[0].clone(), flat["r"]["01"].clone()
+    r_b3, r_flat, r_stack = big[0].clone(), flat["r"]["01"].clone(), stack[0].clone()
     other = counts_inputs(N=800, L=120, W=12, K=4, M=4, S=2, r="01", seed=1, device=device)[0]
     other_flat = counts_inputs(N=400, L=80, W=8, K=3, M=1, S=2, r="01", seed=1,
                                device=device)[0][0]
@@ -506,18 +525,25 @@ def check_counts_calls(device) -> dict:
     cap.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(cap):  # warm-up: the capture stream's workspace
         cuda_counts.counts_from_r_multi(r_b3, *big[1:])
+        cuda_counts.counts_from_r_multi(r_stack, *stack[1:])
         cuda_flat.counts_from_r(r_flat, flat["qidx"], flat["map5"], **fkw)
     torch.cuda.current_stream(device).wait_stream(cap)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=cap):
         C = cuda_counts.counts_from_r_multi(r_b3, *big[1:])
+        Cs = cuda_counts.counts_from_r_multi(r_stack, *stack[1:])
         Cf = cuda_flat.counts_from_r(r_flat, flat["qidx"], flat["map5"], **fkw)
-    for new_r, new_flat in ((r_b3.clone(), r_flat.clone()), (other, other_flat)):
+    other_stack = counts_inputs(N=800, L=120, W=12, K=0, M=33, S=2, r="01", seed=1,
+                                device=device)[0]
+    for new_r, new_flat, new_stack in ((r_b3.clone(), r_flat.clone(), r_stack.clone()),
+                                       (other, other_flat, other_stack)):
         r_b3.copy_(new_r)
         r_flat.copy_(new_flat)
+        r_stack.copy_(new_stack)
         graph.replay()
         torch.cuda.synchronize(device)
         same(C, cuda_counts.counts_from_r_multi_ref(r_b3, *big[1:]), True)
+        same(Cs, cuda_counts.counts_from_r_multi_ref(r_stack, *stack[1:]), True)
         same(Cf, cuda_flat.counts_from_r_ref(r_flat, flat["qidx"], flat["map5"], **fkw), True)
     return {"max_abs_err": worst[0], "profiled_kernels": names}
 
@@ -539,9 +565,10 @@ def loop_inputs(N, L, W, K, M, seed=0, device="cpu") -> tuple:
     sset, planted = planted_set(N, L, W, 4, False, rng)
     bg = BackgroundModel.from_sequence_set(sset, order=min(2, K))
     motifs = []
+    soft = 0.1 if M <= 4 else 0.6 / M  # the planted base's weight stays above the others'
     for m in range(M):
-        pwm = np.full((W, 4), (0.3 + 0.1 * m) / 3)
-        pwm[np.arange(W), planted] = 0.7 - 0.1 * m
+        pwm = np.full((W, 4), (0.3 + soft * m) / 3)
+        pwm[np.arange(W), planted] = 0.7 - soft * m
         motifs.append(seeds_mod.motif_from_pwm(pwm, K, sset.base_frequencies()))
     f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
     v = tuple(f32(np.stack([mo.v[k] for mo in motifs])) for k in range(K + 1))
@@ -563,7 +590,11 @@ def check_loops(device) -> dict:
       iterations (counted under torch.cuda.set_sync_debug_mode("warn")),
       at SYNC_EVERY 8 and 4;
     - a body that synchronises inside the capture raises CaptureError
-      naming its line, after one eager iteration and no more.
+      naming its line, after one eager iteration and no more;
+    - at a chunked seed stack (CHUNKED_LOOP: 33 seeds, K=0, which the E+M
+      and window-score plans split into balanced chunks of several seeds a
+      block), EM and CGS graphed against eager on the kernel path, as
+      above, each wrapper counted by its launches a call.
 
     Raises AssertionError on a mismatch; returns what it measured."""
     import warnings
@@ -648,6 +679,76 @@ def check_loops(device) -> dict:
     assert state["q"].tolist() == [1.0, 1.0], state["q"]  # the warm-up, nothing after
     assert all(e["name"] != "sync test loop" for e in graphs.stats())
     out["capture_error"] = message.splitlines()[0]
+    out["chunked"] = check_chunked_loops(device)
+    return out
+
+
+CHUNKED_LOOP = dict(N=2_000, L=200, W=12, K=0, M=33)
+
+
+def launches_a_call(fn, wrapper) -> int:
+    """How many launches ``wrapper.launches`` counts for one call of fn."""
+    before = wrapper.launches
+    fn()
+    torch.cuda.synchronize()
+    return wrapper.launches - before
+
+
+def check_chunked_loops(device) -> dict:
+    """check_loops' EM and CGS comparisons at CHUNKED_LOOP's seed stack, on
+    the kernel path: graphed equals eager (CGS bit for bit, EM within
+    LOOP_V_ATOL at LOOP_ITERS iterations), and the counters add each
+    wrapper's launches a call once an iteration or sweep."""
+    from bammmotif2_tpu_torch.refinement import gibbs, multi
+
+    c = CHUNKED_LOOP
+    data, v0, alphas, f_bg = loop_inputs(c["N"], c["L"], c["W"], c["K"], c["M"], device=device)
+    M, K, W, N = c["M"], c["K"], c["W"], c["N"]
+    q0 = torch.full((M,), 0.9, device=device)
+    s_flat = torch.zeros((M, encode.num_rows(4, K) + 1, W), device=device)
+    per_call = {
+        "b1": launches_a_call(lambda: cuda_em.em_counts_multi(
+            s_flat, data["cidx"], data["lens"], q0), cuda_em.em_counts_multi),
+        "b2": launches_a_call(lambda: cuda_scores.window_scores_multi(
+            s_flat, data["cidx"], data["lens"]), cuda_scores.window_scores_multi),
+        "b3": launches_a_call(lambda: cuda_counts.counts_from_r_multi(
+            torch.zeros((M, *data["cidx"].shape), device=device), data["cidx"],
+            s_flat.shape[1] - 1, W), cuda_counts.counts_from_r_multi)}
+    out = {"launches_a_call": per_call}
+
+    def cgs(use):
+        gens = gibbs.chain_generators(0, range(M), device)
+        before = (cuda_scores.window_scores_multi.launches, cuda_counts.counts_from_r_multi.launches)
+        res = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas, float(N),
+                                   A=4, K=K, W=W, sample_z=True, sample_q=True, learn_alpha=True,
+                                   path="cuda", n_iters=LOOP_SWEEPS, burn_in=3, graphs=use)
+        torch.cuda.synchronize(device)
+        n = (cuda_scores.window_scores_multi.launches - before[0],
+             cuda_counts.counts_from_r_multi.launches - before[1])
+        return [*res[0], *res[1:5], *res[5]] + [g.get_state() for g in gens], n
+
+    e, _ = cgs(False)
+    g, n = cgs(True)
+    out["cgs_bit_equal"] = all(torch.equal(a, b) for a, b in zip(e, g))
+    assert out["cgs_bit_equal"]
+    assert n == (LOOP_SWEEPS * per_call["b2"], LOOP_SWEEPS * per_call["b3"]), (n, per_call)
+
+    def em(use):
+        step, inputs, key = multi.group_step(data, alphas, f_bg, N, A=4, K=K, W=W,
+                                             optimize_q=True, path="cuda")
+        before = cuda_em.em_counts_multi.launches
+        res = multi.batched_while_loop(step, v0, q0, torch.zeros((), device=device), LOOP_ITERS,
+                                       inputs=inputs, key=key, graphs=use)
+        torch.cuda.synchronize(device)
+        return res, cuda_em.em_counts_multi.launches - before
+
+    (ve, *_r, its_e, _h), _ = em(False)
+    (vg, *_r, its_g, _h), n = em(True)
+    dv = max((a - b).abs().max().item() for a, b in zip(ve, vg))
+    out["em"] = {"max_abs_dv": dv, "launches": n}
+    assert its_e.tolist() == its_g.tolist() == [LOOP_ITERS] * M
+    assert dv <= LOOP_V_ATOL, dv
+    assert n == LOOP_ITERS * per_call["b1"], (n, per_call)
     return out
 
 

@@ -110,6 +110,24 @@ def test_run_em_multi_matches_jax(planted):
         assert r.group_seconds >= r.seconds > 0
 
 
+def test_run_em_multi_33_seeds_matches_jax(planted):
+    """One group of 33 seeds, past the reference's seed-stack bound
+    (pallas_em.MAX_SEEDS = 32): the port's stacked pass splits it by its own
+    plan and ends where the JAX package's batched loop does, at a fixed
+    budget (epsilon 0), within the EM bars."""
+    sset, jbg, bg, psset = planted
+    patterns = (MOTIF, "TGASTCAG", "TGACTCAS", "KGACTCAG")
+    jms = [_seed(sset, 2, patterns[i % 4], soft=0.5 + 0.01 * i) for i in range(33)]
+    ms = [convert.motif(jm) for jm in jms]
+    params = Params(EM=True, modelOrder=2, optimizeQ=True, maxEMIterations=12, epsilon=0.0)
+    jres = jmulti.run_em_multi(jms, jbg, sset, params)
+    res = multi.run_em_multi(ms, bg, psset, convert.params(params), device="cpu")
+    assert len(res) == 33
+    for r, jr, m, jm in zip(res, jres, ms, jms):
+        assert r.iterations == 12
+        _check_result(r, jr, m, jm)
+
+
 def test_batched_loop_freezes_converged_seeds():
     """A seed whose v_diff or |dll| fell under epsilon keeps its state and
     iteration count while the others step on."""

@@ -3,12 +3,17 @@
 ``ops/cuda_flat.py``), checked on the CPU: a plan never asks for more
 shared memory than one H100 block may opt into, puts a table in shared
 memory only where it fits, and takes the global fallbacks where it must;
-the flat kernels run the combined kernels' plans.
-Also the counts wrappers' per-stream workspace.  Imports no JAX."""
+the flat kernels run the combined kernels' plans.  The seed stacks split
+into balanced chunks, with the reference's chunk arithmetic
+(``bammmotif2_tpu.refinement.multi._stacked_em_counts``, the one JAX
+import here).  Also the counts wrappers' per-stream workspace."""
 
+import numpy as np
 import pytest
 import torch
 
+from bammmotif2_tpu.ops import pallas_em as jpallas_em
+from bammmotif2_tpu.refinement import multi as jmulti
 from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, encode
 from bammmotif2_tpu_torch.tools import kernel_variants
 
@@ -16,7 +21,7 @@ SMEM_MAX = cuda_em.SMEM_MAX
 GEOMETRIES = ((2, 200), (1, 200), (2, 512), (2, 9_000))  # (S, L)
 
 
-@pytest.mark.parametrize("M", (1, 4, 10))
+@pytest.mark.parametrize("M", (1, 4, 10, 16, 33))
 @pytest.mark.parametrize("W", (8, 12, 30))
 @pytest.mark.parametrize("A", (4, 5))
 @pytest.mark.parametrize("K", range(6))
@@ -29,10 +34,14 @@ def test_em_launch_plan(K, A, W, M):
         assert plan.codes_cap % 4 == 0 and plan.codes_cap >= W
         if plan.team == 32:
             assert plan.codes_cap >= S * L  # a warp holds its whole row
-        assert 1 <= plan.seeds_per_block <= M
-        words = int(plan.smem_lut) + 1 + int(plan.fixed_counts)
-        assert plan.seeds_per_block == 1 or (
-            plan.seeds_per_block * R1 * W * 4 * words <= cuda_em.TABLES_TARGET)
+        assert plan.seeds_per_block == 1  # a seed's blocks are its own
+        assert plan == cuda_em.launch_plan(M, R1, W, S, L)  # the same plan for the same shapes
+        # one launch, or one a seed where the counts are float
+        launches = cuda_em.seed_launches(plan, M)
+        float_counts = plan.smem_counts and not plan.fixed_counts
+        assert len(launches) == (M if float_counts else min(M, 1))
+        assert [m for a, b in launches for m in range(a, b)] == list(range(M))
+
         def fits(lut, counts, fixed):
             return cuda_em.smem_bytes(cuda_em.Plan(1, lut, counts, fixed, plan.team, plan.codes_cap),
                                       R1, W) <= SMEM_MAX
@@ -50,18 +59,26 @@ def test_em_launch_plan(K, A, W, M):
             assert not plan.smem_counts
 
 
-@pytest.mark.parametrize("M", (1, 4, 10))
+@pytest.mark.parametrize("M", (1, 4, 10, 16, 33))
 @pytest.mark.parametrize("W", (8, 12, 30))
 @pytest.mark.parametrize("A", (4, 5))
 @pytest.mark.parametrize("K", range(6))
 def test_scores_launch_plan(K, A, W, M):
     R1 = encode.num_rows(A, K) + 1
     spb, smem_lut = cuda_scores.launch_plan(M, R1, W)
+    assert (spb, smem_lut) == cuda_scores.launch_plan(M, R1, W)  # deterministic
     assert cuda_scores.smem_bytes(spb, smem_lut, R1, W) <= SMEM_MAX
     assert smem_lut == (cuda_scores.smem_bytes(1, True, R1, W) <= SMEM_MAX)
     if smem_lut:
         assert 1 <= spb <= M
-        assert spb == 1 or spb * R1 * (W | 1) * 4 <= cuda_em.SMEM_TARGET
+        lut = R1 * (W | 1) * 4
+        assert spb == 1 or spb * lut <= cuda_scores.LUT_TARGET
+        # balanced: as few chunks as the cap allows, sizes within one
+        cap = max(n for n in range(1, M + 1) if n == 1 or (
+            n * lut <= cuda_scores.LUT_TARGET
+            and cuda_scores.smem_bytes(n, True, R1, W) <= SMEM_MAX))
+        chunks = -(-M // spb)  # the launcher's grid y
+        assert chunks == -(-M // cap) and spb == -(-M // chunks)
     else:  # LUT through L1: every seed shares one block's codes
         assert spb == M
     if A == 4 and K == 5 and W >= 12:
@@ -157,3 +174,53 @@ def test_counts_workspace_grows_and_keeps_retired_buffers():
     finally:
         cuda_counts._WORKSPACES.pop(key, None)
         cuda_counts._WORKSPACES.pop((dev.index, 54321), None)
+
+
+@pytest.mark.parametrize("cap", (1, 2, 3, 4, 5, 6, 8, 11, 16, 32))
+def test_seed_chunks_are_balanced(cap):
+    """M = 0..70 seeds at a cap: ceil(M / cap) consecutive chunks that cover
+    the seeds once, never above the cap, sizes differing by at most one, the
+    same split every call (the kernels' grid-y split, y * M // n); the plan
+    sweep's seeds a block give each distinct split once."""
+    for M in range(71):
+        chunks = cuda_em.seed_chunks(M, cap)
+        assert len(chunks) == -(-M // cap)
+        assert [m for a, b in chunks for m in range(a, b)] == list(range(M))
+        sizes = [b - a for a, b in chunks]
+        assert all(0 < n <= cap for n in sizes)
+        assert not sizes or max(sizes) - min(sizes) <= 1
+        assert chunks == cuda_em.seed_chunks(M, cap)
+        # the sweep's seeds a block: each distinct balanced split once
+        splits = {len(cuda_em.seed_chunks(M, c)) for c in range(1, M + 1)}
+        caps = kernel_variants.seed_caps(M)
+        assert sorted(len(cuda_em.seed_chunks(M, c)) for c in caps) == sorted(splits)
+
+
+@pytest.mark.parametrize("cap", (1, 2, 3, 4, 6, 7, 16))
+def test_seed_chunks_match_the_reference_arithmetic(cap, monkeypatch):
+    """For the same chunk cap (the reference's ``max_seeds``), the port
+    splits M = 1..70 seeds into as many chunks as
+    ``_stacked_em_counts`` (n = ceil(M / cap)) and its largest chunk is the
+    reference's chunk size, ceil(M / n); where the reference leaves a
+    short last chunk (10 at 4: 4 + 4 + 2) the port's differ by one (4 + 3
+    + 3)."""
+    calls = []
+
+    def record(s_flat, cidx, lens, q, **_kw):
+        calls.append(s_flat.shape[0])
+        return s_flat, q
+
+    # the kernel call records its stack; numpy stands in for the arrays
+    monkeypatch.setattr(jpallas_em, "max_seeds", lambda *a, **k: cap)
+    monkeypatch.setattr(jpallas_em, "em_counts_multi", record)
+    monkeypatch.setattr(jmulti.jnp, "concatenate", np.concatenate)
+    for M in range(1, 71):
+        calls.clear()
+        C, ll = jmulti._stacked_em_counts(np.arange(M)[:, None, None], np.zeros((2, 1, 4)),
+                                          np.zeros(1), np.arange(M), A=4, K=0, W=1, R=1,
+                                          interpret=True)
+        assert C.ravel().tolist() == ll.tolist() == list(range(M))
+        sizes = [b - a for a, b in cuda_em.seed_chunks(M, cap)]
+        assert sum(calls) == sum(sizes) == M
+        assert len(sizes) == len(calls), (M, sizes, calls)
+        assert max(sizes) == max(calls), (M, sizes, calls)

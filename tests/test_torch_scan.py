@@ -81,8 +81,9 @@ def test_window_scores_reject_width_beyond_length():
 def test_launch_plan():
     # config 5's K=2, W=12: 4 KB a seed, ten seeds share a block's LUTs
     assert cuda_scores.launch_plan(10, 85, 12) == (10, True)
-    # K=4 (65 KB a seed) stays in shared memory, one seed a block
-    assert cuda_scores.launch_plan(3, 1366, 12) == (1, True)
+    # K=4 (69 KB a seed) stays in shared memory, two seeds a block within
+    # LUT_TARGET: three seeds run as balanced chunks of one and two
+    assert cuda_scores.launch_plan(3, 1366, 12) == (2, True)
     # A=4, K=5 (262 KB a seed): read through the cache, all seeds one block
     assert cuda_scores.launch_plan(3, 5462, 12) == (3, False)
 
