@@ -23,3 +23,8 @@ holds it to that).
 """
 
 __version__ = "0.1.0"
+
+from bammmotif2_tpu_torch.utils.alphabet import Alphabet
+from bammmotif2_tpu_torch.utils.config import Params
+
+__all__ = ["Alphabet", "Params", "__version__"]

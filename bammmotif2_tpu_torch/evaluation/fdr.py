@@ -14,16 +14,31 @@ Port of ``bammmotif2_tpu.evaluation.fdr`` (``FDR::evaluateMotif``,
 
 Folds are masks, not subsets: the set is tensorized once, and a fold's
 training rows keep their place while the held-out rows get length 0 (the EM
-loop corrects for them through ``n_real``).  The held-out rows are gathered
-by index for scoring.  The reference fused the fold loop of a seed group
-into one device program to save TPU dispatches; here it is a plain Python
-loop whose refinement loops replay one captured CUDA graph per (W, K)
-group across the folds (``refinement.graphs``).  Every fold runs the seed-stacked EM loop (``refinement.multi``) or
-the stacked CGS chains (``refinement.gibbs``) for all seeds of a (W, K,
-f_bg) group, then scores the held-out positives and the fold's negatives
-with one window-score launch each, and the MOPS sweep sorts and ranks on
-the device.  A CGS chain is seeded from the seed's input index
-(``gibbs.chain_seed``), the same in every fold.
+loop corrects for them through ``n_real``).
+
+``evaluate_motifs`` runs each (W, K, f_bg) seed group as one program, the
+counterpart of the reference's ``_group_fdr_program``: every fold table is
+built on the host and moved to the device once (``_prepare_group``); each
+fold then refines all seeds of the group (the seed-stacked EM loop of
+``refinement.multi`` or the stacked CGS chains of ``refinement.gibbs``, each
+one captured CUDA graph replayed across the folds) and runs the fold tail:
+``log_odds_lut``, one window-score launch over the held-out rows gathered
+through a -1-padded index, the fold's negatives sampled from its own
+background tables by a generator seeded ``--seed + fold``, encoded and
+scored in one more launch, the ZOOPS maxima and MOPS pools into device
+buffers.  On the card the tail is captured once per group and replayed for
+each fold (``refinement.graphs``).  After the folds the per-seed MOPS rank
+sweeps run on the pooled buffers, and one fetch brings back the maxima, the
+iteration counts and the thinned ranks.  No host read falls between the
+folds but the EM loop's one stop-flag read per ``multi.SYNC_EVERY``
+iterations: a CGS group reads nothing from its first fold to its fetch.
+
+``evaluate_motif`` (one seed) and the program's plain version
+(``evaluate_motifs(..., program=False)``) run the fold loop
+``_evaluate_group_loop``: per fold, host-built masks and row indices, a
+background fit and a sampler call, and a read of each fold's maxima.  A CGS
+chain is seeded from the seed's input index (``gibbs.chain_seed``), the
+same in every fold.
 
 Outputs ``.zoops.stats`` / ``.mops.stats`` TSVs.
 """
@@ -44,7 +59,9 @@ from bammmotif2_tpu_torch.evaluation import prcurve
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
+from bammmotif2_tpu_torch.ops import encode
 from bammmotif2_tpu_torch.refinement import gibbs
+from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, run_em
 from bammmotif2_tpu_torch.refinement.multi import batched_while_loop, group_step
 from bammmotif2_tpu_torch.scoring.scan import empirical_pvalues, score_fn
@@ -113,21 +130,25 @@ def evaluate_motifs(
     neg_set: SequenceSet | None = None,
     device=None,
     graphs: bool = True,
+    program: bool = True,
 ) -> list:
     """k-fold CV FDR analysis for a whole MotifSet, seeds of equal
     (W, K, alphabet, f_bg) evaluated as one stacked group.
 
     Semantically ``[evaluate_motif(m, ..., index=i) for i, m in
     enumerate(seed_motifs)]`` (same folds, same per-fold negatives, same CGS
-    chains, same statistics), with one refinement loop and one scoring
-    launch per fold for the whole group.  Falls back to the per-seed path
-    when cvFold < 2 or the set has fewer rows than folds.
+    chains, same statistics), each group one program
+    (``_evaluate_group_program``): one refinement loop and one fold tail per
+    fold for the whole group, one fetch at the end.  Falls back to the
+    per-seed path when cvFold < 2 or the set has fewer rows than folds.
 
     ``refine``: 'EM', 'CGS', or 'none' or any other string (score the seeds
     as-is); None derives it from ``params`` ('CGS' under params.CGS, else
     'EM').  ``device``: None runs on the current CUDA device; pass "cpu" for
-    the CPU.  ``graphs``: False runs the refinement loops eagerly on a CUDA
-    device too.
+    the CPU.  ``graphs``: False runs the refinement loops and the fold tail
+    eagerly on a CUDA device too.  ``program``: False runs each group
+    through the fold loop ``_evaluate_group_loop`` instead, the program's
+    plain version, which gives the same results (tests and chip_smoke.py).
     """
     device = resolve(device)
     params, refine = _resolve(params, refine)
@@ -145,9 +166,14 @@ def evaluate_motifs(
         ).append(i)
     for idxs in groups.values():
         group = [seed_motifs[i] for i in idxs]
-        for i, res in zip(idxs, _evaluate_group(group, idxs, bg, sset, params, refine, neg_set,
-                                                device, stacked=True, graphs=graphs)):
-            results[i] = res
+        if program:
+            res = _evaluate_group_program(group, idxs, bg, sset, params, refine, neg_set, device,
+                                          graphs=graphs)
+        else:
+            res = _evaluate_group_loop(group, idxs, bg, sset, params, refine, neg_set, device,
+                                       stacked=True, graphs=graphs)
+        for i, r in zip(idxs, res):
+            results[i] = r
     return results
 
 
@@ -181,20 +207,22 @@ def evaluate_motif(
         sweep = prcurve.threshold_sweep(empty, empty, max(params.mFold, 1))
         return FDRResult(zoops=sweep, mops=dict(sweep), pos_pvalues=empty,
                          m_fold=params.mFold)
-    return _evaluate_group([seed_motif], [index], bg, sset, params, refine, neg_set, device,
-                           stacked=False, graphs=graphs)[0]
+    return _evaluate_group_loop([seed_motif], [index], bg, sset, params, refine, neg_set,
+                                device, stacked=False, graphs=graphs)[0]
 
 
 def _score_rows(s_flat, cidx, lens, rows, path) -> tuple:
     """Score rows of a [S, N, L] code tensor for all M seeds in one launch.
 
-    ``rows``: index tensor of the rows to score, or None for all.  Returns
-    (ZOOPS maxima [M, n], MOPS pool [M, S*n*n_win] with NEG_INF on invalid
-    windows, as the scorer writes them).
+    ``rows``: index tensor of the rows to score, -1 for none (a row of
+    length 0, all NEG_INF: the reference's ``gather_rows``), or None for
+    all.  Returns (ZOOPS maxima [M, n], MOPS pool [M, S*n*n_win] with
+    NEG_INF on invalid windows, as the scorer writes them).
     """
     if rows is not None:
-        cidx = cidx.index_select(1, rows)
-        lens = lens.index_select(0, rows)
+        safe = rows.clamp(min=0)
+        cidx = cidx.index_select(1, safe)
+        lens = torch.where(rows >= 0, lens.index_select(0, safe), 0)
     sc, _mk = score_fn(path)(s_flat, cidx, lens)
     return sc.amax(dim=(1, 3)), sc.reshape(sc.shape[0], -1)
 
@@ -216,10 +244,11 @@ def _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train, params, path
     return tuple(torch.as_tensor(vk, dtype=torch.float32, device=dev)[None] for vk in m.v)
 
 
-def _evaluate_group(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
-                    params: Params, refine: str, neg_set: SequenceSet | None, device, *,
-                    stacked: bool, graphs: bool = True) -> list:
-    """The fold loop for one (W, K, f_bg) seed group.
+def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+                         params: Params, refine: str, neg_set: SequenceSet | None, device, *,
+                         stacked: bool, graphs: bool = True) -> list:
+    """The fold loop for one (W, K, f_bg) seed group: the per-seed path
+    (one seed), and the plain version of ``_evaluate_group_program``.
 
     ``indices``: the seeds' input indices (their CGS chains' seeds).
     ``stacked``: refine all seeds in one batched EM loop or one set of
@@ -342,6 +371,296 @@ def _evaluate_group(group: list, indices: list, bg: BackgroundModel, sset: Seque
             pos_pvalues=empirical_pvalues(pz, nz),
             m_fold=params.mFold,
             fold_iterations=[its[i] for its in fold_its],
+        ))
+    for r in results:
+        r.group_seconds = time.perf_counter() - t0
+    return results
+
+
+def fold_backgrounds(sset: SequenceSet, fold_of: np.ndarray, F: int, order: int, alpha: float,
+                     ss: bool) -> tuple:
+    """The order-``order`` background fits to each fold's training rows,
+    stacked: per order o, float32 [F, A^(o+1)] conditionals, row f equal to
+    ``BackgroundModel.from_sequence_set(sset.subset(rows not in fold f))``'s
+    (the reference fits them on the host too, ``_evaluate_group``).  One
+    k-mer index of the set, one count of it, and per fold the held-out
+    rows' counts taken off: integer counts, so each fit is exactly the
+    per-fold one."""
+    A = sset.alphabet.size
+    n_idx = encode.num_rows(A, order) + 1
+    idx = BackgroundModel.kmer_index(sset, order, ss)  # [S, N, L]
+    total = np.bincount(idx.ravel(), minlength=n_idx)
+    tables = tuple(np.zeros((F, A ** (o + 1)), np.float32) for o in range(order + 1))
+    for f in range(F):
+        held = np.bincount(idx[:, fold_of == f].ravel(), minlength=n_idx)
+        fit = BackgroundModel.from_kmer_counts(total - held, order, alpha, sset.alphabet)
+        for o, t in enumerate(tables):
+            t[f] = np.asarray(fit.v[o], np.float32).ravel()
+    return tables
+
+
+@dataclasses.dataclass
+class _Group:
+    """One group's program inputs, made once before its folds."""
+
+    A: int
+    K: int
+    W: int
+    M: int
+    F: int
+    S: int
+    path: str
+    data: dict           # prepare_data of the positives
+    v0: tuple            # [M, ...] per order
+    q0: torch.Tensor
+    alphas: torch.Tensor
+    f_bg: torch.Tensor
+    eps: torch.Tensor
+    train_lens: torch.Tensor  # [F, N] int32: each fold's lengths, held-out rows 0
+    n_train: list        # each fold's training rows
+    fold_sizes: np.ndarray  # [F] held-out rows
+    inputs: dict         # the fold tail's device tables (``_tail``)
+    sampled: bool        # negatives sampled (else --negSeqFile's)
+    neg_pad_len: int     # sampled negatives' padded length
+    s_order: int
+    neg_keep: list       # [F] negative rows of each fold kept in the ZOOPS sweep
+    n_pos_true: int      # valid positive / negative windows of all folds
+    n_neg_true: int
+    m_fold_eff: float    # FP normalisation
+    rows_thin: torch.Tensor  # the MOPS sweep's thinned ranks, int64 on the device
+
+
+def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: Params,
+                   neg_set: SequenceSet | None, device) -> _Group:
+    """Every fold table of a group, built on the host and moved to the
+    device once (the reference's ``_evaluate_group``, fdr.py:424-523):
+    held-out rows [F, n_per] padded with -1, training lengths [F, N], and
+    with sampled negatives the per-fold background tables [F, A^(o+1)] per
+    order, the negatives' lengths [F, n_neg] (mFold copies of the fold's,
+    zero-padded to mFold x the largest fold) and the rows kept in the ZOOPS
+    sweep (those of nonzero length: a zero-length positive tiles into
+    interior zero-length negatives); with --negSeqFile the negatives' rows
+    [F, ceil(Nn / F)] padded with -1."""
+    A, K, W = group[0].A, group[0].K, group[0].W
+    M, F, S, N = len(group), params.cvFold, 1 if params.ss else 2, sset.n
+    lens_np = np.asarray(sset.lens, np.int32)
+    fold_of = np.arange(N) % F
+    fold_sizes = np.bincount(fold_of, minlength=F)
+    data = prepare_data(sset, bg, K, params.ss, device)
+    dev = data["cidx"].device
+
+    def put(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    rows = np.full((F, int(fold_sizes.max())), -1, np.int64)
+    train_lens = np.zeros((F, N), np.int32)
+    for f in range(F):
+        held = np.nonzero(fold_of == f)[0]
+        rows[f, : held.size] = held
+        train_lens[f] = np.where(fold_of != f, lens_np, 0)
+    inputs = {"cidx": data["cidx"], "lens": data["lens"], "bg_flat": data["bg_flat"],
+              "rows": put(rows)}
+
+    def windows(lens):
+        return S * int(np.maximum(np.asarray(lens, np.int64) - W + 1, 0).sum())
+
+    sampled = neg_set is None
+    if sampled:
+        n_neg = int(fold_sizes.max()) * max(params.mFold, 1)
+        neg_lens = np.zeros((F, n_neg), np.int32)
+        for f in range(F):
+            rep = np.tile(lens_np[fold_of == f], params.mFold)
+            neg_lens[f, : rep.size] = rep
+        trans = fold_backgrounds(sset, fold_of, F, params.sOrder, params.bgModelAlpha, params.ss)
+        inputs.update({f"trans{o}": put(t) for o, t in enumerate(trans)})
+        inputs.update(neg_lens=put(neg_lens), comp=put(encode.comp_table(sset.alphabet)))
+        neg_keep = [np.nonzero(neg_lens[f] > 0)[0] for f in range(F)]
+        n_neg_true = windows(neg_lens)
+        neg_pad_len = int(lens_np.max()) if lens_np.size else 0
+        m_fold_eff = max(params.mFold, 1)
+    else:
+        neg_data = prepare_data(neg_set, bg, K, params.ss, device)
+        neg_fold_of = np.arange(neg_set.n) % F
+        neg_rows = np.full((F, -(-neg_set.n // F)), -1, np.int64)
+        neg_keep = []
+        for f in range(F):
+            held = np.nonzero(neg_fold_of == f)[0]
+            neg_rows[f, : held.size] = held
+            neg_keep.append(np.arange(held.size))
+        inputs.update(neg_cidx=neg_data["cidx"], neg_row_lens=neg_data["lens"],
+                      neg_rows=put(neg_rows))
+        n_neg_true = windows(neg_set.lens)
+        neg_pad_len = 0
+        m_fold_eff = neg_set.n / max(N, 1)
+    n_pos_true = windows(lens_np)
+    return _Group(
+        A=A, K=K, W=W, M=M, F=F, S=S, path=choose_path(params, dev), data=data,
+        v0=tuple(put(np.stack([m.v[k] for m in group]), torch.float32) for k in range(K + 1)),
+        q0=torch.full((M,), params.q, dtype=torch.float32, device=dev),
+        alphas=put(np.stack([m.alphas for m in group]), torch.float32),
+        f_bg=put(group[0].f_bg, torch.float32), eps=put(params.epsilon, torch.float32),
+        train_lens=put(train_lens), n_train=[int(N - n) for n in fold_sizes],
+        fold_sizes=fold_sizes, inputs=inputs, sampled=sampled, neg_pad_len=neg_pad_len,
+        s_order=params.sOrder, neg_keep=neg_keep, n_pos_true=n_pos_true, n_neg_true=n_neg_true,
+        m_fold_eff=m_fold_eff,
+        rows_thin=put(prcurve.thin_rows(n_pos_true + n_neg_true, MAX_STATS_ROWS)),
+    )
+
+
+def _negatives(g: _Group, inputs: dict, fold: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Fold ``fold`` ([1] int64 on the device)'s sampled negatives, cidx
+    [S, n_neg, L]: ``seqgen.sample_encode`` from its background tables and
+    lengths.  With ``gen`` seeded ``--seed + fold`` they are
+    ``seqgen.generate_neg_data``'s of the fold, bit for bit."""
+    trans = tuple(inputs[f"trans{o}"].index_select(0, fold)[0] for o in range(g.s_order + 1))
+    return seqgen.sample_encode(gen, trans, inputs["neg_lens"].index_select(0, fold)[0],
+                                inputs["comp"], L=g.neg_pad_len, s_order=g.s_order, A=g.A,
+                                K=g.K, ss=g.S == 1)
+
+
+def _tail(g: _Group, seed: int, graphs: bool) -> graphs_mod.Loop:
+    """The fold tail as a ``graphs.Loop`` whose one step is one fold: state
+    ``v`` (the fold's refined model) and ``fold`` ([1] int64), outputs the
+    fold's ZOOPS maxima and MOPS pools (``pos_z``, ``pos_m``, ``neg_z``,
+    ``neg_m``).  ``_run_tail`` runs it."""
+    inputs = dict(g.inputs)
+    dev = g.data["cidx"].device
+    n_per = int(inputs["rows"].shape[1])
+    n_win = int(g.data["cidx"].shape[2]) - g.W + 1
+    if g.sampled:
+        n_neg, n_win_neg = int(inputs["neg_lens"].shape[1]), g.neg_pad_len - g.W + 1
+    else:
+        n_neg = int(inputs["neg_rows"].shape[1])
+        n_win_neg = int(inputs["neg_cidx"].shape[2]) - g.W + 1
+
+    def make(*shape):
+        return lambda: torch.empty(shape, dtype=torch.float32, device=dev)
+
+    outputs = {"pos_z": make(g.M, n_per), "pos_m": make(g.M, g.S * n_per * n_win),
+               "neg_z": make(g.M, n_neg), "neg_m": make(g.M, g.S * n_neg * n_win_neg)}
+    state = {"v": tuple(vk.clone() for vk in g.v0),
+             "fold": torch.zeros((1,), dtype=torch.int64, device=dev)}
+
+    def body(s, gens):
+        fold = s["fold"]
+        s_flat = log_odds_lut(s["v"], inputs["bg_flat"]).contiguous()  # [M, R+1, W]
+        pz, pm = _score_rows(s_flat, inputs["cidx"], inputs["lens"],
+                             inputs["rows"].index_select(0, fold)[0], g.path)
+        if g.sampled:
+            nz, nm = _score_rows(s_flat, _negatives(g, inputs, fold, gens[0]),
+                                 inputs["neg_lens"].index_select(0, fold)[0], None, g.path)
+        else:
+            nz, nm = _score_rows(s_flat, inputs["neg_cidx"], inputs["neg_row_lens"],
+                                 inputs["neg_rows"].index_select(0, fold)[0], g.path)
+        for k, x in (("pos_z", pz), ("pos_m", pm), ("neg_z", nz), ("neg_m", nm)):
+            s[k].copy_(x)
+
+    gens = [torch.Generator(device=dev).manual_seed(seed)] if g.sampled else []
+    key = ("fold_tail", g.path, g.A, g.K, g.W, g.S, g.sampled, g.neg_pad_len, g.s_order)
+    return graphs_mod.Loop("FDR fold tail", key, state, inputs, body, gens=gens,
+                           outputs=outputs, graphs=graphs)
+
+
+def _run_tail(tail: graphs_mod.Loop, v: tuple, fold: int, seed: int) -> None:
+    """One fold's tail: its model and index into the static state, its
+    negatives' generator seeded ``seed + fold``, one step (a replay)."""
+    for a, b in zip(tail.state["v"], v):
+        a.copy_(b)
+    tail.state["fold"].fill_(fold)
+    for gen in tail.gens:
+        gen.manual_seed(seed + fold)
+    tail.run(1)
+
+
+def _mops_ranks(pos_pool: torch.Tensor, neg_pool: torch.Tensor, rows_thin: torch.Tensor,
+                n_neg_true: int) -> list:
+    """Each seed's MOPS rank sweep on its fold-pooled rows (the reference's
+    ``lax.map`` of ``prcurve.thinned_rank_rows``), stacked: (score, tp, fp,
+    lo, hi), each [M, n_rows]."""
+    per_seed = [prcurve.thinned_rank_rows(p, n, rows_thin, n_neg_true)
+                for p, n in zip(pos_pool, neg_pool)]
+    return [torch.stack(x) for x in zip(*per_seed)]
+
+
+def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+               params: Params, refine: str, graphs: bool) -> list:
+    """The folds and the MOPS sweeps, all on the device: [pos_z [F, M,
+    n_per], neg_z [F, M, n_neg], iterations [F, M] int32, the five rank
+    rows of ``_mops_ranks``].  Reads nothing from the device but the EM
+    loop's stop flag (one read per ``multi.SYNC_EVERY`` iterations)."""
+    M, F, dev = g.M, g.F, g.q0.device
+    its0 = params.maxCGSIterations if refine == "CGS" else 0
+    iters = torch.full((F, M), its0, dtype=torch.int32, device=dev)
+    with _tail(g, params.seed, graphs) as tail:
+        # the folds' outputs: ZOOPS maxima [F, M, n], MOPS pools [M, F, X]
+        # (fold-major: each seed's pool is one [F * X] row)
+        maxima = {k: tail.state[k].new_empty((F, *tail.state[k].shape))
+                  for k in ("pos_z", "neg_z")}
+        pools = {k: tail.state[k].new_empty((M, F, tail.state[k].shape[1]))
+                 for k in ("pos_m", "neg_m")}
+        for f in range(F):
+            v = g.v0
+            if refine in ("EM", "CGS"):
+                tdata = {**g.data, "lens": g.train_lens[f]}
+                if refine == "CGS":
+                    v = _cgs_fold(group, indices, g.v0, g.q0, g.alphas, g.f_bg, tdata,
+                                  g.n_train[f], params, g.path, True, bg, sset, graphs)
+                else:
+                    step, inputs, key = group_step(tdata, g.alphas, g.f_bg, g.n_train[f],
+                                                   A=g.A, K=g.K, W=g.W,
+                                                   optimize_q=params.optimizeQ, path=g.path)
+                    v, _q, _lls, _vds, its, _h = batched_while_loop(
+                        step, g.v0, g.q0, g.eps, params.maxEMIterations, inputs=inputs, key=key,
+                        graphs=graphs)
+                    iters[f].copy_(its)
+            _run_tail(tail, v, f, params.seed)
+            for k, x in maxima.items():
+                x[f].copy_(tail.state[k])
+            for k, x in pools.items():
+                x[:, f].copy_(tail.state[k])
+    ranks = _mops_ranks(pools["pos_m"].reshape(M, -1), pools["neg_m"].reshape(M, -1),
+                        g.rows_thin, g.n_neg_true)
+    return [maxima["pos_z"], maxima["neg_z"], iters, *ranks]
+
+
+def _fetch(tensors: list) -> list:
+    """One device-to-host copy of 4-byte tensors (float32, int32): numpy
+    arrays of their dtypes and shapes."""
+    flat = torch.cat([t.reshape(-1).view(torch.int32) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        dtype = np.float32 if t.dtype == torch.float32 else np.int32
+        out.append(flat[at : at + n].view(dtype).reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
+def _evaluate_group_program(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+                            params: Params, refine: str, neg_set: SequenceSet | None, device, *,
+                            graphs: bool = True) -> list:
+    """One (W, K, f_bg) group as one program (the reference's
+    ``_group_fdr_program`` and ``_evaluate_group``): ``_prepare_group``,
+    ``_run_folds``, one ``_fetch``, then the host sweeps.  Needs cvFold >= 2
+    and at least cvFold rows.  ``indices``: the seeds' input indices (their
+    CGS chains' seeds).  Its results equal ``_evaluate_group_loop``'s
+    (stacked): the MOPS pools hold NEG_INF for a smaller fold's pad rows,
+    which the rank sweep counts as it counts invalid windows."""
+    t0 = time.perf_counter()
+    g = _prepare_group(group, bg, sset, params, neg_set, device)
+    pos_z, neg_z, iters, *ranks = _fetch(
+        _run_folds(g, group, indices, bg, sset, params, refine, graphs))
+    results = []
+    for m in range(g.M):
+        pz = np.concatenate([pos_z[f, m, : g.fold_sizes[f]] for f in range(g.F)])
+        nz = np.concatenate([neg_z[f, m, g.neg_keep[f]] for f in range(g.F)])
+        results.append(FDRResult(
+            zoops=prcurve.threshold_sweep(pz, nz, g.m_fold_eff),
+            mops=prcurve.sweep_from_ranks(*(r[m] for r in ranks), g.m_fold_eff, g.n_pos_true,
+                                          g.n_neg_true),
+            pos_pvalues=empirical_pvalues(pz, nz),
+            m_fold=params.mFold,
+            fold_iterations=[int(x) for x in iters[:, m]],
         ))
     for r in results:
         r.group_seconds = time.perf_counter() - t0

@@ -41,7 +41,9 @@ def _sample_markov_batch(gen: torch.Generator, trans: tuple, lens: torch.Tensor,
     trans[m]: [A^(m+1)] conditional probs (flat, lexicographic) for order m,
     on the device of ``lens``.  The first s_order positions use the
     lower-order conditionals with a growing context; the rest use the
-    order-s_order table.  Positions at or past a row's length are PAD.
+    order-s_order table.  Positions at or past a row's length are PAD.  No
+    host sync and no host-to-device copy, so a CUDA graph can capture it
+    (the FDR group program's fold tail does).
     """
     N = lens.shape[0]
     dev = lens.device
@@ -58,7 +60,7 @@ def _sample_markov_batch(gen: torch.Generator, trans: tuple, lens: torch.Tensor,
         elif s_order > 0:
             ctx = (ctx % (A ** (s_order - 1))) * A + c  # drop the oldest base
     t_idx = torch.arange(L, device=dev)[None, :]
-    return torch.where(t_idx < lens[:, None], codes, torch.tensor(PAD, dtype=torch.int8, device=dev))
+    return codes.masked_fill_(t_idx >= lens[:, None], PAD)
 
 
 def _neg_lengths(lens: np.ndarray, m_fold: int, n_pad: int | None,
@@ -113,18 +115,28 @@ def generate_neg_set(
     return SequenceSet(codes=codes, lens=lens_rep, headers=headers, alphabet=bg_fit.alphabet)
 
 
-def _sample_encode(bg_fit: BackgroundModel, lens_rep: np.ndarray, L: int, seed: int, *,
-                   K: int, ss: bool, device) -> torch.Tensor:
+def sample_encode(gen: torch.Generator, trans: tuple, lens: torch.Tensor, comp: torch.Tensor, *,
+                  L: int, s_order: int, A: int, K: int, ss: bool) -> torch.Tensor:
     """Markov sampling + reverse complement + k-mer encoding, on the device
-    (no host round trip between the stages)."""
-    codes = _sample(bg_fit, lens_rep, L, seed, device)
+    of ``lens`` (the reference's ``seqgen._sample_encode``): cidx [S, N, L]
+    int32.  ``trans`` as ``_sample_markov_batch`` takes it, ``comp`` the
+    complement table (``encode.comp_table``) on that device.  Capturable as
+    ``_sample_markov_batch`` is."""
+    codes = _sample_markov_batch(gen, trans, lens, L=L, s_order=s_order, A=A)
     strands = [codes]
     if not ss:
-        comp = torch.as_tensor(encode.comp_table(bg_fit.alphabet), device=codes.device)
-        lens_t = torch.as_tensor(lens_rep, device=codes.device)
-        strands.append(encode.revcomp_codes_device(codes, lens_t, comp))
-    A = bg_fit.alphabet.size
+        strands.append(encode.revcomp_codes_device(codes, lens, comp))
     return torch.stack([encode.combined_kmer_index(c, A, K) for c in strands])
+
+
+def _sample_encode(bg_fit: BackgroundModel, lens_rep: np.ndarray, L: int, seed: int, *,
+                   K: int, ss: bool, device) -> torch.Tensor:
+    """``sample_encode`` from a background fit, host lengths and a seed."""
+    device = torch.device(device)
+    trans = tuple(torch.as_tensor(v, dtype=torch.float32, device=device) for v in bg_fit.v)
+    comp = torch.as_tensor(encode.comp_table(bg_fit.alphabet), device=device)
+    return sample_encode(_generator(seed, device), trans, torch.as_tensor(lens_rep, device=device),
+                         comp, L=L, s_order=bg_fit.order, A=bg_fit.alphabet.size, K=K, ss=ss)
 
 
 def generate_neg_data(

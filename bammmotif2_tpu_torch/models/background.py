@@ -50,8 +50,17 @@ class BackgroundModel:
         sset: SequenceSet, order: int = 2, alpha: float = 10.0, ss: bool = False
     ) -> "BackgroundModel":
         """Count k-mers over the set (both strands unless ss) and estimate v."""
+        R = encode.num_rows(sset.alphabet.size, order)
+        C = np.bincount(BackgroundModel.kmer_index(sset, order, ss).ravel(), minlength=R + 1)
+        return BackgroundModel.from_kmer_counts(C, order, alpha, sset.alphabet)
+
+    @staticmethod
+    def kmer_index(sset: SequenceSet, order: int, ss: bool) -> np.ndarray:
+        """The combined k-mer index of every position, [S, N, L] (strands:
+        the set, then its reverse complement unless ss); positions past a
+        row's end or ambiguous hold the sentinel R.  Rows are independent,
+        so the counts of a subset are those of its rows here."""
         A = sset.alphabet.size
-        R = encode.num_rows(A, order)
         strands = [np.asarray(sset.codes)]
         if not ss:
             strands.append(
@@ -59,14 +68,18 @@ class BackgroundModel:
                     sset.codes, sset.lens, encode.comp_table(sset.alphabet)
                 )
             )
-        flat = np.concatenate([
-            encode.combined_kmer_index_np(c, A, order).ravel()
-            for c in strands
-        ])
-        C = np.bincount(flat, minlength=R + 1).astype(np.float64)[:R]
+        return np.stack([encode.combined_kmer_index_np(c, A, order) for c in strands])
+
+    @staticmethod
+    def from_kmer_counts(C: np.ndarray, order: int, alpha: float,
+                         alphabet: Alphabet) -> "BackgroundModel":
+        """The model of integer counts C [R + 1] of the combined k-mer index
+        (the sentinel's last)."""
+        A = alphabet.size
+        C = np.asarray(C).astype(np.float64)[: encode.num_rows(A, order)]
         counts = _per_order_counts(C, A, order)
         v = _interpolated_v(counts, A, order, alpha)
-        return BackgroundModel(order, alpha, v, counts=counts, alphabet=sset.alphabet)
+        return BackgroundModel(order, alpha, v, counts=counts, alphabet=alphabet)
 
     def full_probs(self) -> list:
         """p^(k)(y): joint probability of each (k+1)-mer (for .hbp)."""

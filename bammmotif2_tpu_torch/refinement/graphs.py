@@ -23,6 +23,11 @@ runs it:
     eagerly on the caller's tensors, so the CPU tests cover the code that
     the graph captures.
 
+A body need not be a loop's: the FDR group program
+(``evaluation/fdr.py::_tail``) runs its fold tail as one step a fold, the
+fold's index and model copied into the state between steps, its outputs
+(``outputs``) made once per capture.
+
 The rule (``enabled``): graphs iff the device is CUDA and there is no mesh
 or the mesh's data group runs NCCL, whose in-place all-reduce joins the
 graph.  A gloo group stages CUDA tensors through host memory
@@ -135,6 +140,11 @@ def _where(err: BaseException) -> str:
     return f"{f.filename}:{f.lineno} ({f.line})"
 
 
+def _with_outputs(state: dict, outputs: dict) -> dict:
+    """``state`` itself, or with ``outputs`` made beside it."""
+    return {**state, **{k: make() for k, make in outputs.items()}} if outputs else state
+
+
 class _Captured:
     """A cached loop: static state and inputs, registered generators and the
     graph of one iteration, with the launches one iteration makes."""
@@ -161,6 +171,12 @@ class Loop:
     tensors' shapes and dtypes it decides which captured graph a call
     reuses.
 
+    ``outputs``: name -> a function of no arguments making a state tensor
+    that the body writes whole before it reads it (a fold's scores, where
+    the body is not a loop but a step run once per fold): it is made where
+    no captured loop of the key has it, and never copied in, so its shape
+    must follow from ``key`` and the other tensors' shapes.
+
     After construction read the state from ``.state`` (the static buffers
     when graphed: copy out what must outlive the next loop of the same key)
     and call ``run(n)`` for n iterations.  A captured graph keeps the
@@ -170,24 +186,28 @@ class Loop:
     """
 
     def __init__(self, name: str, key, state: dict, inputs: dict, body, *, gens=(),
-                 mesh=None, graphs: bool = True):
+                 outputs=None, mesh=None, graphs: bool = True):
         self.name, self._body = name, body
         self.device = next(_tensors(state)).device
         self._caller_gens = list(gens)
         self._entry = None
+        outputs = outputs or {}
         self.state, self.gens = state, self._caller_gens
         if not (graphs and enabled(self.device, mesh)):
+            self.state = _with_outputs(state, outputs)
             return
         self._key = (name, key, str(self.device), _signature(state), _signature(inputs),
-                     len(self._caller_gens), None if mesh is None else id(mesh))
+                     tuple(sorted(outputs)), len(self._caller_gens),
+                     None if mesh is None else id(mesh))
         entry = _CACHE.get(self._key)
         if entry is None:
-            entry = _Captured(name, state, {k: t.clone() for k, t in inputs.items()},
-                              self._caller_gens, mesh)
+            entry = _Captured(name, _with_outputs(state, outputs),
+                              {k: t.clone() for k, t in inputs.items()}, self._caller_gens,
+                              mesh)
         else:
             _CACHE.move_to_end(self._key)
             entry.calls += 1
-            for k, t in state.items():
+            for k, t in state.items():  # the outputs are not in it
                 _copy_into(entry.state[k], t)
             for k, t in inputs.items():
                 entry.inputs[k].copy_(t)

@@ -1,7 +1,7 @@
 """A/B between two checkouts on one GPU, in interleaved processes, with rank
 tests.
 
-    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,flat,kernels,loops} BASE_DIR CHANGE_DIR [--rounds N]
+    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,fdr,flat,kernels,loops} BASE_DIR CHANGE_DIR [--rounds N]
         [--M 1 4 10 16]
 
 Each directory is the root of a checkout holding ``chip_smoke.py``.  Every
@@ -48,6 +48,14 @@ measures, through that checkout's code:
   (and on homopolymer rows at M=1), the window-score cases config 5's at
   each M and the counts cases bench's 0/1 r at each M (fractional r at M=1
   and 10 as without it).
+
+``fdr``: config 4's EM-FDR and CGS-FDR seconds per (W, K) group through
+  the CLI, as ``kernels`` measures them (a fresh process: each group's
+  graphs are captured in its run), and each engine's groups through
+  ``evaluation.fdr.evaluate_motifs`` called twice in the process, the second
+  call's seconds (``warm_fdr_seconds_W.._K..``, ``warm_cgs_fdr_...``:
+  its graphs replayed from the first call's captures); the problem is
+  ``fdr_split.problem``'s (``tools/fdr_split.py``, loaded by path).
 
 ``loops``: the EM and CGS loops run eagerly (in BASE_DIR's processes) against
   the same loops as replayed CUDA graphs (in CHANGE_DIR's; pass one checkout
@@ -271,20 +279,57 @@ def measure_flat(chip_smoke, dev, inputs) -> tuple:
     return measure_cases(chip_smoke, dev, inputs, full=("",))
 
 
-def measure_kernels(chip_smoke, dev, inputs) -> tuple:
-    metrics, extra = measure_cases(chip_smoke, dev, inputs)
-    with tempfile.TemporaryDirectory() as tmp:
-        metrics["em_iters_per_s"] = chip_smoke.time_em(dev, tmp)["em_iters_per_s_cuda"]
-        fasta, meme = chip_smoke.config4_problem(tmp)
-        run = chip_smoke.run_cli(os.path.join(tmp, "c4"), fasta, meme, C4_ARGS, dev)
-        cgs = chip_smoke.run_cli(os.path.join(tmp, "c4_cgs"), fasta, meme, C4_CGS_ARGS, dev)
-        _s, fasta5, meme5, *_ = chip_smoke.planted_problem(tmp, chip_smoke.C5_SEQS, "c5")
-        scan = chip_smoke.run_cli(os.path.join(tmp, "c5"), fasta5, meme5, C5_ARGS, dev)
+def config4_fdr(chip_smoke, dev, tmp: str) -> tuple:
+    """Config 4's EM-FDR and CGS-FDR seconds per (W, K) group through the
+    CLI (``C4_ARGS``, ``C4_CGS_ARGS``), and the EM run's metrics events."""
+    fasta, meme = chip_smoke.config4_problem(tmp)
+    run = chip_smoke.run_cli(os.path.join(tmp, "c4"), fasta, meme, C4_ARGS, dev)
+    cgs = chip_smoke.run_cli(os.path.join(tmp, "c4_cgs"), fasta, meme, C4_CGS_ARGS, dev)
+    metrics = {}
     for e in run["events"]["fdr_done"]:
         metrics[f"config4_fdr_seconds_W{e['W']}_K{e['K']}"] = e["group_seconds"]
     for e in cgs["events"]["fdr_done"]:
         metrics[f"config4_cgs_fdr_seconds_W{e['W']}_K{e['K']}"] = e["group_seconds"]
     metrics["config4_cli_seconds"] = run["seconds"]
+    return metrics, run
+
+
+def measure_fdr(chip_smoke, dev, _inputs) -> tuple:
+    """``config4_fdr``, then each engine's groups again through
+    ``evaluate_motifs`` in this process, twice: the second call's seconds a
+    group (``warm_...``: its graphs captured by the first).  The problem
+    comes from this tool's ``fdr_split.problem``, loaded by path, on the
+    checkout's package."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "ab_fdr_split", os.path.join(os.path.dirname(os.path.abspath(__file__)), "fdr_split.py"))
+    fdr_split = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fdr_split)
+    from bammmotif2_tpu_torch.evaluation import fdr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics, run = config4_fdr(chip_smoke, dev, tmp)
+        for refine, tag in (("EM", "warm_fdr"), ("CGS", "warm_cgs_fdr")):
+            seeds, bg, pos, params = fdr_split.problem(chip_smoke, tmp, refine, None)
+            for _ in range(2):
+                res = fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=dev)
+                torch.cuda.synchronize()
+            for m, r in zip(seeds, res):
+                metrics[f"{tag}_seconds_W{m.W}_K{m.K}"] = r.group_seconds
+    return metrics, {"config4_em_iterations": [e["iterations"] for e in run["events"]["em_done"]]}
+
+
+def measure_kernels(chip_smoke, dev, inputs) -> tuple:
+    metrics, extra = measure_cases(chip_smoke, dev, inputs)
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics["em_iters_per_s"] = chip_smoke.time_em(dev, tmp)["em_iters_per_s_cuda"]
+        c4, run = config4_fdr(chip_smoke, dev, tmp)
+        metrics.update(c4)
+        _s, fasta5, meme5, *_ = chip_smoke.planted_problem(tmp, chip_smoke.C5_SEQS, "c5")
+        scan = chip_smoke.run_cli(os.path.join(tmp, "c5"), fasta5, meme5, C5_ARGS, dev)
     ev = scan["events"]["scan_done"][0]
     metrics["config5_scan_windows_per_s"] = ev["windows"] * (1 + chip_smoke.C5_MFOLD) / ev["seconds"]
     return metrics, {**extra,
@@ -374,8 +419,8 @@ def measure_loops(chip_smoke, dev, _inputs, graphed: bool, first: str, Ms=None) 
     return metrics, {"graphed": graphed, "first_use": fu}
 
 
-MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "flat": measure_flat,
-            "kernels": measure_kernels, "loops": measure_loops}
+MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "fdr": measure_fdr,
+            "flat": measure_flat, "kernels": measure_kernels, "loops": measure_loops}
 
 
 def one(measure: str, root: str, inputs: str, graphed: bool = True,
@@ -467,7 +512,7 @@ def main(argv=None) -> int:
     trees = {"base": args.base, "change": args.change}
     procs = []
     with tempfile.TemporaryDirectory() as inputs:
-        if args.measure not in ("cgs", "loops"):
+        if args.measure not in ("cgs", "fdr", "loops"):
             make_inputs(inputs, args.measure, args.M)
         seeds = ("--M", *map(str, args.M)) if args.M else ()
         for rnd in range(args.rounds):

@@ -75,6 +75,15 @@ Phases (any failure exits non-zero):
                - config 4 with --CGS --FDR (per-fold CGS) compared at
                  --maxCGSIterations 20, then through the kernels at the
                  default 100: AvRec ZOOPS >= 0.25 for the planted seeds;
+               - config 4's EM-FDR and CGS-FDR through evaluate_motifs
+                 (fdr_program_slice): the FDR group program, graphed,
+                 against its plain version, the fold loop: FDRResults
+                 equal and .stats files equal byte for byte, one fold-tail
+                 capture a (W, K) group replayed for its other folds, the
+                 CGS run's folds and sweeps under
+                 torch.cuda.set_sync_debug_mode("error") (no host sync
+                 from the first fold to the fetch), B2 and B1 or B3
+                 launched;
                - the flat-layout entry points (ops/cuda_flat.py, the port of
                  tools/pallas_flat.py) on the planted 10k x 200 bp set at
                  K=2: FLAT_ITERS EM iterations through flat em_counts, then
@@ -136,7 +145,11 @@ Phases (any failure exits non-zero):
                slices' CLI runs, and the first-use cost of --CGS in fresh
                processes (kernel path first, plain path first); config 5's
                end-to-end scan windows/s and config 4's EM-FDR and CGS-FDR
-               seconds per (W, K) group.
+               seconds per (W, K) group; and the W=10 group of config 4
+               through the FDR group program split by stage
+               (time_fdr_group, tools/fdr_split.py: group seconds,
+               refinement, fold tail, background fits, sweeps, fetch,
+               other host, the device's idle share).
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; the last line is {"ok": true, "device": {...}}.
 Imports no JAX.
@@ -746,6 +759,88 @@ def cgs_slices(device, tmp) -> dict:
     return {"cgs_10k": main, "examples_em_cgs": em_cgs, "config4_cgs": c4}
 
 
+def fdr_program_slice(device, tmp) -> dict:
+    """Config 4's EM-FDR and CGS-FDR through evaluate_motifs, all ten seeds
+    (three (W, K) groups): the group program, graphed, against its plain
+    version, the fold loop (``program=False``), on the same inputs.  Their
+    FDRResults are equal and their .stats files byte for byte; each group
+    captured its fold tail once and replayed it for its other folds; the
+    CGS run's folds and sweeps (``fdr._run_folds``) ran under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync between its
+    first fold and its fetch fails it; B2 and B1 (EM) or B3 (CGS) launched
+    in the program's run."""
+    import torch
+
+    from bammmotif2_tpu_torch.evaluation import fdr
+    from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
+    from bammmotif2_tpu_torch.tools import fdr_split
+
+    out = {}
+    for refine in ("EM", "CGS"):
+        seeds, bg, pos, params = fdr_split.problem(sys.modules[__name__], tmp, refine, None)
+        run_folds = fdr._run_folds
+
+        def no_sync(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run_folds(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        graphs_mod.clear()
+        reset_launches()
+        if refine == "CGS":
+            fdr._run_folds = no_sync
+        try:
+            t0 = time.perf_counter()
+            prog = fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=device)
+            secs = time.perf_counter() - t0
+        finally:
+            fdr._run_folds = run_folds
+        n, caps = launches(), graphs_mod.stats()
+        t0 = time.perf_counter()
+        loop = fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=device,
+                                   program=False)
+        loop_secs = time.perf_counter() - t0
+        same = all(
+            a.fold_iterations == b.fold_iterations
+            and np.array_equal(a.pos_pvalues, b.pos_pvalues)
+            and all(np.array_equal(a.zoops[k], b.zoops[k]) and np.array_equal(a.mops[k], b.mops[k])
+                    for k in a.zoops)
+            for a, b in zip(prog, loop, strict=True))
+        dirs = [os.path.join(tmp, f"fdr_program_{refine}_{t}") for t in ("program", "loop")]
+        for d, res in zip(dirs, (prog, loop)):
+            for m, r in zip(seeds, res):
+                r.write(d, f"c4_{m.name}")
+        tails = [c for c in caps if c["name"] == "FDR fold tail"]
+        n_groups = len({m.W for m in seeds})
+        kernels = ("window_scores", "em_counts" if refine == "EM" else "counts_from_r")
+        entry = {
+            "results_equal": same,
+            "files_equal": files_equal(*dirs),
+            "fold_tail_captures": tails,
+            "groups": n_groups,
+            "launches": n,
+            "group_seconds_program": {f"W{m.W}": r.group_seconds for m, r in zip(seeds, prog)},
+            "group_seconds_loop": {f"W{m.W}": r.group_seconds for m, r in zip(seeds, loop)},
+            "evaluate_seconds_program": secs,
+            "evaluate_seconds_loop": loop_secs,
+            "fold_iterations": [r.fold_iterations for r in prog],
+        }
+        log(f"slice fdr_program {refine} (config 4, 10 seeds): " + json.dumps(entry))
+        if not (same and entry["files_equal"]):
+            raise AssertionError(f"fdr_program {refine}: the program's results differ from the "
+                                 f"fold loop's (results {same}, files {entry['files_equal']})")
+        if len(tails) != n_groups or any(c["calls"] != 1 or c["replays"] != params.cvFold - 1
+                                         for c in tails):
+            raise AssertionError(f"fdr_program {refine}: fold-tail captures {tails}, "
+                                 f"{n_groups} groups of {params.cvFold} folds")
+        if not all(n[k] for k in kernels):
+            raise AssertionError(f"fdr_program {refine}: a kernel did not launch: {n}")
+        out[refine] = entry
+    return out
+
+
 def flat_slice(device, tmp) -> dict:
     """The flat-layout entry points (ops/cuda_flat.py, the port of
     tools/pallas_flat.py) at bench's geometry, K=2: FLAT_ITERS ZOOPS EM
@@ -861,6 +956,9 @@ def phase_slice(device, tmp) -> dict:
     cgs = cgs_slices(device, tmp)
     secs["cgs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    fdr_program = fdr_program_slice(device, tmp)
+    secs["fdr_program"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     flat = flat_slice(device, tmp)
     secs["flat"] = time.perf_counter() - t0
     log("slice seconds: " + json.dumps(secs))
@@ -869,7 +967,7 @@ def phase_slice(device, tmp) -> dict:
                          "window_scores": c5["launches"]["window_scores"],
                          "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
                          **flat["launches"]},
-            "config5": c5, "config4": c4, "cgs": cgs, "flat": flat}
+            "config5": c5, "config4": c4, "cgs": cgs, "fdr_program": fdr_program, "flat": flat}
 
 
 PARALLEL_SWEEPS = 20  # CGS sweeps of the parallel phase
@@ -1637,10 +1735,27 @@ def time_loops(device, tmp, slices: dict) -> dict:
     return out
 
 
+def time_fdr_group(device, tmp) -> dict:
+    """Config 4's (W=10, K=2) group through the group program, EM-FDR and
+    CGS-FDR: its seconds and where they go (tools/fdr_split.py: plain runs'
+    group seconds, the stages' seconds, the device's idle share under
+    torch.profiler)."""
+    from bammmotif2_tpu_torch.evaluation import fdr
+    from bammmotif2_tpu_torch.tools import fdr_split
+
+    out = {}
+    for refine in ("EM", "CGS"):
+        seeds, bg, pos, params = fdr_split.problem(sys.modules[__name__], tmp, refine, 10)
+        out[refine] = fdr_split.split(fdr, "bammmotif2_tpu_torch", seeds, bg, pos, params, runs=3)
+    out["gpu"] = nvidia_smi()
+    log("timing FDR group program (config 4, W=10, K=2; tools/fdr_split.py): " + json.dumps(out))
+    return out
+
+
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
            "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
-           "loops": time_loops(device, tmp, slices)}
+           "loops": time_loops(device, tmp, slices), "fdr_group": time_fdr_group(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
     e2e = {
         "config5_scan_windows_per_s_kernel": c5["scan_windows_per_s_kernel"],

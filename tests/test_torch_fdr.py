@@ -19,6 +19,8 @@ from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.evaluation import fdr, prcurve
+from bammmotif2_tpu_torch.generator import seqgen
+from bammmotif2_tpu_torch.models.background import BackgroundModel as PBackgroundModel
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.utils.config import Params as PParams
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet as PSequenceSet
@@ -198,9 +200,9 @@ def test_group_matches_per_seed(fdr_data, negatives):
     assert all(it > 0 for it in new[0].fold_iterations)
 
 
-def test_group_matches_per_seed_short_and_empty_rows():
-    """Zero-length rows and rows shorter than W: fold masks, window
-    frontiers and the negatives chosen by index agree between the paths."""
+def _short_and_empty_rows():
+    """(JAX set, port background, port K=1 seeds, port set): 40 rows of 4-50
+    bp, two of them empty, so folds of 14, 13 and 13 rows."""
     rng = np.random.default_rng(9)
     N, L = 40, 50
     codes = np.full((N, L), -2, np.int8)
@@ -211,9 +213,15 @@ def test_group_matches_per_seed_short_and_empty_rows():
     sset = SequenceSet(codes=codes, lens=lens, headers=[f"s{i}" for i in range(N)],
                        alphabet=Alphabet.standard())
     bg = convert.background(jbackground.BackgroundModel.from_sequence_set(sset, order=1))
+    seeds = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG"), K=1)]
+    return sset, bg, seeds, convert.sequence_set(sset)
+
+
+def test_group_matches_per_seed_short_and_empty_rows():
+    """Zero-length rows and rows shorter than W: fold masks, window
+    frontiers and the negatives chosen by index agree between the paths."""
+    _sset, bg, ms, psset = _short_and_empty_rows()
     params = PParams(FDR=True, cvFold=3, mFold=2, q=0.5, sOrder=1, maxEMIterations=6, ss=True)
-    ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF,), K=1)]
-    psset = convert.sequence_set(sset)
     ref = [fdr.evaluate_motif(ms[0].copy(), bg, psset, params, device="cpu")]
     new = fdr.evaluate_motifs([ms[0].copy()], bg, psset, params, device="cpu")
     _assert_same(ref, new)
@@ -294,3 +302,125 @@ def test_cvfold1_and_empty_set(fdr_data):
     assert res[0].zoops["score"].size == psset.n * 3 and res[0].fold_iterations == [0]
     empty = fdr.evaluate_motif(m, bg, PSequenceSet.from_sequences([]), PParams(FDR=True, cvFold=3), device="cpu")
     assert empty.pos_pvalues.size == 0 and empty.zoops["score"].size == 0
+
+
+# the group program against its plain version, the fold loop: (engine,
+# negatives, set, Params fields); "planted" is fdr_data's 90 rows, cut into
+# 4 folds of 23, 23, 22 and 22 rows, "short" _short_and_empty_rows's
+PROGRAM_CASES = {
+    "em_sampled": ("EM", "sampled", "planted", dict(maxEMIterations=12)),
+    "em_user": ("EM", "user", "planted", dict(maxEMIterations=12)),
+    "em_ss_sampled": ("EM", "sampled", "planted", dict(maxEMIterations=12, ss=True)),
+    "cgs_deterministic_user": ("CGS", "user", "planted",
+                               dict(maxCGSIterations=5, noZSampling=True, noQSampling=True)),
+    "cgs_deterministic_sampled": ("CGS", "sampled", "planted",
+                                  dict(maxCGSIterations=5, noZSampling=True, noQSampling=True)),
+    "cgs_sampled": ("CGS", "sampled", "planted", dict(maxCGSIterations=5)),
+    "cgs_burn_in_user": ("CGS", "user", "planted", dict(maxCGSIterations=5, cgsBurnIn=2)),
+    "none_sampled": ("none", "sampled", "planted", {}),
+    "none_user": ("none", "user", "planted", {}),
+    "em_short_sampled": ("EM", "sampled", "short", dict(maxEMIterations=6, ss=True, sOrder=1)),
+    "em_short_user": ("EM", "user", "short", dict(maxEMIterations=6, sOrder=1)),
+    "cgs_short_sampled": ("CGS", "sampled", "short", dict(maxCGSIterations=4, sOrder=1)),
+}
+
+
+def _program_inputs(fdr_data, negatives, which):
+    """(seeds, port background, port set, user negatives or None, cvFold)."""
+    sset, _neg, _jbg, bg, psset, pneg = fdr_data
+    if which == "short":
+        _s, bg, ms, psset = _short_and_empty_rows()
+        return ms, bg, psset, pneg if negatives == "user" else None, 3
+    ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
+    return ms, bg, psset, pneg if negatives == "user" else None, 4
+
+
+def _assert_equal_results(a, b, tmp_path):
+    """FDRResults equal array for array, and their written files byte for byte."""
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.m_fold == y.m_fold and x.fold_iterations == y.fold_iterations, i
+        np.testing.assert_array_equal(x.pos_pvalues, y.pos_pvalues)
+        for k in SWEEP_KEYS:
+            np.testing.assert_array_equal(x.zoops[k], y.zoops[k], err_msg=f"zoops {k} seed {i}")
+            np.testing.assert_array_equal(x.mops[k], y.mops[k], err_msg=f"mops {k} seed {i}")
+        for pa, pb in zip(x.write(str(tmp_path / "a"), f"s{i}"), y.write(str(tmp_path / "b"), f"s{i}")):
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                assert fa.read() == fb.read(), pa
+
+
+@pytest.mark.parametrize("case", sorted(PROGRAM_CASES))
+def test_program_matches_fold_loop(fdr_data, tmp_path, case):
+    """evaluate_motifs' group program and its plain version, the fold loop,
+    give equal results and files: the same scores, negatives, iterations
+    and sweeps (a smaller fold's pad rows only add NEG_INF to the MOPS
+    pools, which the rank sweep counts as invalid windows)."""
+    refine, negatives, which, fields = PROGRAM_CASES[case]
+    ms, bg, psset, neg_set, cv = _program_inputs(fdr_data, negatives, which)
+    params = PParams(FDR=True, cvFold=cv, mFold=2, q=0.5, **fields)
+    program = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, refine=refine,
+                                  neg_set=neg_set, device="cpu")
+    loop = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, refine=refine,
+                               neg_set=neg_set, device="cpu", program=False)
+    _assert_equal_results(program, loop, tmp_path)
+    if refine == "EM":
+        assert all(it > 0 for it in program[0].fold_iterations)
+
+
+@pytest.mark.parametrize("which,order,ss", [("planted", 2, False), ("planted", 0, True),
+                                            ("short", 1, False), ("short", 3, True)])
+def test_fold_backgrounds_match_per_fold_fits(fdr_data, which, order, ss):
+    """The program's stacked background tables are the fold loop's fits to
+    each fold's training rows, bit for bit (float32)."""
+    _ms, _bg, psset, _neg, F = _program_inputs(fdr_data, "sampled", which)
+    fold_of = np.arange(psset.n) % F
+    tables = fdr.fold_backgrounds(psset, fold_of, F, order, 10.0, ss)
+    assert [t.shape for t in tables] == [(F, 4 ** (o + 1)) for o in range(order + 1)]
+    for f in range(F):
+        fit = PBackgroundModel.from_sequence_set(psset.subset(np.nonzero(fold_of != f)[0]),
+                                                 order=order, alpha=10.0, ss=ss)
+        for o in range(order + 1):
+            np.testing.assert_array_equal(tables[o][f], np.asarray(fit.v[o], np.float32).ravel())
+
+
+@pytest.mark.parametrize("which,ss", [("planted", False), ("short", True)])
+def test_fold_negatives_match_generate_neg_data(fdr_data, which, ss):
+    """The fold tail's negatives, drawn from the stacked tables by a
+    generator seeded --seed + fold, are generate_neg_data's for that fold's
+    fit and lengths, bit for bit."""
+    ms, bg, psset, _neg, F = _program_inputs(fdr_data, "sampled", which)
+    params = PParams(FDR=True, cvFold=F, mFold=3, sOrder=2, ss=ss, seed=11)
+    g = fdr._prepare_group(ms, bg, psset, params, None, "cpu")
+    fold_of = np.arange(psset.n) % F
+    lens = np.asarray(psset.lens, np.int32)
+    for f in range(F):
+        fit = PBackgroundModel.from_sequence_set(psset.subset(np.nonzero(fold_of != f)[0]),
+                                                 order=2, alpha=params.bgModelAlpha, ss=ss)
+        ref, ref_lens = seqgen.generate_neg_data(
+            fit, lens[fold_of == f], m_fold=3, seed=params.seed + f, K=ms[0].K, ss=ss,
+            n_pad=g.inputs["neg_lens"].shape[1], pad_len=g.neg_pad_len, device="cpu")
+        gen = torch.Generator().manual_seed(params.seed + f)
+        got = fdr._negatives(g, g.inputs, torch.tensor([f]), gen)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), f
+        np.testing.assert_array_equal(g.inputs["neg_lens"][f].numpy(), ref_lens)
+        np.testing.assert_array_equal(g.neg_keep[f], np.nonzero(ref_lens > 0)[0])
+
+
+@pytest.mark.parametrize("refine", ["none", "EM"])
+def test_program_matches_jax_unequal_folds(fdr_data, refine):
+    """The group program against the JAX package's evaluate_motifs on folds
+    of unequal size (90 rows in 4) with user negatives, single-stranded:
+    .stats scores within 1e-4 and AvRec within 1e-3, the bars of
+    test_fdr_em_matches_jax."""
+    sset, neg, jbg, bg, psset, pneg = fdr_data
+    params = Params(FDR=True, cvFold=4, q=0.5, ss=True, maxEMIterations=40, epsilon=1e-2)
+    jms = _jseeds(sset)
+    jres = jfdr.evaluate_motifs(jms, jbg, sset, params, refine=refine, neg_set=neg)
+    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
+                              refine=refine, neg_set=pneg, device="cpu")
+    for i, (r, jr) in enumerate(zip(res, jres)):
+        for tag in ("zoops", "mops"):
+            a, b = getattr(r, tag), getattr(jr, tag)
+            assert a["score"].shape == b["score"].shape
+            np.testing.assert_allclose(a["score"], b["score"], atol=1e-4, err_msg=f"{tag} seed {i}")
+            assert prcurve.average_recall(a) == pytest.approx(jprcurve.average_recall(b), abs=1e-3)

@@ -318,3 +318,24 @@ def test_cpu_loop_runs_the_body_eagerly_on_its_state():
         ref.add_(torch.full((2,), 2.0) + torch.rand(2, generator=g))
     assert torch.equal(state["q"], ref) and torch.equal(gens[0].get_state(), g.get_state())
     assert state["v"][0].tolist() == [8.0] * 3 and len(graphs.stats()) == before
+
+
+def test_cpu_loop_makes_its_outputs():
+    """A step's outputs (the FDR fold tail's) are made beside the state,
+    fresh each loop on the CPU, and the body writes them; without outputs
+    the state is the caller's dict."""
+    state = {"x": torch.arange(3.0)}
+    made = []
+
+    def make():
+        made.append(torch.empty(3))
+        return made[-1]
+
+    def body(s, _g):
+        s["y"].copy_(s["x"] * 2)
+
+    for n in (1, 2):
+        loop = graphs.Loop("test step", ("k",), dict(state), {}, body, outputs={"y": make})
+        loop.run(1)
+        assert len(made) == n and loop.state["y"] is made[-1]
+        assert loop.state["y"].tolist() == [0.0, 2.0, 4.0] and loop.state["x"] is state["x"]
