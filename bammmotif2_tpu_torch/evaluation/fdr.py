@@ -30,8 +30,9 @@ buffers.  On the card the tail is captured once per group and replayed for
 each fold (``refinement.graphs``).  After the folds the per-seed MOPS rank
 sweeps run on the pooled buffers, and one fetch brings back the maxima, the
 iteration counts and the thinned ranks.  No host read falls between the
-folds but the EM loop's one stop-flag read per ``multi.SYNC_EVERY``
-iterations: a CGS group reads nothing from its first fold to its fetch.
+first fold and the fetch: each fold's EM loop is one launch of its loop
+graph, which tests the stop on the device, as a CGS fold's sweeps are
+replays.
 
 ``evaluate_motif`` (one seed) and the program's plain version
 (``evaluate_motifs(..., program=False)``) run the fold loop
@@ -318,6 +319,7 @@ def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: 
                     step, v0, q0, eps, params.maxEMIterations, inputs=inputs, key=key,
                     graphs=graphs)
                 its = [int(x) for x in its_t.cpu()]
+                graphs_mod.settle()
             else:
                 m = group[0].copy()
                 r = run_em(m, bg, sset, params, data=tdata, n_real=n_train, device=dev,
@@ -586,8 +588,7 @@ def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset:
                params: Params, refine: str, graphs: bool) -> list:
     """The folds and the MOPS sweeps, all on the device: [pos_z [F, M,
     n_per], neg_z [F, M, n_neg], iterations [F, M] int32, the five rank
-    rows of ``_mops_ranks``].  Reads nothing from the device but the EM
-    loop's stop flag (one read per ``multi.SYNC_EVERY`` iterations)."""
+    rows of ``_mops_ranks``].  Reads nothing from the device."""
     M, F, dev = g.M, g.F, g.q0.device
     its0 = params.maxCGSIterations if refine == "CGS" else 0
     iters = torch.full((F, M), its0, dtype=torch.int32, device=dev)
@@ -625,8 +626,10 @@ def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset:
 
 def _fetch(tensors: list) -> list:
     """One device-to-host copy of 4-byte tensors (float32, int32): numpy
-    arrays of their dtypes and shapes."""
+    arrays of their dtypes and shapes.  Settles the loops' launch counters
+    (``graphs.settle``)."""
     flat = torch.cat([t.reshape(-1).view(torch.int32) for t in tensors]).cpu().numpy()
+    graphs_mod.settle()
     out, at = [], 0
     for t in tensors:
         n = t.numel()

@@ -42,15 +42,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def digest(name: str) -> str:
+    """The hash that names ``csrc/<name>.cu``'s library: of the flags, the
+    source and the shared headers."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:12]
+
+
 def library_path(name: str) -> str:
     """Build ``csrc/<name>.cu`` if its library is missing; return its path."""
     src = os.path.join(CSRC, f"{name}.cu")
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    digest = h.hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest(name)}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -14,9 +14,11 @@ Two data paths produce the same counts and likelihood:
     (``--no-pallas``).
 
 The convergence loop is ``refinement.multi.batched_while_loop`` with one
-seed: on the card a replayed CUDA graph of the iteration, with one host read
-of the stop flag per ``multi.SYNC_EVERY`` iterations (``--verbose`` prints,
-so reads, every iteration).
+seed: on the card one launch of a CUDA graph whose WHILE node repeats the
+captured iteration until the stop test fails, with no host read until the
+results are read (``--verbose`` prints, so reads, every iteration; with a
+mesh the host reads the stop flag once per ``multi.SYNC_EVERY``
+iterations).
 
 With a mesh (``parallel.mesh``) the rows shard over the data axis: each
 rank runs the data pass on its block, and one all-reduce an iteration sums
@@ -176,9 +178,10 @@ def em_optimize(
     """The EM convergence loop: stop when v_diff < eps or |dll| < eps
     (EM::optimize), capped at ``max_iters``.  The comparison is in float32
     on the device, as in the JAX loop.  ``refinement.multi.
-    batched_while_loop`` runs ``em_step`` with one seed: one host read per
-    ``multi.SYNC_EVERY`` iterations, a replayed CUDA graph on the card
-    (``graphs``: False runs it eagerly).
+    batched_while_loop`` runs ``em_step`` with one seed: on the card one
+    launch of its loop graph, which tests the stop on the device (with a
+    mesh, or ``graphs`` False, the host reads the stop flag once per
+    ``multi.SYNC_EVERY`` iterations).
 
     ``ll0``: the likelihood the first iteration's dll compares against
     (-inf for a fresh run; the previous chunk's ll under --checkpointEvery).
@@ -201,7 +204,9 @@ def em_optimize(
         step, tuple(vk[None] for vk in v), q.reshape(1), epsilon, max_iters,
         inputs=inputs, key=key, ll0=ll0.reshape(1), mesh=mesh, graphs=graphs,
     )
-    return tuple(vk[0] for vk in v), q[0], lls[0], vds[0], int(its[0])
+    its = int(its[0])
+    graphs_mod.settle()
+    return tuple(vk[0] for vk in v), q[0], lls[0], vds[0], its
 
 
 def choose_path(params: Params, device) -> str:

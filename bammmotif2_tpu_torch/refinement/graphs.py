@@ -23,6 +23,17 @@ runs it:
     eagerly on the caller's tensors, so the CPU tests cover the code that
     the graph captures.
 
+A loop whose state holds the reference's stop test (``until``: EM's
+convergence loop) runs on the device to its end, as ``lax.while_loop``
+does, where ``device_loop`` allows it: the iteration is captured as above,
+without the test, and wrapped in a CUDA graph WHILE node
+(``ops.cuda_while.WhileGraph``) whose body ends with the test's kernel,
+which sets the node's condition.  One launch runs every iteration, and the
+host reads nothing until the caller reads the results.  Elsewhere (the
+eager loop, a mesh) the test runs after each iteration as the body's last
+step, and the caller reads the flag between chunks of iterations
+(``run``).
+
 A body need not be a loop's: the FDR group program
 (``evaluation/fdr.py::_tail``) runs its fold tail as one step a fold, the
 fold's index and model copied into the state between steps, its outputs
@@ -33,11 +44,15 @@ or the mesh's data group runs NCCL, whose in-place all-reduce joins the
 graph.  A gloo group stages CUDA tensors through host memory
 (``parallel.mesh.all_reduce``) and cannot be captured.  The rule is chosen
 before any capture; a capture that fails raises ``CaptureError`` naming the
-loop and the operation, and nothing runs the eager loop instead.
+loop and the operation, and nothing runs the eager loop instead.  So does a
+loop graph that cannot be built (``device_loop`` chose it): nothing goes
+back to the chunked loop.
 
 Launch counters (``ops.cuda_*``'s ``.launches``) count launches: the
 wrappers add one when the body is captured, which launches nothing, so the
-capture's additions are taken back and added once per replay.
+capture's additions are taken back and added once per replay.  A device
+loop's iteration count stays on the device: ``settle`` adds its launches
+where the caller reads the loop's results.
 """
 
 from __future__ import annotations
@@ -54,6 +69,8 @@ CACHE_SIZE = 8  # captured loops kept (each holds its static buffers and graph p
 # key -> _Captured, least recently used first
 _CACHE: collections.OrderedDict = collections.OrderedDict()
 _STREAMS: dict = {}  # device index -> the capture stream
+# id -> _Captured: device loops launched since the last ``settle``
+_UNSETTLED: dict = {}
 
 
 class CaptureError(RuntimeError):
@@ -73,13 +90,41 @@ def enabled(device, mesh=None) -> bool:
     return dist.get_backend(mesh.data_group) == "nccl"
 
 
+def device_loop(device, mesh=None, n_gens: int = 0) -> bool:
+    """Whether a loop that holds its stop test (``Loop``'s ``until``) runs
+    to its end on the device as one WHILE-node graph: it is graphed
+    (``enabled``), has no mesh and registers no generators (a replay
+    advances a generator's offsets from the host, which a body looped on
+    the device never gets)."""
+    return mesh is None and n_gens == 0 and enabled(device)
+
+
 def counted() -> tuple:
     """The kernel wrappers whose ``.launches`` count launches."""
-    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while
 
     return (cuda_em.em_counts_multi, cuda_scores.window_scores_multi,
             cuda_counts.counts_from_r_multi, cuda_flat.em_counts, cuda_flat.window_scores,
-            cuda_flat.counts_from_r)
+            cuda_flat.counts_from_r, cuda_while.condition)
+
+
+def settle() -> None:
+    """Add the iterations that device loops ran since the last call to the
+    launch counters (each wrapper's launches an iteration, and the stop
+    test's kernel once) and to their loops' replays: one host read a loop.
+    Call it where the loops' results are read."""
+    if not _UNSETTLED:
+        return
+    from bammmotif2_tpu_torch.ops import cuda_while
+
+    for entry in _UNSETTLED.values():
+        total = int(entry.count.item())
+        n, entry.settled = total - entry.settled, total
+        entry.replays += n
+        for fn, d in entry.per_iteration.items():
+            fn.launches += d * n
+        cuda_while.condition.launches += n
+    _UNSETTLED.clear()
 
 
 def clear() -> None:
@@ -89,9 +134,16 @@ def clear() -> None:
 
 def stats() -> list:
     """One dict a cached loop: its name, capture ms, calls (the capture's
-    and later hits) and replays."""
-    return [{"name": c.name, "capture_ms": c.capture_ms, "calls": c.calls,
-             "replays": c.replays} for c in _CACHE.values()]
+    and later hits) and replays (a device loop's settled iterations); a
+    device loop's also its loop graph's launches and its captured body's
+    node types."""
+    out = []
+    for c in _CACHE.values():
+        d = {"name": c.name, "capture_ms": c.capture_ms, "calls": c.calls, "replays": c.replays}
+        if c.while_graph is not None:
+            d.update(while_launches=c.while_graph.launches, body_nodes=c.body_nodes)
+        out.append(d)
+    return out
 
 
 def split(data: dict) -> tuple:
@@ -152,7 +204,13 @@ class _Captured:
     def __init__(self, name, state, inputs, gens, mesh):
         self.name, self.state, self.inputs, self.gens = name, state, inputs, gens
         self.mesh = mesh  # pinned: the key holds its id
-        self.graph = None
+        self.graph = None  # a device loop's keeps the body's memory pool
+        self.while_graph = None  # a device loop's ops.cuda_while.WhileGraph
+        self.body_nodes: dict = {}
+        # a device loop's iterations, summed over its launches on the device,
+        # and the part of them that ``settle`` has counted
+        self.count = None
+        self.settled = 0
         self.per_iteration: dict = {}
         self.capture_ms = 0.0
         self.calls = 1
@@ -177,33 +235,49 @@ class Loop:
     no captured loop of the key has it, and never copied in, so its shape
     must follow from ``key`` and the other tensors' shapes.
 
+    ``until``: the names of the state's (running, its, vds, cap, eps):
+    the loop holds the reference's stop test, ``running = max(its) < cap &
+    max(vds) >= eps``, which runs after each iteration of the body.  Where
+    ``device_loop`` allows (``on_device``), ``run_while`` runs the loop to
+    its end on the device; elsewhere ``run(n)`` runs n iterations and the
+    caller reads ``running``.  A loop with generators that asks for it
+    raises CaptureError.
+
     After construction read the state from ``.state`` (the static buffers
     when graphed: copy out what must outlive the next loop of the same key)
-    and call ``run(n)`` for n iterations.  A captured graph keeps the
-    generators of the call that captured it; a later call of its key lends
-    them its generators' state, and used as a context manager the loop
-    hands that state back advanced as an eager loop leaves it.
+    and call ``run(n)`` for n iterations, or ``run_while()``.  A captured
+    graph keeps the generators of the call that captured it; a later call
+    of its key lends them its generators' state, and used as a context
+    manager the loop hands that state back advanced as an eager loop
+    leaves it.
     """
 
     def __init__(self, name: str, key, state: dict, inputs: dict, body, *, gens=(),
-                 outputs=None, mesh=None, graphs: bool = True):
-        self.name, self._body = name, body
+                 outputs=None, mesh=None, graphs: bool = True, until=None):
+        if until is not None and gens:
+            raise CaptureError(f"the {name} registers generators, so it cannot run on the "
+                               f"device to its end: a replay advances their offsets from the host")
+        self.name, self._body, self._until = name, body, until
         self.device = next(_tensors(state)).device
         self._caller_gens = list(gens)
         self._entry = None
+        self.on_device = False
         outputs = outputs or {}
         self.state, self.gens = state, self._caller_gens
         if not (graphs and enabled(self.device, mesh)):
             self.state = _with_outputs(state, outputs)
             return
+        self.on_device = until is not None and device_loop(self.device, mesh, len(gens))
         self._key = (name, key, str(self.device), _signature(state), _signature(inputs),
                      tuple(sorted(outputs)), len(self._caller_gens),
-                     None if mesh is None else id(mesh))
+                     None if mesh is None else id(mesh), self.on_device)
         entry = _CACHE.get(self._key)
         if entry is None:
             entry = _Captured(name, _with_outputs(state, outputs),
                               {k: t.clone() for k, t in inputs.items()}, self._caller_gens,
                               mesh)
+            if self.on_device:
+                entry.count = torch.zeros((), dtype=torch.int64, device=self.device)
         else:
             _CACHE.move_to_end(self._key)
             entry.calls += 1
@@ -228,15 +302,30 @@ class Loop:
             if cached is not g:
                 g.set_state(cached.get_state())
 
+    def _test(self, state: dict) -> tuple:
+        """The stop test's tensors in ``state``: (running, its, vds, cap, eps)."""
+        return tuple(state[k] for k in self._until)
+
+    def _step(self, state: dict, gens) -> None:
+        """One iteration and, with ``until``, the stop test's plain version."""
+        self._body(state, gens)
+        if self._until is not None:
+            from bammmotif2_tpu_torch.ops.cuda_while import condition_ref
+
+            running, *args = self._test(state)
+            running.copy_(condition_ref(*args))
+
     def run(self, n: int) -> None:
         """n iterations: eager, or graphed (a new key's first iteration runs
         eagerly and is then captured; the rest replay)."""
+        if self.on_device:
+            raise RuntimeError(f"the {self.name} runs on the device: call run_while")
         if n <= 0:
             return
         entry = self._entry
         if entry is None:
             for _ in range(n):
-                self._body(self.state, self.gens)
+                self._step(self.state, self.gens)
             return
         if entry.graph is None:
             self._warm_up_and_capture(entry)
@@ -247,6 +336,19 @@ class Loop:
         for fn, d in entry.per_iteration.items():
             fn.launches += d * n
 
+    def run_while(self) -> None:
+        """The loop to its end in one launch of its loop graph (``on_device``):
+        a new key's first iteration runs eagerly, with the stop test's
+        kernel, and is then captured and wrapped; the loop graph runs the
+        rest.  Reads nothing on the host; ``settle`` counts the launches."""
+        if not self.on_device:
+            raise RuntimeError(f"the {self.name} does not run on the device: call run(n)")
+        entry = self._entry
+        if entry.while_graph is None:
+            self._warm_up_and_capture(entry)
+        entry.while_graph.launch()
+        _UNSETTLED[id(entry)] = entry
+
     def _warm_up_and_capture(self, entry: _Captured) -> None:
         stream = _STREAMS.get(self.device.index)
         if stream is None:
@@ -255,16 +357,23 @@ class Loop:
         stream.wait_stream(current)
         fns = counted()
         failed = None
+        # a device loop's captured body leaves the test to the loop graph
+        captured = self._body if self.on_device else self._step
         with torch.cuda.stream(stream):
-            self._body(entry.state, entry.gens)  # a real iteration, counted
+            captured(entry.state, entry.gens)  # a real iteration, counted
+            if self.on_device:
+                from bammmotif2_tpu_torch.ops import cuda_while
+
+                running, *args = self._test(entry.state)
+                cuda_while.condition(*args, running)
             before = [fn.launches for fn in fns]
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=self.on_device)
             for g in entry.gens:
                 graph.register_generator_state(g)
             t0 = time.perf_counter()
             graph.capture_begin()
             try:
-                self._body(entry.state, entry.gens)
+                captured(entry.state, entry.gens)
             except RuntimeError as err:
                 failed = err
             finally:
@@ -282,7 +391,24 @@ class Loop:
         if failed is not None:
             raise CaptureError(f"CUDA graph capture of the {self.name} failed at "
                                f"{_where(failed)}: {failed}") from failed
+        if self.on_device:
+            self._wrap(entry, graph)
         entry.graph = graph
         _CACHE[self._key] = entry
         while len(_CACHE) > CACHE_SIZE:
             _CACHE.popitem(last=False)
+
+    def _wrap(self, entry: _Captured, graph) -> None:
+        """Build ``entry``'s loop graph around the captured body ``graph``."""
+        from bammmotif2_tpu_torch.ops import cuda_while
+
+        t0 = time.perf_counter()
+        try:
+            body = int(graph.raw_cuda_graph())
+            entry.body_nodes = cuda_while.node_types(body)
+            running, *args = self._test(entry.state)
+            entry.while_graph = cuda_while.WhileGraph(body, *args, running, entry.count)
+        except (RuntimeError, OSError, TypeError) as err:
+            raise CaptureError(f"the loop graph of the {self.name} could not be built "
+                               f"(body nodes {entry.body_nodes}): {err}") from err
+        entry.capture_ms += (time.perf_counter() - t0) * 1e3

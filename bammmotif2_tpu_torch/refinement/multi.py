@@ -24,7 +24,7 @@ from bammmotif2_tpu_torch.utils.config import Params
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import motif as motif_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
-from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.ops import cuda_while, encode
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import (
@@ -34,11 +34,15 @@ from bammmotif2_tpu_torch.utils.device import resolve
 
 # ll-trace slots kept per seed; longer runs record every stride-th iteration
 HIST_CAP = 256
-# EM iterations the host runs between two reads of the loop's stop flag.
-# On an H100 at bench's geometry, 4 against 8: 1-1.5% fewer iterations/s
-# at a fixed budget, 1-16% more on a run that converges in 20 iterations,
-# whose masked overshoot costs more than the reads save (PERF.md, PR 9)
+# EM iterations the host runs between two reads of the loop's stop flag
+# where the loop does not run on the device (the eager loop, a mesh).  On
+# an H100 at bench's geometry, graphed, 4 against 8: 1-1.5% fewer
+# iterations/s at a fixed budget, 1-16% more on a run that converges in 20
+# iterations, whose masked overshoot costs more than the reads save
+# (PERF.md, PR 9)
 SYNC_EVERY = 4
+# the loop state's stop test (graphs.Loop's ``until``): running, its, vds, cap, eps
+UNTIL = ("running", "its", "vds", "cap", "eps")
 
 
 def run_em_multi(
@@ -118,6 +122,7 @@ def run_em_multi(
             hist = hist.T
         synchronize(dev)
         seconds = time.perf_counter() - t0
+        graphs_mod.settle()
 
         # The group is one loop, so only its wall-clock is observable: each
         # seed is charged its iteration share, and its windows_per_sec then
@@ -197,13 +202,19 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
     and only those still active (the group running, the seed not frozen:
     the reference's ``cond`` and its per-seed ``where``) take the new
     state, so a step past a seed's exit, or past the group's inside a
-    chunk, changes nothing.  The host runs SYNC_EVERY iterations, then
-    reads one flag.  On a CUDA device the body is a replayed CUDA graph
-    unless ``graphs`` is False or ``mesh``'s data group runs gloo
-    (``graphs.enabled``).  ``step`` reads the tensors of ``inputs`` (name
-    -> tensor) through that dict, and ``key`` holds every constant ``step``
-    depends on: together they let a later loop of the same key replay the
-    same graph.  Without ``key`` the loop runs eagerly.
+    chunk, changes nothing.  The stop test (``_running``) follows each
+    iteration.  On a CUDA device with no mesh the loop runs on the device
+    to its end, as the reference's does: one launch of a graph whose WHILE
+    node repeats the captured iteration while the test's kernel
+    (``ops.cuda_while``) holds, with no host read (``graphs.device_loop``;
+    the caller calls ``graphs.settle`` where it reads the results).
+    Elsewhere the host runs SYNC_EVERY iterations, then reads one flag:
+    eagerly, or as replays of a CUDA graph where the mesh's data group runs
+    NCCL (``graphs.enabled``); ``graphs`` False runs it eagerly.  ``step``
+    reads the tensors of ``inputs`` (name -> tensor) through that dict, and
+    ``key`` holds every constant ``step`` depends on: together they let a
+    later loop of the same key reuse the same graph, with its own cap, ll0
+    and state.  Without ``key`` the loop runs eagerly.
 
     Returns (v, q, lls, vds, its, hist [n_hist_slots, M]).
     """
@@ -237,23 +248,27 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
         s["lls"].copy_(torch.where(active, ll2, s["lls"]))
         s["vds"].copy_(torch.where(active, vd_eff, s["vds"]))
         s["its"].add_(active.to(torch.int32))
-        s["running"].copy_(_running(s))
 
     with graphs_mod.Loop("EM loop", key, state, inputs or {}, body, mesh=mesh,
-                         graphs=graphs and key is not None) as loop:
+                         graphs=graphs and key is not None, until=UNTIL) as loop:
         s = loop.state
-        done = 0
-        # past the cap every step is a no-op, so no chunk runs beyond it
-        while done < max_iters:
-            n = min(SYNC_EVERY, max_iters - done)
-            loop.run(n)
-            done += n
-            if done < max_iters and not bool(s["running"]):  # the chunk's one host read
-                break
+        if loop.on_device:
+            if max_iters > 0:
+                loop.run_while()
+        else:
+            done = 0
+            # past the cap every step is a no-op, so no chunk runs beyond it
+            while done < max_iters:
+                n = min(SYNC_EVERY, max_iters - done)
+                loop.run(n)
+                done += n
+                if done < max_iters and not bool(s["running"]):  # the chunk's one host read
+                    break
         return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["lls"].clone(),
                 s["vds"].clone(), s["its"].clone(), s["hist"].clone())
 
 
 def _running(s: dict) -> torch.Tensor:
-    """The group's loop condition (the reference's ``cond``), on the device."""
-    return (s["its"].max() < s["cap"]) & (s["vds"].max() >= s["eps"])
+    """The group's loop condition (the reference's ``cond``), on the device:
+    the plain version of ``ops.cuda_while.condition``."""
+    return cuda_while.condition_ref(s["its"], s["vds"], s["cap"], s["eps"])

@@ -68,9 +68,10 @@ measures, through that checkout's code:
   mode).  Bench's problem throughout (10k x 200 bp, W=12, K=2).  With
   ``--M``, both checkouts run their loops graphed (parent against change):
   EM its/s at a fixed ``chip_smoke.LOOP_ITERS`` iterations (epsilon 0)
-  through run_em (M=1) or run_em_multi on bench's set at K=2 and 4 for
-  each M (``seeds_problem``: the planted PWM, then softer ones), and CGS
-  sweeps/s at M=1 (``cgs_rate``); no first-use runs.
+  and converged (the default epsilon) through run_em (M=1) or
+  run_em_multi on bench's set at K=2 and 4 for each M (``seeds_problem``:
+  the planted PWM, then softer ones), and CGS sweeps/s at M=1
+  (``cgs_rate``); no first-use runs.
 
 The kernels' inputs are made once, before the first round, by this
 checkout's ``chip_smoke`` and ``tests/test_torch_cuda.py`` (numpy and
@@ -386,18 +387,27 @@ def cgs_rate(chip_smoke, dev, prob: dict) -> float:
 
 
 def measure_seed_loops(chip_smoke, dev, Ms: list) -> tuple:
-    """``loops --M``: graphed EM its/s at K=2 and 4 for each M, and CGS
-    sweeps/s at M=1, each timed run after an untimed one of its shape."""
-    metrics = {}
+    """``loops --M``: graphed EM its/s at K=2 and 4 for each M, at a fixed
+    budget and converged (the default epsilon, ``em_conv_...``; the
+    iterations go beside the metrics), and CGS sweeps/s at M=1, each timed
+    run after an untimed one of its shape."""
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    metrics, iterations = {}, {}
+    converged = Params(EM=True, optimizeQ=True)
     with tempfile.TemporaryDirectory() as tmp:
         for K in (2, 4):
             prob = seeds_problem(chip_smoke, tmp, K, max(Ms))
             for M in Ms:
                 chip_smoke.em_rate(dev, prob, M, True)
                 metrics[f"em_its_per_s_K{K}_M{M}"] = chip_smoke.em_rate(dev, prob, M, True)[0]
+                chip_smoke.em_rate(dev, prob, M, True, converged)
+                rate, its = chip_smoke.em_rate(dev, prob, M, True, converged)
+                metrics[f"em_conv_its_per_s_K{K}_M{M}"] = rate
+                iterations[f"K{K}_M{M}"] = its
             if K == 2:
                 metrics["cgs_sweeps_per_s_M1"] = cgs_rate(chip_smoke, dev, prob)
-    return metrics, {"graphed": True}
+    return metrics, {"graphed": True, "converged_iterations": iterations}
 
 
 def measure_loops(chip_smoke, dev, _inputs, graphed: bool, first: str, Ms=None) -> tuple:

@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu,
-               csrc/counts_from_r.cu and csrc/flat.cu in parallel; prints
-               the toolchain, the card and the ptxas resource reports.
+               csrc/counts_from_r.cu, csrc/flat.cu and csrc/while_loop.cu
+               in parallel; prints the toolchain, the card, the CUDA
+               driver's and runtime's versions (a WHILE graph node needs
+               12.3) and the ptxas resource reports.
   2. kernel  : each of the six kernels against its plain PyTorch version on
                the card at the main paths' geometries, seed stacks of 16,
                32 and 33 at K=0 and K=2 among them (tests/test_torch_cuda.py:
@@ -18,11 +20,18 @@ Phases (any failure exits non-zero):
                itself across calls, shapes and streams, and a CUDA graph
                of a call replays right; and check_flat_calls: a flat
                window-score call is one kernel, a flat E+M call enqueues no
-               more than the combined one and no gather or fold; and
-               check_loops: the EM and CGS loops as replayed CUDA graphs
+               more than the combined one and no gather or fold;
+               check_condition: the EM loop's stop-test kernel
+               (ops/cuda_while.py) against its plain version on edge
+               inputs (the cap reached, every seed frozen, NaN); and
+               check_loops: the EM loop as one launch of a WHILE-node graph
+               and the CGS loop as replayed CUDA graphs
                (refinement/graphs.py) against their eager loops (CGS bit
-               for bit, EM within the bars at a fixed budget), one host
-               read a chunk of multi.SYNC_EVERY EM iterations, B1-B3
+               for bit, EM within the bars: at a fixed budget, converged,
+               stopped by its warm-up iteration, and a cached loop graph
+               launched with another cap and ll0), no host read in the
+               graphed EM loop against one a chunk of multi.SYNC_EVERY
+               iterations in the eager one, B1-B3 and the stop-test kernel
                counted once an iteration or sweep (each wrapper's launches
                a call), a capture that fails raises, and the same at a
                33-seed stack (check_chunked_loops).
@@ -79,11 +88,11 @@ Phases (any failure exits non-zero):
                  (fdr_program_slice): the FDR group program, graphed,
                  against its plain version, the fold loop: FDRResults
                  equal and .stats files equal byte for byte, one fold-tail
-                 capture a (W, K) group replayed for its other folds, the
-                 CGS run's folds and sweeps under
-                 torch.cuda.set_sync_debug_mode("error") (no host sync
-                 from the first fold to the fetch), B2 and B1 or B3
-                 launched;
+                 capture a (W, K) group replayed for its other folds, both
+                 runs' folds under torch.cuda.set_sync_debug_mode("error")
+                 (no host sync from the first fold to the fetch: an EM
+                 fold's loop is one launch of its loop graph), B2 and B1
+                 or B3 launched;
                - the flat-layout entry points (ops/cuda_flat.py, the port of
                  tools/pallas_flat.py) on the planted 10k x 200 bp set at
                  K=2: FLAT_ITERS EM iterations through flat em_counts, then
@@ -138,12 +147,14 @@ Phases (any failure exits non-zero):
                call), that call's time; EM windows/s and iterations/s; CGS sweeps/s at
                bench's geometry (kernel and plain, each graphed and eager,
                and the device's busy share under torch.profiler over 10
-               graphed and 10 eager sweeps); the loops (time_loops): EM
-               its/s eager against graphed at M=1 and 4 through run_em /
-               run_em_multi and through the CLI's --EM stage, the
-               multi.SYNC_EVERY sweep, capture ms, the captures of the
-               slices' CLI runs, and the first-use cost of --CGS in fresh
-               processes (kernel path first, plain path first); config 5's
+               graphed and 10 eager sweeps); the stop-test kernel at M=16;
+               the loops (time_loops): EM its/s eager against graphed at
+               M=1 and 4 through run_em / run_em_multi and through the
+               CLI's --EM stage, graphed EM its/s at a fixed budget at
+               M=1, 4, 10 and 16 at K=2 and 4 and on converged runs,
+               capture ms, the captures of the slices' CLI runs, and the
+               first-use cost of --CGS in fresh processes (kernel path
+               first, plain path first); config 5's
                end-to-end scan windows/s and config 4's EM-FDR and CGS-FDR
                seconds per (W, K) group; and the W=10 group of config 4
                through the FDR group program split by stage
@@ -170,7 +181,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat")
+KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat", "while_loop")
 
 # bench.py's problem
 N_SEQS, SEQ_LEN, W, N_TIMED = 10_000, 200, 12, 30
@@ -212,14 +223,15 @@ def load_by_path(name: str, rel: str):
 
 def counted() -> dict:
     """Each kernel's name -> the wrapper that counts its launches."""
-    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores
+    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while
 
     return {"em_counts": cuda_em.em_counts_multi,
             "window_scores": cuda_scores.window_scores_multi,
             "counts_from_r": cuda_counts.counts_from_r_multi,
             "flat_em_counts": cuda_flat.em_counts,
             "flat_window_scores": cuda_flat.window_scores,
-            "flat_counts_from_r": cuda_flat.counts_from_r}
+            "flat_counts_from_r": cuda_flat.counts_from_r,
+            "loop_condition": cuda_while.condition}
 
 
 def launches() -> dict:
@@ -336,7 +348,9 @@ def library_counts_ms(r, rows, R1: int, W: int, index_inside: bool = False) -> f
 def phase_build():
     import torch
 
-    from bammmotif2_tpu_torch.ops import _build, cuda_counts, cuda_em, cuda_flat, cuda_scores
+    from bammmotif2_tpu_torch.ops import (
+        _build, cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while,
+    )
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:  # one nvcc per source, together
@@ -345,11 +359,14 @@ def phase_build():
     cuda_scores.library()
     cuda_counts.library()
     cuda_flat.library()
+    cuda_while.library()
     secs = time.perf_counter() - t0
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     log(f"toolchain: torch {torch.__version__} | cuda {torch.version.cuda} | "
         f"nvcc {nvcc} | gpu {nvidia_smi()}")
+    log(f"CUDA driver {cuda_while.driver_version()} | runtime {cuda_while.runtime_version()} | "
+        f"WHILE graph nodes need {cuda_while.MIN_DRIVER}")
     log(f"build: {len(paths)} libraries in {secs:.1f}s")
     for path in paths:
         log(f"  {os.path.relpath(path, ROOT)}")
@@ -384,6 +401,9 @@ def phase_kernel(device) -> dict:
     log("kernel counts calls (one kernel a call, workspace, CUDA graph): " + json.dumps(res))
     log("kernel flat calls (what an E+M and a scores call enqueue): "
         + json.dumps(checks.check_flat_calls(device)))
+    res = checks.check_condition(device)
+    worst["loop_condition"] = float(res["mismatches"])
+    log("kernel loop_condition (edge inputs; max_abs_err counts mismatches): " + json.dumps(res))
     log("kernel loops (graphed against eager, host reads, counters, failed capture): "
         + json.dumps(checks.check_loops(device)))
     return worst
@@ -502,10 +522,11 @@ def run_cli(outdir: str, fasta: str, meme: str, extra: list, device, graphs: boo
 
 def run_pair(tag: str, fasta: str, meme: str, extra: list, device, tmp: str) -> tuple:
     """The same command through the kernels and under --no-pallas; the plain
-    run must launch no kernel."""
+    run must launch none of the data path's kernels (an EM loop runs on the
+    device on both paths, so the stop-test kernel launches on both)."""
     k = run_cli(os.path.join(tmp, tag + "_kernel"), fasta, meme, extra, device)
     p = run_cli(os.path.join(tmp, tag + "_plain"), fasta, meme, [*extra, "--no-pallas"], device)
-    if any(p["launches"].values()):
+    if any(n for name, n in p["launches"].items() if name != "loop_condition"):
         raise AssertionError(f"{tag}: --no-pallas run launched a kernel: {p['launches']}")
     return k, p
 
@@ -534,6 +555,9 @@ def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None,
     n = k["launches"]["em_counts"]
     if n < its or n == 0:
         raise AssertionError(f"{tag}: {n} kernel launches for {its} EM iterations")
+    if k["launches"]["loop_condition"] < its:
+        raise AssertionError(f"{tag}: {k['launches']['loop_condition']} stop tests for {its} "
+                             f"EM iterations")
     dirs = (os.path.join(tmp, tag + "_kernel"), os.path.join(tmp, tag + "_plain"))
     if compare:
         pairs = [(a["iterations"], b["iterations"]) for a, b in zip(ev_k, ev_p, strict=True)]
@@ -569,6 +593,7 @@ def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None,
         "captures": k["captures"],
         "graphed_vs_eager": graphed_vs_eager,
         "launches": n,
+        "condition_launches": k["launches"]["loop_condition"],
         "iterations_kernel": [e["iterations"] for e in ev_k],
         "iterations_plain": [e["iterations"] for e in ev_p],
         "max_abs_dp": worst,
@@ -765,10 +790,10 @@ def fdr_program_slice(device, tmp) -> dict:
     version, the fold loop (``program=False``), on the same inputs.  Their
     FDRResults are equal and their .stats files byte for byte; each group
     captured its fold tail once and replayed it for its other folds; the
-    CGS run's folds and sweeps (``fdr._run_folds``) ran under
-    torch.cuda.set_sync_debug_mode("error"), so a host sync between its
-    first fold and its fetch fails it; B2 and B1 (EM) or B3 (CGS) launched
-    in the program's run."""
+    folds of both runs (``fdr._run_folds``: an EM fold's loop graph, a CGS
+    fold's sweeps) ran under torch.cuda.set_sync_debug_mode("error"), so a
+    host sync between the first fold and the fetch fails it; B2 and B1 (EM)
+    or B3 (CGS) launched in the program's run."""
     import torch
 
     from bammmotif2_tpu_torch.evaluation import fdr
@@ -789,8 +814,7 @@ def fdr_program_slice(device, tmp) -> dict:
 
         graphs_mod.clear()
         reset_launches()
-        if refine == "CGS":
-            fdr._run_folds = no_sync
+        fdr._run_folds = no_sync
         try:
             t0 = time.perf_counter()
             prog = fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=device)
@@ -964,6 +988,7 @@ def phase_slice(device, tmp) -> dict:
     log("slice seconds: " + json.dumps(secs))
     return {"em_converged": conv,
             "launches": {"em_counts": conv["launches"],
+                         "loop_condition": conv["condition_launches"],
                          "window_scores": c5["launches"]["window_scores"],
                          "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
                          **flat["launches"]},
@@ -1559,7 +1584,7 @@ def time_cgs(device, tmp) -> dict:
 
 
 LOOP_ITERS = 200  # EM iterations of a fixed-budget timing run (epsilon 0)
-SYNC_SWEEP = (1, 4, 8, 16)  # multi.SYNC_EVERY values timed
+LOOP_MS = (1, 4, 10, 16)  # seeds a group of the graphed EM rates
 FIRST_USE_ORDERS = ("kernel_first", "plain_first", "plain_first", "kernel_first")
 
 
@@ -1692,34 +1717,42 @@ def first_use(tmp: str) -> list:
     return results
 
 
+def graphed_em_rates(device, tmp) -> dict:
+    """Graphed EM its/s on bench's set at K=2 and 4 for each M of LOOP_MS
+    (``tools/ab.py::seeds_problem``'s seeds): at a fixed budget
+    (LOOP_ITERS, epsilon 0) and converged (the default epsilon; its
+    iterations beside it), each timed run after an untimed one of its
+    shape, whose loop graph it launches again."""
+    from bammmotif2_tpu_torch.tools.ab import seeds_problem
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    out = {}
+    converged = Params(EM=True, optimizeQ=True)
+    for K in (2, 4):
+        prob = seeds_problem(sys.modules[__name__], tmp, K, max(LOOP_MS))
+        for M in LOOP_MS:
+            em_rate(device, prob, M, True)
+            out[f"fixed_K{K}_M{M}"] = em_rate(device, prob, M, True)[0]
+            em_rate(device, prob, M, True, converged)
+            rate, its = em_rate(device, prob, M, True, converged)
+            out[f"converged_K{K}_M{M}"] = rate
+            out[f"converged_iterations_K{K}_M{M}"] = its
+    return out
+
+
 def time_loops(device, tmp, slices: dict) -> dict:
     """The device-resident loops (refinement/graphs.py) on bench's problem:
     ``loop_rates`` eager and graphed in turns (eager, graphed, graphed,
-    eager) in this process; the converged run_em (the default epsilon) and
-    the fixed budget at each multi.SYNC_EVERY of SYNC_SWEEP, graphed; the
-    captures and graphed loop calls of the slices' CLI runs; and first use:
-    the --CGS stage seconds of fresh processes, kernel path first and plain
-    path first (FIRST_USE_ORDERS)."""
-    from bammmotif2_tpu_torch.refinement import multi
-    from bammmotif2_tpu_torch.utils.config import Params
-
+    eager) in this process; ``graphed_em_rates``; the captures and graphed
+    loop calls of the slices' CLI runs; and first use: the --CGS stage
+    seconds of fresh processes, kernel path first and plain path first
+    (FIRST_USE_ORDERS)."""
     prob = loops_problem(tmp)
-    out: dict = {"rates": {}, "sync_every": {}}
+    out: dict = {"rates": {}}
     for graphed in (False, True, True, False):
         for k, x in loop_rates(device, tmp, prob, graphed).items():
             out["rates"].setdefault(f"{k}_{'graphed' if graphed else 'eager'}", []).append(x)
-    saved = multi.SYNC_EVERY
-    try:
-        for sync in SYNC_SWEEP:
-            multi.SYNC_EVERY = sync
-            conv = [em_rate(device, prob, 1, True, Params(EM=True, optimizeQ=True))
-                    for _ in range(2)]
-            out["sync_every"][sync] = {
-                "fixed_its_per_s": [em_rate(device, prob, 1, True)[0] for _ in range(2)],
-                "converged_its_per_s": [c[0] for c in conv],
-                "converged_iterations": [c[1] for c in conv]}
-    finally:
-        multi.SYNC_EVERY = saved
+    out["graphed_em"] = graphed_em_rates(device, tmp)
     cgs = slices["cgs"]
     out["captures_per_cli_run"] = {
         name: {"captures": len(c), "loop_calls": sum(x["calls"] for x in c),
@@ -1732,6 +1765,29 @@ def time_loops(device, tmp, slices: dict) -> dict:
     out["gpu"] = nvidia_smi()
     log("timing loops (bench geometry 10k x 200 bp, W=12, K=2; eager against graphed): "
         + json.dumps(out))
+    return out
+
+
+def time_condition(device) -> dict:
+    """The EM loop's stop-test kernel (``cuda_while.condition``) against its
+    plain version at M=16 (a multi-seed --EM group's stack), CUDA events
+    over back-to-back calls: it reads its [M], vds [M], cap and eps and
+    writes one byte; 2 M comparisons."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_while
+
+    M = 16
+    its = torch.arange(M, dtype=torch.int32, device=device)
+    vds = torch.linspace(0.5, 1.0, M, device=device)
+    cap = torch.tensor(1000, dtype=torch.int32, device=device)
+    eps = torch.tensor(1e-3, device=device)
+    running = torch.tensor(False, device=device)
+    out = {"ms": time_cuda(lambda: cuda_while.condition(its, vds, cap, eps, running), 200),
+           "plain_ms": time_cuda(
+               lambda: running.copy_(cuda_while.condition_ref(its, vds, cap, eps)), 200),
+           **bound(8 * M + 4 + 4 + 1, 2 * M), "library_ms": None, "M": M}
+    log("timing loop_condition (M=16): " + json.dumps(out))
     return out
 
 
@@ -1755,6 +1811,7 @@ def time_fdr_group(device, tmp) -> dict:
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
            "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
+           "condition": time_condition(device),
            "loops": time_loops(device, tmp, slices), "fdr_group": time_fdr_group(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
     e2e = {
@@ -1815,6 +1872,9 @@ def main() -> int:
         ("flat_em_counts", "flat.cu", "tools/pallas_flat.py:267", flat["em"]),
         ("flat_window_scores", "flat.cu", "tools/pallas_flat.py:378", flat["scores"]),
         ("flat_counts_from_r", "flat.cu", "tools/pallas_flat.py:447", flat["counts"]),
+        # not a Pallas kernel: the device side of the reference's lax.while_loop
+        ("loop_condition", "while_loop.cu", "bammmotif2_tpu/refinement/multi.py:303",
+         timing["condition"]),
     ]
     kernels = []
     for name, src, tpu, t in rows:

@@ -12,8 +12,10 @@ kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel,
 ``FLAT_CASES`` / ``check_flat`` for the three kernels on base-(A+1) codes,
 ``check_counts_calls`` for the two counts-from-r wrappers' one-kernel
 calls, their workspace and CUDA-graph capture, ``check_flat_calls`` for
-what a flat E+M or window-score call enqueues, ``check_loops`` for the EM
-and CGS loops as replayed CUDA graphs) at the main path's shapes.
+what a flat E+M or window-score call enqueues, ``check_condition`` for the
+EM loop's stop-test kernel, ``check_loops`` for the EM loop as one
+WHILE-node graph and the CGS loop as replayed CUDA graphs) at the main
+path's shapes.
 This module imports no JAX.
 """
 
@@ -28,7 +30,9 @@ from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import log_odds_lut
-from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, encode
+from bammmotif2_tpu_torch.ops import (
+    cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while, encode,
+)
 from bammmotif2_tpu_torch.ops.escore import NEG_INF, window_mask
 from bammmotif2_tpu_torch.refinement.gibbs import occupancy
 
@@ -576,6 +580,49 @@ def loop_inputs(N, L, W, K, M, seed=0, device="cpu") -> tuple:
             f32(np.stack([mo.alphas for mo in motifs])), f32(motifs[0].f_bg))
 
 
+def check_condition(device) -> dict:
+    """The EM loop's stop-test kernel (``cuda_while.condition``) against its
+    plain version (``condition_ref``, ``multi._running``) on edge inputs at
+    M = 1, 2, 16, 33 and 300 (more seeds than the block's threads): the
+    test holding, the cap reached, every seed frozen, v_diff equal to
+    epsilon, a NaN v_diff, a NaN epsilon, infinities.  Equal booleans, one
+    launch a call.  Returns {"cases", "mismatches", "launches"}."""
+    rng = np.random.default_rng(0)
+    nan, inf = float("nan"), float("inf")
+    cases = []
+    for M in (1, 2, 16, 33, 300):
+        its = rng.integers(0, 50, M)
+        vds = rng.uniform(0.01, 1.0, M)
+        cap, eps = 60, 1e-3
+        at_cap = its.copy()
+        at_cap[M // 2] = cap
+        edge = vds * 1e-3  # max(vds) == eps: the test holds
+        edge[M - 1] = eps
+        one_nan = vds.copy()
+        one_nan[M // 2] = nan
+        mixed = np.full(M, 1e-4)
+        mixed[0] = inf
+        cases += [(its, vds, cap, eps), (at_cap, vds, cap, eps), (its, vds * 1e-3, cap, eps),
+                  (its, np.minimum(vds, eps), cap, eps), (its, edge, cap, eps),
+                  (its, one_nan, cap, eps), (its, vds, cap, nan), (its, mixed, cap, eps),
+                  (its, np.full(M, -inf), cap, -inf), (its, vds, 0, eps),
+                  (its, np.full(M, inf), cap, eps)]
+    bad, before = 0, cuda_while.condition.launches
+    for its, vds, cap, eps in cases:
+        t = (torch.as_tensor(its, dtype=torch.int32, device=device),
+             torch.as_tensor(vds, dtype=torch.float32, device=device),
+             torch.tensor(cap, dtype=torch.int32, device=device),
+             torch.tensor(eps, dtype=torch.float32, device=device))
+        running = torch.tensor(not bool(cuda_while.condition_ref(*t)), device=device)
+        cuda_while.condition(*t, running)
+        bad += int(bool(running) != bool(cuda_while.condition_ref(*t)))
+    torch.cuda.synchronize(device)
+    out = {"cases": len(cases), "mismatches": bad,
+           "launches": cuda_while.condition.launches - before}
+    assert bad == 0 and out["launches"] == len(cases), out
+    return out
+
+
 def check_loops(device) -> dict:
     """The device-resident loops (refinement/graphs.py) on the card, at
     bench's geometry (10k x 200 bp, W=12, K=2) with M=2:
@@ -586,9 +633,18 @@ def check_loops(device) -> dict:
       once a sweep by the counters;
     - EM at a fixed budget (epsilon 0), graphed against eager on both
       paths: the same iterations, models within LOOP_V_ATOL; B1 launched
-      once an iteration; one host read a chunk of multi.SYNC_EVERY
-      iterations (counted under torch.cuda.set_sync_debug_mode("warn")),
-      at SYNC_EVERY 8 and 4;
+      once an iteration (``graphs.settle``); the graphed loop, one launch
+      of its WHILE-node graph, makes no host read, and the eager loop one
+      a chunk of multi.SYNC_EVERY iterations (counted under
+      torch.cuda.set_sync_debug_mode("warn")), at SYNC_EVERY 8 and 4;
+    - EM graphed against eager on the kernel path: converged (epsilon
+      1e-3, four seeds freezing at different iterations on 2,000 rows);
+      stopped by its warm-up iteration (a fresh capture at a cap of 1, and
+      with every seed frozen by it), whose loop graph runs its body zero
+      times; a cached graph launched with another cap, another start and
+      another ll0 (a --checkpointEvery chunk): the same iterations, models
+      within LOOP_V_ATOL, B1 and the stop-test kernel counted once an
+      iteration, no host read;
     - a body that synchronises inside the capture raises CaptureError
       naming its line, after one eager iteration and no more;
     - at a chunked seed stack (CHUNKED_LOOP: 33 seeds, K=0, which the E+M
@@ -597,9 +653,7 @@ def check_loops(device) -> dict:
       above, each wrapper counted by its launches a call.
 
     Raises AssertionError on a mismatch; returns what it measured."""
-    import warnings
-
-    from bammmotif2_tpu_torch.refinement import gibbs, graphs, multi
+    from bammmotif2_tpu_torch.refinement import gibbs, graphs
 
     data, v0, alphas, f_bg = loop_inputs(10_000, 200, 12, 2, 2, device=device)
     M = alphas.shape[0]
@@ -629,37 +683,22 @@ def check_loops(device) -> dict:
 
     eps = torch.zeros((), device=device)
 
-    def em(path, use, sync):
-        step, inputs, key = multi.group_step(data, alphas, f_bg, 10_000, A=4, K=2, W=12,
-                                             optimize_q=True, path=path)
-        saved = multi.SYNC_EVERY
-        multi.SYNC_EVERY = sync
-        before = cuda_em.em_counts_multi.launches
-        torch.cuda.synchronize(device)
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                res = multi.batched_while_loop(step, v0, q0, eps, LOOP_ITERS, inputs=inputs,
-                                               key=key, graphs=use)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            multi.SYNC_EVERY = saved
-        reads = sum("synchroniz" in str(w.message) for w in caught)
-        return res, reads, cuda_em.em_counts_multi.launches - before
-
     for path in ("cuda", "plain"):
         for sync in (8, 4, 4):  # the second at 4: a cached graph
-            (ve, _q, _l, _d, its_e, _h), reads_e, _n = em(path, False, sync)
-            (vg, _q, _l, _d, its_g, _h), reads_g, n = em(path, True, sync)
+            (ve, _q, _l, _d, its_e, _h), reads_e, _n = em_loop(data, alphas, f_bg, v0, q0, eps,
+                                                               LOOP_ITERS, path, False, sync)
+            (vg, _q, _l, _d, its_g, _h), reads_g, n = em_loop(data, alphas, f_bg, v0, q0, eps,
+                                                              LOOP_ITERS, path, True, sync)
             dv = max((a - b).abs().max().item() for a, b in zip(ve, vg))
             want = -(-LOOP_ITERS // sync) - 1
             out["em"][f"{path}_sync{sync}"] = {"its": its_g.tolist(), "max_abs_dv": dv,
                                                "host_reads": [reads_e, reads_g], "launches": n}
             assert its_e.tolist() == its_g.tolist() == [LOOP_ITERS] * M
             assert dv <= LOOP_V_ATOL, dv
-            assert reads_e == reads_g == want, (reads_e, reads_g, want)
-            assert n == (LOOP_ITERS if path == "cuda" else 0), n
+            assert reads_e == want and reads_g == 0, (reads_e, reads_g, want)
+            assert n["b1"] == (LOOP_ITERS if path == "cuda" else 0), n
+            assert n["condition"] == LOOP_ITERS, n
+    out["em_device_loop"] = check_device_loop_cases(device)
 
     state = {"q": torch.zeros(2, device=device)}
 
@@ -683,6 +722,84 @@ def check_loops(device) -> dict:
     return out
 
 
+def em_loop(data, alphas, f_bg, v0, q0, eps, cap, path, use, sync=None, ll0=None, K=2, W=12):
+    """One ``multi.batched_while_loop`` of ``group_step`` on ``data`` (at
+    SYNC_EVERY ``sync``, where given), graphed (``use``) or eager; settles the counters
+    after it.  Returns (its results, host reads inside the loop call
+    under torch.cuda.set_sync_debug_mode("warn"), {"b1": B1's launches,
+    "condition": the stop-test kernel's launches, or its plain version's
+    iterations where the loop ran eagerly})."""
+    import warnings
+
+    from bammmotif2_tpu_torch.refinement import graphs, multi
+
+    step, inputs, key = multi.group_step(data, alphas, f_bg, int(data["lens"].shape[0]), A=4,
+                                         K=K, W=W, optimize_q=True, path=path)
+    device = q0.device
+    saved = multi.SYNC_EVERY
+    multi.SYNC_EVERY = sync or saved
+    before = (cuda_em.em_counts_multi.launches, cuda_while.condition.launches)
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = multi.batched_while_loop(step, v0, q0, eps, cap, inputs=inputs, key=key,
+                                           ll0=ll0, graphs=use)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        multi.SYNC_EVERY = saved
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize(device)
+    graphs.settle()
+    n = {"b1": cuda_em.em_counts_multi.launches - before[0],
+         "condition": cuda_while.condition.launches - before[1] if use
+         else int(res[4].max())}
+    return res, reads, n
+
+
+def check_device_loop_cases(device) -> dict:
+    """check_loops' converged, warm-up-stopped and cached-graph EM cases on
+    the kernel path (see there)."""
+    from bammmotif2_tpu_torch.refinement import graphs
+
+    data, v0, alphas, f_bg = loop_inputs(2_000, 200, 12, 2, 4, seed=1, device=device)
+    M = alphas.shape[0]
+    q0 = torch.full((M,), 0.9, device=device)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    out = {}
+
+    def pair(name, eps, cap, v=v0, ll0=None, fresh=False, cached=False):
+        e, reads_e, _ = em_loop(data, alphas, f_bg, v, q0, eps, cap, "cuda", False, ll0=ll0)
+        if fresh:
+            graphs.clear()
+        calls = {c["name"]: c for c in graphs.stats()}.get("EM loop", {}).get("calls", 0)
+        g, reads_g, n = em_loop(data, alphas, f_bg, v, q0, eps, cap, "cuda", True, ll0=ll0)
+        st = {c["name"]: c for c in graphs.stats()}["EM loop"]
+        its_e, its_g = e[4].tolist(), g[4].tolist()
+        dv = max((a - b).abs().max().item() for a, b in zip(e[0], g[0]))
+        out[name] = {"its": its_g, "max_abs_dv": dv, "host_reads": [reads_e, reads_g],
+                     "launches": n, "loop_graph": st}
+        assert its_e == its_g, (name, its_e, its_g)
+        assert dv <= LOOP_V_ATOL, (name, dv)
+        assert reads_g == 0, (name, reads_g)
+        assert n["b1"] == n["condition"] == max(its_g), (name, n, its_g)
+        assert (st["calls"] == calls + 1) if cached else (st["calls"] == 1 and calls == 0), \
+            (name, st, calls)
+        return g
+
+    g = pair("converged", f32(1e-3), 500, fresh=True)
+    its = g[4].tolist()
+    assert max(its) < 500 and len(set(its)) > 1, its
+    pair("warm_up_cap_1", f32(0.0), 1, fresh=True)
+    pair("warm_up_all_frozen", f32(1e9), 50, fresh=True)
+    first = pair("cap_5", f32(0.0), 5, fresh=True)
+    # a --checkpointEvery chunk: the cached graph, another cap, start and ll0
+    pair("cached_cap_7_ll0", f32(0.0), 7, v=first[0], ll0=first[2], cached=True)
+    pair("cached_converged", f32(1e-3), 500, v=first[0], ll0=first[2], cached=True)
+    return out
+
+
 CHUNKED_LOOP = dict(N=2_000, L=200, W=12, K=0, M=33)
 
 
@@ -699,7 +816,7 @@ def check_chunked_loops(device) -> dict:
     the kernel path: graphed equals eager (CGS bit for bit, EM within
     LOOP_V_ATOL at LOOP_ITERS iterations), and the counters add each
     wrapper's launches a call once an iteration or sweep."""
-    from bammmotif2_tpu_torch.refinement import gibbs, multi
+    from bammmotif2_tpu_torch.refinement import gibbs
 
     c = CHUNKED_LOOP
     data, v0, alphas, f_bg = loop_inputs(c["N"], c["L"], c["W"], c["K"], c["M"], device=device)
@@ -733,22 +850,17 @@ def check_chunked_loops(device) -> dict:
     assert out["cgs_bit_equal"]
     assert n == (LOOP_SWEEPS * per_call["b2"], LOOP_SWEEPS * per_call["b3"]), (n, per_call)
 
-    def em(use):
-        step, inputs, key = multi.group_step(data, alphas, f_bg, N, A=4, K=K, W=W,
-                                             optimize_q=True, path="cuda")
-        before = cuda_em.em_counts_multi.launches
-        res = multi.batched_while_loop(step, v0, q0, torch.zeros((), device=device), LOOP_ITERS,
-                                       inputs=inputs, key=key, graphs=use)
-        torch.cuda.synchronize(device)
-        return res, cuda_em.em_counts_multi.launches - before
-
-    (ve, *_r, its_e, _h), _ = em(False)
-    (vg, *_r, its_g, _h), n = em(True)
+    eps = torch.zeros((), device=device)
+    (ve, *_r, its_e, _h), _, _ = em_loop(data, alphas, f_bg, v0, q0, eps, LOOP_ITERS, "cuda",
+                                         False, K=K, W=W)
+    (vg, *_r, its_g, _h), reads, n = em_loop(data, alphas, f_bg, v0, q0, eps, LOOP_ITERS, "cuda",
+                                             True, K=K, W=W)
     dv = max((a - b).abs().max().item() for a, b in zip(ve, vg))
-    out["em"] = {"max_abs_dv": dv, "launches": n}
+    out["em"] = {"max_abs_dv": dv, "launches": n, "host_reads": reads}
     assert its_e.tolist() == its_g.tolist() == [LOOP_ITERS] * M
     assert dv <= LOOP_V_ATOL, dv
-    assert n == LOOP_ITERS * per_call["b1"], (n, per_call)
+    assert reads == 0, reads
+    assert n["b1"] == LOOP_ITERS * per_call["b1"] and n["condition"] == LOOP_ITERS, (n, per_call)
     return out
 
 
@@ -867,3 +979,13 @@ def test_flat_wrappers_reject_bad_inputs(cuda_device):
 @pytest.mark.cuda
 def test_loops_graphed_equal_eager_one_read_a_chunk_and_failed_captures_raise(cuda_device):
     check_loops(cuda_device)
+
+
+@pytest.mark.cuda
+def test_loop_condition_kernel_matches_plain(cuda_device):
+    check_condition(cuda_device)
+
+
+@pytest.mark.cuda
+def test_device_loop_converged_warm_up_stopped_and_cached(cuda_device):
+    check_device_loop_cases(cuda_device)

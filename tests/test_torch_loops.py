@@ -2,9 +2,10 @@
 their body runs eagerly: the chunked, masked EM loop and the in-place CGS
 sweep loop against per-iteration stepping (bit-equal: the same body in the
 same order) and the EM loops against the JAX package's (within
-tests/test_torch_em.py's bars), and the rule that decides between a CUDA
-graph and the eager loop.  The graphed loops on the card: ``check_loops``
-in tests/test_torch_cuda.py."""
+tests/test_torch_em.py's bars), the rules that decide between a CUDA
+graph and the eager loop and between the loop on the device and the
+chunked one, and the stop test against the reference's ``cond``.  The
+graphed loops on the card: ``check_loops`` in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -339,3 +340,161 @@ def test_cpu_loop_makes_its_outputs():
         loop.run(1)
         assert len(made) == n and loop.state["y"] is made[-1]
         assert loop.state["y"].tolist() == [0.0, 2.0, 4.0] and loop.state["x"] is state["x"]
+
+
+@pytest.mark.parametrize("n_gens", [0, 1], ids=["no_gens", "gens"])
+@pytest.mark.parametrize("backend", [None, "nccl", "gloo"], ids=["no_mesh", "nccl", "gloo"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_device_loop_rule(monkeypatch, device, backend, n_gens):
+    """A loop that holds its stop test runs to its end on the device iff it
+    is graphed, has no mesh and registers no generators."""
+    mesh = None
+    if backend is not None:
+        group = object()
+        mesh = Mesh(1, 1, 0, 0, data_group=group, seed_group=object())
+        monkeypatch.setattr(torch.distributed, "get_backend",
+                            lambda g=None: backend if g is group else "other")
+    want = device == "cuda" and backend is None and n_gens == 0
+    assert graphs.device_loop(torch.device(device), mesh, n_gens) is want
+    if want:
+        assert graphs.enabled(torch.device(device), mesh)
+
+
+def test_loop_with_generators_asking_for_the_device_loop_raises():
+    """A body that draws cannot loop on the device (a replay advances its
+    generators' offsets from the host): asking raises before anything
+    runs, and nothing falls back."""
+    state = {"running": torch.tensor(True), "its": torch.zeros(2, dtype=torch.int32),
+             "vds": torch.full((2,), float("inf")), "cap": torch.tensor(3, dtype=torch.int32),
+             "eps": torch.tensor(0.0)}
+    ran = []
+    with pytest.raises(graphs.CaptureError, match="generators"):
+        graphs.Loop("test loop", ("k",), state, {}, lambda s, g: ran.append(1),
+                    gens=[torch.Generator().manual_seed(0)], until=multi.UNTIL)
+    assert not ran
+
+
+def test_cpu_loop_with_its_stop_test_runs_in_chunks():
+    """On the CPU a loop with ``until`` is not on the device: ``run`` takes
+    the body and the plain test, ``run_while`` refuses."""
+    state = {"running": torch.tensor(True), "its": torch.zeros(2, dtype=torch.int32),
+             "vds": torch.full((2,), float("inf")), "cap": torch.tensor(3, dtype=torch.int32),
+             "eps": torch.tensor(0.0)}
+
+    def body(s, _g):
+        s["its"].add_(1)
+
+    loop = graphs.Loop("test loop", ("k",), state, {}, body, until=multi.UNTIL)
+    assert not loop.on_device and not loop.graphed
+    loop.run(2)
+    assert state["its"].tolist() == [2, 2] and bool(state["running"])
+    loop.run(1)
+    assert not bool(state["running"])
+    with pytest.raises(RuntimeError, match="run\\(n\\)"):
+        loop.run_while()
+
+
+def _scripted(table, xp):
+    """A batched step whose v is an iteration counter [M, 1, 1]: iteration
+    i returns vd = table[i - 1] ([M]) and ll = 10 i, so |dll| = 10."""
+    def step(v, q, *_rest):
+        c = v[0] + 1
+        i = c[:, 0, 0].astype(xp.int32) if xp is jnp else c[:, 0, 0].long()
+        rows = xp.asarray(table) if xp is jnp else torch.as_tensor(table)
+        vd = rows[i - 1, xp.arange(len(i))] if xp is jnp else rows[i - 1, torch.arange(len(i))]
+        return (c,), q, 10.0 * c[:, 0, 0], vd
+    return step
+
+
+NAN = float("nan")
+# name -> (per-iteration vd [iterations, M], cap): the reference's cond on
+# the states these reach
+COND_CASES = {
+    "cap_reached": ([[1.0, 1.0]] * 6, 3),
+    "all_frozen": ([[1.0, 1.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0], [1.0, 1.0]], 5),
+    "nan_vds": ([[1.0, 1.0], [NAN, 1.0], [1.0, 1.0], [1.0, 1.0]], 4),
+    "frozen_at_first": ([[0.0, 0.0], [1.0, 1.0]], 2),
+    "cap_one": ([[1.0, 1.0]] * 2, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(COND_CASES))
+def test_running_matches_reference_cond(case):
+    """``multi._running`` (the plain version of the condition kernel) stops
+    the port's loop where the reference's ``cond`` stops its
+    ``lax.while_loop``: the cap reached, every seed frozen, a NaN v_diff
+    (its max is NaN and compares false), a loop stopped by its first
+    iteration.  The same its and vds; the final state's test is False and
+    ``cuda_while.condition`` on CPU tensors agrees."""
+    from bammmotif2_tpu_torch.ops import cuda_while
+
+    table, cap = COND_CASES[case]
+    table = np.asarray(table, np.float32)
+    M, eps = table.shape[1], 1e-3
+    jout = jmulti.batched_while_loop(
+        _scripted(table, jnp), (jnp.zeros((M, 1, 1), jnp.float32),), jnp.full((M,), 0.5),
+        None, None, None, None, jnp.float32(eps), cap)
+    v, _q, lls, vds, its, _h = multi.batched_while_loop(
+        _scripted(table, torch), (torch.zeros((M, 1, 1)),), torch.full((M,), 0.5),
+        torch.tensor(eps), cap)
+    assert its.tolist() == np.asarray(jout[4]).tolist()
+    np.testing.assert_array_equal(vds.numpy(), np.asarray(jout[3]))
+    np.testing.assert_array_equal(lls.numpy(), np.asarray(jout[2]))
+    np.testing.assert_array_equal(v[0].numpy(), np.asarray(jout[0][0]))
+    state = {"its": its, "vds": vds, "cap": torch.tensor(cap, dtype=torch.int32),
+             "eps": torch.tensor(eps)}
+    assert not bool(multi._running(state))
+    running = torch.tensor(True)
+    cuda_while.condition(state["its"], state["vds"], state["cap"], state["eps"], running)
+    assert not bool(running)
+    if case == "nan_vds":
+        assert np.isnan(vds[0].item()) and its.tolist() == [2, 2]
+    # one iteration fewer: the reference ran another, so the test held
+    if int(its.max()) > 1:
+        table2, cap2 = table[: int(its.max()) - 1], int(its.max()) - 1
+        _v, _q, _l, vds2, its2, _h = multi.batched_while_loop(
+            _scripted(table2, torch), (torch.zeros((M, 1, 1)),), torch.full((M,), 0.5),
+            torch.tensor(eps), cap2)
+        state2 = {"its": its2, "vds": vds2, "cap": torch.tensor(cap, dtype=torch.int32),
+                  "eps": torch.tensor(eps)}
+        assert bool(multi._running(state2))
+
+
+def test_cuda_while_imports_without_a_toolkit():
+    """``ops/cuda_while.py`` imports, and its test runs on CPU tensors, in
+    a process with no CUDA toolkit to find: it builds nothing until a CUDA
+    tensor reaches it."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import torch; from bammmotif2_tpu_torch.ops import cuda_while, _build; "
+            "r = torch.tensor(True); "
+            "cuda_while.condition(torch.tensor([3, 1], dtype=torch.int32), "
+            "torch.tensor([1.0, 0.0]), torch.tensor(3, dtype=torch.int32), torch.tensor(1e-3), r); "
+            "assert not bool(r) and cuda_while.condition.launches == 0; "
+            "assert _build.load.cache_info().currsize == 0; print('ok')")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env.update(PATH="/nonexistent", PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          cwd=root, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-2000:]
+
+
+def test_while_loop_source_joins_the_build_hash(monkeypatch, tmp_path):
+    """``csrc/while_loop.cu`` builds like the other sources: its library's
+    name hashes it, the shared headers and the flags, so an edit rebuilds."""
+    import shutil
+
+    from bammmotif2_tpu_torch.ops import _build
+
+    for name in ("while_loop.cu", "common.cuh"):
+        shutil.copy(f"{_build.CSRC}/{name}", tmp_path / name)
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    base = _build.digest("while_loop")
+    assert len(base) == 12
+    (tmp_path / "while_loop.cu").write_text((tmp_path / "while_loop.cu").read_text() + "\n// x\n")
+    edited = _build.digest("while_loop")
+    (tmp_path / "common.cuh").write_text("// y\n")
+    assert len({base, edited, _build.digest("while_loop")}) == 3
