@@ -21,7 +21,8 @@ counterpart of the reference's ``_group_fdr_program``: every fold table is
 built on the host and moved to the device once (``_prepare_group``); each
 fold then refines all seeds of the group (the seed-stacked EM loop of
 ``refinement.multi`` or the stacked CGS chains of ``refinement.gibbs``, each
-one captured CUDA graph replayed across the folds) and runs the fold tail:
+one loop graph captured once and launched once a fold) and runs the fold
+tail:
 ``log_odds_lut``, one window-score launch over the held-out rows gathered
 through a -1-padded index, the fold's negatives sampled from its own
 background tables by a generator seeded ``--seed + fold``, encoded and
@@ -30,16 +31,15 @@ buffers.  On the card the tail is captured once per group and replayed for
 each fold (``refinement.graphs``).  After the folds the per-seed MOPS rank
 sweeps run on the pooled buffers, and one fetch brings back the maxima, the
 iteration counts and the thinned ranks.  No host read falls between the
-first fold and the fetch: each fold's EM loop is one launch of its loop
-graph, which tests the stop on the device, as a CGS fold's sweeps are
-replays.
+first fold and the fetch: each fold's EM loop or CGS sweeps are one
+launch of a loop graph, which tests the stop on the device.
 
 ``evaluate_motif`` (one seed) and the program's plain version
 (``evaluate_motifs(..., program=False)``) run the fold loop
 ``_evaluate_group_loop``: per fold, host-built masks and row indices, a
 background fit and a sampler call, and a read of each fold's maxima.  A CGS
-chain is seeded from the seed's input index (``gibbs.chain_seed``), the
-same in every fold.
+chain is keyed by the seed's input index (``gibbs.chain_keys``), the same
+in every fold.
 
 Outputs ``.zoops.stats`` / ``.mops.stats`` TSVs.
 """
@@ -228,15 +228,16 @@ def _score_rows(s_flat, cidx, lens, rows, path) -> tuple:
     return sc.amax(dim=(1, 3)), sc.reshape(sc.shape[0], -1)
 
 
-def _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train, params, path, stacked,
-              bg, sset, graphs) -> tuple:
+def _cgs_fold(group, indices, keys, v0, q0, alphas, f_bg, tdata, n_train, params, path,
+              stacked, bg, sset, graphs) -> tuple:
     """One fold's CGS refinement of the group on the train-masked rows:
-    stacked chains, or (one seed) ``run_gibbs``.  Returns v [M, ...]."""
+    stacked chains of ``keys`` (``gibbs.chain_keys`` of ``indices``), one
+    loop launch on the card, or (one seed) ``run_gibbs``.  Returns v
+    [M, ...]."""
     A, K, W = group[0].A, group[0].K, group[0].W
     dev = tdata["cidx"].device
     if stacked:
-        gens = gibbs.chain_generators(params.seed, indices, dev)
-        v, _q, _la, _lls = gibbs.gibbs_chains(v0, q0, alphas, f_bg, tdata, float(n_train), gens,
+        v, _q, _la, _lls = gibbs.gibbs_chains(v0, q0, alphas, f_bg, tdata, float(n_train), keys,
                                               params, A=A, K=K, W=W, path=path, graphs=graphs)
         return v
     m = group[0].copy()
@@ -293,6 +294,7 @@ def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: 
     def idx(rows):
         return torch.as_tensor(rows, dtype=torch.int64, device=dev)
 
+    keys = gibbs.chain_keys(params.seed, indices, dev)
     pos_z, pos_m, neg_z, neg_m, fold_its = [], [], [], [], []
     n_pos_true = n_neg_true = 0
     for f in range(F):
@@ -307,9 +309,10 @@ def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: 
                 np.where(train_sel, lens_np, 0).astype(np.int32), device=dev)}
             n_train = int(train_sel.sum())
             if refine == "CGS":
-                v = _cgs_fold(group, indices, v0, q0, alphas, f_bg, tdata, n_train,
+                v = _cgs_fold(group, indices, keys, v0, q0, alphas, f_bg, tdata, n_train,
                               params, path, stacked, bg, sset, graphs)
                 its = [params.maxCGSIterations] * M
+                graphs_mod.settle()
             elif stacked:
                 # every fold's data has one shape (held-out rows have length
                 # 0), so the folds replay one captured loop with their lens
@@ -417,6 +420,7 @@ class _Group:
     q0: torch.Tensor
     alphas: torch.Tensor
     f_bg: torch.Tensor
+    keys: torch.Tensor   # the CGS chains' keys [M, 2] (``gibbs.chain_keys``)
     eps: torch.Tensor
     train_lens: torch.Tensor  # [F, N] int32: each fold's lengths, held-out rows 0
     n_train: list        # each fold's training rows
@@ -433,7 +437,7 @@ class _Group:
 
 
 def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: Params,
-                   neg_set: SequenceSet | None, device) -> _Group:
+                   neg_set: SequenceSet | None, device, indices) -> _Group:
     """Every fold table of a group, built on the host and moved to the
     device once (the reference's ``_evaluate_group``, fdr.py:424-523):
     held-out rows [F, n_per] padded with -1, training lengths [F, N], and
@@ -442,7 +446,8 @@ def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: 
     zero-padded to mFold x the largest fold) and the rows kept in the ZOOPS
     sweep (those of nonzero length: a zero-length positive tiles into
     interior zero-length negatives); with --negSeqFile the negatives' rows
-    [F, ceil(Nn / F)] padded with -1."""
+    [F, ceil(Nn / F)] padded with -1.  Beside them, the CGS chains' keys
+    of the seeds' input ``indices``."""
     A, K, W = group[0].A, group[0].K, group[0].W
     M, F, S, N = len(group), params.cvFold, 1 if params.ss else 2, sset.n
     lens_np = np.asarray(sset.lens, np.int32)
@@ -500,7 +505,9 @@ def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: 
         v0=tuple(put(np.stack([m.v[k] for m in group]), torch.float32) for k in range(K + 1)),
         q0=torch.full((M,), params.q, dtype=torch.float32, device=dev),
         alphas=put(np.stack([m.alphas for m in group]), torch.float32),
-        f_bg=put(group[0].f_bg, torch.float32), eps=put(params.epsilon, torch.float32),
+        f_bg=put(group[0].f_bg, torch.float32),
+        keys=gibbs.chain_keys(params.seed, indices, dev),
+        eps=put(params.epsilon, torch.float32),
         train_lens=put(train_lens), n_train=[int(N - n) for n in fold_sizes],
         fold_sizes=fold_sizes, inputs=inputs, sampled=sampled, neg_pad_len=neg_pad_len,
         s_order=params.sOrder, neg_keep=neg_keep, n_pos_true=n_pos_true, n_neg_true=n_neg_true,
@@ -604,7 +611,7 @@ def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset:
             if refine in ("EM", "CGS"):
                 tdata = {**g.data, "lens": g.train_lens[f]}
                 if refine == "CGS":
-                    v = _cgs_fold(group, indices, g.v0, g.q0, g.alphas, g.f_bg, tdata,
+                    v = _cgs_fold(group, indices, g.keys, g.v0, g.q0, g.alphas, g.f_bg, tdata,
                                   g.n_train[f], params, g.path, True, bg, sset, graphs)
                 else:
                     step, inputs, key = group_step(tdata, g.alphas, g.f_bg, g.n_train[f],
@@ -650,7 +657,7 @@ def _evaluate_group_program(group: list, indices: list, bg: BackgroundModel, sse
     (stacked): the MOPS pools hold NEG_INF for a smaller fold's pad rows,
     which the rank sweep counts as it counts invalid windows."""
     t0 = time.perf_counter()
-    g = _prepare_group(group, bg, sset, params, neg_set, device)
+    g = _prepare_group(group, bg, sset, params, neg_set, device, indices)
     pos_z, neg_z, iters, *ranks = _fetch(
         _run_folds(g, group, indices, bg, sset, params, refine, graphs))
     results = []

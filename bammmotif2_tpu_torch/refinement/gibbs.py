@@ -24,29 +24,36 @@ One sweep, for every chain m:
   8. v from the counts and the new alphas (``models.motif.update_v``);
   9. the ZOOPS ll with the sweep's old q, for monitoring.
 
-Randomness.  The chain of the motif at global input index i owns one
-``torch.Generator`` on the data's device, seeded ``chain_seed(params.seed,
-i)`` (numpy's SeedSequence of the pair, so chains of different indices or
-run seeds are independent).  Each sweep draws one uniform per sequence row
-[N] for z, then q as the ratio of two gamma draws.  So a stacked chain
-reproduces its solo run exactly, and the kernel and plain paths draw the
-same numbers on one device.  Streams differ from ``jax.random``'s: the
-deterministic path (--noZSampling --noQSampling) is compared with the
-reference, the sampled path by distribution.
+Randomness.  The chain of the motif at global input index i has the key
+``chain_keys(params.seed, [i])``: ``chain_seed(params.seed, i)`` (numpy's
+SeedSequence of the pair, so chains of different indices or run seeds are
+independent) as two 32-bit words.  Every draw is Philox4x32-10 of the key
+and a counter that holds the sweep index, read from the device, and the
+draw's own indices (``ops.cuda_draws``, one launch a sweep for the z
+uniforms of all chains and one for their q): row n's uniform from (n, i,
+0, 0), q's gamma candidates from (j, i, 1 or 2, 0).  So a draw depends on
+nothing that ran before it: a stacked chain reproduces its solo run
+exactly, a row's draw does not depend on the rows after it or on the shard
+layout, and the kernel and plain paths draw the same numbers.  Streams
+differ from ``jax.random``'s: the deterministic path (--noZSampling
+--noQSampling) is compared with the reference, the sampled path by
+distribution.
 
-The sweep loop makes no host sync: CGS has a fixed number of sweeps and no
-stop test, and the ll history stays on the device until the end.  On the
-card a sweep is one replay of a captured CUDA graph (``refinement.graphs``,
-``gibbs_optimize``), the counterpart of the reference's ``lax.scan``.
+The sweep loop makes no host sync: CGS has a fixed number of sweeps, and
+the ll history stays on the device until the end.  On the card with no
+mesh the whole run is one launch of a graph whose CUDA WHILE node repeats
+the captured sweep until the sweep counter reaches n_iters
+(``refinement.graphs``, ``gibbs_optimize``), the counterpart of the
+reference's ``lax.scan``.
 
 With a mesh (``parallel.mesh``) each rank scores and counts its block of
 rows, and one all-reduce a sweep sums the counts, the occupied-row counts
 and the ll over the data group (sums of 0/1 occupancies, exact in float32).
-Each chain still draws one uniform for every row of the whole set and the
-rank keeps its block's, so z does not depend on the layout; every rank
-then draws q and takes the alpha step from the same sums with the same
-generator state.  The seed axis does not split the chains: the ranks of
-other seed indices run the same chains on their own data blocks.
+Each rank draws the uniforms of its own block's global rows, so z does not
+depend on the layout; every rank then draws q and takes the alpha step
+from the same sums and the same counters.  The seed axis does not split
+the chains: the ranks of other seed indices run the same chains on their
+own data blocks.
 """
 
 from __future__ import annotations
@@ -63,11 +70,12 @@ from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import (
     Motif, counts_from_combined, log_odds_lut, tile_rows, update_v,
 )
-from bammmotif2_tpu_torch.ops import cuda_counts, cuda_scores, encode
+from bammmotif2_tpu_torch.ops import cuda_counts, cuda_draws, cuda_scores, cuda_while, encode
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, synchronize
+from bammmotif2_tpu_torch.refinement.multi import UNTIL
 from bammmotif2_tpu_torch.scoring.scan import score_fn
 from bammmotif2_tpu_torch.utils.device import resolve
 
@@ -96,17 +104,19 @@ class GibbsResult:
 
 
 def chain_seed(seed: int, index: int) -> int:
-    """The generator seed of the chain of the motif at global input index
-    ``index`` in a run seeded ``seed``: numpy's SeedSequence of the pair,
-    as one 64-bit integer."""
+    """The key of the chain of the motif at global input index ``index``
+    in a run seeded ``seed``: numpy's SeedSequence of the pair, as one
+    64-bit integer (``chain_keys`` splits it into Philox's key words)."""
     ss = np.random.SeedSequence([seed % 2 ** 64, index])
     return int(ss.generate_state(1, np.uint64)[0])
 
 
-def chain_generators(seed: int, indices, device) -> list:
-    """One ``torch.Generator`` on ``device`` per chain index."""
-    device = torch.device(device)
-    return [torch.Generator(device=device).manual_seed(chain_seed(seed, i)) for i in indices]
+def chain_keys(seed: int, indices, device) -> torch.Tensor:
+    """The Philox keys [M, 2] int64 of the chains of ``indices`` on
+    ``device``: each ``chain_seed(seed, i)`` as its (low, high) 32-bit
+    words."""
+    words = [[s & cuda_draws.MASK32, s >> 32] for s in (chain_seed(seed, i) for i in indices)]
+    return torch.tensor(words, dtype=torch.int64, device=device).reshape(-1, 2)
 
 
 def counts_fn(path: str):
@@ -114,13 +124,18 @@ def counts_fn(path: str):
     return cuda_counts.counts_from_r_multi if path == "cuda" else cuda_counts.counts_from_r_multi_ref
 
 
-def build_seconds(path: str) -> float:
-    """Build/load the path's kernels now, so sweep timings exclude it."""
-    if path != "cuda":
+def build_seconds(path: str, device) -> float:
+    """Build/load the kernels a run on ``device`` takes now, so sweep
+    timings exclude it: on a CUDA device the draws and the loop's stop
+    test, and on the kernel path the score and count kernels."""
+    if torch.device(device).type != "cuda":
         return 0.0
     t0 = time.perf_counter()
-    cuda_scores.library()
-    cuda_counts.library()
+    cuda_draws.library()
+    cuda_while.library()
+    if path == "cuda":
+        cuda_scores.library()
+        cuda_counts.library()
     return time.perf_counter() - t0
 
 
@@ -178,39 +193,30 @@ def flat_logits(scores: torch.Tensor, mask: torch.Tensor, q: torch.Tensor) -> to
     return torch.cat([absent, log_w.permute(0, 2, 1, 3).reshape(M, N, S * n_win)], dim=2)
 
 
-def draw_z(flat: torch.Tensor, gens: list, sample: bool, rows: tuple | None = None) -> torch.Tensor:
+def draw_z(flat: torch.Tensor, keys, sweep, sample: bool, row0: int = 0) -> torch.Tensor:
     """z [M, N] int64: 0 = no occurrence, else 1 + the flat window index.
 
-    Sampled: the inverse CDF of each row's softmax at one uniform per row
-    from the chain's generator (the CDF in float64, so the target u * total
-    stays below the total and never lands on a zero-probability column).
-    Else the argmax (first on ties).  ``rows`` = (row0, n_global): ``flat``
-    holds rows row0.. of a set of n_global rows (a shard); each chain draws
-    for all n_global rows and keeps these, and rows past n_global (shard
-    padding, no window, z = 0 whatever the draw) take 0.
+    Sampled: the inverse CDF of each row's softmax at the row's uniform
+    (``ops.cuda_draws.uniforms`` of the chains' ``keys`` at sweep ``sweep``;
+    the CDF in float64, so the target u * total stays below the total and
+    never lands on a zero-probability column).  ``flat`` holds the rows
+    row0.. of the set (a shard's block), each drawn from its global row
+    index; rows with no window (shard padding) take 0 whatever the draw.
+    Else the argmax (first on ties).
     """
     if not sample:
         return flat.argmax(dim=-1)
-    M, N, _ = flat.shape
-    row0, n_global = rows or (0, N)
-    u = torch.stack([torch.rand(n_global, generator=g, device=flat.device) for g in gens])
-    u = u[:, row0 : row0 + N]
-    u = torch.nn.functional.pad(u, (0, N - u.shape[1]))
+    u = cuda_draws.uniforms(keys, sweep, row0, flat.shape[1])
     p = torch.exp(flat - flat.amax(dim=-1, keepdim=True))
     cdf = torch.cumsum(p.to(torch.float64), dim=-1)
     target = (u.to(torch.float64) * cdf[..., -1]).unsqueeze(-1)
     return torch.searchsorted(cdf, target, right=True).squeeze(-1)
 
 
-def draw_beta(a: torch.Tensor, b: torch.Tensor, gens: list) -> torch.Tensor:
-    """Beta(a[m], b[m]) per chain, as X / (X + Y) with X ~ Gamma(a[m]) and
-    Y ~ Gamma(b[m]) drawn in that order from chain m's generator."""
-    out = []
-    for m, g in enumerate(gens):
-        x = torch._standard_gamma(a[m : m + 1], generator=g)
-        y = torch._standard_gamma(b[m : m + 1], generator=g)
-        out.append(x / (x + y))
-    return torch.cat(out)
+def draw_beta(a: torch.Tensor, b: torch.Tensor, keys, sweep) -> torch.Tensor:
+    """Beta(a[m], b[m]) per chain, clipped to [Q_MIN, Q_MAX]: X / (X + Y)
+    with X ~ Gamma(a[m]) and Y ~ Gamma(b[m]) (``ops.cuda_draws.beta``)."""
+    return cuda_draws.beta(keys, sweep, a, b, Q_MIN, Q_MAX)
 
 
 def occupancy(z: torch.Tensor, S: int, L: int, n_win: int) -> torch.Tensor:
@@ -233,7 +239,7 @@ def gibbs_step_multi(
     v: tuple,
     q: torch.Tensor,
     log_alphas: torch.Tensor,
-    gens: list,
+    keys,
     data: dict,
     f_bg: torch.Tensor,
     default_alphas: torch.Tensor,
@@ -245,6 +251,7 @@ def gibbs_step_multi(
     sample_z: bool,
     sample_q: bool,
     learn_alpha: bool,
+    sweep=None,
     path: str = "plain",
     alpha_lr: float = ALPHA_LR,
     mesh=None,
@@ -252,10 +259,12 @@ def gibbs_step_multi(
     """One batch-synchronous CGS sweep for M chains.
 
     v: tuple of [M, A^(k+1), W]; q [M]; log_alphas, default_alphas
-    [M, K+1, W]; gens: one generator per chain; data: {cidx, lens,
-    bg_flat} (``refinement.em.prepare_data``, or with ``mesh`` this rank's
-    block from ``parallel.mesh.shard_em_data``); n_real: the number of real
-    rows (zero-length mask rows excluded).
+    [M, K+1, W]; keys: the chains' keys [M, 2] (``chain_keys``) and sweep
+    the sweep index [1] int64, both on the data's device (unused, and may
+    be None, when nothing is sampled); data: {cidx, lens, bg_flat}
+    (``refinement.em.prepare_data``, or with ``mesh`` this rank's block
+    from ``parallel.mesh.shard_em_data``); n_real: the number of real rows
+    (zero-length mask rows excluded).
 
     Returns (v, q, log_alphas, ll [M], n_occ [M], counts tuple of
     [M, A^(k+1), W]).
@@ -267,8 +276,10 @@ def gibbs_step_multi(
     scores, mask = score_fn(path)(s_flat, cidx, lens)
     _M, S, N, n_win = scores.shape
 
+    if (sample_z or sample_q) and (keys is None or sweep is None):
+        raise ValueError("a sampled sweep needs the chains' keys and the sweep index")
     flat = flat_logits(scores, mask, q)
-    z = draw_z(flat, gens, sample_z, None if mesh is None else (data["row0"], data["n_global"]))
+    z = draw_z(flat, keys, sweep, sample_z, data.get("row0", 0))
     n_occ = (z > 0).sum(dim=1).to(torch.float32)
     C = counts_fn(path)(occupancy(z, S, L, n_win), cidx, R, W)
     ll = torch.logsumexp(flat, dim=-1).sum(dim=-1)
@@ -280,7 +291,7 @@ def gibbs_step_multi(
 
     if sample_q:
         # zero-length mask rows can never be occupied and are not in n_real
-        q_new = draw_beta(n_occ + 1.0, n_real - n_occ + 1.0, gens).clamp(Q_MIN, Q_MAX)
+        q_new = draw_beta(n_occ + 1.0, n_real - n_occ + 1.0, keys, sweep)
     else:
         q_new = q
     if learn_alpha:
@@ -292,13 +303,14 @@ def gibbs_step_multi(
     return v_new, q_new, log_alphas, ll, n_occ, counts
 
 
-def gibbs_step(v, q, log_alphas, gen, data, f_bg, default_alphas, n_real, **kw):
+def gibbs_step(v, q, log_alphas, key, data, f_bg, default_alphas, n_real, **kw):
     """``gibbs_step_multi`` for one chain: v tuple of [A^(k+1), W], q [],
-    log_alphas and default_alphas [K+1, W], one generator.  Returns
-    (v, q, log_alphas, ll, n_occ, counts) without the seed axis."""
+    log_alphas and default_alphas [K+1, W], the chain's key [2] (or None).
+    Returns (v, q, log_alphas, ll, n_occ, counts) without the seed axis."""
     out = gibbs_step_multi(
-        tuple(vk[None] for vk in v), q.reshape(1), log_alphas[None], [gen], data,
-        f_bg, default_alphas[None], n_real, **kw,
+        tuple(vk[None] for vk in v), q.reshape(1), log_alphas[None],
+        None if key is None else key.reshape(1, 2), data, f_bg, default_alphas[None], n_real,
+        **kw,
     )
     v, q, la, ll, n_occ, counts = out
     return tuple(vk[0] for vk in v), q[0], la[0], ll[0], n_occ[0], tuple(c[0] for c in counts)
@@ -308,7 +320,7 @@ def gibbs_optimize(
     v: tuple,
     q: torch.Tensor,
     log_alphas: torch.Tensor,
-    gens: list,
+    keys,
     data: dict,
     f_bg: torch.Tensor,
     default_alphas: torch.Tensor,
@@ -328,12 +340,20 @@ def gibbs_optimize(
 ):
     """The whole CGS run of M chains: ``n_iters`` sweeps, no host sync.
 
-    The sweep is one in-place body (``refinement.graphs.Loop``), the
-    reference's ``lax.scan`` body: a step counter on the device indexes the
-    ll and occupied-row histories, and the burn-in mean adds ``counts *
-    (i >= burn_in)``.  On a CUDA device it is captured once and replayed
-    n_iters - 1 times after the first sweep, unless ``graphs`` is False or
-    ``mesh``'s data group runs gloo (``graphs.enabled``).
+    ``keys``: the chains' keys [M, 2] (``chain_keys``; None when nothing
+    is sampled).  The sweep is one in-place body (``refinement.graphs.
+    Loop``), the reference's ``lax.scan`` body: a sweep counter ``i`` on
+    the device keys the draws and indexes the ll and occupied-row
+    histories, and the burn-in mean adds ``counts * (i >= burn_in)``.  The
+    loop's stop test (``multi.UNTIL``) is the scan's length: ``its``
+    counts sweeps against the cap n_iters, and ``vds`` stays +inf, so no
+    ll (a NaN one included) stops it.  On a CUDA device with no mesh the
+    run is one launch of a WHILE-node graph after the first sweep
+    (``graphs.device_loop``; ``graphs.settle`` counts its launches where
+    the caller reads the results); on an NCCL mesh the captured sweep is
+    replayed n_iters - 1 times; eagerly where ``graphs`` is False or the
+    mesh's data group runs gloo (``graphs.enabled``).  A captured loop's
+    key holds n_iters through the histories' shapes.
 
     Returns (v, q, log_alphas, ll_history [n_iters, M], n_occ_history
     [n_iters, M], avg_counts), all on the device; avg_counts averages the
@@ -350,16 +370,24 @@ def gibbs_optimize(
         "i": torch.zeros((1,), dtype=torch.int64, device=dev),
         "lls": torch.zeros((n_iters, M), dtype=torch.float32, device=dev),
         "n_occs": torch.zeros((n_iters, M), dtype=torch.float32, device=dev),
+        # the stop test: n_iters sweeps
+        "its": torch.zeros((M,), dtype=torch.int32, device=dev),
+        "vds": torch.full((M,), float("inf"), dtype=torch.float32, device=dev),
+        "cap": torch.full((), n_iters, dtype=torch.int32, device=dev),
+        "eps": torch.zeros((), dtype=torch.float32, device=dev),
     }
+    state["running"] = cuda_while.condition_ref(*(state[k] for k in UNTIL[1:]))
     tensors, consts = graphs_mod.split(data)
     inputs = {**tensors, "f_bg": f_bg, "default_alphas": default_alphas}
+    if keys is not None:
+        inputs["keys"] = keys
     statics = dict(A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
                    learn_alpha=learn_alpha, path=path)
 
-    def body(s, gens):
+    def body(s, _gens):
         v2, q2, la2, ll, n_occ, counts = gibbs_step_multi(
-            s["v"], s["q"], s["la"], gens, {**data, **inputs}, inputs["f_bg"],
-            inputs["default_alphas"], n_real, mesh=mesh, **statics,
+            s["v"], s["q"], s["la"], inputs.get("keys"), {**data, **inputs}, inputs["f_bg"],
+            inputs["default_alphas"], n_real, sweep=s["i"], mesh=mesh, **statics,
         )
         take = (s["i"] >= burn_in).to(torch.float32)
         for a, c in zip(s["acc"], counts):
@@ -371,18 +399,23 @@ def gibbs_optimize(
         s["q"].copy_(q2)
         s["la"].copy_(la2)
         s["i"].add_(1)
+        s["its"].add_(1)
 
     key = ("gibbs_step_multi", float(n_real), burn_in, consts, tuple(sorted(statics.items())))
-    with graphs_mod.Loop("CGS sweep loop", key, state, inputs, body, gens=gens, mesh=mesh,
-                         graphs=graphs) as loop:
-        loop.run(n_iters)
+    with graphs_mod.Loop("CGS sweep loop", key, state, inputs, body, mesh=mesh, graphs=graphs,
+                         until=UNTIL) as loop:
+        if loop.on_device:
+            if n_iters > 0:
+                loop.run_while()
+        else:
+            loop.run(n_iters)
         s = loop.state
         n_avg = max(n_iters - burn_in, 1)
         return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["la"].clone(),
                 s["lls"].clone(), s["n_occs"].clone(), tuple(a / n_avg for a in s["acc"]))
 
 
-def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
+def gibbs_chains(v, q, alphas, f_bg, data, n_real, keys, params: Params, *,
                  A: int, K: int, W: int, path: str, mesh=None, graphs: bool = True):
     """CGS for M stacked chains as the flags say: log alpha starts at
     log(alphas), the InvGamma prior is centred on ``alphas``, and with
@@ -391,7 +424,7 @@ def gibbs_chains(v, q, alphas, f_bg, data, n_real, gens, params: Params, *,
     n_iters = params.maxCGSIterations
     burn_in = min(params.cgsBurnIn, max(n_iters - 1, 0))
     v, q, la, lls, _n_occs, acc = gibbs_optimize(
-        v, q, torch.log(alphas), gens, data, f_bg, alphas, n_real,
+        v, q, torch.log(alphas), keys, data, f_bg, alphas, n_real,
         A=A, K=K, W=W,
         sample_z=not params.noZSampling, sample_q=not params.noQSampling,
         learn_alpha=not params.noAlphaOptimization,
@@ -422,14 +455,15 @@ def _run_group(group: list, indices: list, data: dict, n_real: int, params: Para
     alphas = f32(np.stack([m.alphas for m in group]))
     f_bg = f32(group[0].f_bg)
     path = choose_path(params, dev)
-    compile_seconds = build_seconds(path)
-    gens = chain_generators(params.seed, indices, dev)
+    compile_seconds = build_seconds(path, dev)
+    keys = chain_keys(params.seed, indices, dev)
 
     t0 = time.perf_counter()
-    v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), gens, params,
+    v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), keys, params,
                                  A=A, K=K, W=W, path=path, mesh=mesh, graphs=graphs)
     synchronize(dev)
     seconds = time.perf_counter() - t0
+    graphs_mod.settle()
 
     lls_h = lls.cpu().numpy()  # [n_iters, M]
     q_h = q.cpu().numpy()

@@ -13,7 +13,7 @@ runs it:
     capture stream of the device (it warms the kernel launchers' cached
     queries and creates ``ops.cuda_counts.workspace``'s buffers for that
     stream); then the body is captured once as a ``torch.cuda.CUDAGraph``,
-    the chains' generators registered with it, and each further iteration
+    the body's generators registered with it, and each further iteration
     is one replay.  Captured loops stay in a small cache keyed by the loop's
     name, its constants and its tensors' shapes, the counterpart of the
     reference's ``lru_cache``: a later call with the same key (the next
@@ -24,8 +24,9 @@ runs it:
     the graph captures.
 
 A loop whose state holds the reference's stop test (``until``: EM's
-convergence loop) runs on the device to its end, as ``lax.while_loop``
-does, where ``device_loop`` allows it: the iteration is captured as above,
+convergence loop; CGS's sweeps, whose test is the sweep count) runs on the
+device to its end, as ``lax.while_loop`` and ``lax.scan`` do, where
+``device_loop`` allows it: the iteration is captured as above,
 without the test, and wrapped in a CUDA graph WHILE node
 (``ops.cuda_while.WhileGraph``) whose body ends with the test's kernel,
 which sets the node's condition.  One launch runs every iteration, and the
@@ -95,17 +96,21 @@ def device_loop(device, mesh=None, n_gens: int = 0) -> bool:
     to its end on the device as one WHILE-node graph: it is graphed
     (``enabled``), has no mesh and registers no generators (a replay
     advances a generator's offsets from the host, which a body looped on
-    the device never gets)."""
+    the device never gets: CGS draws from counters keyed by its sweep
+    index instead, ``ops.cuda_draws``)."""
     return mesh is None and n_gens == 0 and enabled(device)
 
 
 def counted() -> tuple:
     """The kernel wrappers whose ``.launches`` count launches."""
-    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while
+    from bammmotif2_tpu_torch.ops import (
+        cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_while,
+    )
 
     return (cuda_em.em_counts_multi, cuda_scores.window_scores_multi,
             cuda_counts.counts_from_r_multi, cuda_flat.em_counts, cuda_flat.window_scores,
-            cuda_flat.counts_from_r, cuda_while.condition)
+            cuda_flat.counts_from_r, cuda_while.condition, cuda_draws.uniforms,
+            cuda_draws.beta)
 
 
 def settle() -> None:
@@ -224,7 +229,8 @@ class Loop:
     tensors that the loop owns and updates.  ``inputs``: name -> tensor,
     what the body reads and never writes; the body reads them through this
     dict, whose values the loop replaces by its static copies.  ``gens``:
-    the chains' generators the body draws from.  ``key``: hashable, the
+    the generators the body draws from (the FDR fold tail's negative
+    sampler; CGS draws from counters instead).  ``key``: hashable, the
     body's constants; with the loop's name, the device, the mesh and the
     tensors' shapes and dtypes it decides which captured graph a call
     reuses.
@@ -240,8 +246,9 @@ class Loop:
     max(vds) >= eps``, which runs after each iteration of the body.  Where
     ``device_loop`` allows (``on_device``), ``run_while`` runs the loop to
     its end on the device; elsewhere ``run(n)`` runs n iterations and the
-    caller reads ``running``.  A loop with generators that asks for it
-    raises CaptureError.
+    caller reads ``running`` between chunks (CGS, whose count is fixed,
+    runs them in one).  A loop with generators that asks for it raises
+    CaptureError.
 
     After construction read the state from ``.state`` (the static buffers
     when graphed: copy out what must outlive the next loop of the same key)

@@ -70,8 +70,10 @@ measures, through that checkout's code:
   EM its/s at a fixed ``chip_smoke.LOOP_ITERS`` iterations (epsilon 0)
   and converged (the default epsilon) through run_em (M=1) or
   run_em_multi on bench's set at K=2 and 4 for each M (``seeds_problem``:
-  the planted PWM, then softer ones), and CGS sweeps/s at M=1
-  (``cgs_rate``); no first-use runs.
+  the planted PWM, then softer ones), and CGS at K=2 for each M
+  (``cgs_rate``: sweeps/s, device operations a sweep and the idle share,
+  whether the checkout replays a sweep at a time or runs the sweeps as one
+  WHILE-node graph); no first-use runs.
 
 The kernels' inputs are made once, before the first round, by this
 checkout's ``chip_smoke`` and ``tests/test_torch_cuda.py`` (numpy and
@@ -357,10 +359,14 @@ def seeds_problem(chip_smoke, tmp: str, K: int, M: int) -> dict:
             "bg": BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)}
 
 
-def cgs_rate(chip_smoke, dev, prob: dict) -> float:
-    """CGS sweeps/s of gibbs_optimize on ``prob``'s first seed (K=2, one
-    chain, the kernel path, graphed): N_TIMED sweeps after an untimed run
-    of the same length."""
+def cgs_rate(chip_smoke, dev, prob: dict, M: int = 1) -> dict:
+    """CGS on ``prob``'s first M seeds (K=2, the kernel path, graphed: one
+    launch of a WHILE-node graph a run where the checkout loops on the
+    device, a replay a sweep where it does not), N_TIMED sweeps after an
+    untimed run of the same length: sweeps/s, and over one more run under
+    torch.profiler the device operations a sweep and the device's idle
+    share.  The chains are keyed (``gibbs.chain_keys``) or, in a checkout
+    from before the keys, seeded generators."""
     import numpy as np
     import torch
 
@@ -368,31 +374,42 @@ def cgs_rate(chip_smoke, dev, prob: dict) -> float:
     from bammmotif2_tpu_torch.refinement.em import prepare_data
 
     data = prepare_data(prob["sset"], prob["bg"], 2, False, dev)
-    seed = prob["seeds"][0]
+    seeds = prob["seeds"][:M]
     f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
-    alphas = f32(seed.alphas)[None]
+    alphas = f32(np.stack([m.alphas for m in seeds]))
+    v = tuple(f32(np.stack([m.v[k] for m in seeds])) for k in range(3))
+    chains = getattr(gibbs, "chain_keys", None) or gibbs.chain_generators
 
     def sweeps():
-        gibbs.gibbs_optimize(tuple(f32(vk)[None] for vk in seed.v), f32([0.9]), torch.log(alphas),
-                             gibbs.chain_generators(0, [0], dev), data, f32(seed.f_bg), alphas,
-                             float(chip_smoke.N_SEQS), A=4, K=2, W=chip_smoke.W, sample_z=True,
-                             sample_q=True, learn_alpha=True, path="cuda",
-                             n_iters=chip_smoke.N_TIMED, graphs=True)
+        gibbs.gibbs_optimize(v, f32([0.9] * M), torch.log(alphas), chains(0, range(M), dev), data,
+                             f32(seeds[0].f_bg), alphas, float(chip_smoke.N_SEQS), A=4, K=2,
+                             W=chip_smoke.W, sample_z=True, sample_q=True, learn_alpha=True,
+                             path="cuda", n_iters=chip_smoke.N_TIMED, graphs=True)
         torch.cuda.synchronize()
 
     sweeps()
     t0 = time.perf_counter()
     sweeps()
-    return chip_smoke.N_TIMED / (time.perf_counter() - t0)
+    rate = chip_smoke.N_TIMED / (time.perf_counter() - t0)
+    prof = chip_smoke.profile_window(sweeps)
+    return {f"cgs_sweeps_per_s_M{M}": rate,
+            f"cgs_device_ops_per_sweep_M{M}": prof["kernel_launches"] / chip_smoke.N_TIMED,
+            f"cgs_idle_share_M{M}": prof["device_idle_share"]}
 
 
 def measure_seed_loops(chip_smoke, dev, Ms: list) -> tuple:
     """``loops --M``: graphed EM its/s at K=2 and 4 for each M, at a fixed
     budget and converged (the default epsilon, ``em_conv_...``; the
-    iterations go beside the metrics), and CGS sweeps/s at M=1, each timed
-    run after an untimed one of its shape."""
+    iterations go beside the metrics), and CGS at K=2 for each M
+    (``cgs_rate``), each timed run after an untimed one of its shape."""
+    import torch
+
     from bammmotif2_tpu_torch.utils.config import Params
 
+    # CUPTI records the kernels of a loop graph's WHILE body only where the
+    # graph was instantiated after the process first traced: trace first
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
     metrics, iterations = {}, {}
     converged = Params(EM=True, optimizeQ=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -406,7 +423,8 @@ def measure_seed_loops(chip_smoke, dev, Ms: list) -> tuple:
                 metrics[f"em_conv_its_per_s_K{K}_M{M}"] = rate
                 iterations[f"K{K}_M{M}"] = its
             if K == 2:
-                metrics["cgs_sweeps_per_s_M1"] = cgs_rate(chip_smoke, dev, prob)
+                for M in Ms:
+                    metrics.update(cgs_rate(chip_smoke, dev, prob, M))
     return metrics, {"graphed": True, "converged_iterations": iterations}
 
 

@@ -5,8 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu,
-               csrc/counts_from_r.cu, csrc/flat.cu and csrc/while_loop.cu
-               in parallel; prints the toolchain, the card, the CUDA
+               csrc/counts_from_r.cu, csrc/flat.cu, csrc/while_loop.cu,
+               csrc/cgs_draws.cu and csrc/philox_check.cu (a known-answer
+               check, no kernel of the port's paths) in parallel; prints
+               the toolchain, the card, the CUDA
                driver's and runtime's versions (a WHILE graph node needs
                12.3) and the ptxas resource reports.
   2. kernel  : each of the six kernels against its plain PyTorch version on
@@ -21,25 +23,34 @@ Phases (any failure exits non-zero):
                of a call replays right; and check_flat_calls: a flat
                window-score call is one kernel, a flat E+M call enqueues no
                more than the combined one and no gather or fold;
-               check_condition: the EM loop's stop-test kernel
+               check_condition: the loops' stop-test kernel
                (ops/cuda_while.py) against its plain version on edge
-               inputs (the cap reached, every seed frozen, NaN); and
-               check_loops: the EM loop as one launch of a WHILE-node graph
-               and the CGS loop as replayed CUDA graphs
+               inputs (the cap reached, every seed frozen, NaN); the CGS
+               draw kernels (ops/cuda_draws.py, tests/test_torch_draws.py):
+               cgs_uniforms bit-equal to uniforms_ref at M=16, 10k rows,
+               three sweep indices and two row offsets (check_uniforms),
+               cgs_beta against beta_ref on 2 x 10^5 (a, b) pairs, the same
+               candidates but for at most 1e-4 of them and rtol 1e-5
+               (check_beta, the differing candidates printed), philox.cuh
+               against cuRAND's curand_Philox4x32_10 and Random123's known
+               answers (check_philox_curand); and check_loops: the EM loop
+               and the CGS sweeps each as one launch of a WHILE-node graph
                (refinement/graphs.py) against their eager loops (CGS bit
-               for bit, EM within the bars: at a fixed budget, converged,
-               stopped by its warm-up iteration, and a cached loop graph
-               launched with another cap and ll0), no host read in the
-               graphed EM loop against one a chunk of multi.SYNC_EVERY
-               iterations in the eager one, B1-B3 and the stop-test kernel
-               counted once an iteration or sweep (each wrapper's launches
-               a call), a capture that fails raises, and the same at a
-               33-seed stack (check_chunked_loops).
+               for bit, also at 1 and 2 sweeps; EM within the bars: at a
+               fixed budget, converged, stopped by its warm-up iteration,
+               and a cached loop graph launched with another cap and ll0),
+               no host read in the graphed loops against one a chunk of
+               multi.SYNC_EVERY iterations in the eager EM loop, B1-B3,
+               the draw kernels and the stop-test kernel counted once an
+               iteration or sweep (each wrapper's launches a call), a
+               capture that fails raises, and the same at a 33-seed stack
+               (check_chunked_loops).
   3. slice   : every path through the CLI, once through the kernels and once
                under --no-pallas, with every kernel's launch count set to 0
                just before each run and read just after; the EM and CGS
                loops of both run as replayed CUDA graphs, each run starting
-               with an empty graph cache (its captures are reported):
+               with an empty graph cache (its captures are reported); the
+               CGS draw kernels and the stop test launch on both paths:
                - --EM on examples/ and on a planted 10k x 200 bp set at -k 2
                  and -k 4: written models agree, the refined consensus is
                  the planted motif, the E+M kernel launched at least once per
@@ -76,14 +87,17 @@ Phases (any failure exits non-zero):
                  default 100 sweeps: written files equal byte for byte
                  (both paths draw the same numbers, window scores are
                  bit-equal and 0/1 counts exact), and equal to the kernel
-                 path's eager sweep loop; the consensus is the planted motif,
-                 the window-score and counts-from-r kernels launched at least
-                 once per sweep;
+                 path's eager sweep loop; the consensus is the planted motif;
+                 the sweeps ran as one launch of a WHILE-node graph
+                 (graphs.stats' while_launches), the window-score,
+                 counts-from-r and two draw kernels launched once a sweep
+                 (settled counts);
                - --EM --CGS on examples/: files agree, all three kernels
                  launched;
                - config 4 with --CGS --FDR (per-fold CGS) compared at
                  --maxCGSIterations 20, then through the kernels at the
-                 default 100: AvRec ZOOPS >= 0.25 for the planted seeds;
+                 default 100: AvRec ZOOPS >= 0.25 for the planted seeds,
+                 each fold's sweeps one loop-graph launch;
                - config 4's EM-FDR and CGS-FDR through evaluate_motifs
                  (fdr_program_slice): the FDR group program, graphed,
                  against its plain version, the fold loop: FDRResults
@@ -91,8 +105,8 @@ Phases (any failure exits non-zero):
                  capture a (W, K) group replayed for its other folds, both
                  runs' folds under torch.cuda.set_sync_debug_mode("error")
                  (no host sync from the first fold to the fetch: an EM
-                 fold's loop is one launch of its loop graph), B2 and B1
-                 or B3 launched;
+                 fold's loop and a CGS fold's sweeps are one launch of a
+                 loop graph), B2 and B1 or B3 launched;
                - the flat-layout entry points (ops/cuda_flat.py, the port of
                  tools/pallas_flat.py) on the planted 10k x 200 bp set at
                  K=2: FLAT_ITERS EM iterations through flat em_counts, then
@@ -145,9 +159,15 @@ Phases (any failure exits non-zero):
                index built beforehand, index_add_ for counts from r with its
                index built beforehand and, beside it, inside the timed
                call), that call's time; EM windows/s and iterations/s; CGS sweeps/s at
-               bench's geometry (kernel and plain, each graphed and eager,
-               and the device's busy share under torch.profiler over 10
-               graphed and 10 eager sweeps); the stop-test kernel at M=16;
+               bench's geometry (kernel and plain at M=1, kernel at M=10,
+               each graphed and eager, under set_sync_debug_mode("error"),
+               the loop graph's body nodes and the device's busy share
+               under torch.profiler over 10 graphed and 10 eager sweeps at
+               M=1 and 10); the stop-test kernel at M=16; the draw kernels
+               at M=1 and 16 on 10k rows against their plain versions and
+               a generator's torch.rand and torch._standard_gamma; the device
+               loop's own cost an iteration, a WHILE-node launch against a
+               replay an iteration, on a body of two small kernels;
                the loops (time_loops): EM its/s eager against graphed at
                M=1 and 4 through run_em / run_em_multi and through the
                CLI's --EM stage, graphed EM its/s at a fixed budget at
@@ -181,7 +201,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat", "while_loop")
+KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat", "while_loop",
+                  "cgs_draws", "philox_check")
 
 # bench.py's problem
 N_SEQS, SEQ_LEN, W, N_TIMED = 10_000, 200, 12, 30
@@ -223,7 +244,9 @@ def load_by_path(name: str, rel: str):
 
 def counted() -> dict:
     """Each kernel's name -> the wrapper that counts its launches."""
-    from bammmotif2_tpu_torch.ops import cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while
+    from bammmotif2_tpu_torch.ops import (
+        cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_while,
+    )
 
     return {"em_counts": cuda_em.em_counts_multi,
             "window_scores": cuda_scores.window_scores_multi,
@@ -231,7 +254,14 @@ def counted() -> dict:
             "flat_em_counts": cuda_flat.em_counts,
             "flat_window_scores": cuda_flat.window_scores,
             "flat_counts_from_r": cuda_flat.counts_from_r,
-            "loop_condition": cuda_while.condition}
+            "loop_condition": cuda_while.condition,
+            "cgs_uniforms": cuda_draws.uniforms,
+            "cgs_beta": cuda_draws.beta}
+
+
+# not the data path's kernels: the loops' stop test and CGS's draws run on
+# both the kernel path and under --no-pallas
+BOTH_PATHS = ("loop_condition", "cgs_uniforms", "cgs_beta")
 
 
 def launches() -> dict:
@@ -349,7 +379,7 @@ def phase_build():
     import torch
 
     from bammmotif2_tpu_torch.ops import (
-        _build, cuda_counts, cuda_em, cuda_flat, cuda_scores, cuda_while,
+        _build, cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_while,
     )
 
     t0 = time.perf_counter()
@@ -360,6 +390,7 @@ def phase_build():
     cuda_counts.library()
     cuda_flat.library()
     cuda_while.library()
+    cuda_draws.library()
     secs = time.perf_counter() - t0
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -404,6 +435,18 @@ def phase_kernel(device) -> dict:
     res = checks.check_condition(device)
     worst["loop_condition"] = float(res["mismatches"])
     log("kernel loop_condition (edge inputs; max_abs_err counts mismatches): " + json.dumps(res))
+    draws = load_by_path("bamm_torch_draws_checks", "tests/test_torch_draws.py")
+    res = draws.check_uniforms(device)
+    worst["cgs_uniforms"] = float(res["mismatches"])
+    log("kernel cgs_uniforms (bit-equal to uniforms_ref; max_abs_err counts mismatches): "
+        + json.dumps(res))
+    res = draws.check_beta(device)
+    worst["cgs_beta"] = res["max_abs_err"]
+    log(f"kernel cgs_beta (against beta_ref: the same candidates, rtol {draws.BETA_RTOL}; "
+        f"differing candidate indices at most {draws.BETA_FLIP_SHARE} of the draws): "
+        + json.dumps(res))
+    log("kernel philox (philox.cuh against cuRAND's curand_Philox4x32_10 and Random123's "
+        "known answers): " + json.dumps(draws.check_philox_curand(device)))
     log("kernel loops (graphed against eager, host reads, counters, failed capture): "
         + json.dumps(checks.check_loops(device)))
     return worst
@@ -522,11 +565,12 @@ def run_cli(outdir: str, fasta: str, meme: str, extra: list, device, graphs: boo
 
 def run_pair(tag: str, fasta: str, meme: str, extra: list, device, tmp: str) -> tuple:
     """The same command through the kernels and under --no-pallas; the plain
-    run must launch none of the data path's kernels (an EM loop runs on the
-    device on both paths, so the stop-test kernel launches on both)."""
+    run must launch none of the data path's kernels (the loops run on the
+    device on both paths, and CGS draws from the same kernels on both, so
+    BOTH_PATHS' kernels launch on both)."""
     k = run_cli(os.path.join(tmp, tag + "_kernel"), fasta, meme, extra, device)
     p = run_cli(os.path.join(tmp, tag + "_plain"), fasta, meme, [*extra, "--no-pallas"], device)
-    if any(n for name, n in p["launches"].items() if name != "loop_condition"):
+    if any(n for name, n in p["launches"].items() if name not in BOTH_PATHS):
         raise AssertionError(f"{tag}: --no-pallas run launched a kernel: {p['launches']}")
     return k, p
 
@@ -614,6 +658,18 @@ def files_equal(dir_a: str, dir_b: str) -> bool:
             if a.read() != b.read():
                 return False
     return True
+
+
+def one_launch_a_run(captures: list, sweeps: int, tag: str) -> list:
+    """The cached CGS loops of ``captures`` (``graphs.stats()``): each call
+    of each ran its ``sweeps`` sweeps as one launch of its loop graph
+    (``while_launches`` = calls; its sweeps but the first call's eager one
+    settled as ``replays``).  Returns them."""
+    loops = [c for c in captures if c["name"] == "CGS sweep loop"]
+    if not loops or any(c.get("while_launches") != c["calls"]
+                        or c["replays"] != c["calls"] * sweeps - 1 for c in loops):
+        raise AssertionError(f"{tag}: a CGS run was not one loop-graph launch: {loops}")
+    return loops
 
 
 def full_slice(tag, fasta, meme, extra, device, tmp, m_fold,
@@ -745,8 +801,12 @@ def cgs_slices(device, tmp) -> dict:
                              f"the eager loop {main['files_equal_eager']}; captures "
                              f"{k['captures']}, eager {e['captures']}")
     sweeps = k["events"]["cgs_done"][0]["iterations"]
-    if min(k["launches"]["window_scores"], k["launches"]["counts_from_r"]) < sweeps:
+    per_sweep = ("window_scores", "counts_from_r", "cgs_uniforms", "cgs_beta")
+    if any(k["launches"][name] != sweeps for name in per_sweep):
         raise AssertionError(f"cgs_10k: {k['launches']} for {sweeps} sweeps")
+    main["cgs_loop_graph"] = one_launch_a_run(k["captures"], sweeps, "cgs_10k")
+    if len(main["cgs_loop_graph"]) != 1:
+        raise AssertionError(f"cgs_10k: loops {main['cgs_loop_graph']}")
     check_consensus("cgs_10k", (os.path.join(tmp, "cgs_10k_kernel"), os.path.join(tmp, "cgs_10k_plain")),
                     k["base"], k["events"]["cgs_done"][0]["motif"], planted)
     p_ev = runs_events(tmp, "cgs_10k_plain", k["base"])["cgs_done"][0]
@@ -768,6 +828,11 @@ def cgs_slices(device, tmp) -> dict:
     full = run_cli(os.path.join(tmp, "config4_cgs"), fasta4, meme4, extra, device)
     if not (full["launches"]["window_scores"] and full["launches"]["counts_from_r"]):
         raise AssertionError(f"config4 CGS: a kernel did not launch: {full['launches']}")
+    # the CGS stage's loops (one call each), then the FDR folds' (five calls
+    # a group); the cache may have dropped the oldest
+    loops = one_launch_a_run(full["captures"], 100, "config4 CGS")
+    if sum(c["calls"] == 5 for c in loops) != len({len(m) for m in C4_MOTIFS}):
+        raise AssertionError(f"config4 CGS: the folds' loops {loops}")
     fdr = full["events"]["fdr_done"]
     avrec = {e["motif"]: e["avrec_zoops"] for e in fdr}
     if min(avrec[f"motif_{s + 1}"] for s in range(len(C4_MOTIFS))) < 0.25:
@@ -775,6 +840,7 @@ def cgs_slices(device, tmp) -> dict:
     c4 = {
         "fixed": fixed,
         "launches": full["launches"],
+        "cgs_loop_graphs": loops,
         "captures": full["captures"],
         "avrec_zoops": avrec,
         "cgs_fdr_group_seconds_kernel": {f"W{e['W']}_K{e['K']}": e["group_seconds"] for e in fdr},
@@ -791,9 +857,10 @@ def fdr_program_slice(device, tmp) -> dict:
     FDRResults are equal and their .stats files byte for byte; each group
     captured its fold tail once and replayed it for its other folds; the
     folds of both runs (``fdr._run_folds``: an EM fold's loop graph, a CGS
-    fold's sweeps) ran under torch.cuda.set_sync_debug_mode("error"), so a
-    host sync between the first fold and the fetch fails it; B2 and B1 (EM)
-    or B3 (CGS) launched in the program's run."""
+    fold's) ran under torch.cuda.set_sync_debug_mode("error"), so a host
+    sync between the first fold and the fetch fails it; a CGS fold's sweeps
+    were one loop-graph launch (``one_launch_a_run``); B2 and B1 (EM) or B3 (CGS)
+    launched in the program's run."""
     import torch
 
     from bammmotif2_tpu_torch.evaluation import fdr
@@ -861,6 +928,12 @@ def fdr_program_slice(device, tmp) -> dict:
                                  f"{n_groups} groups of {params.cvFold} folds")
         if not all(n[k] for k in kernels):
             raise AssertionError(f"fdr_program {refine}: a kernel did not launch: {n}")
+        if refine == "CGS":
+            loops = one_launch_a_run(caps, params.maxCGSIterations, "fdr_program CGS")
+            entry["cgs_loop_graphs"] = loops
+            if sorted(c["calls"] for c in loops) != [params.cvFold] * n_groups:
+                raise AssertionError(f"fdr_program CGS: a fold's sweeps were not one "
+                                     f"loop-graph launch: {loops}")
         out[refine] = entry
     return out
 
@@ -991,6 +1064,8 @@ def phase_slice(device, tmp) -> dict:
                          "loop_condition": conv["condition_launches"],
                          "window_scores": c5["launches"]["window_scores"],
                          "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
+                         "cgs_uniforms": cgs["cgs_10k"]["launches"]["cgs_uniforms"],
+                         "cgs_beta": cgs["cgs_10k"]["launches"]["cgs_beta"],
                          **flat["launches"]},
             "config5": c5, "config4": c4, "cgs": cgs, "fdr_program": fdr_program, "flat": flat}
 
@@ -1526,19 +1601,23 @@ def profile_window(fn) -> dict:
 
 
 def time_cgs(device, tmp) -> dict:
-    """CGS sweeps/s at bench's geometry (one chain), kernel path and plain,
-    each with its sweep loop graphed (the default: ``sweeps_per_s_PATH``)
-    and eager (``..._eager``), in turns, every timed run after an untimed
-    one of the same length (so the graphed one replays a cached capture);
+    """CGS sweeps/s at bench's geometry, kernel path and plain at M=1 and
+    the kernel path at M=10 (ten chains of the planted PWM), each with its
+    sweep loop graphed (the default, one WHILE-node graph a run:
+    ``sweeps_per_s_PATH[_M10]``) and eager (``..._eager``), in turns, every
+    timed run after an untimed one of the same length (so the graphed one
+    launches a cached loop graph); at M=1 and M=10 the loop graph's body
+    nodes (a sweep's device operations: ``graphs.stats``' node types) and
     torch.profiler windows over 10 sweeps of the kernel path, graphed and
-    eager: the device's busy share and its largest kernels.  Every run is
-    under torch.cuda.set_sync_debug_mode("error"): the sweep loop, its
-    capture included, must not synchronise."""
+    eager: the device's busy and idle share and its largest kernels.
+    Every run is under torch.cuda.set_sync_debug_mode("error"): the sweep
+    loop, its capture included, must not synchronise."""
     import torch
 
     from bammmotif2_tpu_torch.models import seeds as seeds_mod
     from bammmotif2_tpu_torch.models.background import BackgroundModel
     from bammmotif2_tpu_torch.refinement import gibbs
+    from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
     from bammmotif2_tpu_torch.refinement.em import prepare_data
 
     sset, _, _, planted, _pos, _has = planted_problem(tmp, tag="cgs_timing")
@@ -1548,14 +1627,15 @@ def time_cgs(device, tmp) -> dict:
     motif = seeds_mod.motif_from_pwm(pwm, K=2, f_bg=sset.base_frequencies())
     data = prepare_data(sset, bg, 2, False, device)
     f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
-    v0 = tuple(f32(vk)[None] for vk in motif.v)
-    alphas, f_bg, q0 = f32(motif.alphas)[None], f32(motif.f_bg), f32([0.9])
+    f_bg = f32(motif.f_bg)
 
-    def sweeps(path, n, graphed):
-        gens = gibbs.chain_generators(0, [0], device)
+    def sweeps(path, n, graphed, M=1):
+        v0 = tuple(f32(np.stack([vk] * M)) for vk in motif.v)
+        alphas, q0 = f32(np.stack([motif.alphas] * M)), f32([0.9] * M)
+        keys = gibbs.chain_keys(0, range(M), device)
         torch.cuda.set_sync_debug_mode("error")  # the sweep loop must not sync
         try:
-            out = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas,
+            out = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), keys, data, f_bg, alphas,
                                        float(N_SEQS), A=4, K=2, W=W, sample_z=True,
                                        sample_q=True, learn_alpha=True, path=path, n_iters=n,
                                        graphs=graphed)
@@ -1565,21 +1645,78 @@ def time_cgs(device, tmp) -> dict:
         return out
 
     out = {}
-    runs = [("cuda", True), ("cuda", False), ("plain", True), ("plain", False)]
-    for path, graphed in runs + runs[::-1]:
-        sweeps(path, N_TIMED, graphed)
+    runs = [("cuda", True, 1), ("cuda", False, 1), ("plain", True, 1), ("plain", False, 1),
+            ("cuda", True, 10), ("cuda", False, 10)]
+    for path, graphed, M in runs + runs[::-1]:
+        sweeps(path, N_TIMED, graphed, M)
         t0 = time.perf_counter()
-        sweeps(path, N_TIMED, graphed)
-        key = f"sweeps_per_s_{path}" + ("" if graphed else "_eager")
+        sweeps(path, N_TIMED, graphed, M)
+        key = f"sweeps_per_s_{path}" + ("" if graphed else "_eager") + ("" if M == 1 else f"_M{M}")
         out.setdefault(key, []).append(N_TIMED / (time.perf_counter() - t0))
-    for tag, graphed in (("graphed", True), ("eager", False)):
-        sweeps("cuda", 10, graphed)
-        out[f"profiled_10_sweeps_{tag}"] = profile_window(lambda: sweeps("cuda", 10, graphed))
-    # does a CUDA generator give row n the same uniform when rows follow it?
-    u = [torch.rand(N_SEQS + extra, generator=torch.Generator(device=device).manual_seed(1),
-                    device=device)[:N_SEQS] for extra in (0, 7)]
-    out["cuda_rand_prefix_equal"] = bool(torch.equal(*u))
-    log("timing CGS sweeps (bench geometry 10k x 200 bp, W=12, K=2, M=1): " + json.dumps(out))
+    for M in (1, 10):
+        graphs_mod.clear()
+        sweeps("cuda", 10, True, M)  # the loop graph of 10 sweeps at M
+        (loop,) = [c for c in graphs_mod.stats() if c["name"] == "CGS sweep loop"]
+        out[f"body_nodes_M{M}"] = {"types": loop["body_nodes"],
+                                   "total": sum(loop["body_nodes"].values())}
+        for tag, graphed in (("graphed", True), ("eager", False)):
+            sweeps("cuda", 10, graphed, M)
+            out[f"profiled_10_sweeps_{tag}_M{M}"] = profile_window(
+                lambda: sweeps("cuda", 10, graphed, M))
+    graphs_mod.settle()
+    out["gpu"] = nvidia_smi()
+    log("timing CGS sweeps (bench geometry 10k x 200 bp, W=12, K=2, M=1 and 10): "
+        + json.dumps(out))
+    return out
+
+
+def time_draws(device) -> dict:
+    """The CGS draw kernels (ops/cuda_draws.py) against their plain versions
+    at a sweep's shapes on bench's set (10k rows), M=1 and M=16 chains:
+    each wrapper's ms (CUDA events over back-to-back calls), its kernel's
+    device ms (torch.profiler), its host µs a call, its plain version's ms,
+    its bound (cgs_uniforms: the M x 10k floats it writes, the keys and the
+    sweep index it reads; cgs_beta: keys, sweep, a and b in, q out; both
+    over HBM_BYTES_PER_S: their integer and float64 arithmetic has no line
+    in the card's table of peaks) and the library call computing the same
+    draws from a generator (one torch.rand of [M, 10k]; one
+    torch._standard_gamma of the 2M shapes)."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_draws
+    from bammmotif2_tpu_torch.tools.ab import device_ms, host_us
+
+    out = {}
+    for M in (1, 16):
+        keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)),
+                               device=device)
+        i = torch.tensor([3], device=device)
+        a = torch.full((M,), 8_001.0, device=device)
+        b = torch.full((M,), 2_000.0, device=device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        uni = lambda: cuda_draws.uniforms(keys, i, 0, N_SEQS)  # noqa: E731
+        beta = lambda: cuda_draws.beta(keys, i, a, b, 1e-4, 1 - 1e-4)  # noqa: E731
+        ab = torch.cat([a, b])
+        out[f"uniforms_M{M}"] = {
+            "ms": time_cuda(uni, 200),
+            "plain_ms": time_cuda(lambda: cuda_draws.uniforms_ref(keys, i, 0, N_SEQS), 20),
+            **device_ms(uni, 10, "cgs_uniforms_kernel"),
+            "host_us": host_us(uni),
+            **bound(M * N_SEQS * 4 + 16 * M + 8, 0),
+            "library_ms": time_cuda(
+                lambda: torch.rand((M, N_SEQS), generator=gen, device=device), 200),
+        }
+        out[f"beta_M{M}"] = {
+            "ms": time_cuda(beta, 200),
+            "plain_ms": time_cuda(
+                lambda: cuda_draws.beta_ref(keys, i, a, b, 1e-4, 1 - 1e-4), 20),
+            **device_ms(beta, 10, "cgs_beta_kernel"),
+            "host_us": host_us(beta),
+            **bound(16 * M + 8 + 8 * M + 4 * M, 0),
+            "library_ms": time_cuda(lambda: torch._standard_gamma(ab, generator=gen), 200),
+        }
+    out["gpu"] = nvidia_smi()
+    log("timing CGS draws (10k rows, M=1 and 16): " + json.dumps(out))
     return out
 
 
@@ -1654,7 +1791,7 @@ def loop_rates(device, tmp: str, prob: dict, graphed: bool) -> dict:
 
     def sweeps():
         gibbs.gibbs_optimize(tuple(f32(vk)[None] for vk in seed.v), f32([0.9]), torch.log(alphas),
-                             gibbs.chain_generators(0, [0], device), data, f32(seed.f_bg), alphas,
+                             gibbs.chain_keys(0, [0], device), data, f32(seed.f_bg), alphas,
                              float(N_SEQS), A=4, K=2, W=W, sample_z=True, sample_q=True,
                              learn_alpha=True, path="cuda", n_iters=N_TIMED, graphs=graphed)
         torch.cuda.synchronize()
@@ -1791,6 +1928,58 @@ def time_condition(device) -> dict:
     return out
 
 
+WHILE_ITERS = 2_000  # iterations of time_while_node's loops
+
+
+def time_while_node(device) -> dict:
+    """The device loop's own cost an iteration, apart from its body's work:
+    a body of two small kernels (adds to a [16] float buffer and to the
+    iteration counter) run WHILE_ITERS times through graphs.Loop, as one
+    launch of its WHILE-node loop graph (with the stop test's kernel after
+    each iteration: the route of EM's and CGS's loops) and as a replay an
+    iteration of its captured graph (the route of a loop on an NCCL mesh,
+    and of CGS before the sweep index moved to the device), each timed
+    after an untimed run that captures it: µs an iteration, host clock
+    around a synchronised run."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_while
+    from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
+    from bammmotif2_tpu_torch.refinement.multi import UNTIL
+
+    def body(s, _gens):
+        s["x"].add_(1.0)
+        s["its"].add_(1)
+
+    def run(on_device: bool) -> float:
+        s = {"x": torch.zeros(16, device=device),
+             "its": torch.zeros(1, dtype=torch.int32, device=device),
+             "vds": torch.full((1,), float("inf"), device=device),
+             "cap": torch.full((), WHILE_ITERS, dtype=torch.int32, device=device),
+             "eps": torch.zeros((), device=device)}
+        s["running"] = cuda_while.condition_ref(*(s[k] for k in UNTIL[1:]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graphs_mod.Loop("while node timing", ("while node timing",), s, {}, body,
+                             until=UNTIL if on_device else None) as loop:
+            if on_device:
+                loop.run_while()
+            else:
+                loop.run(WHILE_ITERS)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / WHILE_ITERS * 1e6
+
+    out = {}
+    for tag, on_device in (("replay", False), ("while", True)) * 2:
+        run(on_device)  # captures
+        out.setdefault(f"{tag}_us_an_iteration", []).append(run(on_device))
+    graphs_mod.settle()
+    out["iterations"] = WHILE_ITERS
+    out["gpu"] = nvidia_smi()
+    log("timing the device loop's own cost (a body of two small kernels): " + json.dumps(out))
+    return out
+
+
 def time_fdr_group(device, tmp) -> dict:
     """Config 4's (W=10, K=2) group through the group program, EM-FDR and
     CGS-FDR: its seconds and where they go (tools/fdr_split.py: plain runs'
@@ -1811,7 +2000,8 @@ def time_fdr_group(device, tmp) -> dict:
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
            "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
-           "condition": time_condition(device),
+           "condition": time_condition(device), "draws": time_draws(device),
+           "while_node": time_while_node(device),
            "loops": time_loops(device, tmp, slices), "fdr_group": time_fdr_group(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
     e2e = {
@@ -1872,9 +2062,14 @@ def main() -> int:
         ("flat_em_counts", "flat.cu", "tools/pallas_flat.py:267", flat["em"]),
         ("flat_window_scores", "flat.cu", "tools/pallas_flat.py:378", flat["scores"]),
         ("flat_counts_from_r", "flat.cu", "tools/pallas_flat.py:447", flat["counts"]),
-        # not a Pallas kernel: the device side of the reference's lax.while_loop
+        # not Pallas kernels: the device side of the reference's lax.while_loop,
+        # and the counter-based draws of its CGS sweep (jax.random's)
         ("loop_condition", "while_loop.cu", "bammmotif2_tpu/refinement/multi.py:303",
          timing["condition"]),
+        ("cgs_uniforms", "cgs_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:197",
+         timing["draws"]["uniforms_M1"]),
+        ("cgs_beta", "cgs_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:252",
+         timing["draws"]["beta_M1"]),
     ]
     kernels = []
     for name, src, tpu, t in rows:

@@ -13,9 +13,9 @@ kernel, ``COUNTS_CASES`` / ``check_counts`` for the counts-from-r kernel,
 ``check_counts_calls`` for the two counts-from-r wrappers' one-kernel
 calls, their workspace and CUDA-graph capture, ``check_flat_calls`` for
 what a flat E+M or window-score call enqueues, ``check_condition`` for the
-EM loop's stop-test kernel, ``check_loops`` for the EM loop as one
-WHILE-node graph and the CGS loop as replayed CUDA graphs) at the main
-path's shapes.
+loops' stop-test kernel, ``check_loops`` for the EM loop and the CGS
+sweeps each as one WHILE-node graph) at the main path's shapes; the CGS
+draw kernels' checks are in tests/test_torch_draws.py.
 This module imports no JAX.
 """
 
@@ -628,9 +628,12 @@ def check_loops(device) -> dict:
     bench's geometry (10k x 200 bp, W=12, K=2) with M=2:
 
     - CGS, graphed against eager, on the kernel and plain paths, for a
-      first capture and for a cached graph replayed with other chains: the
-      same results and generator states bit for bit; B2 and B3 launched
-      once a sweep by the counters;
+      first capture, for a cached loop graph launched with other chains,
+      and at 1 and 2 sweeps (burn-in at n - 1; at 1 the loop graph runs
+      its body zero times): the same results bit for bit; the graphed run
+      one launch of its WHILE-node graph with no host read; B2 and B3
+      (kernel path) and the two draw kernels (both paths) launched once a
+      sweep by the counters (``graphs.settle``);
     - EM at a fixed budget (epsilon 0), graphed against eager on both
       paths: the same iterations, models within LOOP_V_ATOL; B1 launched
       once an iteration (``graphs.settle``); the graphed loop, one launch
@@ -660,26 +663,29 @@ def check_loops(device) -> dict:
     q0 = torch.full((M,), 0.9, device=device)
     out: dict = {"cgs": {}, "em": {}}
 
-    def cgs(path, seed, use):
-        gens = gibbs.chain_generators(seed, range(M), device)
-        before = (cuda_scores.window_scores_multi.launches, cuda_counts.counts_from_r_multi.launches)
-        res = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas, 10_000.0,
-                                   A=4, K=2, W=12, sample_z=True, sample_q=True, learn_alpha=True,
-                                   path=path, n_iters=LOOP_SWEEPS, burn_in=3, graphs=use)
-        torch.cuda.synchronize(device)
-        n = (cuda_scores.window_scores_multi.launches - before[0],
-             cuda_counts.counts_from_r_multi.launches - before[1])
-        flat = [*res[0], *res[1:5], *res[5]]
-        return flat, [g.get_state() for g in gens], n
+    def cgs(path, seed, use, n_iters, burn_in):
+        res, reads, n = cgs_loop(data, alphas, f_bg, v0, q0, path, use, seed, n_iters, burn_in)
+        return [*res[0], *res[1:5], *res[5]], reads, n
+
+    def while_launches():  # summed over the cached CGS loops of every shape
+        return sum(c.get("while_launches", 0) for c in graphs.stats()
+                   if c["name"] == "CGS sweep loop")
 
     for path in ("cuda", "plain"):
-        for seed in (0, 1):  # 1: the cached graph, other chains
-            e, ge, _ = cgs(path, seed, False)
-            g, gg, n = cgs(path, seed, True)
-            same = all(torch.equal(a, b) for a, b in zip(e + ge, g + gg))
-            out["cgs"][f"{path}_{seed}"] = {"bit_equal": same, "launches_b2_b3": n}
-            assert same, (path, seed)
-            assert n == ((LOOP_SWEEPS, LOOP_SWEEPS) if path == "cuda" else (0, 0)), n
+        # seed 1: the cached loop graph, other chains; 1 and 2 sweeps: new keys
+        for seed, n_iters, burn_in in ((0, LOOP_SWEEPS, 3), (1, LOOP_SWEEPS, 3), (2, 1, 0),
+                                       (3, 2, 1)):
+            e, _, _ = cgs(path, seed, False, n_iters, burn_in)
+            before = while_launches()
+            g, reads, n = cgs(path, seed, True, n_iters, burn_in)
+            loops = while_launches() - before
+            same = all(torch.equal(a, b) for a, b in zip(e, g))
+            out["cgs"][f"{path}_{seed}_n{n_iters}"] = {"bit_equal": same, "launches": n,
+                                                       "host_reads": reads, "loop_graphs": loops}
+            assert same, (path, seed, n_iters)
+            want = n_iters if path == "cuda" else 0
+            assert n == {"b2": want, "b3": want, "uniforms": n_iters, "beta": n_iters}, n
+            assert reads == 0 and loops == 1, (reads, loops)
 
     eps = torch.zeros((), device=device)
 
@@ -720,6 +726,40 @@ def check_loops(device) -> dict:
     out["capture_error"] = message.splitlines()[0]
     out["chunked"] = check_chunked_loops(device)
     return out
+
+
+def cgs_loop(data, alphas, f_bg, v0, q0, path, use, seed, n_iters, burn_in, K=2, W=12):
+    """One ``gibbs.gibbs_optimize`` run of the chains keyed ``chain_keys(
+    seed, 0..M-1)`` on ``data``, graphed (``use``) or eager; settles the
+    counters after it.  Returns (its results, host reads inside the call
+    under torch.cuda.set_sync_debug_mode("warn"), {"b2", "b3", "uniforms",
+    "beta": each wrapper's launches})."""
+    import warnings
+
+    from bammmotif2_tpu_torch.ops import cuda_draws
+    from bammmotif2_tpu_torch.refinement import gibbs, graphs
+
+    device = q0.device
+    M, N = q0.shape[0], data["lens"].shape[0]
+    keys = gibbs.chain_keys(seed, range(M), device)
+    fns = {"b2": cuda_scores.window_scores_multi, "b3": cuda_counts.counts_from_r_multi,
+           "uniforms": cuda_draws.uniforms, "beta": cuda_draws.beta}
+    before = {k: fn.launches for k, fn in fns.items()}
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), keys, data, f_bg, alphas,
+                                       float(N), A=4, K=K, W=W, sample_z=True, sample_q=True,
+                                       learn_alpha=True, path=path, n_iters=n_iters,
+                                       burn_in=burn_in, graphs=use)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize(device)
+    graphs.settle()
+    return res, reads, {k: fn.launches - before[k] for k, fn in fns.items()}
 
 
 def em_loop(data, alphas, f_bg, v0, q0, eps, cap, path, use, sync=None, ll0=None, K=2, W=12):
@@ -834,21 +874,16 @@ def check_chunked_loops(device) -> dict:
     out = {"launches_a_call": per_call}
 
     def cgs(use):
-        gens = gibbs.chain_generators(0, range(M), device)
-        before = (cuda_scores.window_scores_multi.launches, cuda_counts.counts_from_r_multi.launches)
-        res = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), gens, data, f_bg, alphas, float(N),
-                                   A=4, K=K, W=W, sample_z=True, sample_q=True, learn_alpha=True,
-                                   path="cuda", n_iters=LOOP_SWEEPS, burn_in=3, graphs=use)
-        torch.cuda.synchronize(device)
-        n = (cuda_scores.window_scores_multi.launches - before[0],
-             cuda_counts.counts_from_r_multi.launches - before[1])
-        return [*res[0], *res[1:5], *res[5]] + [g.get_state() for g in gens], n
+        res, _reads, n = cgs_loop(data, alphas, f_bg, v0, q0, "cuda", use, 0, LOOP_SWEEPS, 3,
+                                  K=K, W=W)
+        return [*res[0], *res[1:5], *res[5]], n
 
     e, _ = cgs(False)
     g, n = cgs(True)
     out["cgs_bit_equal"] = all(torch.equal(a, b) for a, b in zip(e, g))
     assert out["cgs_bit_equal"]
-    assert n == (LOOP_SWEEPS * per_call["b2"], LOOP_SWEEPS * per_call["b3"]), (n, per_call)
+    assert (n["b2"], n["b3"]) == (LOOP_SWEEPS * per_call["b2"], LOOP_SWEEPS * per_call["b3"]), \
+        (n, per_call)
 
     eps = torch.zeros((), device=device)
     (ve, *_r, its_e, _h), _, _ = em_loop(data, alphas, f_bg, v0, q0, eps, LOOP_ITERS, "cuda",

@@ -390,7 +390,7 @@ def test_fold_negatives_match_generate_neg_data(fdr_data, which, ss):
     fit and lengths, bit for bit."""
     ms, bg, psset, _neg, F = _program_inputs(fdr_data, "sampled", which)
     params = PParams(FDR=True, cvFold=F, mFold=3, sOrder=2, ss=ss, seed=11)
-    g = fdr._prepare_group(ms, bg, psset, params, None, "cpu")
+    g = fdr._prepare_group(ms, bg, psset, params, None, "cpu", range(len(ms)))
     fold_of = np.arange(psset.n) % F
     lens = np.asarray(psset.lens, np.int32)
     for f in range(F):

@@ -27,7 +27,7 @@ from bammmotif2_tpu.refinement import gibbs as jgibbs
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.models.motif import log_odds_lut
-from bammmotif2_tpu_torch.ops import cuda_counts, cuda_scores
+from bammmotif2_tpu_torch.ops import cuda_counts, cuda_draws, cuda_scores
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.utils.config import Params as PParams
@@ -191,16 +191,16 @@ def test_deterministic_sweeps_match_jax(small, stacked, learn_alpha, sweeps):
     jv = tuple(jnp.asarray(vk.numpy()) for vk in v)
     jq, jla, jda = jnp.asarray(q.numpy()), jnp.asarray(la.numpy()), jnp.asarray(da.numpy())
     kw = dict(A=4, K=K, W=W, sample_z=False, sample_q=False, learn_alpha=learn_alpha)
-    gens = gibbs.chain_generators(0, range(M), "cpu")
+    pkeys = gibbs.chain_keys(0, range(M), "cpu")
     keys = jnp.stack([jax.random.PRNGKey(i) for i in range(M)])
     for _ in range(sweeps):
         assert _margin(v, q, data) > ARGMAX_MARGIN
         if stacked:
-            out = gibbs.gibbs_step_multi(v, q, la, gens, data, f_bg, da, float(sset.n), **kw)
+            out = gibbs.gibbs_step_multi(v, q, la, pkeys, data, f_bg, da, float(sset.n), **kw)
             jout = jgibbs.gibbs_step_multi(jv, jq, jla, keys, jdata, jnp.asarray(f_bg.numpy()), jda,
                                            jnp.float32(sset.n), path="gather", **kw)
         else:
-            out = gibbs.gibbs_step(tuple(vk[0] for vk in v), q[0], la[0], gens[0], data, f_bg, da[0],
+            out = gibbs.gibbs_step(tuple(vk[0] for vk in v), q[0], la[0], pkeys[0], data, f_bg, da[0],
                                    float(sset.n), **kw)
             jout = jgibbs.gibbs_step(tuple(vk[0] for vk in jv), jq[0], jla[0], keys[0], jdata,
                                      jnp.asarray(f_bg.numpy()), jda[0], jnp.float32(sset.n),
@@ -231,7 +231,7 @@ def test_run_gibbs_deterministic_matches_jax(small, burn_in):
     v, q, la, da = tuple(vk[None] for vk in v), q.reshape(1), la[None], da[None]
     for _ in range(params.maxCGSIterations):
         assert _margin(v, q, data) > ARGMAX_MARGIN
-        v, q, la, *_rest = gibbs.gibbs_step_multi(v, q, la, [None], data, f_bg, da, float(sset.n),
+        v, q, la, *_rest = gibbs.gibbs_step_multi(v, q, la, None, data, f_bg, da, float(sset.n),
                                                   A=4, K=2, W=8, sample_z=False, sample_q=False,
                                                   learn_alpha=True)
     jm, m = seeds[0].copy(), convert.motif(seeds[0])
@@ -265,10 +265,10 @@ def test_stacked_member_equals_solo_run(small):
 
 def test_appended_empty_rows_keep_the_draws(small):
     """(f) Zero-length rows appended after the real ones change neither the
-    real rows' z nor the sweep's counts, n_occ and ll (with n_real the real
-    row count).  The draws come from the chain's generator one uniform per
-    row in row order, so a real row's uniform does not depend on what
-    follows it."""
+    real rows' z nor the sweep's counts, n_occ, ll and q (with n_real the
+    real row count).  Each row's uniform is keyed by its own index and the
+    sweep's, and q's by the sweep's alone, so nothing depends on how many
+    rows follow."""
     sset, jbg, _bg, seeds = small
     jdata = jem.prepare_data(sset, jbg, 2, False)
     data = convert.em_data(jdata["cidx"], jdata["lens"], jdata["bg_flat"], "cpu")
@@ -279,43 +279,44 @@ def test_appended_empty_rows_keep_the_draws(small):
               "lens": torch.cat([data["lens"], torch.zeros(extra, dtype=torch.int32)])}
     v, q, la, da, f_bg = convert.cgs_state(seeds[0], 0.5, "cpu")
     v, q, la, da = tuple(vk[None] for vk in v), q.reshape(1), la[None], da[None]
+    keys, i = gibbs.chain_keys(4, [0], "cpu"), torch.tensor([3])
     z = []
     for d in (data, padded):
         sc, mk = cuda_scores.window_scores_multi_ref(log_odds_lut(v, d["bg_flat"]), d["cidx"], d["lens"])
-        z.append(gibbs.draw_z(gibbs.flat_logits(sc, mk, q), gibbs.chain_generators(4, [0], "cpu"),
-                              True))
+        z.append(gibbs.draw_z(gibbs.flat_logits(sc, mk, q), keys, i, True))
     N = sset.n
     assert torch.equal(z[1][:, :N], z[0]) and (z[1][:, N:] == 0).all()
-    kw = dict(A=4, K=2, W=8, sample_z=True, sample_q=True, learn_alpha=True)
-    out = [gibbs.gibbs_step_multi(v, q, la, gibbs.chain_generators(4, [0], "cpu"), d, f_bg, da,
-                                  float(N), **kw) for d in (data, padded)]
+    kw = dict(A=4, K=2, W=8, sample_z=True, sample_q=True, learn_alpha=True, sweep=i)
+    out = [gibbs.gibbs_step_multi(v, q, la, keys, d, f_bg, da, float(N), **kw)
+           for d in (data, padded)]
     for c0, c1 in zip(out[0][5], out[1][5]):
         assert torch.equal(c0, c1)
-    assert torch.equal(out[0][4], out[1][4])
+    assert torch.equal(out[0][4], out[1][4]) and torch.equal(out[0][1], out[1][1])
     np.testing.assert_allclose(out[0][3].numpy(), out[1][3].numpy(), rtol=1e-6)
 
 
 def test_q_is_the_beta_draw_after_z(small):
-    """Sampling on: a sweep's q is Beta(n_occ + 1, n_real - n_occ + 1) as
-    X / (X + Y) of two gamma draws taken from the chain's generator right
-    after the N z uniforms, clipped to [1e-4, 1 - 1e-4]."""
+    """Sampling on: a sweep's q is Beta(n_occ + 1, n_real - n_occ + 1) of
+    the z draws' n_occ, as X / (X + Y) of the chain's two gamma draws at
+    the sweep's counters (``ops.cuda_draws.beta``), clipped to [1e-4,
+    1 - 1e-4]; z's uniforms are the chain's at the same sweep."""
     sset, jbg, _bg, seeds = small
     jdata = jem.prepare_data(sset, jbg, 2, False)
     data = convert.em_data(jdata["cidx"], jdata["lens"], jdata["bg_flat"], "cpu")
     v, q, la, da, f_bg = convert.cgs_state(seeds[0], 0.5, "cpu")
-    g = gibbs.chain_generators(5, [0], "cpu")[0]
-    state = g.get_state()
+    keys, i = gibbs.chain_keys(5, [0], "cpu"), torch.tensor([6])
     n_real = sset.n - 3.0
-    out = gibbs.gibbs_step_multi(tuple(vk[None] for vk in v), q.reshape(1), la[None], [g], data,
-                                 f_bg, da[None], n_real, A=4, K=2, W=8, sample_z=True,
-                                 sample_q=True, learn_alpha=True)
+    v1, q1, la1 = tuple(vk[None] for vk in v), q.reshape(1), la[None]
+    out = gibbs.gibbs_step_multi(v1, q1, la1, keys, data, f_bg, da[None], n_real, A=4, K=2, W=8,
+                                 sample_z=True, sample_q=True, learn_alpha=True, sweep=i)
     n_occ = out[4]
     assert 0 < float(n_occ) < sset.n
-    g2 = torch.Generator().set_state(state)
-    torch.rand(sset.n, generator=g2)
-    x = torch._standard_gamma(n_occ + 1.0, generator=g2)
-    y = torch._standard_gamma(n_real - n_occ + 1.0, generator=g2)
-    assert torch.equal(out[1], (x / (x + y)).clamp(1e-4, 1 - 1e-4))
+    want = cuda_draws.beta_ref(keys, i, n_occ + 1.0, n_real - n_occ + 1.0, 1e-4, 1 - 1e-4)
+    assert torch.equal(out[1], want)
+    sc, mk = cuda_scores.window_scores_multi_ref(log_odds_lut(v1, data["bg_flat"]), data["cidx"],
+                                                 data["lens"])
+    z = gibbs.draw_z(gibbs.flat_logits(sc, mk, q1), keys, i, True)
+    assert torch.equal(n_occ, (z > 0).sum(dim=1).to(torch.float32))
 
 
 def test_z_draws_follow_the_softmax():
@@ -325,28 +326,51 @@ def test_z_draws_follow_the_softmax():
     logits = torch.tensor([np.log(0.2), 0.3, NEG_INF, -1.0, 1.2, NEG_INF - 5.0, 0.0])
     n = 6000
     flat = logits.expand(1, n, -1).contiguous()
-    z = gibbs.draw_z(flat, gibbs.chain_generators(1, [0], "cpu"), True)[0]
+    z = gibbs.draw_z(flat, gibbs.chain_keys(1, [0], "cpu"), torch.tensor([0]), True)[0]
     p = torch.softmax(logits.double(), dim=0).numpy()
     obs = np.bincount(z.numpy(), minlength=p.size)
     assert obs[p == 0].sum() == 0
     keep = p > 0
     _chi2, pval = stats.chisquare(obs[keep], n * p[keep] / p[keep].sum())
     assert pval > 1e-3, (obs, n * p)
-    assert torch.equal(gibbs.draw_z(flat, [None], False), torch.full((1, n), 4))
+    assert torch.equal(gibbs.draw_z(flat, None, None, False), torch.full((1, n), 4))
 
 
 def test_q_draws_follow_the_beta():
-    """(g) 4,000 draws of Beta(30, 12) through the chain's generator: the
-    mean and the variance within 4 standard errors of the Beta's."""
-    a, b = torch.tensor([30.0]), torch.tensor([12.0])
-    g = gibbs.chain_generators(2, [0], "cpu")
-    x = torch.cat([gibbs.draw_beta(a, b, g) for _ in range(4000)]).double().numpy()
+    """(g) 4,000 draws of Beta(30, 12), 400 chains over 10 sweeps: the mean
+    and the variance within 4 standard errors of the Beta's."""
+    a, b = torch.full((400,), 30.0), torch.full((400,), 12.0)
+    keys = gibbs.chain_keys(2, range(400), "cpu")
+    x = torch.cat([gibbs.draw_beta(a, b, keys, torch.tensor([i]))
+                   for i in range(10)]).double().numpy()
     n = x.size
     mean = 30 / 42
     var = 30 * 12 / (42 ** 2 * 43)
     assert abs(x.mean() - mean) < 4 * np.sqrt(var / n)
     dev2 = (x - x.mean()) ** 2
     assert abs(dev2.mean() - var) < 4 * dev2.std() / np.sqrt(n)
+
+
+def test_draws_match_jax_random_in_distribution():
+    """The port's counter-based draws against the reference's jax.random on
+    the same parameters (p > 1e-3, fixed seeds): 4,000 Beta(30, 12) q draws
+    (jax.random.beta) by a two-sample Kolmogorov-Smirnov test, and the z
+    draws of 4,000 rows of one logit vector (jax.random.categorical), whose
+    column counts the chi-square test of the 2 x k table compares."""
+    n = 4000
+    keys = gibbs.chain_keys(3, range(n), "cpu")
+    q = gibbs.draw_beta(torch.full((n,), 30.0), torch.full((n,), 12.0), keys, torch.tensor([0]))
+    jq = np.asarray(jax.random.beta(jax.random.PRNGKey(0), 30.0, 12.0, (n,)))
+    pval = stats.ks_2samp(q.double().numpy(), jq).pvalue
+    assert pval > 1e-3, pval
+    logits = np.array([np.log(0.2), 0.3, NEG_INF, -1.0, 1.2, 0.0], np.float32)
+    z = gibbs.draw_z(torch.as_tensor(logits).expand(1, n, -1).contiguous(), keys[:1],
+                     torch.tensor([0]), True)[0].numpy()
+    jz = np.asarray(jax.random.categorical(jax.random.PRNGKey(1), jnp.asarray(logits), shape=(n,)))
+    table = np.stack([np.bincount(z, minlength=logits.size), np.bincount(jz, minlength=logits.size)])
+    assert table[:, 2].sum() == 0
+    pval = stats.chi2_contingency(table[:, table.sum(axis=0) > 0]).pvalue
+    assert pval > 1e-3, (pval, table)
 
 
 def test_chains_of_two_groups_differ(small):

@@ -225,16 +225,18 @@ def test_checkpoint_chunks_stay_exact(planted, monkeypatch, sync, every):
         np.testing.assert_array_equal(a, b)
 
 
-def per_sweep_loop(v, q, log_alphas, gens, data, f_bg, default_alphas, n_real, *, A, K, W,
+def per_sweep_loop(v, q, log_alphas, keys, data, f_bg, default_alphas, n_real, *, A, K, W,
                    n_iters, burn_in, **statics):
     """``gibbs_optimize`` as the port stepped it before: a Python loop with a
-    host-side branch on the sweep index for the burn-in mean."""
+    host-side branch on the sweep index for the burn-in mean, the sweep
+    index handed to each sweep from the host."""
     M = q.shape[0]
     acc = tuple(torch.zeros((M, A ** (k + 1), W)) for k in range(K + 1))
     lls, n_occs = [], []
     for i in range(n_iters):
         v, q, log_alphas, ll, n_occ, counts = gibbs.gibbs_step_multi(
-            v, q, log_alphas, gens, data, f_bg, default_alphas, n_real, A=A, K=K, W=W, **statics)
+            v, q, log_alphas, keys, data, f_bg, default_alphas, n_real, A=A, K=K, W=W,
+            sweep=torch.tensor([i]), **statics)
         if i >= burn_in:
             acc = tuple(a + c for a, c in zip(acc, counts))
         lls.append(ll)
@@ -246,10 +248,9 @@ def per_sweep_loop(v, q, log_alphas, gens, data, f_bg, default_alphas, n_real, *
 @pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "deterministic"])
 @pytest.mark.parametrize("burn_in", [0, 3])
 def test_gibbs_loop_equals_python_loop(planted, burn_in, sampled):
-    """Three stacked chains: the histories written by the device step
-    counter and the burn-in mean by ``counts * (i >= burn_in)`` equal the
-    Python loop's bit for bit, and the chains' generators end in the same
-    state."""
+    """Three stacked chains: the draws keyed by the device sweep counter,
+    the histories it writes and the burn-in mean by ``counts * (i >=
+    burn_in)`` equal the Python loop's bit for bit."""
     sset, _jbg, bg, psset = planted
     jms = [_seed(sset, p, soft) for p, soft in SEEDS]
     data = em.prepare_data(psset, bg, 2, False, "cpu")
@@ -260,14 +261,11 @@ def test_gibbs_loop_equals_python_loop(planted, burn_in, sampled):
     rest = (data, torch.as_tensor(jms[0].f_bg, dtype=torch.float32), alphas, float(psset.n))
     kw = dict(A=4, K=2, W=8, sample_z=sampled, sample_q=sampled, learn_alpha=True,
               path="plain", n_iters=9, burn_in=burn_in)
-    gens_ref = gibbs.chain_generators(7, [0, 1, 2], "cpu")
-    ref = per_sweep_loop(*args, gens_ref, *rest, **kw)
-    gens = gibbs.chain_generators(7, [0, 1, 2], "cpu")
-    got = gibbs.gibbs_optimize(*args, gens, *rest, **kw)
+    keys = gibbs.chain_keys(7, [0, 1, 2], "cpu")
+    ref = per_sweep_loop(*args, keys, *rest, **kw)
+    got = gibbs.gibbs_optimize(*args, keys, *rest, **kw)
     _assert_equal(got, ref)
     assert got[3].shape == (9, 3)
-    for a, b in zip(gens, gens_ref):
-        assert torch.equal(a.get_state(), b.get_state())
 
 
 def test_gibbs_loop_of_no_sweeps(planted):
@@ -275,12 +273,52 @@ def test_gibbs_loop_of_no_sweeps(planted):
     data = em.prepare_data(psset, bg, 0, False, "cpu")
     v = (torch.full((2, 4, 6), 0.25),)
     out = gibbs.gibbs_optimize(v, torch.full((2,), 0.9), torch.zeros((2, 1, 6)),
-                               gibbs.chain_generators(0, [0, 1], "cpu"), data,
+                               gibbs.chain_keys(0, [0, 1], "cpu"), data,
                                torch.full((4,), 0.25), torch.ones((2, 1, 6)), float(psset.n),
                                A=4, K=0, W=6, sample_z=True, sample_q=True, learn_alpha=True,
                                path="plain", n_iters=0)
     assert out[3].shape == out[4].shape == (0, 2)
     assert torch.equal(out[0][0], v[0]) and torch.equal(out[5][0], torch.zeros((2, 4, 6)))
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 5])
+def test_gibbs_takes_the_device_loop_and_stops_at_n_iters(planted, monkeypatch, n_iters):
+    """On a CUDA device with no mesh (here ``graphs.enabled`` patched to
+    say so, and ``run_while`` to run the loop graph's semantics on the
+    CPU: the eager first sweep and its test, then the body while
+    ``running`` holds), CGS asks for the device loop, and its stop test
+    stops it after exactly n_iters sweeps: the sweep counters at n_iters,
+    ``running`` false, results equal to the per-sweep loop's bit for bit,
+    with --cgsBurnIn at n_iters - 1."""
+    sset, _jbg, bg, psset = planted
+    jms = [_seed(sset, p, soft) for p, soft in SEEDS[:2]]
+    data = em.prepare_data(psset, bg, 2, False, "cpu")
+    v = tuple(torch.as_tensor(np.stack([m.v[k] for m in jms]), dtype=torch.float32)
+              for k in range(3))
+    alphas = torch.as_tensor(np.stack([m.alphas for m in jms]), dtype=torch.float32)
+    args = (v, torch.full((2,), 0.9), torch.log(alphas), gibbs.chain_keys(3, [0, 1], "cpu"),
+            data, torch.as_tensor(jms[0].f_bg, dtype=torch.float32), alphas, float(psset.n))
+    kw = dict(A=4, K=2, W=8, sample_z=True, sample_q=True, learn_alpha=True, path="plain",
+              n_iters=n_iters, burn_in=n_iters - 1)
+    ref = per_sweep_loop(*args, **kw)
+    loops = []
+
+    def run_while(loop):
+        assert loop.on_device
+        loops.append(loop)
+        loop._step(loop.state, loop.gens)  # the warm-up sweep and its test
+        while bool(loop.state["running"]):  # the WHILE node
+            loop._step(loop.state, loop.gens)
+
+    monkeypatch.setattr(graphs, "enabled", lambda device, mesh=None: True)
+    monkeypatch.setattr(graphs.Loop, "run_while", run_while)
+    got = gibbs.gibbs_optimize(*args, **kw)
+    _assert_equal(got, ref)
+    (loop,) = loops
+    s = loop.state
+    assert loop._until == multi.UNTIL and not loop.gens
+    assert s["its"].tolist() == [n_iters] * 2 and s["i"].tolist() == [n_iters]
+    assert int(s["cap"]) == n_iters and not bool(s["running"])
 
 
 @pytest.mark.parametrize("device,backend,graphed", [
