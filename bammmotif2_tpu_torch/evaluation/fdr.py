@@ -25,10 +25,10 @@ one loop graph captured once and launched once a fold) and runs the fold
 tail:
 ``log_odds_lut``, one window-score launch over the held-out rows gathered
 through a -1-padded index, the fold's negatives sampled from its own
-background tables by a generator seeded ``--seed + fold``, encoded and
-scored in one more launch, the ZOOPS maxima and MOPS pools into device
-buffers.  On the card the tail is captured once per group and replayed for
-each fold (``refinement.graphs``).  After the folds the per-seed MOPS rank
+background tables with the key ``PRNGKey(--seed + fold)`` (as the
+reference's), encoded and scored in one more launch, the ZOOPS maxima and
+MOPS pools into device buffers.  On the card the tail is captured once per
+group and replayed for each fold (``refinement.graphs``).  After the folds the per-seed MOPS rank
 sweeps run on the pooled buffers, and one fetch brings back the maxima, the
 iteration counts and the thinned ranks.  No host read falls between the
 first fold and the fetch: each fold's EM loop or CGS sweeps are one
@@ -37,9 +37,9 @@ launch of a loop graph, which tests the stop on the device.
 ``evaluate_motif`` (one seed) and the program's plain version
 (``evaluate_motifs(..., program=False)``) run the fold loop
 ``_evaluate_group_loop``: per fold, host-built masks and row indices, a
-background fit and a sampler call, and a read of each fold's maxima.  A CGS
-chain is keyed by the seed's input index (``gibbs.chain_keys``), the same
-in every fold.
+background fit and a sampler call, and a read of each fold's maxima.  Every
+CGS chain starts from ``PRNGKey(--seed)`` in every fold, whatever the
+seed's position, as the reference's FDR does (``cgs_keys``).
 
 Outputs ``.zoops.stats`` / ``.mops.stats`` TSVs.
 """
@@ -60,7 +60,7 @@ from bammmotif2_tpu_torch.evaluation import prcurve
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
-from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.ops import encode, threefry
 from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, run_em
@@ -136,9 +136,8 @@ def evaluate_motifs(
     """k-fold CV FDR analysis for a whole MotifSet, seeds of equal
     (W, K, alphabet, f_bg) evaluated as one stacked group.
 
-    Semantically ``[evaluate_motif(m, ..., index=i) for i, m in
-    enumerate(seed_motifs)]`` (same folds, same per-fold negatives, same CGS
-    chains, same statistics), each group one program
+    Semantically ``[evaluate_motif(m, ...) for m in seed_motifs]`` (same
+    folds, same per-fold negatives, same CGS chains, same statistics), each group one program
     (``_evaluate_group_program``): one refinement loop and one fold tail per
     fold for the whole group, one fetch at the end.  Falls back to the
     per-seed path when cvFold < 2 or the set has fewer rows than folds.
@@ -156,8 +155,8 @@ def evaluate_motifs(
     n_folds = max(1, params.cvFold)
     if n_folds < 2 or sset.n < n_folds:
         return [evaluate_motif(m, bg, sset, params, refine=refine, neg_set=neg_set,
-                               device=device, index=i, graphs=graphs)
-                for i, m in enumerate(seed_motifs)]
+                               device=device, graphs=graphs)
+                for m in seed_motifs]
     results: list = [None] * len(seed_motifs)
     groups: dict = {}
     for i, m in enumerate(seed_motifs):
@@ -168,10 +167,10 @@ def evaluate_motifs(
     for idxs in groups.values():
         group = [seed_motifs[i] for i in idxs]
         if program:
-            res = _evaluate_group_program(group, idxs, bg, sset, params, refine, neg_set, device,
+            res = _evaluate_group_program(group, bg, sset, params, refine, neg_set, device,
                                           graphs=graphs)
         else:
-            res = _evaluate_group_loop(group, idxs, bg, sset, params, refine, neg_set, device,
+            res = _evaluate_group_loop(group, bg, sset, params, refine, neg_set, device,
                                        stacked=True, graphs=graphs)
         for i, r in zip(idxs, res):
             results[i] = r
@@ -186,7 +185,6 @@ def evaluate_motif(
     refine: str | None = None,
     neg_set: SequenceSet | None = None,
     device=None,
-    index: int = 0,
     graphs: bool = True,
 ) -> FDRResult:
     """k-fold CV FDR analysis of one seed (``FDR::evaluateMotif``).
@@ -194,9 +192,8 @@ def evaluate_motif(
     Folds are round-robin by sequence index, so pooled outputs
     (``pos_pvalues``, the sweep pools) are in fold-major order.  Each fold
     refines with the single-seed EM loop (``refinement.em.run_em``) or CGS
-    (``refinement.gibbs.run_gibbs``, its chain seeded from ``index``, the
-    seed's position in its MotifSet).  ``neg_set``: user-provided
-    negatives, folded round-robin like the positives; when absent,
+    (``refinement.gibbs.run_gibbs``, its chain from ``PRNGKey(--seed)``).
+    ``neg_set``: user-provided negatives, folded round-robin like the positives; when absent,
     negatives are sampled per fold.  ``device``: None runs on the current
     CUDA device; pass "cpu" for the CPU.  ``graphs``: False runs the
     refinement loops eagerly on a CUDA device too.
@@ -208,7 +205,7 @@ def evaluate_motif(
         sweep = prcurve.threshold_sweep(empty, empty, max(params.mFold, 1))
         return FDRResult(zoops=sweep, mops=dict(sweep), pos_pvalues=empty,
                          m_fold=params.mFold)
-    return _evaluate_group_loop([seed_motif], [index], bg, sset, params, refine, neg_set,
+    return _evaluate_group_loop([seed_motif], bg, sset, params, refine, neg_set,
                                 device, stacked=False, graphs=graphs)[0]
 
 
@@ -228,12 +225,21 @@ def _score_rows(s_flat, cidx, lens, rows, path) -> tuple:
     return sc.amax(dim=(1, 3)), sc.reshape(sc.shape[0], -1)
 
 
-def _cgs_fold(group, indices, keys, v0, q0, alphas, f_bg, tdata, n_train, params, path,
+def cgs_keys(seed: int, M: int, device) -> torch.Tensor:
+    """The FDR's CGS chains' keys [M, 2]: ``PRNGKey(seed)`` for every seed
+    of a group, in every fold.  The reference's FDR gives every chain its
+    run key (``bammmotif2_tpu/evaluation/fdr.py``: ``keys0``, and
+    ``run_gibbs``'s default in its fold loop), not the input-index keys of
+    --CGS alone, so equal seeds sample equal chains; the port matches it."""
+    return threefry.prng_key(seed, device).expand(M, 2).contiguous()
+
+
+def _cgs_fold(group, keys, v0, q0, alphas, f_bg, tdata, n_train, params, path,
               stacked, bg, sset, graphs) -> tuple:
     """One fold's CGS refinement of the group on the train-masked rows:
-    stacked chains of ``keys`` (``gibbs.chain_keys`` of ``indices``), one
-    loop launch on the card, or (one seed) ``run_gibbs``.  Returns v
-    [M, ...]."""
+    stacked chains of ``keys`` (``cgs_keys``), one loop launch on the card,
+    or (one seed) ``run_gibbs`` from its default key.  Returns v [M,
+    ...]."""
     A, K, W = group[0].A, group[0].K, group[0].W
     dev = tdata["cidx"].device
     if stacked:
@@ -242,17 +248,16 @@ def _cgs_fold(group, indices, keys, v0, q0, alphas, f_bg, tdata, n_train, params
         return v
     m = group[0].copy()
     gibbs.run_gibbs(m, bg, sset, params, data=tdata, n_real=n_train, device=dev,
-                    index=indices[0], graphs=graphs)
+                    graphs=graphs)
     return tuple(torch.as_tensor(vk, dtype=torch.float32, device=dev)[None] for vk in m.v)
 
 
-def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+def _evaluate_group_loop(group: list, bg: BackgroundModel, sset: SequenceSet,
                          params: Params, refine: str, neg_set: SequenceSet | None, device, *,
                          stacked: bool, graphs: bool = True) -> list:
     """The fold loop for one (W, K, f_bg) seed group: the per-seed path
     (one seed), and the plain version of ``_evaluate_group_program``.
 
-    ``indices``: the seeds' input indices (their CGS chains' seeds).
     ``stacked``: refine all seeds in one batched EM loop or one set of
     stacked CGS chains per fold; else (one seed) with ``run_em`` /
     ``run_gibbs``.  ``graphs``: False runs those loops eagerly on a CUDA
@@ -294,7 +299,7 @@ def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: 
     def idx(rows):
         return torch.as_tensor(rows, dtype=torch.int64, device=dev)
 
-    keys = gibbs.chain_keys(params.seed, indices, dev)
+    keys = cgs_keys(params.seed, M, dev)
     pos_z, pos_m, neg_z, neg_m, fold_its = [], [], [], [], []
     n_pos_true = n_neg_true = 0
     for f in range(F):
@@ -309,7 +314,7 @@ def _evaluate_group_loop(group: list, indices: list, bg: BackgroundModel, sset: 
                 np.where(train_sel, lens_np, 0).astype(np.int32), device=dev)}
             n_train = int(train_sel.sum())
             if refine == "CGS":
-                v = _cgs_fold(group, indices, keys, v0, q0, alphas, f_bg, tdata, n_train,
+                v = _cgs_fold(group, keys, v0, q0, alphas, f_bg, tdata, n_train,
                               params, path, stacked, bg, sset, graphs)
                 its = [params.maxCGSIterations] * M
                 graphs_mod.settle()
@@ -420,7 +425,7 @@ class _Group:
     q0: torch.Tensor
     alphas: torch.Tensor
     f_bg: torch.Tensor
-    keys: torch.Tensor   # the CGS chains' keys [M, 2] (``gibbs.chain_keys``)
+    keys: torch.Tensor   # the CGS chains' keys [M, 2] (``cgs_keys``)
     eps: torch.Tensor
     train_lens: torch.Tensor  # [F, N] int32: each fold's lengths, held-out rows 0
     n_train: list        # each fold's training rows
@@ -437,17 +442,18 @@ class _Group:
 
 
 def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: Params,
-                   neg_set: SequenceSet | None, device, indices) -> _Group:
+                   neg_set: SequenceSet | None, device) -> _Group:
     """Every fold table of a group, built on the host and moved to the
     device once (the reference's ``_evaluate_group``, fdr.py:424-523):
     held-out rows [F, n_per] padded with -1, training lengths [F, N], and
     with sampled negatives the per-fold background tables [F, A^(o+1)] per
     order, the negatives' lengths [F, n_neg] (mFold copies of the fold's,
-    zero-padded to mFold x the largest fold) and the rows kept in the ZOOPS
-    sweep (those of nonzero length: a zero-length positive tiles into
+    zero-padded to mFold x the largest fold), their keys [F, 2]
+    (``PRNGKey(--seed + fold)``, the reference's) and the rows kept in the
+    ZOOPS sweep (those of nonzero length: a zero-length positive tiles into
     interior zero-length negatives); with --negSeqFile the negatives' rows
     [F, ceil(Nn / F)] padded with -1.  Beside them, the CGS chains' keys
-    of the seeds' input ``indices``."""
+    (``cgs_keys``)."""
     A, K, W = group[0].A, group[0].K, group[0].W
     M, F, S, N = len(group), params.cvFold, 1 if params.ss else 2, sset.n
     lens_np = np.asarray(sset.lens, np.int32)
@@ -480,7 +486,9 @@ def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: 
             neg_lens[f, : rep.size] = rep
         trans = fold_backgrounds(sset, fold_of, F, params.sOrder, params.bgModelAlpha, params.ss)
         inputs.update({f"trans{o}": put(t) for o, t in enumerate(trans)})
-        inputs.update(neg_lens=put(neg_lens), comp=put(encode.comp_table(sset.alphabet)))
+        inputs.update(neg_lens=put(neg_lens), comp=put(encode.comp_table(sset.alphabet)),
+                      neg_keys=torch.stack([threefry.prng_key(params.seed + f, dev)
+                                            for f in range(F)]))
         neg_keep = [np.nonzero(neg_lens[f] > 0)[0] for f in range(F)]
         n_neg_true = windows(neg_lens)
         neg_pad_len = int(lens_np.max()) if lens_np.size else 0
@@ -506,7 +514,7 @@ def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: 
         q0=torch.full((M,), params.q, dtype=torch.float32, device=dev),
         alphas=put(np.stack([m.alphas for m in group]), torch.float32),
         f_bg=put(group[0].f_bg, torch.float32),
-        keys=gibbs.chain_keys(params.seed, indices, dev),
+        keys=cgs_keys(params.seed, M, dev),
         eps=put(params.epsilon, torch.float32),
         train_lens=put(train_lens), n_train=[int(N - n) for n in fold_sizes],
         fold_sizes=fold_sizes, inputs=inputs, sampled=sampled, neg_pad_len=neg_pad_len,
@@ -516,18 +524,22 @@ def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: 
     )
 
 
-def _negatives(g: _Group, inputs: dict, fold: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def _negatives(g: _Group, inputs: dict, fold: torch.Tensor) -> torch.Tensor:
     """Fold ``fold`` ([1] int64 on the device)'s sampled negatives, cidx
-    [S, n_neg, L]: ``seqgen.sample_encode`` from its background tables and
-    lengths.  With ``gen`` seeded ``--seed + fold`` they are
-    ``seqgen.generate_neg_data``'s of the fold, bit for bit."""
-    trans = tuple(inputs[f"trans{o}"].index_select(0, fold)[0] for o in range(g.s_order + 1))
-    return seqgen.sample_encode(gen, trans, inputs["neg_lens"].index_select(0, fold)[0],
+    [S, n_neg, L]: ``seqgen.sample_encode`` from its key, background tables
+    and lengths, read on the device.  They are ``seqgen.
+    generate_neg_data``'s of the fold (seed ``--seed + fold``), bit for
+    bit."""
+    def pick(t):
+        return t.index_select(0, fold)[0]
+
+    trans = tuple(pick(inputs[f"trans{o}"]) for o in range(g.s_order + 1))
+    return seqgen.sample_encode(pick(inputs["neg_keys"]), trans, pick(inputs["neg_lens"]),
                                 inputs["comp"], L=g.neg_pad_len, s_order=g.s_order, A=g.A,
                                 K=g.K, ss=g.S == 1)
 
 
-def _tail(g: _Group, seed: int, graphs: bool) -> graphs_mod.Loop:
+def _tail(g: _Group, graphs: bool) -> graphs_mod.Loop:
     """The fold tail as a ``graphs.Loop`` whose one step is one fold: state
     ``v`` (the fold's refined model) and ``fold`` ([1] int64), outputs the
     fold's ZOOPS maxima and MOPS pools (``pos_z``, ``pos_m``, ``neg_z``,
@@ -550,13 +562,13 @@ def _tail(g: _Group, seed: int, graphs: bool) -> graphs_mod.Loop:
     state = {"v": tuple(vk.clone() for vk in g.v0),
              "fold": torch.zeros((1,), dtype=torch.int64, device=dev)}
 
-    def body(s, gens):
+    def body(s, _gens):
         fold = s["fold"]
         s_flat = log_odds_lut(s["v"], inputs["bg_flat"]).contiguous()  # [M, R+1, W]
         pz, pm = _score_rows(s_flat, inputs["cidx"], inputs["lens"],
                              inputs["rows"].index_select(0, fold)[0], g.path)
         if g.sampled:
-            nz, nm = _score_rows(s_flat, _negatives(g, inputs, fold, gens[0]),
+            nz, nm = _score_rows(s_flat, _negatives(g, inputs, fold),
                                  inputs["neg_lens"].index_select(0, fold)[0], None, g.path)
         else:
             nz, nm = _score_rows(s_flat, inputs["neg_cidx"], inputs["neg_row_lens"],
@@ -564,20 +576,17 @@ def _tail(g: _Group, seed: int, graphs: bool) -> graphs_mod.Loop:
         for k, x in (("pos_z", pz), ("pos_m", pm), ("neg_z", nz), ("neg_m", nm)):
             s[k].copy_(x)
 
-    gens = [torch.Generator(device=dev).manual_seed(seed)] if g.sampled else []
     key = ("fold_tail", g.path, g.A, g.K, g.W, g.S, g.sampled, g.neg_pad_len, g.s_order)
-    return graphs_mod.Loop("FDR fold tail", key, state, inputs, body, gens=gens,
-                           outputs=outputs, graphs=graphs)
+    return graphs_mod.Loop("FDR fold tail", key, state, inputs, body, outputs=outputs,
+                           graphs=graphs)
 
 
-def _run_tail(tail: graphs_mod.Loop, v: tuple, fold: int, seed: int) -> None:
-    """One fold's tail: its model and index into the static state, its
-    negatives' generator seeded ``seed + fold``, one step (a replay)."""
+def _run_tail(tail: graphs_mod.Loop, v: tuple, fold: int) -> None:
+    """One fold's tail: its model and index into the static state, one step
+    (a replay)."""
     for a, b in zip(tail.state["v"], v):
         a.copy_(b)
     tail.state["fold"].fill_(fold)
-    for gen in tail.gens:
-        gen.manual_seed(seed + fold)
     tail.run(1)
 
 
@@ -591,7 +600,7 @@ def _mops_ranks(pos_pool: torch.Tensor, neg_pool: torch.Tensor, rows_thin: torch
     return [torch.stack(x) for x in zip(*per_seed)]
 
 
-def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+def _run_folds(g: _Group, group: list, bg: BackgroundModel, sset: SequenceSet,
                params: Params, refine: str, graphs: bool) -> list:
     """The folds and the MOPS sweeps, all on the device: [pos_z [F, M,
     n_per], neg_z [F, M, n_neg], iterations [F, M] int32, the five rank
@@ -599,7 +608,7 @@ def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset:
     M, F, dev = g.M, g.F, g.q0.device
     its0 = params.maxCGSIterations if refine == "CGS" else 0
     iters = torch.full((F, M), its0, dtype=torch.int32, device=dev)
-    with _tail(g, params.seed, graphs) as tail:
+    with _tail(g, graphs) as tail:
         # the folds' outputs: ZOOPS maxima [F, M, n], MOPS pools [M, F, X]
         # (fold-major: each seed's pool is one [F * X] row)
         maxima = {k: tail.state[k].new_empty((F, *tail.state[k].shape))
@@ -611,7 +620,7 @@ def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset:
             if refine in ("EM", "CGS"):
                 tdata = {**g.data, "lens": g.train_lens[f]}
                 if refine == "CGS":
-                    v = _cgs_fold(group, indices, g.keys, g.v0, g.q0, g.alphas, g.f_bg, tdata,
+                    v = _cgs_fold(group, g.keys, g.v0, g.q0, g.alphas, g.f_bg, tdata,
                                   g.n_train[f], params, g.path, True, bg, sset, graphs)
                 else:
                     step, inputs, key = group_step(tdata, g.alphas, g.f_bg, g.n_train[f],
@@ -621,7 +630,7 @@ def _run_folds(g: _Group, group: list, indices: list, bg: BackgroundModel, sset:
                         step, g.v0, g.q0, g.eps, params.maxEMIterations, inputs=inputs, key=key,
                         graphs=graphs)
                     iters[f].copy_(its)
-            _run_tail(tail, v, f, params.seed)
+            _run_tail(tail, v, f)
             for k, x in maxima.items():
                 x[f].copy_(tail.state[k])
             for k, x in pools.items():
@@ -646,20 +655,19 @@ def _fetch(tensors: list) -> list:
     return out
 
 
-def _evaluate_group_program(group: list, indices: list, bg: BackgroundModel, sset: SequenceSet,
+def _evaluate_group_program(group: list, bg: BackgroundModel, sset: SequenceSet,
                             params: Params, refine: str, neg_set: SequenceSet | None, device, *,
                             graphs: bool = True) -> list:
     """One (W, K, f_bg) group as one program (the reference's
     ``_group_fdr_program`` and ``_evaluate_group``): ``_prepare_group``,
     ``_run_folds``, one ``_fetch``, then the host sweeps.  Needs cvFold >= 2
-    and at least cvFold rows.  ``indices``: the seeds' input indices (their
-    CGS chains' seeds).  Its results equal ``_evaluate_group_loop``'s
+    and at least cvFold rows.  Its results equal ``_evaluate_group_loop``'s
     (stacked): the MOPS pools hold NEG_INF for a smaller fold's pad rows,
     which the rank sweep counts as it counts invalid windows."""
     t0 = time.perf_counter()
-    g = _prepare_group(group, bg, sset, params, neg_set, device, indices)
+    g = _prepare_group(group, bg, sset, params, neg_set, device)
     pos_z, neg_z, iters, *ranks = _fetch(
-        _run_folds(g, group, indices, bg, sset, params, refine, graphs))
+        _run_folds(g, group, bg, sset, params, refine, graphs))
     results = []
     for m in range(g.M):
         pz = np.concatenate([pos_z[f, m, : g.fold_sizes[f]] for f in range(g.F)])

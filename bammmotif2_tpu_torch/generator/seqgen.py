@@ -5,11 +5,11 @@ FDR and p-value calibration are sampled from a homogeneous Markov model of
 order ``--sOrder`` fit to the positive set, at ``--mFold`` times the positive
 count; motif-embedded sets support benchmarking.
 
-All sequences sample in parallel by inverse-CDF draws against one uniform
-tensor from an explicit ``torch.Generator`` on the data's device, seeded
-from ``seed``.  The streams differ from ``jax.random``'s (the reference's
-sampled paths are compared by distribution), but one seed on one device
-always gives the same set, whichever data path scores it.
+Every draw comes from the reference's own ``jax.random`` stream: a seed's
+key is ``threefry.prng_key(seed)`` (``PRNGKey(seed)``), and a set is one
+launch of ``ops.cuda_draws.markov_codes`` (a thread a row, the reference's
+``categorical`` at each position), so the port samples the reference's
+negatives from the same seed, on the card or on the CPU.
 """
 
 from __future__ import annotations
@@ -21,46 +21,25 @@ from bammmotif2_tpu_torch.utils.device import resolve
 from bammmotif2_tpu_torch.utils.fasta import PAD, SequenceSet
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import Motif
-from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.ops import cuda_draws, encode, threefry
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
-
-
-def _categorical(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Inverse-CDF draw: cdf [..., A] rows, u [...] uniforms -> int64 codes
-    (the last category takes what rounding leaves of the unit interval)."""
-    return (u[..., None] >= cdf[..., :-1]).sum(dim=-1)
-
-
-def _sample_markov_batch(gen: torch.Generator, trans: tuple, lens: torch.Tensor, *,
+def _sample_markov_batch(key: torch.Tensor, trans: tuple, lens: torch.Tensor, *,
                          L: int, s_order: int, A: int) -> torch.Tensor:
-    """Sample [N, L] int8 codes from a homogeneous Markov chain.
+    """Sample [N, L] int8 codes from a homogeneous Markov chain, as the
+    reference's ``_sample_markov_batch`` does from ``key`` ([2] int64 on
+    the device of ``lens``): position t of every row is a categorical draw
+    of key ``split(key, L)[t]`` (``ops.cuda_draws.markov_codes``).
 
     trans[m]: [A^(m+1)] conditional probs (flat, lexicographic) for order m,
-    on the device of ``lens``.  The first s_order positions use the
-    lower-order conditionals with a growing context; the rest use the
+    on the device of ``lens`` (int32 [N]).  The first s_order positions use
+    the lower-order conditionals with a growing context; the rest use the
     order-s_order table.  Positions at or past a row's length are PAD.  No
     host sync and no host-to-device copy, so a CUDA graph can capture it
     (the FDR group program's fold tail does).
     """
-    N = lens.shape[0]
-    dev = lens.device
-    cdfs = tuple(torch.cumsum(t.reshape(-1, A).to(torch.float32), dim=1) for t in trans)
-    u = torch.rand((L, N), generator=gen, device=dev)
-    codes = torch.empty((N, L), dtype=torch.int8, device=dev)
-    ctx = torch.zeros(N, dtype=torch.int64, device=dev)
-    for t in range(L):
-        order = min(t, s_order)
-        c = _categorical(cdfs[order][ctx], u[t])
-        codes[:, t] = c.to(torch.int8)
-        if order < s_order:
-            ctx = ctx * A + c          # grow the context
-        elif s_order > 0:
-            ctx = (ctx % (A ** (s_order - 1))) * A + c  # drop the oldest base
-    t_idx = torch.arange(L, device=dev)[None, :]
-    return codes.masked_fill_(t_idx >= lens[:, None], PAD)
+    return cuda_draws.markov_codes(key, tuple(t.to(torch.float32) for t in trans), lens,
+                                   L=L, s_order=s_order, A=A)
 
 
 def _neg_lengths(lens: np.ndarray, m_fold: int, n_pad: int | None,
@@ -84,7 +63,8 @@ def _sample(bg_fit: BackgroundModel, lens_rep: np.ndarray, L: int, seed: int,
     device = torch.device(device)
     trans = tuple(torch.as_tensor(v, dtype=torch.float32, device=device) for v in bg_fit.v)
     return _sample_markov_batch(
-        _generator(seed, device), trans, torch.as_tensor(lens_rep, device=device),
+        threefry.prng_key(seed, device), trans,
+        torch.as_tensor(lens_rep, dtype=torch.int32, device=device),
         L=L, s_order=bg_fit.order, A=bg_fit.alphabet.size,
     )
 
@@ -101,7 +81,8 @@ def generate_neg_set(
 ) -> SequenceSet:
     """Sample a negative set (``SeqGenerator::generateNegSeqSet``): lengths =
     positive lengths repeated m_fold times, bases from the order-sOrder model
-    fit to the positives, sampled on ``device``.
+    fit to the positives, sampled on ``device`` from ``PRNGKey(seed)``: the
+    reference's set for the same seed.
 
     ``n_pad`` / ``pad_len``: pad the sequence count (with zero-length rows)
     and the length axis to fixed sizes, as the FDR fold loop does.
@@ -115,14 +96,14 @@ def generate_neg_set(
     return SequenceSet(codes=codes, lens=lens_rep, headers=headers, alphabet=bg_fit.alphabet)
 
 
-def sample_encode(gen: torch.Generator, trans: tuple, lens: torch.Tensor, comp: torch.Tensor, *,
+def sample_encode(key: torch.Tensor, trans: tuple, lens: torch.Tensor, comp: torch.Tensor, *,
                   L: int, s_order: int, A: int, K: int, ss: bool) -> torch.Tensor:
     """Markov sampling + reverse complement + k-mer encoding, on the device
     of ``lens`` (the reference's ``seqgen._sample_encode``): cidx [S, N, L]
-    int32.  ``trans`` as ``_sample_markov_batch`` takes it, ``comp`` the
-    complement table (``encode.comp_table``) on that device.  Capturable as
-    ``_sample_markov_batch`` is."""
-    codes = _sample_markov_batch(gen, trans, lens, L=L, s_order=s_order, A=A)
+    int32.  ``key``, ``trans`` and ``lens`` as ``_sample_markov_batch``
+    takes them, ``comp`` the complement table (``encode.comp_table``) on
+    that device.  Capturable as ``_sample_markov_batch`` is."""
+    codes = _sample_markov_batch(key, trans, lens, L=L, s_order=s_order, A=A)
     strands = [codes]
     if not ss:
         strands.append(encode.revcomp_codes_device(codes, lens, comp))
@@ -135,8 +116,9 @@ def _sample_encode(bg_fit: BackgroundModel, lens_rep: np.ndarray, L: int, seed: 
     device = torch.device(device)
     trans = tuple(torch.as_tensor(v, dtype=torch.float32, device=device) for v in bg_fit.v)
     comp = torch.as_tensor(encode.comp_table(bg_fit.alphabet), device=device)
-    return sample_encode(_generator(seed, device), trans, torch.as_tensor(lens_rep, device=device),
-                         comp, L=L, s_order=bg_fit.order, A=bg_fit.alphabet.size, K=K, ss=ss)
+    return sample_encode(threefry.prng_key(seed, device), trans,
+                         torch.as_tensor(lens_rep, dtype=torch.int32, device=device), comp,
+                         L=L, s_order=bg_fit.order, A=bg_fit.alphabet.size, K=K, ss=ss)
 
 
 def generate_neg_data(
@@ -152,8 +134,8 @@ def generate_neg_data(
 ):
     """Sampled-negative index tensors on the device.
 
-    The sampling contract of generate_neg_set (the same seed gives the same
-    sequences), but the codes never visit the host.  Returns (cidx
+    The sampling contract of generate_neg_set (the same key, PRNGKey(seed),
+    gives the same sequences), but the codes never visit the host.  Returns (cidx
     [S, N, L] int32 on ``device``, lens [N] host int32).  ``device``: None
     samples on the current CUDA device; pass "cpu" for the CPU.
     """
@@ -165,17 +147,19 @@ def generate_neg_data(
 
 def sample_motif_sites(motif: Motif, n: int, seed: int = 0) -> np.ndarray:
     """Sample n site code arrays [n, W] from the motif's highest-order chain
-    (``SeqGenerator::sample_seqset_with_motif``), on the host."""
+    (``SeqGenerator::sample_seqset_with_motif``), on the host, as the
+    reference does: position j a categorical draw of key ``split(
+    PRNGKey(seed), W)[j]`` over the float32 log probabilities."""
     A, K, W = motif.A, motif.K, motif.W
-    u = torch.rand((W, n), generator=_generator(seed, "cpu"), dtype=torch.float64).numpy()
+    keys = threefry.split(threefry.prng_key(seed), W)
     out = np.zeros((n, W), np.int8)
     ctx = np.zeros(n, np.int64)  # k-mer context code
     for j in range(W):
         k_eff = min(j, K)
         vk = motif.v[k_eff][:, j].reshape(-1, A)  # [A^k_eff, A]
         probs = vk[ctx % (A ** k_eff)] if k_eff else np.broadcast_to(vk[0], (n, A))
-        cdf = np.cumsum(probs / probs.sum(axis=1, keepdims=True), axis=1)
-        c = (u[j][:, None] >= cdf[:, :-1]).sum(axis=1)
+        logits = threefry.xla_log(torch.as_tensor(np.asarray(probs, np.float32)))
+        c = threefry.categorical(keys[j], logits).numpy()
         out[:, j] = c
         ctx = ctx * A + c
     return out

@@ -1,25 +1,27 @@
-"""The collapsed Gibbs sweep's counter-based draws: the binding of
-``csrc/cgs_draws.cu`` and the kernels' plain versions.
+"""The sampled paths' draws from the reference's ``jax.random`` streams: the
+binding of ``csrc/jax_draws.cu`` and the kernels' plain versions.
 
-Not a Pallas kernel: the port's counterpart of the reference's
-``jax.random`` draws in ``bammmotif2_tpu/refinement/gibbs.py``
-(``fold_in(sub, n)`` for z, ``jax.random.beta`` for q).  Each draw is
-Philox4x32-10 of (counter, key): the key is a chain's
-``gibbs.chain_seed`` as two 32-bit words (``keys`` [M, 2] int64), the
-counter holds the draw's indices and the sweep index ``sweep`` ([1] int64),
-which the kernels read on the device, so a captured sweep that a CUDA graph
-repeats draws anew each time (``refinement/graphs.py``).  The streams:
+Not Pallas kernels: the port's counterparts of the reference's
+``jax.random`` code (``bammmotif2_tpu/generator/seqgen.py::
+_sample_markov_batch``; ``refinement/gibbs.py::gibbs_step_multi``'s
+``categorical`` of z and ``beta`` of q).  Each draws what the reference
+draws from the same key (``ops/threefry.py`` states the streams):
 
-  * ``uniforms``: u [M, n] for the z draws of rows row0 .. row0+n-1, row r
-    from counter (r, i, 0, 0): u = (x0 >> 8) 2^-24, exact in float32;
-  * ``beta``: q [M] = clip(X / (X + Y), lo, hi) with X ~ Gamma(a), Y ~
-    Gamma(b) by Marsaglia and Tsang, candidate j of X (Y) from counter
-    (j, i, 1 (2), 0), the first accepted of ``BETA_CAP``; a, b >= 1.
+  * ``markov_codes``: the sampled negatives' codes int8 [N, L] from one key
+    [2]: position t of row n is the first argmax over a of log trans[ctx,
+    a] + gumbel(split(key, L)[t], n A + a), PAD past the row's length;
+  * ``cgs_z``: z [M, N] of M chains from their carried keys [M, 2]: row n
+    of chain m the first argmax over c of flat[m, n, c] + gumbel(fold_in(
+    split(key)[1], row0 + n), c);
+  * ``cgs_beta``: q [M] = clip(beta(sub_q, a, b), lo, hi) with (key', sub_q)
+    = split(split(key)[0]), and every chain's key advanced in place to key'
+    (the reference's two splits a sweep, made whether or not it samples).
 
-csrc/cgs_draws.cu states the arithmetic.  On CPU tensors a wrapper runs the
-plain version (``uniforms_ref``, ``beta_ref``: the same Philox in int64
-arithmetic, the same candidate order); on CUDA tensors it launches the
-kernel or raises.  The plain versions serve the CPU path and the tests.
+On CPU tensors a wrapper runs the plain version (``*_ref``: torch, the same
+arithmetic as the kernel); on CUDA tensors it launches the kernel or
+raises.  On the card the kernels and the plain versions agree bit for bit
+(``chip_smoke.py``); on the CPU the plain versions agree with ``jax.random``
+bit for bit but for beta's final ``exp`` (``tests/test_torch_threefry.py``).
 
 Nothing here runs at import time: the library builds at first use.
 """
@@ -28,194 +30,195 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
-from bammmotif2_tpu_torch.ops import _build
+from bammmotif2_tpu_torch.ops import _build, threefry
 from bammmotif2_tpu_torch.ops.cuda_counts import current_stream
+from bammmotif2_tpu_torch.utils.fasta import PAD
 
-MASK32 = 0xFFFFFFFF
-PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-BETA_CAP = 64  # gamma candidates a draw (csrc/cgs_draws.cu: kBetaCap)
-TAG_X, TAG_Y = 1, 2  # the counters' third word of the gamma draws (z: 0)
+MAX_S_ORDER = 7  # csrc/jax_draws.cu: a row's table offsets
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    lib = _build.load("cgs_draws")
+    lib = _build.load("jax_draws")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cgs_uniforms_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, p]
-    lib.cgs_beta_launch.argtypes = [p] * 6 + [ctypes.c_float, ctypes.c_float, i, i, p]
-    lib.cgs_uniforms_launch.restype = lib.cgs_beta_launch.restype = i
-    lib.cgs_draws_error_string.argtypes = [i]
-    lib.cgs_draws_error_string.restype = ctypes.c_char_p
+    lib.markov_codes_launch.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.cgs_z_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
+    lib.cgs_beta_launch.argtypes = [p] * 5 + [i, ctypes.c_float, ctypes.c_float, i, i, p]
+    lib.markov_codes_launch.restype = lib.cgs_z_launch.restype = lib.cgs_beta_launch.restype = i
+    lib.jax_draws_error_string.argtypes = [i]
+    lib.jax_draws_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _raise(lib, what: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: {lib.cgs_draws_error_string(err).decode()}")
+        raise RuntimeError(f"{what} launch failed: {lib.jax_draws_error_string(err).decode()}")
 
 
-# ---- the plain versions ----
-
-def _mulhilo(a: int, b: torch.Tensor) -> tuple:
-    """(hi, lo) 32-bit words of the 64-bit product of the constant ``a`` and
-    the words ``b`` (int64 holding values below 2^32), in halves of 16 bits
-    so no int64 product overflows."""
-    bl, bh = b & 0xFFFF, b >> 16
-    pl, ph = a * bl, a * bh  # each below 2^48
-    t = pl + ((ph & 0xFFFF) << 16)
-    return (ph >> 16) + (t >> 32), t & MASK32
-
-
-def philox4x32_10(ctr: tuple, key: tuple) -> tuple:
-    """Philox4x32-10 (``csrc/philox.cuh``) in int64 arithmetic: ``ctr`` four
-    and ``key`` two int64 tensors (or ints) of 32-bit words, broadcast
-    together; returns the four output words as int64 tensors."""
-    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
-    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
-    for r in range(10):
-        if r:
-            k0, k1 = (k0 + PHILOX_W[0]) & MASK32, (k1 + PHILOX_W[1]) & MASK32
-        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
-def uniforms_ref(keys: torch.Tensor, sweep: torch.Tensor, row0: int, n: int) -> torch.Tensor:
-    """The plain version of ``uniforms``, on the tensors' device."""
-    rows = torch.arange(row0, row0 + n, dtype=torch.int64, device=keys.device)
-    x0, *_ = philox4x32_10((rows[None], sweep & MASK32, 0, 0),
-                           (keys[:, 0:1], keys[:, 1:2]))
-    return (x0 >> 8).to(torch.float32) * 2.0 ** -24
-
-
-def gamma_ref(keys: torch.Tensor, sweep: torch.Tensor, shape: torch.Tensor, tag: int) -> tuple:
-    """Gamma(shape[m]) per chain by Marsaglia and Tsang from candidates
-    0 .. BETA_CAP-1 of counter (j, sweep, tag, 0): (draws float64 [M], the
-    accepted candidate's index int64 [M], BETA_CAP where none was and the
-    draw is d)."""
-    j = torch.arange(BETA_CAP, dtype=torch.int64, device=keys.device)
-    x0, x1, x2, _x3 = philox4x32_10((j[None], sweep & MASK32, tag, 0),
-                                    (keys[:, 0:1], keys[:, 1:2]))
-    u1 = (x0.to(torch.float64) + 1.0) * 2.0 ** -32
-    u2 = x1.to(torch.float64) * 2.0 ** -32
-    ua = x2.to(torch.float64) * 2.0 ** -32
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
-    d = shape.to(torch.float64)[:, None] - 1.0 / 3.0
-    c = 1.0 / torch.sqrt(9.0 * d)
-    t = 1.0 + c * z
-    v = t * t * t
-    z2 = z * z
-    accept = (v > 0) & ((ua < 1.0 - 0.0331 * (z2 * z2))
-                        | (torch.log(ua) < 0.5 * z2 + d * (1.0 - v + torch.log(v))))
-    found = accept.any(dim=1)
-    first = torch.where(found, accept.to(torch.int8).argmax(dim=1), BETA_CAP)
-    value = (d * v).gather(1, first.clamp(max=BETA_CAP - 1)[:, None])[:, 0]
-    return torch.where(found, value, d[:, 0]), first
-
-
-def beta_ref(keys: torch.Tensor, sweep: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             lo: float, hi: float, candidates: bool = False):
-    """The plain version of ``beta``, on the tensors' device.  Raises on a
-    shape below 1 (Marsaglia and Tsang's method needs a boost there, which
-    the sampler's shapes, counts plus one, never need)."""
-    if not bool(((a >= 1) & (b >= 1)).all()):
-        raise ValueError(f"Beta shapes must be >= 1, got a={a.tolist()}, b={b.tolist()}")
-    x, ix = gamma_ref(keys, sweep, a, TAG_X)
-    y, iy = gamma_ref(keys, sweep, b, TAG_Y)
-    q = (x / (x + y)).to(torch.float32).clamp(lo, hi)
-    return (q, torch.stack([ix, iy], dim=1).to(torch.int32)) if candidates else q
-
-
-# ---- the kernels ----
-
-def _check(keys, sweep, *rest) -> None:
-    dev = keys.device
-    for name, t, dtype in (("keys", keys, torch.int64), ("sweep", sweep, torch.int64), *rest):
+def _check(dev, *named) -> None:
+    for name, t, dtype in named:
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{name} on {t.device}; all inputs must share one CUDA device")
         if t.dtype != dtype:
             raise TypeError(f"{name} is {t.dtype}, want {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_keys(keys: torch.Tensor) -> None:
     if keys.dim() != 2 or keys.shape[1] != 2 or keys.shape[0] < 1:
         raise ValueError(f"want keys [M, 2] with M >= 1, got {tuple(keys.shape)}")
-    if tuple(sweep.shape) != (1,):
-        raise ValueError(f"want sweep [1], got {tuple(sweep.shape)}")
 
 
-def uniforms(keys: torch.Tensor, sweep: torch.Tensor, row0: int, n: int) -> torch.Tensor:
-    """The z draws' uniforms u f32 [M, n] in [0, 1) of rows row0 ..
-    row0+n-1 at sweep ``sweep`` ([1] int64) for the chains of ``keys``
-    ([M, 2] int64), in one launch.  ``uniforms.launches`` counts them."""
-    if keys.device.type == "cpu" and sweep.device.type == "cpu":
-        return uniforms_ref(keys, sweep, row0, n)
-    _check(keys, sweep)
-    if keys.shape[0] > 65535:
-        raise ValueError(f"at most 65535 chains a launch, got {keys.shape[0]}")
-    if not (0 <= row0 and row0 + n <= 2 ** 32 and 1 <= n < 2 ** 31):
-        raise ValueError(f"rows {row0} .. {row0 + n - 1} outside the 32-bit counter")
-    dev = keys.device
-    u = torch.empty((keys.shape[0], n), dtype=torch.float32, device=dev)
+# ---- the plain versions ----
+
+def markov_codes_ref(key: torch.Tensor, trans: tuple, lens: torch.Tensor, *, L: int,
+                     s_order: int, A: int) -> torch.Tensor:
+    """The plain version of ``markov_codes`` (the reference's
+    ``_sample_markov_batch``), on the device of ``lens``."""
+    N, dev = lens.shape[0], lens.device
+    logits = tuple(threefry.xla_log(t.reshape(-1, A).to(torch.float32)) for t in trans)
+    keys = threefry.split(key.to(dev), L)
+    codes = torch.empty((N, L), dtype=torch.int8, device=dev)
+    ctx = torch.zeros(N, dtype=torch.int64, device=dev)
+    for t in range(L):
+        order = min(t, s_order)
+        g = threefry.gumbel_of(threefry.random_bits(keys[t], (N, A)))
+        c = torch.argmax(g + logits[order][ctx], dim=1)
+        codes[:, t] = c.to(torch.int8)
+        if order < s_order:
+            ctx = ctx * A + c
+        elif s_order > 0:
+            ctx = (ctx % (A ** (s_order - 1))) * A + c
+    t_idx = torch.arange(L, device=dev)[None, :]
+    return codes.masked_fill_(t_idx >= lens[:, None], PAD)
+
+
+def cgs_z_ref(flat: torch.Tensor, keys: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """The plain version of ``cgs_z``, on the tensors' device."""
+    M, N, C = flat.shape
+    sub = threefry.split(keys)[:, 1]  # [M, 2]
+    rows = torch.arange(row0, row0 + N, dtype=torch.int64, device=flat.device)
+    row_keys = threefry.fold_in(sub[:, None, :], rows[None, :])  # [M, N, 2]
+    w0, w1 = threefry.threefry2x32(row_keys[:, :, None, :], 0,
+                                   torch.arange(C, dtype=torch.int64, device=flat.device))
+    return torch.argmax(threefry.gumbel_of(w0 ^ w1) + flat, dim=-1)
+
+
+def cgs_beta_ref(a: torch.Tensor, b: torch.Tensor, keys: torch.Tensor, lo: float, hi: float,
+                 draw: bool = True, attempts: bool = False):
+    """The plain version of ``cgs_beta``, on the tensors' device: updates
+    ``keys`` in place and returns q (None where ``draw`` is False), with
+    ``attempts`` also the gammas' attempts int32 [M, 2].  Raises on a shape
+    below 1."""
+    k1 = threefry.split(keys)[:, 0]
+    k2, sub_q = threefry.split(k1).unbind(dim=1)
+    out = None
+    if draw:
+        if not bool(((a >= 1) & (b >= 1)).all()):
+            raise ValueError(f"Beta shapes must be >= 1, got a={a.tolist()}, b={b.tolist()}")
+        q, n = threefry.beta(sub_q, a, b, attempts=True)
+        q = q.clamp(float(torch.tensor(lo, dtype=torch.float32)),
+                    float(torch.tensor(hi, dtype=torch.float32)))
+        out = (q, n.to(torch.int32)) if attempts else q
+    keys.copy_(k2)
+    return out
+
+
+# ---- the kernels ----
+
+def markov_codes(key: torch.Tensor, trans: tuple, lens: torch.Tensor, *, L: int, s_order: int,
+                 A: int) -> torch.Tensor:
+    """The sampled codes int8 [N, L] of rows of lengths ``lens`` (int32
+    [N]) from ``key`` ([2] int64) and the conditionals ``trans`` (order m's
+    [A^(m+1)] float32, m = 0 .. s_order), in one launch.  No host sync, so a
+    CUDA graph can capture it.  ``markov_codes.launches`` counts
+    launches."""
+    if key.device.type == "cpu" and lens.device.type == "cpu":
+        return markov_codes_ref(key, trans, lens, L=L, s_order=s_order, A=A)
+    dev = lens.device
+    if len(trans) != s_order + 1 or not 0 <= s_order <= MAX_S_ORDER:
+        raise ValueError(f"want s_order in [0, {MAX_S_ORDER}] and its {s_order + 1} tables, "
+                         f"got {len(trans)}")
+    table = torch.cat([t.reshape(-1) for t in trans])
+    _check(dev, ("key", key, torch.int64), ("trans", table, torch.float32),
+           ("lens", lens, torch.int32))
+    if tuple(key.shape) != (2,) or lens.dim() != 1:
+        raise ValueError(f"want key [2] and lens [N], got {tuple(key.shape)}, "
+                         f"{tuple(lens.shape)}")
+    if table.numel() != sum(A ** (m + 1) for m in range(s_order + 1)):
+        raise ValueError(f"trans holds {table.numel()} probabilities, not "
+                         f"A^1 + .. + A^{s_order + 1}")
+    N = lens.shape[0]
+    codes = torch.empty((N, L), dtype=torch.int8, device=dev)
     lib = library()
-    _raise(lib, "cgs_uniforms", lib.cgs_uniforms_launch(
-        keys.data_ptr(), sweep.data_ptr(), u.data_ptr(), row0, n, keys.shape[0], dev.index,
-        current_stream(dev)))
-    uniforms.launches += 1
-    return u
+    _raise(lib, "markov_codes", lib.markov_codes_launch(
+        key.data_ptr(), table.data_ptr(), lens.data_ptr(), codes.data_ptr(), N, L, s_order, A,
+        table.numel(), dev.index, current_stream(dev)))
+    markov_codes.launches += 1
+    return codes
 
 
-uniforms.launches = 0
+markov_codes.launches = 0
 
 
-def beta(keys: torch.Tensor, sweep: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-         lo: float, hi: float, candidates: bool = False):
-    """q f32 [M] = clip(X / (X + Y), lo, hi), X ~ Gamma(a[m]), Y ~
-    Gamma(b[m]) (a, b f32 [M], each >= 1), drawn at sweep ``sweep`` for the
-    chains of ``keys``, in one launch; with ``candidates`` also the accepted
-    candidates' indices int32 [M, 2].  ``beta.launches`` counts launches."""
-    if all(t.device.type == "cpu" for t in (keys, sweep, a, b)):
-        return beta_ref(keys, sweep, a, b, lo, hi, candidates)
-    _check(keys, sweep, ("a", a, torch.float32), ("b", b, torch.float32))
+def cgs_z(flat: torch.Tensor, keys: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """z int64 [M, N]: each row's categorical draw from its logits ``flat``
+    (float32 [M, N, C]) under the chains' carried ``keys`` ([M, 2] int64,
+    read only), rows numbered from ``row0``; one launch.
+    ``cgs_z.launches`` counts launches."""
+    if flat.device.type == "cpu" and keys.device.type == "cpu":
+        return cgs_z_ref(flat, keys, row0)
+    dev = flat.device
+    _check(dev, ("flat", flat, torch.float32), ("keys", keys, torch.int64))
+    _check_keys(keys)
+    M, N, C = flat.shape
+    if keys.shape[0] != M or M > 65535 or C < 1:
+        raise ValueError(f"want keys [{M}, 2], M <= 65535 and C >= 1, got "
+                         f"{tuple(keys.shape)}, C={C}")
+    if not (0 <= row0 and row0 + N <= 2 ** 32):
+        raise ValueError(f"rows {row0} .. {row0 + N - 1} outside fold_in's 32-bit data")
+    z = torch.empty((M, N), dtype=torch.int64, device=dev)
+    lib = library()
+    _raise(lib, "cgs_z", lib.cgs_z_launch(flat.data_ptr(), keys.data_ptr(), z.data_ptr(), row0, N,
+                                          C, M, dev.index, current_stream(dev)))
+    cgs_z.launches += 1
+    return z
+
+
+cgs_z.launches = 0
+
+
+def cgs_beta(a: torch.Tensor, b: torch.Tensor, keys: torch.Tensor, lo: float, hi: float,
+             draw: bool = True, attempts: bool = False):
+    """q float32 [M] = clip(beta(sub_q, a[m], b[m]), lo, hi) (a, b float32
+    [M], each >= 1) for the chains' ``keys`` ([M, 2] int64), which advance
+    in place by the sweep's two splits; one launch.  ``draw`` False only
+    advances the keys and returns None.  With ``attempts`` also the
+    gammas' Marsaglia-Tsang attempts int32 [M, 2].  ``cgs_beta.launches``
+    counts launches."""
+    if all(t.device.type == "cpu" for t in (a, b, keys)):
+        return cgs_beta_ref(a, b, keys, lo, hi, draw, attempts)
+    dev = keys.device
+    _check(dev, ("keys", keys, torch.int64), ("a", a, torch.float32), ("b", b, torch.float32))
+    _check_keys(keys)
     M = keys.shape[0]
     if tuple(a.shape) != (M,) or tuple(b.shape) != (M,):
         raise ValueError(f"want a, b [{M}], got {tuple(a.shape)}, {tuple(b.shape)}")
-    dev = keys.device
     q = torch.empty((M,), dtype=torch.float32, device=dev)
-    cand = torch.empty((M, 2), dtype=torch.int32, device=dev) if candidates else None
+    n = torch.zeros((M, 2), dtype=torch.int32, device=dev) if attempts and draw else None
     lib = library()
     _raise(lib, "cgs_beta", lib.cgs_beta_launch(
-        keys.data_ptr(), sweep.data_ptr(), a.data_ptr(), b.data_ptr(), q.data_ptr(),
-        None if cand is None else cand.data_ptr(), lo, hi, M, dev.index, current_stream(dev)))
-    beta.launches += 1
-    return (q, cand) if candidates else q
+        a.data_ptr(), b.data_ptr(), keys.data_ptr(), q.data_ptr(),
+        None if n is None else n.data_ptr(), int(draw), lo, hi, M, dev.index,
+        current_stream(dev)))
+    cgs_beta.launches += 1
+    if not draw:
+        return None
+    return (q, n) if attempts else q
 
 
-beta.launches = 0
-
-
-def philox_pairs(ctrs: torch.Tensor, keys: torch.Tensor) -> tuple:
-    """A known-answer check, not a kernel of the port's paths
-    (``csrc/philox_check.cu``): ``philox.cuh``'s Philox4x32-10 and cuRAND's
-    ``curand_Philox4x32_10`` on the card, on the pairs of ctrs [n, 4] and
-    keys [n, 2] (int64 CUDA tensors of 32-bit words).  Returns (mine,
-    cuRAND's), each int64 [n, 4]."""
-    lib = _build.load("philox_check")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.philox_check_launch.argtypes = [p] * 4 + [i, i, p]
-    lib.philox_check_error_string.argtypes = [i]
-    lib.philox_check_error_string.restype = ctypes.c_char_p
-    ctrs, keys = ctrs.contiguous(), keys.contiguous()
-    mine, theirs = torch.empty_like(ctrs), torch.empty_like(ctrs)
-    dev = ctrs.device
-    err = lib.philox_check_launch(ctrs.data_ptr(), keys.data_ptr(), mine.data_ptr(),
-                                  theirs.data_ptr(), ctrs.shape[0], dev.index, current_stream(dev))
-    if err != 0:
-        raise RuntimeError(f"philox_check launch failed: "
-                           f"{lib.philox_check_error_string(err).decode()}")
-    return mine, theirs
+cgs_beta.launches = 0

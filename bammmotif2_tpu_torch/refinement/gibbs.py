@@ -12,8 +12,7 @@ One sweep, for every chain m:
   2. the flat logits [N, 1 + S*n_win]: log(1-q) for "no occurrence", then
      score + log(q / (S * n_win_n)) per window (NEG_INF for rows with no
      valid window);
-  3. z_n by the inverse CDF of the row's softmax (argmax under
-     --noZSampling);
+  3. z_n ~ the row's categorical (argmax under --noZSampling);
   4. the 0/1 occupancy r [M, S, N, L], scattered into a zeroed buffer;
   5. counts from r for all M chains in one launch (``ops.cuda_counts``),
      split into per-order counts;
@@ -24,20 +23,20 @@ One sweep, for every chain m:
   8. v from the counts and the new alphas (``models.motif.update_v``);
   9. the ZOOPS ll with the sweep's old q, for monitoring.
 
-Randomness.  The chain of the motif at global input index i has the key
-``chain_keys(params.seed, [i])``: ``chain_seed(params.seed, i)`` (numpy's
-SeedSequence of the pair, so chains of different indices or run seeds are
-independent) as two 32-bit words.  Every draw is Philox4x32-10 of the key
-and a counter that holds the sweep index, read from the device, and the
-draw's own indices (``ops.cuda_draws``, one launch a sweep for the z
-uniforms of all chains and one for their q): row n's uniform from (n, i,
-0, 0), q's gamma candidates from (j, i, 1 or 2, 0).  So a draw depends on
-nothing that ran before it: a stacked chain reproduces its solo run
-exactly, a row's draw does not depend on the rows after it or on the shard
-layout, and the kernel and plain paths draw the same numbers.  Streams
-differ from ``jax.random``'s: the deterministic path (--noZSampling
---noQSampling) is compared with the reference, the sampled path by
-distribution.
+Randomness: the reference's own ``jax.random`` streams (``ops/threefry.py``).
+A chain carries a key [2] on the device, as the reference's scan carries
+it: ``run_gibbs`` starts from ``PRNGKey(params.seed)`` unless given one,
+and ``run_gibbs_multi`` keys the motif at global input index i by
+``fold_in(PRNGKey(params.seed), i)`` (``input_keys``).  A sweep that
+samples z, q or both splits the key twice: (key, sub) = split(key) for z,
+row n drawn by ``categorical`` from ``fold_in(sub, n)`` (``ops.cuda_draws.
+cgs_z``, one launch for all chains), then (key, sub_q) = split(key) for q
+~ ``beta(sub_q, ...)`` (``cuda_draws.cgs_beta``, one launch, which also
+writes the advanced keys in place).  So the port's chains are the
+reference's, draw for draw, wherever the two compute the same logits; a
+stacked chain reproduces its solo run, a row's draw depends on its global
+index and not on the shard layout, and the kernel and plain paths draw the
+same numbers.
 
 The sweep loop makes no host sync: CGS has a fixed number of sweeps, and
 the ll history stays on the device until the end.  On the card with no
@@ -49,9 +48,9 @@ reference's ``lax.scan``.
 With a mesh (``parallel.mesh``) each rank scores and counts its block of
 rows, and one all-reduce a sweep sums the counts, the occupied-row counts
 and the ll over the data group (sums of 0/1 occupancies, exact in float32).
-Each rank draws the uniforms of its own block's global rows, so z does not
-depend on the layout; every rank then draws q and takes the alpha step
-from the same sums and the same counters.  The seed axis does not split
+Each rank draws z for its own block's global rows, so z does not depend on
+the layout; every rank then draws q and takes the alpha step from the same
+sums and the same keys.  The seed axis does not split
 the chains: the ranks of other seed indices run the same chains on their
 own data blocks.
 """
@@ -70,7 +69,9 @@ from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motif import (
     Motif, counts_from_combined, log_odds_lut, tile_rows, update_v,
 )
-from bammmotif2_tpu_torch.ops import cuda_counts, cuda_draws, cuda_scores, cuda_while, encode
+from bammmotif2_tpu_torch.ops import (
+    cuda_counts, cuda_draws, cuda_scores, cuda_while, encode, threefry,
+)
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
@@ -103,20 +104,12 @@ class GibbsResult:
                                   # this seed ran in (0 = solo run)
 
 
-def chain_seed(seed: int, index: int) -> int:
-    """The key of the chain of the motif at global input index ``index``
-    in a run seeded ``seed``: numpy's SeedSequence of the pair, as one
-    64-bit integer (``chain_keys`` splits it into Philox's key words)."""
-    ss = np.random.SeedSequence([seed % 2 ** 64, index])
-    return int(ss.generate_state(1, np.uint64)[0])
-
-
-def chain_keys(seed: int, indices, device) -> torch.Tensor:
-    """The Philox keys [M, 2] int64 of the chains of ``indices`` on
-    ``device``: each ``chain_seed(seed, i)`` as its (low, high) 32-bit
-    words."""
-    words = [[s & cuda_draws.MASK32, s >> 32] for s in (chain_seed(seed, i) for i in indices)]
-    return torch.tensor(words, dtype=torch.int64, device=device).reshape(-1, 2)
+def input_keys(seed: int, indices, device) -> torch.Tensor:
+    """The keys [M, 2] int64 on ``device`` of the chains of the motifs at
+    global input ``indices`` in a run seeded ``seed``: ``fold_in(
+    PRNGKey(seed), i)``, as the reference's ``run_gibbs_multi`` keys them."""
+    i = torch.as_tensor(list(indices), dtype=torch.int64).reshape(-1)
+    return threefry.fold_in(threefry.prng_key(seed)[None], i).to(device)
 
 
 def counts_fn(path: str):
@@ -193,30 +186,27 @@ def flat_logits(scores: torch.Tensor, mask: torch.Tensor, q: torch.Tensor) -> to
     return torch.cat([absent, log_w.permute(0, 2, 1, 3).reshape(M, N, S * n_win)], dim=2)
 
 
-def draw_z(flat: torch.Tensor, keys, sweep, sample: bool, row0: int = 0) -> torch.Tensor:
+def draw_z(flat: torch.Tensor, keys, sample: bool, row0: int = 0) -> torch.Tensor:
     """z [M, N] int64: 0 = no occurrence, else 1 + the flat window index.
 
-    Sampled: the inverse CDF of each row's softmax at the row's uniform
-    (``ops.cuda_draws.uniforms`` of the chains' ``keys`` at sweep ``sweep``;
-    the CDF in float64, so the target u * total stays below the total and
-    never lands on a zero-probability column).  ``flat`` holds the rows
-    row0.. of the set (a shard's block), each drawn from its global row
-    index; rows with no window (shard padding) take 0 whatever the draw.
-    Else the argmax (first on ties).
+    Sampled: each row's ``categorical`` draw of the key ``fold_in(sub,
+    row0 + n)``, (key, sub) = split of the chains' carried ``keys``
+    (``ops.cuda_draws.cgs_z``, which leaves the keys as they are).
+    ``flat`` holds the rows row0.. of the set (a shard's block), each drawn
+    from its global row index; rows with no window (shard padding) take 0
+    whatever the draw.  Else the argmax (first on ties).
     """
     if not sample:
         return flat.argmax(dim=-1)
-    u = cuda_draws.uniforms(keys, sweep, row0, flat.shape[1])
-    p = torch.exp(flat - flat.amax(dim=-1, keepdim=True))
-    cdf = torch.cumsum(p.to(torch.float64), dim=-1)
-    target = (u.to(torch.float64) * cdf[..., -1]).unsqueeze(-1)
-    return torch.searchsorted(cdf, target, right=True).squeeze(-1)
+    return cuda_draws.cgs_z(flat, keys, row0)
 
 
-def draw_beta(a: torch.Tensor, b: torch.Tensor, keys, sweep) -> torch.Tensor:
-    """Beta(a[m], b[m]) per chain, clipped to [Q_MIN, Q_MAX]: X / (X + Y)
-    with X ~ Gamma(a[m]) and Y ~ Gamma(b[m]) (``ops.cuda_draws.beta``)."""
-    return cuda_draws.beta(keys, sweep, a, b, Q_MIN, Q_MAX)
+def draw_beta(a: torch.Tensor, b: torch.Tensor, keys, sample: bool):
+    """The sweep's q draw and key advance: with (key', sub_q) = split(
+    split(key)[0]), q = Beta(a[m], b[m]) of sub_q per chain, clipped to
+    [Q_MIN, Q_MAX], where ``sample``; every chain's key becomes key' in
+    place either way (``ops.cuda_draws.cgs_beta``).  Returns q or None."""
+    return cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, draw=sample)
 
 
 def occupancy(z: torch.Tensor, S: int, L: int, n_win: int) -> torch.Tensor:
@@ -251,7 +241,6 @@ def gibbs_step_multi(
     sample_z: bool,
     sample_q: bool,
     learn_alpha: bool,
-    sweep=None,
     path: str = "plain",
     alpha_lr: float = ALPHA_LR,
     mesh=None,
@@ -259,9 +248,9 @@ def gibbs_step_multi(
     """One batch-synchronous CGS sweep for M chains.
 
     v: tuple of [M, A^(k+1), W]; q [M]; log_alphas, default_alphas
-    [M, K+1, W]; keys: the chains' keys [M, 2] (``chain_keys``) and sweep
-    the sweep index [1] int64, both on the data's device (unused, and may
-    be None, when nothing is sampled); data: {cidx, lens, bg_flat}
+    [M, K+1, W]; keys: the chains' carried keys [M, 2] int64 on the data's
+    device, advanced in place by the sweep's two splits (unused, and may be
+    None, when nothing is sampled); data: {cidx, lens, bg_flat}
     (``refinement.em.prepare_data``, or with ``mesh`` this rank's block
     from ``parallel.mesh.shard_em_data``); n_real: the number of real rows
     (zero-length mask rows excluded).
@@ -276,10 +265,11 @@ def gibbs_step_multi(
     scores, mask = score_fn(path)(s_flat, cidx, lens)
     _M, S, N, n_win = scores.shape
 
-    if (sample_z or sample_q) and (keys is None or sweep is None):
-        raise ValueError("a sampled sweep needs the chains' keys and the sweep index")
+    sampled = sample_z or sample_q
+    if sampled and keys is None:
+        raise ValueError("a sampled sweep needs the chains' keys")
     flat = flat_logits(scores, mask, q)
-    z = draw_z(flat, keys, sweep, sample_z, data.get("row0", 0))
+    z = draw_z(flat, keys, sample_z, data.get("row0", 0))
     n_occ = (z > 0).sum(dim=1).to(torch.float32)
     C = counts_fn(path)(occupancy(z, S, L, n_win), cidx, R, W)
     ll = torch.logsumexp(flat, dim=-1).sum(dim=-1)
@@ -289,11 +279,12 @@ def gibbs_step_multi(
         C, n_occ, ll = buf[: -2 * M].reshape(C.shape), buf[-2 * M : -M], buf[-M:]
     counts = counts_from_combined(C[:, :R], A, K)
 
-    if sample_q:
+    q_new = q
+    if sampled:
         # zero-length mask rows can never be occupied and are not in n_real
-        q_new = draw_beta(n_occ + 1.0, n_real - n_occ + 1.0, keys, sweep)
-    else:
-        q_new = q
+        drawn = draw_beta(n_occ + 1.0, n_real - n_occ + 1.0, keys, sample_q)
+        if sample_q:
+            q_new = drawn
     if learn_alpha:
         log_alphas = alpha_step(log_alphas, counts, f_bg, default_alphas, alpha_lr)
     v_new = update_v(counts, torch.exp(log_alphas), f_bg)
@@ -305,7 +296,8 @@ def gibbs_step_multi(
 
 def gibbs_step(v, q, log_alphas, key, data, f_bg, default_alphas, n_real, **kw):
     """``gibbs_step_multi`` for one chain: v tuple of [A^(k+1), W], q [],
-    log_alphas and default_alphas [K+1, W], the chain's key [2] (or None).
+    log_alphas and default_alphas [K+1, W], the chain's key [2] (or None;
+    advanced in place).
     Returns (v, q, log_alphas, ll, n_occ, counts) without the seed axis."""
     out = gibbs_step_multi(
         tuple(vk[None] for vk in v), q.reshape(1), log_alphas[None],
@@ -340,11 +332,12 @@ def gibbs_optimize(
 ):
     """The whole CGS run of M chains: ``n_iters`` sweeps, no host sync.
 
-    ``keys``: the chains' keys [M, 2] (``chain_keys``; None when nothing
-    is sampled).  The sweep is one in-place body (``refinement.graphs.
-    Loop``), the reference's ``lax.scan`` body: a sweep counter ``i`` on
-    the device keys the draws and indexes the ll and occupied-row
-    histories, and the burn-in mean adds ``counts * (i >= burn_in)``.  The
+    ``keys``: the chains' keys [M, 2] (None when nothing is sampled),
+    carried in the loop's state and advanced by each sweep on the device.
+    The sweep is one in-place body (``refinement.graphs.Loop``), the
+    reference's ``lax.scan`` body: a sweep counter ``i`` on the device
+    indexes the ll and occupied-row histories, and the burn-in mean adds
+    ``counts * (i >= burn_in)``.  The
     loop's stop test (``multi.UNTIL``) is the scan's length: ``its``
     counts sweeps against the cap n_iters, and ``vds`` stays +inf, so no
     ll (a NaN one included) stops it.  On a CUDA device with no mesh the
@@ -377,17 +370,17 @@ def gibbs_optimize(
         "eps": torch.zeros((), dtype=torch.float32, device=dev),
     }
     state["running"] = cuda_while.condition_ref(*(state[k] for k in UNTIL[1:]))
+    if keys is not None:
+        state["keys"] = keys.clone()
     tensors, consts = graphs_mod.split(data)
     inputs = {**tensors, "f_bg": f_bg, "default_alphas": default_alphas}
-    if keys is not None:
-        inputs["keys"] = keys
     statics = dict(A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
                    learn_alpha=learn_alpha, path=path)
 
     def body(s, _gens):
         v2, q2, la2, ll, n_occ, counts = gibbs_step_multi(
-            s["v"], s["q"], s["la"], inputs.get("keys"), {**data, **inputs}, inputs["f_bg"],
-            inputs["default_alphas"], n_real, sweep=s["i"], mesh=mesh, **statics,
+            s["v"], s["q"], s["la"], s.get("keys"), {**data, **inputs}, inputs["f_bg"],
+            inputs["default_alphas"], n_real, mesh=mesh, **statics,
         )
         take = (s["i"] >= burn_in).to(torch.float32)
         for a, c in zip(s["acc"], counts):
@@ -435,12 +428,12 @@ def gibbs_chains(v, q, alphas, f_bg, data, n_real, keys, params: Params, *,
     return v, q, la, lls
 
 
-def _run_group(group: list, indices: list, data: dict, n_real: int, params: Params,
+def _run_group(group: list, keys: torch.Tensor, data: dict, n_real: int, params: Params,
                solo: bool, mesh=None, graphs: bool = True) -> list:
     """Refine the motifs of one (W, K, f_bg) group in place; returns their
-    GibbsResults.  ``indices``: the motifs' global input indices, which
-    seed their chains.  With ``mesh``, ``data`` is the whole set and each
-    rank sweeps its block of it."""
+    GibbsResults.  ``keys``: their chains' keys [M, 2] int64.  With
+    ``mesh``, ``data`` is the whole set and each rank sweeps its block of
+    it."""
     if mesh is not None:
         data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(group[0].A, group[0].K))
     A, K, W = group[0].A, group[0].K, group[0].W
@@ -456,7 +449,7 @@ def _run_group(group: list, indices: list, data: dict, n_real: int, params: Para
     f_bg = f32(group[0].f_bg)
     path = choose_path(params, dev)
     compile_seconds = build_seconds(path, dev)
-    keys = chain_keys(params.seed, indices, dev)
+    keys = keys.to(dev)
 
     t0 = time.perf_counter()
     v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), keys, params,
@@ -496,7 +489,7 @@ def run_gibbs(
     data: dict | None = None,
     n_real: int | None = None,
     device=None,
-    index: int = 0,
+    key: torch.Tensor | None = None,
     graphs: bool = True,
 ) -> GibbsResult:
     """Refine ``motif`` in place by CGS (``GibbsSampling::optimize``).
@@ -504,10 +497,10 @@ def run_gibbs(
     ``device``: None runs on the current CUDA device; pass "cpu" for the
     CPU (``data``, when given, keeps its own).  ``n_real``: number of real
     sequences when ``data`` rows are masked out with length 0 (CV fold
-    masking).  ``index``: the motif's global input
-    index, which seeds its chain (``chain_seed(params.seed, index)``), so
-    ``run_gibbs(motifs[i], ..., index=i)`` reproduces member i of
-    ``run_gibbs_multi``.  ``graphs``: False runs the sweeps eagerly on a
+    masking).  ``key``: the chain's key [2] int64, by default
+    ``PRNGKey(params.seed)`` as the reference's; ``run_gibbs(motifs[i],
+    ..., key=input_keys(params.seed, [i], "cpu")[0])`` reproduces member i
+    of ``run_gibbs_multi``.  ``graphs``: False runs the sweeps eagerly on a
     CUDA device too (``gibbs_optimize``).
     """
     params = params or Params(CGS=True)
@@ -516,7 +509,9 @@ def run_gibbs(
         data = prepare_data(sset, bg, motif.K, params.ss, device)
     if n_real is None:
         n_real = int(data["lens"].shape[0])
-    return _run_group([motif], [index], data, n_real, params, solo=True, graphs=graphs)[0]
+    key = threefry.prng_key(params.seed) if key is None else key
+    return _run_group([motif], key.reshape(1, 2), data, n_real, params, solo=True,
+                      graphs=graphs)[0]
 
 
 def run_gibbs_multi(
@@ -532,8 +527,9 @@ def run_gibbs_multi(
 
     Seeds of equal (W, K, f_bg) sweep together, one score and one count
     launch per sweep for the whole group.  The motif at input position i
-    samples from ``chain_seed(params.seed, i)``: global, not group-local,
-    indices, so the m-th members of two groups are independent chains.
+    samples from ``fold_in(PRNGKey(params.seed), i)`` (``input_keys``), as
+    the reference's does: global, not group-local, indices, so the m-th
+    members of two groups are independent chains.
     ``device``: None runs on the current CUDA device; pass "cpu" for the
     CPU.  ``mesh``: rows shard over its data axis, with the same draws as
     one process.  ``graphs``: False runs the sweeps eagerly on a CUDA
@@ -551,8 +547,9 @@ def run_gibbs_multi(
     for (_W, K, _fbg), idxs in groups.items():
         data = prepare_data(sset, bg, K, params.ss, device)
         group = [motifs[i] for i in idxs]
-        res = _run_group(group, idxs, data, int(data["lens"].shape[0]), params,
-                         solo=len(idxs) == 1, mesh=mesh, graphs=graphs)
+        res = _run_group(group, input_keys(params.seed, idxs, device), data,
+                         int(data["lens"].shape[0]), params, solo=len(idxs) == 1, mesh=mesh,
+                         graphs=graphs)
         for i, r in zip(idxs, res):
             results[i] = r
     return results

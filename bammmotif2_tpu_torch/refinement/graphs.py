@@ -96,8 +96,8 @@ def device_loop(device, mesh=None, n_gens: int = 0) -> bool:
     to its end on the device as one WHILE-node graph: it is graphed
     (``enabled``), has no mesh and registers no generators (a replay
     advances a generator's offsets from the host, which a body looped on
-    the device never gets: CGS draws from counters keyed by its sweep
-    index instead, ``ops.cuda_draws``)."""
+    the device never gets: the port's draws use keys read on the device
+    instead, ``ops.cuda_draws``)."""
     return mesh is None and n_gens == 0 and enabled(device)
 
 
@@ -109,8 +109,8 @@ def counted() -> tuple:
 
     return (cuda_em.em_counts_multi, cuda_scores.window_scores_multi,
             cuda_counts.counts_from_r_multi, cuda_flat.em_counts, cuda_flat.window_scores,
-            cuda_flat.counts_from_r, cuda_while.condition, cuda_draws.uniforms,
-            cuda_draws.beta)
+            cuda_flat.counts_from_r, cuda_while.condition, cuda_draws.markov_codes,
+            cuda_draws.cgs_z, cuda_draws.cgs_beta)
 
 
 def settle() -> None:
@@ -229,8 +229,8 @@ class Loop:
     tensors that the loop owns and updates.  ``inputs``: name -> tensor,
     what the body reads and never writes; the body reads them through this
     dict, whose values the loop replaces by its static copies.  ``gens``:
-    the generators the body draws from (the FDR fold tail's negative
-    sampler; CGS draws from counters instead).  ``key``: hashable, the
+    the ``torch.Generator``s the body draws from (the port's own paths
+    draw from keys on the device instead and register none).  ``key``: hashable, the
     body's constants; with the loop's name, the device, the mesh and the
     tensors' shapes and dtypes it decides which captured graph a call
     reuses.

@@ -1,7 +1,8 @@
 """A/B between two checkouts on one GPU, in interleaved processes, with rank
 tests.
 
-    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,fdr,flat,kernels,loops} BASE_DIR CHANGE_DIR [--rounds N]
+    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,fdr,flat,kernels,loops,sampler} \
+        BASE_DIR CHANGE_DIR [--rounds N]
         [--M 1 4 10 16]
 
 Each directory is the root of a checkout holding ``chip_smoke.py``.  Every
@@ -74,6 +75,17 @@ measures, through that checkout's code:
   (``cgs_rate``: sweeps/s, device operations a sweep and the idle share,
   whether the checkout replays a sweep at a time or runs the sweeps as one
   WHILE-node graph); no first-use runs.
+
+``sampler``: the negatives' sampler through ``seqgen.generate_neg_data``
+  (sampling, reverse complement and k-mer encoding on the card, K=2, both
+  strands), from the order-2 fit (--sOrder, --bgModelAlpha at their
+  defaults) to config 5's 100k positives (``chip_smoke.planted_problem``):
+  its ms (CUDA events, ``chip_smoke.time_cuda``) at config 5 (the 100k
+  lengths 10 times: 1M rows of 200 bp) and at config 4's fold (2,000
+  held-out lengths 10 times), and ``generate_neg_set``'s seconds at config
+  5 (the codes brought to the host, as --scoreSeqset makes them); then
+  config 5's --scoreSeqset stage through the CLI (``C5_ARGS``): its
+  seconds (``scan_done``) and the CLI's.
 
 The kernels' inputs are made once, before the first round, by this
 checkout's ``chip_smoke`` and ``tests/test_torch_cuda.py`` (numpy and
@@ -365,8 +377,9 @@ def cgs_rate(chip_smoke, dev, prob: dict, M: int = 1) -> dict:
     device, a replay a sweep where it does not), N_TIMED sweeps after an
     untimed run of the same length: sweeps/s, and over one more run under
     torch.profiler the device operations a sweep and the device's idle
-    share.  The chains are keyed (``gibbs.chain_keys``) or, in a checkout
-    from before the keys, seeded generators."""
+    share.  The chains are keyed by ``gibbs.input_keys`` (``chain_keys`` in
+    a checkout from before the reference's keys) or, before either, by
+    seeded generators."""
     import numpy as np
     import torch
 
@@ -378,7 +391,8 @@ def cgs_rate(chip_smoke, dev, prob: dict, M: int = 1) -> dict:
     f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
     alphas = f32(np.stack([m.alphas for m in seeds]))
     v = tuple(f32(np.stack([m.v[k] for m in seeds])) for k in range(3))
-    chains = getattr(gibbs, "chain_keys", None) or gibbs.chain_generators
+    chains = (getattr(gibbs, "input_keys", None) or getattr(gibbs, "chain_keys", None)
+              or gibbs.chain_generators)
 
     def sweeps():
         gibbs.gibbs_optimize(v, f32([0.9] * M), torch.log(alphas), chains(0, range(M), dev), data,
@@ -447,8 +461,38 @@ def measure_loops(chip_smoke, dev, _inputs, graphed: bool, first: str, Ms=None) 
     return metrics, {"graphed": graphed, "first_use": fu}
 
 
+def measure_sampler(chip_smoke, dev, _inputs) -> tuple:
+    """``sampler`` (see the module docstring)."""
+    import torch
+
+    from bammmotif2_tpu_torch.generator import seqgen
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    p = Params()
+    metrics = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sset, fasta, meme, *_ = chip_smoke.planted_problem(tmp, chip_smoke.C5_SEQS, "c5")
+        bg = BackgroundModel.from_sequence_set(sset, order=p.sOrder, alpha=p.bgModelAlpha,
+                                               ss=False)
+        for tag, lens, n in (("config5", sset.lens, 5), ("config4_fold", sset.lens[:2_000], 20)):
+            metrics[f"neg_data_ms_{tag}"] = chip_smoke.time_cuda(
+                lambda lens=lens: seqgen.generate_neg_data(bg, lens, 10, p.seed, 2, False,
+                                                           device=dev), n)
+        seqgen.generate_neg_set(bg, sset.lens, 10, p.seed, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seqgen.generate_neg_set(bg, sset.lens, 10, p.seed, device=dev)
+        metrics["neg_set_s_config5"] = time.perf_counter() - t0
+        scan = chip_smoke.run_cli(os.path.join(tmp, "c5"), fasta, meme, C5_ARGS, dev)
+    metrics["config5_scan_seconds"] = scan["events"]["scan_done"][0]["seconds"]
+    metrics["config5_cli_seconds"] = scan["seconds"]
+    return metrics, {}
+
+
 MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "fdr": measure_fdr,
-            "flat": measure_flat, "kernels": measure_kernels, "loops": measure_loops}
+            "flat": measure_flat, "kernels": measure_kernels, "loops": measure_loops,
+            "sampler": measure_sampler}
 
 
 def one(measure: str, root: str, inputs: str, graphed: bool = True,
@@ -540,7 +584,7 @@ def main(argv=None) -> int:
     trees = {"base": args.base, "change": args.change}
     procs = []
     with tempfile.TemporaryDirectory() as inputs:
-        if args.measure not in ("cgs", "fdr", "loops"):
+        if args.measure not in ("cgs", "fdr", "loops", "sampler"):
             make_inputs(inputs, args.measure, args.M)
         seeds = ("--M", *map(str, args.M)) if args.M else ()
         for rnd in range(args.rounds):

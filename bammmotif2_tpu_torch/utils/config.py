@@ -87,7 +87,7 @@ class Params:
     verbose: bool = False                   # --verbose
 
     # --- extensions (absent in reference) -------------------------------- #
-    seed: int = 42                          # PRNG seed (torch.Generator)
+    seed: int = 42                          # PRNG seed (jax.random's PRNGKey)
     use_pallas: bool = True                 # the hand-written kernels (--no-pallas: plain)
     multiDevice: bool = True                # shard over all devices/hosts if >1
     data_axis: str = "data"                 # mesh axis name for sequence sharding

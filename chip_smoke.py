@@ -5,9 +5,8 @@
 
 Phases (any failure exits non-zero):
   1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu,
-               csrc/counts_from_r.cu, csrc/flat.cu, csrc/while_loop.cu,
-               csrc/cgs_draws.cu and csrc/philox_check.cu (a known-answer
-               check, no kernel of the port's paths) in parallel; prints
+               csrc/counts_from_r.cu, csrc/flat.cu, csrc/while_loop.cu and
+               csrc/jax_draws.cu in parallel; prints
                the toolchain, the card, the CUDA
                driver's and runtime's versions (a WHILE graph node needs
                12.3) and the ptxas resource reports.
@@ -25,15 +24,17 @@ Phases (any failure exits non-zero):
                more than the combined one and no gather or fold;
                check_condition: the loops' stop-test kernel
                (ops/cuda_while.py) against its plain version on edge
-               inputs (the cap reached, every seed frozen, NaN); the CGS
-               draw kernels (ops/cuda_draws.py, tests/test_torch_draws.py):
-               cgs_uniforms bit-equal to uniforms_ref at M=16, 10k rows,
-               three sweep indices and two row offsets (check_uniforms),
-               cgs_beta against beta_ref on 2 x 10^5 (a, b) pairs, the same
-               candidates but for at most 1e-4 of them and rtol 1e-5
-               (check_beta, the differing candidates printed), philox.cuh
-               against cuRAND's curand_Philox4x32_10 and Random123's known
-               answers (check_philox_curand); and check_loops: the EM loop
+               inputs (the cap reached, every seed frozen, NaN); the draw
+               kernels of the reference's jax.random streams
+               (ops/cuda_draws.py, tests/test_torch_draws.py):
+               markov_codes bit-equal to markov_codes_ref at sOrder 0-5
+               (check_markov), cgs_z bit-equal to cgs_z_ref at M=16, 10k
+               rows of 379 logits, two row offsets (check_z), cgs_beta
+               against cgs_beta_ref on 2 x 10^5 (a, b) pairs, the same
+               attempts, q within rtol 1e-6 and the same advanced keys
+               (check_beta); the kernels' draws against the CPU's plain
+               versions, which tests/test_torch_threefry.py holds to
+               jax.random (check_draws_against_cpu); and check_loops: the EM loop
                and the CGS sweeps each as one launch of a WHILE-node graph
                (refinement/graphs.py) against their eager loops (CGS bit
                for bit, also at 1 and 2 sweeps; EM within the bars: at a
@@ -75,14 +76,17 @@ Phases (any failure exits non-zero):
                  runs, so the two paths score from one LUT and their files
                  are equal; >= 99% of planted sites are reported at
                  --pvalCutoff 1e-4; the window-score kernel launched once
-                 per chunk scored;
+                 per chunk scored, markov_codes once; and the 1M negatives
+                 of markov_codes bit-equal to markov_codes_ref's on the card
+                 (check_config5_negatives);
                - BASELINE config 4: 10k x 200 bp, 3 planted motifs, 10 seeds
                  of widths 8/10/12, --EM --optimizeQ --FDR -q 0.5 with
                  sampled negatives (--mFold 10, --cvFold 5) at a fixed
                  --maxEMIterations 20 (agreement as on examples/), then
                  converged through the kernels: finite .stats, AvRec ZOOPS
                  >= 0.25 for the three unperturbed seeds, both kernels
-                 launched;
+                 launched, markov_codes once a fold tail (5 folds x 3
+                 (W, K) groups);
                - --CGS -k 2 -K 2 on the planted 10k x 200 bp set at the
                  default 100 sweeps: written files equal byte for byte
                  (both paths draw the same numbers, window scores are
@@ -90,8 +94,8 @@ Phases (any failure exits non-zero):
                  path's eager sweep loop; the consensus is the planted motif;
                  the sweeps ran as one launch of a WHILE-node graph
                  (graphs.stats' while_launches), the window-score,
-                 counts-from-r and two draw kernels launched once a sweep
-                 (settled counts);
+                 counts-from-r, cgs_z and cgs_beta kernels launched once a
+                 sweep (settled counts);
                - --EM --CGS on examples/: files agree, all three kernels
                  launched;
                - config 4 with --CGS --FDR (per-fold CGS) compared at
@@ -164,8 +168,11 @@ Phases (any failure exits non-zero):
                the loop graph's body nodes and the device's busy share
                under torch.profiler over 10 graphed and 10 eager sweeps at
                M=1 and 10); the stop-test kernel at M=16; the draw kernels
-               at M=1 and 16 on 10k rows against their plain versions and
-               a generator's torch.rand and torch._standard_gamma; the device
+               against their plain versions: markov_codes at config 5's 1M
+               x 200 bp and config 4's fold (20k x 200 bp), cgs_z at M=1 and
+               10 on 10k rows of 379 logits beside torch.rand and the argmax
+               of logits plus gumbel noise, cgs_beta at M=1 and 16 beside a
+               generator's torch._standard_gamma; the device
                loop's own cost an iteration, a WHILE-node launch against a
                replay an iteration, on a body of two small kernels;
                the loops (time_loops): EM its/s eager against graphed at
@@ -202,7 +209,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat", "while_loop",
-                  "cgs_draws", "philox_check")
+                  "jax_draws")
 
 # bench.py's problem
 N_SEQS, SEQ_LEN, W, N_TIMED = 10_000, 200, 12, 30
@@ -255,13 +262,14 @@ def counted() -> dict:
             "flat_window_scores": cuda_flat.window_scores,
             "flat_counts_from_r": cuda_flat.counts_from_r,
             "loop_condition": cuda_while.condition,
-            "cgs_uniforms": cuda_draws.uniforms,
-            "cgs_beta": cuda_draws.beta}
+            "markov_codes": cuda_draws.markov_codes,
+            "cgs_z": cuda_draws.cgs_z,
+            "cgs_beta": cuda_draws.cgs_beta}
 
 
-# not the data path's kernels: the loops' stop test and CGS's draws run on
+# not the data path's kernels: the loops' stop test and the draws run on
 # both the kernel path and under --no-pallas
-BOTH_PATHS = ("loop_condition", "cgs_uniforms", "cgs_beta")
+BOTH_PATHS = ("loop_condition", "markov_codes", "cgs_z", "cgs_beta")
 
 
 def launches() -> dict:
@@ -436,20 +444,57 @@ def phase_kernel(device) -> dict:
     worst["loop_condition"] = float(res["mismatches"])
     log("kernel loop_condition (edge inputs; max_abs_err counts mismatches): " + json.dumps(res))
     draws = load_by_path("bamm_torch_draws_checks", "tests/test_torch_draws.py")
-    res = draws.check_uniforms(device)
-    worst["cgs_uniforms"] = float(res["mismatches"])
-    log("kernel cgs_uniforms (bit-equal to uniforms_ref; max_abs_err counts mismatches): "
+    res = draws.check_markov(device)
+    worst["markov_codes"] = float(res["mismatched_codes"])
+    log("kernel markov_codes (bit-equal to markov_codes_ref; max_abs_err counts mismatched "
+        "codes): " + json.dumps(res))
+    res = draws.check_z(device)
+    worst["cgs_z"] = float(res["mismatches"])
+    log("kernel cgs_z (bit-equal to cgs_z_ref; max_abs_err counts mismatches): "
         + json.dumps(res))
     res = draws.check_beta(device)
     worst["cgs_beta"] = res["max_abs_err"]
-    log(f"kernel cgs_beta (against beta_ref: the same candidates, rtol {draws.BETA_RTOL}; "
-        f"differing candidate indices at most {draws.BETA_FLIP_SHARE} of the draws): "
-        + json.dumps(res))
-    log("kernel philox (philox.cuh against cuRAND's curand_Philox4x32_10 and Random123's "
-        "known answers): " + json.dumps(draws.check_philox_curand(device)))
+    log(f"kernel cgs_beta (against cgs_beta_ref: the same attempts, rtol {draws.BETA_RTOL}, "
+        f"the same advanced keys): " + json.dumps(res))
+    log("kernel draws against the CPU's plain versions: "
+        + json.dumps(check_draws_against_cpu(device)))
     log("kernel loops (graphed against eager, host reads, counters, failed capture): "
         + json.dumps(checks.check_loops(device)))
     return worst
+
+
+def check_draws_against_cpu(device) -> dict:
+    """The draw kernels on the card against their plain versions on the CPU
+    (which tests/test_torch_threefry.py holds to jax.random): a sampled set
+    (2,000 x 150 bp, sOrder 2) and CGS's z (M=4, 2,000 rows of 379 logits)
+    bit-equal; q (256 chains) within rtol 1e-6, the CPU's exp against the
+    card's."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_draws, threefry
+
+    draws = load_by_path("bamm_torch_draws_checks", "tests/test_torch_draws.py")
+    trans, lens, key = draws._markov_inputs("cpu", 2_000, 150, 2, 11)
+    codes = cuda_draws.markov_codes(key.to(device), tuple(t.to(device) for t in trans),
+                                    lens.to(device), L=150, s_order=2, A=4).cpu()
+    want = cuda_draws.markov_codes_ref(key, trans, lens, L=150, s_order=2, A=4)
+    rng = np.random.default_rng(12)
+    flat = torch.as_tensor(rng.normal(0, 2, (4, 2_000, 379)).astype(np.float32))
+    keys = threefry.fold_in(threefry.prng_key(3)[None], torch.arange(4))
+    z = cuda_draws.cgs_z(flat.to(device), keys.to(device), 7).cpu()
+    z_ref = cuda_draws.cgs_z_ref(flat, keys, 7)
+    a = torch.as_tensor(rng.integers(1, 10_002, 256).astype(np.float32))
+    b = torch.as_tensor(rng.integers(1, 10_002, 256).astype(np.float32))
+    k256 = threefry.split(threefry.prng_key(4), 256)
+    q = cuda_draws.cgs_beta(a.to(device), b.to(device), k256.clone().to(device), 1e-4,
+                            1 - 1e-4).cpu()
+    q_ref = cuda_draws.cgs_beta_ref(a, b, k256.clone(), 1e-4, 1 - 1e-4)
+    out = {"codes_mismatched": int((codes != want).sum()),
+           "z_mismatched": int((z != z_ref).sum()),
+           "q_max_rel_err": float(((q - q_ref).abs() / q_ref).max())}
+    if out["codes_mismatched"] or out["z_mismatched"] or out["q_max_rel_err"] > 1e-6:
+        raise AssertionError(f"the card's draws differ from the CPU's: {out}")
+    return out
 
 
 def write_meme(path: str, pwms: list) -> None:
@@ -726,12 +771,17 @@ def config5_slice(device, tmp) -> dict:
     chunks = n_pos + 2 * n_neg
     if k["launches"]["window_scores"] < chunks:
         raise AssertionError(f"config5: {k['launches']} for {chunks} chunks scored")
+    if k["launches"]["markov_codes"] != 1 or p["launches"]["markov_codes"] != 1:
+        raise AssertionError(f"config5: one sampler launch a scan, got {k['launches']}, "
+                             f"--no-pallas {p['launches']}")
+    negatives = check_config5_negatives(device, tmp)
     neg_windows = C5_MFOLD * ev["windows"]
     out = {
         "launches": k["launches"],
         "chunks_scored": chunks,
         "occurrences": ev["hits"],
         "planted_recovered": recovered,
+        "negatives_bit_equal_to_plain": negatives,
         "scan_seconds_kernel": ev["seconds"],
         "scan_seconds_plain": p["events"]["scan_done"][0]["seconds"],
         "scan_windows_per_s_kernel": (ev["windows"] + neg_windows) / ev["seconds"],
@@ -744,16 +794,56 @@ def config5_slice(device, tmp) -> dict:
     return out
 
 
+def c5_negative_inputs(device, tmp) -> tuple:
+    """Config 5's sampler inputs as its --scoreSeqset stage makes them: the
+    key PRNGKey(--seed), the order-2 background fit to the 100k positives
+    (--sOrder, --bgModelAlpha at their defaults) and the positives' lengths
+    10 times (1M rows, L=200)."""
+    import torch
+
+    from bammmotif2_tpu_torch.models.background import BackgroundModel
+    from bammmotif2_tpu_torch.ops import threefry
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    params = Params()
+    sset, *_ = planted_problem(tmp, C5_SEQS, "c5")
+    bg = BackgroundModel.from_sequence_set(sset, order=params.sOrder, alpha=params.bgModelAlpha,
+                                           ss=False)
+    trans = tuple(torch.as_tensor(v, dtype=torch.float32, device=device) for v in bg.v)
+    lens = torch.as_tensor(np.tile(sset.lens, C5_MFOLD), dtype=torch.int32, device=device)
+    return threefry.prng_key(params.seed, device), trans, lens, params.sOrder
+
+
+def check_config5_negatives(device, tmp) -> dict:
+    """markov_codes against markov_codes_ref on config 5's 1M negative rows
+    (``c5_negative_inputs``) on the card: bit-equal."""
+    from bammmotif2_tpu_torch.ops import cuda_draws
+
+    key, trans, lens, s_order = c5_negative_inputs(device, tmp)
+    kw = dict(L=SEQ_LEN, s_order=s_order, A=4)
+    got = cuda_draws.markov_codes(key, trans, lens, **kw)
+    want = cuda_draws.markov_codes_ref(key, trans, lens, **kw)
+    out = {"rows": int(lens.numel()), "mismatched_codes": int((got != want).sum()),
+           "rows_differing": int((got != want).any(dim=1).sum())}
+    if out["mismatched_codes"]:
+        raise AssertionError(f"config5: the sampler kernel differs from its plain version: {out}")
+    return out
+
+
 def config4_slice(device, tmp) -> dict:
     """BASELINE config 4: 10 seeds, EM + FDR with sampled negatives."""
     fasta, meme = config4_problem(tmp)
     extra = ["--maxPWM", str(C4_SEEDS), "--EM", "--optimizeQ", "--FDR", "-q", "0.5",
              "--mFold", "10", "--cvFold", "5"]
-    _k, fixed = full_slice("config4_fixed", fasta, meme, [*extra, "--maxEMIterations", "20"],
-                           device, tmp, m_fold=10)
+    k, fixed = full_slice("config4_fixed", fasta, meme, [*extra, "--maxEMIterations", "20"],
+                          device, tmp, m_fold=10)
     conv = run_cli(os.path.join(tmp, "config4_converged"), fasta, meme, extra, device)
     if not (conv["launches"]["em_counts"] and conv["launches"]["window_scores"]):
         raise AssertionError(f"config4: a kernel did not launch: {conv['launches']}")
+    tails = 5 * len({len(m) for m in C4_MOTIFS})  # a fold tail a fold and (W, K) group
+    if k["launches"]["markov_codes"] != tails or conv["launches"]["markov_codes"] != tails:
+        raise AssertionError(f"config4: {tails} sampler launches expected, got "
+                             f"{k['launches']['markov_codes']}, {conv['launches']['markov_codes']}")
     fdr = conv["events"]["fdr_done"]
     d = os.path.join(tmp, "config4_converged")
     for e in fdr:
@@ -801,7 +891,7 @@ def cgs_slices(device, tmp) -> dict:
                              f"the eager loop {main['files_equal_eager']}; captures "
                              f"{k['captures']}, eager {e['captures']}")
     sweeps = k["events"]["cgs_done"][0]["iterations"]
-    per_sweep = ("window_scores", "counts_from_r", "cgs_uniforms", "cgs_beta")
+    per_sweep = ("window_scores", "counts_from_r", "cgs_z", "cgs_beta")
     if any(k["launches"][name] != sweeps for name in per_sweep):
         raise AssertionError(f"cgs_10k: {k['launches']} for {sweeps} sweeps")
     main["cgs_loop_graph"] = one_launch_a_run(k["captures"], sweeps, "cgs_10k")
@@ -1064,7 +1154,8 @@ def phase_slice(device, tmp) -> dict:
                          "loop_condition": conv["condition_launches"],
                          "window_scores": c5["launches"]["window_scores"],
                          "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
-                         "cgs_uniforms": cgs["cgs_10k"]["launches"]["cgs_uniforms"],
+                         "markov_codes": c5["launches"]["markov_codes"],
+                         "cgs_z": cgs["cgs_10k"]["launches"]["cgs_z"],
                          "cgs_beta": cgs["cgs_10k"]["launches"]["cgs_beta"],
                          **flat["launches"]},
             "config5": c5, "config4": c4, "cgs": cgs, "fdr_program": fdr_program, "flat": flat}
@@ -1632,7 +1723,7 @@ def time_cgs(device, tmp) -> dict:
     def sweeps(path, n, graphed, M=1):
         v0 = tuple(f32(np.stack([vk] * M)) for vk in motif.v)
         alphas, q0 = f32(np.stack([motif.alphas] * M)), f32([0.9] * M)
-        keys = gibbs.chain_keys(0, range(M), device)
+        keys = gibbs.input_keys(0, range(M), device)
         torch.cuda.set_sync_debug_mode("error")  # the sweep loop must not sync
         try:
             out = gibbs.gibbs_optimize(v0, q0, torch.log(alphas), keys, data, f_bg, alphas,
@@ -1670,53 +1761,90 @@ def time_cgs(device, tmp) -> dict:
     return out
 
 
-def time_draws(device) -> dict:
-    """The CGS draw kernels (ops/cuda_draws.py) against their plain versions
-    at a sweep's shapes on bench's set (10k rows), M=1 and M=16 chains:
-    each wrapper's ms (CUDA events over back-to-back calls), its kernel's
-    device ms (torch.profiler), its host µs a call, its plain version's ms,
-    its bound (cgs_uniforms: the M x 10k floats it writes, the keys and the
-    sweep index it reads; cgs_beta: keys, sweep, a and b in, q out; both
-    over HBM_BYTES_PER_S: their integer and float64 arithmetic has no line
-    in the card's table of peaks) and the library call computing the same
-    draws from a generator (one torch.rand of [M, 10k]; one
-    torch._standard_gamma of the 2M shapes)."""
+# f32 operations a gumbel-shifted logit costs (csrc/threefry.cuh): two of
+# XLA's logs (9 fused multiply-adds, 2 operations each, and 11 other
+# operations), the uniform's 3, the logit's add; the Threefry hash is
+# integer work, which the card's table of peaks has no line for
+GUMBEL_F32_OPS = 2 * (9 * 2 + 11) + 3 + 1
+
+
+def time_draws(device, tmp) -> dict:
+    """The draw kernels (ops/cuda_draws.py) against their plain versions at
+    their paths' shapes: markov_codes on config 5's 1M x 200 bp negatives
+    (``c5_negative_inputs``) and on config 4's fold (the first 20k of
+    them: 2,000 held-out rows x --mFold 10); cgs_z at M=1 and 10 on bench's
+    10k rows of C = 379 logits (W=12, both strands, 189 windows each); and
+    cgs_beta at M=1 and 16.  Each: the wrapper's ms (CUDA events over
+    back-to-back calls), its kernel's device ms (torch.profiler), its host
+    µs a call, its plain version's ms and its bound (the bytes it must move
+    over HBM_BYTES_PER_S, or its GUMBEL_F32_OPS a draw over F32_OPS_PER_S);
+    cgs_z beside the library calls that draw the same distribution from a
+    generator (torch.rand of the logits' shape, then the argmax of logits
+    plus -log(-log(u))), cgs_beta beside torch._standard_gamma of the 2M
+    shapes; markov_codes has no library call."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_draws
     from bammmotif2_tpu_torch.tools.ab import device_ms, host_us
 
     out = {}
+    key, trans, lens, s_order = c5_negative_inputs(device, tmp)
+    table = sum(t.numel() for t in trans) * 4
+    for tag, n in (("markov_config5", lens.numel()), ("markov_config4_fold", 20_000)):
+        ln = lens[:n].contiguous()
+        call = lambda ln=ln: cuda_draws.markov_codes(key, trans, ln, L=SEQ_LEN,  # noqa: E731
+                                                     s_order=s_order, A=4)
+        draws = int(ln.long().sum()) * 4  # a gumbel a letter and position
+        out[tag] = {
+            "rows": n, "ms": time_cuda(call, 5 if n > 100_000 else 50),
+            "plain_ms": time_cuda(lambda ln=ln: cuda_draws.markov_codes_ref(
+                key, trans, ln, L=SEQ_LEN, s_order=s_order, A=4), 1),
+            **device_ms(call, 3, "markov_codes_kernel"),
+            "host_us": host_us(call, 20),
+            **bound(n * 4 + table + 16 + n * SEQ_LEN, draws * GUMBEL_F32_OPS),
+            "library_ms": None,
+        }
+    C = 1 + 2 * (SEQ_LEN - W + 1)
+    for M in (1, 10):
+        flat = torch.randn((M, N_SEQS, C), generator=torch.Generator().manual_seed(M)).to(device)
+        keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)),
+                               device=device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        call = lambda flat=flat, keys=keys: cuda_draws.cgs_z(flat, keys)  # noqa: E731
+
+        def library(flat=flat, gen=gen):
+            u = torch.rand(flat.shape, generator=gen, device=device)
+            return torch.argmax(flat - torch.log(-torch.log(u)), dim=-1)
+
+        out[f"z_M{M}"] = {
+            "ms": time_cuda(call, 100),
+            "plain_ms": time_cuda(lambda flat=flat, keys=keys: cuda_draws.cgs_z_ref(flat, keys), 3),
+            **device_ms(call, 10, "cgs_z_kernel"),
+            "host_us": host_us(call),
+            **bound(flat.numel() * 4 + M * 16 + M * N_SEQS * 8, flat.numel() * GUMBEL_F32_OPS),
+            "library_ms": time_cuda(library, 50),
+        }
     for M in (1, 16):
         keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)),
                                device=device)
-        i = torch.tensor([3], device=device)
         a = torch.full((M,), 8_001.0, device=device)
         b = torch.full((M,), 2_000.0, device=device)
         gen = torch.Generator(device=device).manual_seed(0)
-        uni = lambda: cuda_draws.uniforms(keys, i, 0, N_SEQS)  # noqa: E731
-        beta = lambda: cuda_draws.beta(keys, i, a, b, 1e-4, 1 - 1e-4)  # noqa: E731
+        beta = lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta(a, b, keys, 1e-4, 1 - 1e-4)  # noqa: E731
         ab = torch.cat([a, b])
-        out[f"uniforms_M{M}"] = {
-            "ms": time_cuda(uni, 200),
-            "plain_ms": time_cuda(lambda: cuda_draws.uniforms_ref(keys, i, 0, N_SEQS), 20),
-            **device_ms(uni, 10, "cgs_uniforms_kernel"),
-            "host_us": host_us(uni),
-            **bound(M * N_SEQS * 4 + 16 * M + 8, 0),
-            "library_ms": time_cuda(
-                lambda: torch.rand((M, N_SEQS), generator=gen, device=device), 200),
-        }
         out[f"beta_M{M}"] = {
             "ms": time_cuda(beta, 200),
-            "plain_ms": time_cuda(
-                lambda: cuda_draws.beta_ref(keys, i, a, b, 1e-4, 1 - 1e-4), 20),
+            "plain_ms": time_cuda(lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta_ref(
+                a, b, keys, 1e-4, 1 - 1e-4), 5),
             **device_ms(beta, 10, "cgs_beta_kernel"),
             "host_us": host_us(beta),
-            **bound(16 * M + 8 + 8 * M + 4 * M, 0),
-            "library_ms": time_cuda(lambda: torch._standard_gamma(ab, generator=gen), 200),
+            **bound(2 * 16 * M + 8 * M + 4 * M, 0),
+            "library_ms": time_cuda(lambda ab=ab, gen=gen: torch._standard_gamma(ab, generator=gen),
+                                    200),
         }
     out["gpu"] = nvidia_smi()
-    log("timing CGS draws (10k rows, M=1 and 16): " + json.dumps(out))
+    log("timing draws (config 5's and config 4's negatives; 10k rows of 379 logits, M=1 "
+        "and 10; q at M=1 and 16): " + json.dumps(out))
     return out
 
 
@@ -1791,7 +1919,7 @@ def loop_rates(device, tmp: str, prob: dict, graphed: bool) -> dict:
 
     def sweeps():
         gibbs.gibbs_optimize(tuple(f32(vk)[None] for vk in seed.v), f32([0.9]), torch.log(alphas),
-                             gibbs.chain_keys(0, [0], device), data, f32(seed.f_bg), alphas,
+                             gibbs.input_keys(0, [0], device), data, f32(seed.f_bg), alphas,
                              float(N_SEQS), A=4, K=2, W=W, sample_z=True, sample_q=True,
                              learn_alpha=True, path="cuda", n_iters=N_TIMED, graphs=graphed)
         torch.cuda.synchronize()
@@ -2000,7 +2128,7 @@ def time_fdr_group(device, tmp) -> dict:
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
            "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
-           "condition": time_condition(device), "draws": time_draws(device),
+           "condition": time_condition(device), "draws": time_draws(device, tmp),
            "while_node": time_while_node(device),
            "loops": time_loops(device, tmp, slices), "fdr_group": time_fdr_group(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
@@ -2063,12 +2191,14 @@ def main() -> int:
         ("flat_window_scores", "flat.cu", "tools/pallas_flat.py:378", flat["scores"]),
         ("flat_counts_from_r", "flat.cu", "tools/pallas_flat.py:447", flat["counts"]),
         # not Pallas kernels: the device side of the reference's lax.while_loop,
-        # and the counter-based draws of its CGS sweep (jax.random's)
+        # and its jax.random draws: the negatives' sampler, CGS's z and q
         ("loop_condition", "while_loop.cu", "bammmotif2_tpu/refinement/multi.py:303",
          timing["condition"]),
-        ("cgs_uniforms", "cgs_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:197",
-         timing["draws"]["uniforms_M1"]),
-        ("cgs_beta", "cgs_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:252",
+        ("markov_codes", "jax_draws.cu", "bammmotif2_tpu/generator/seqgen.py:29",
+         timing["draws"]["markov_config5"]),
+        ("cgs_z", "jax_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:379",
+         timing["draws"]["z_M1"]),
+        ("cgs_beta", "jax_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:390",
          timing["draws"]["beta_M1"]),
     ]
     kernels = []

@@ -86,6 +86,89 @@ def test_scan_and_fdr_match_jax(tmp_path):
         assert events[out]["fdr_done"][k] == pytest.approx(events[jout]["fdr_done"][k], abs=1e-3)
 
 
+def _three_seeds(path: str) -> str:
+    """examples/seed.meme's motif, a softer copy and a width-7 copy (a
+    second (W, K) group), as one MEME file at ``path``."""
+    with open(MEME) as fh:
+        text = fh.read()
+    head, body = text.split("MOTIF jun_like\n")
+    rows = body.strip().splitlines()[1:]
+    probs = np.array([[float(x) for x in r.split()] for r in rows])
+    soft = 0.7 * probs + 0.3 * 0.25
+
+    def block(name, p):
+        lines = [f"MOTIF {name}",
+                 f"letter-probability matrix: alength= 4 w= {len(p)} nsites= 100 E= 0"]
+        return "\n".join(lines + [" ".join(f"{x:.6f}" for x in r) for r in p]) + "\n\n"
+
+    with open(path, "w") as fh:
+        fh.write(head + block("jun_like", probs) + block("soft", soft) + block("w7", probs[:7]))
+    return path
+
+
+SAMPLED = {
+    "em_fdr": ["--EM", "--FDR", "-k", "2", "--maxEMIterations", "20", "--cvFold", "3",
+               "--mFold", "1"],
+    "scan": ["--scoreSeqset", "--savePvalues", "-k", "2", "--mFold", "2"],
+    "cgs_1": ["--CGS", "-k", "2", "--maxCGSIterations", "40"],
+    "cgs_3": ["--CGS", "-k", "2", "--maxCGSIterations", "25"],
+    "cgs_fdr": ["--CGS", "--FDR", "-k", "2", "--maxCGSIterations", "15", "--cvFold", "3",
+                "--mFold", "2"],
+    "cgs_k3": ["--CGS", "-k", "3", "--noAlphaOptimization", "--maxCGSIterations", "30"],
+}
+
+
+def _assert_split_ties_only(out: str, jout: str, name: str, m_fold: float) -> None:
+    """The MOPS table of an FDR run with sampled negatives, taken out of both
+    directories and held on its own: the same rows and scores (SCORE_TOL);
+    TP and FP within RANK_FRAC of the rank, but on at most 1% of the rows,
+    where they may differ by 2 windows.  The packages' window scores differ
+    by rounding, so windows that tie in one split in the other: on
+    examples/ with --mFold 1 that moves 178 of 20,000 rows by one or two
+    windows, refined by EM or not (ROADMAP C, "MOPS split ties")."""
+    a, b = (np.loadtxt(os.path.join(d, name), skiprows=1, ndmin=2) for d in (out, jout))
+    for d in (out, jout):
+        os.replace(os.path.join(d, name), os.path.join(d, "..", os.path.basename(d) + ".mops"))
+    assert a.shape == b.shape
+    assert np.abs(a[:, 0] - b[:, 0]).max() <= torch_outputs.SCORE_TOL + 1e-5 * np.abs(a[:, 0]).max()
+    rank = a[:, 1] + a[:, 2] * m_fold
+    d = np.abs(a[:, 1:3] - b[:, 1:3]) * np.array([1.0, m_fold])
+    outside = (d > torch_outputs.RANK_FRAC * rank[:, None] + 1e-3 * m_fold).any(axis=1)
+    assert outside.mean() <= 0.01 and d.max() <= 2.0 + 1e-3 * m_fold, (outside.sum(), d.max())
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLED))
+def test_sampled_paths_match_jax(tmp_path, case):
+    """The paths that sample, with no --negSeqFile: FDR's and the scan's
+    negatives and CGS's z and q draws come from the reference's own
+    jax.random streams (PRNGKey(--seed + fold), PRNGKey(--seed),
+    fold_in(PRNGKey(--seed), i); FDR-CGS's shared PRNGKey(--seed)), so
+    every file the two CLIs write agrees within the bars of
+    tests/torch_outputs.py, and each cgs_done event reports q within rtol
+    1e-5 (a beta draw ends in an exp, torch's against XLA's).  --CGS runs
+    one seed, and three in two (W, K) groups (cgs_3); at -k 3 without the
+    alpha step (ROADMAP C, "The alpha gradient")."""
+    seeds = _three_seeds(str(tmp_path / "three.meme")) if case == "cgs_3" else MEME
+    argv = [POS, "--PWMFile", seeds, *SAMPLED[case], "--jsonl", "--single-device"]
+    jout, out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jcli.main([jout, *argv])
+    assert cli.main([out, *argv], device="cpu") == 0
+    m_fold = float(SAMPLED[case][SAMPLED[case].index("--mFold") + 1]) \
+        if "--mFold" in SAMPLED[case] else 1.0
+    if case == "em_fdr":
+        _assert_split_ties_only(out, jout, "positives_motif_1.mops.stats", m_fold)
+    res = torch_outputs.compare_dirs(out, jout, refined=True, m_fold=m_fold)
+    assert res["files"] >= 3, res
+    events = {}
+    for d in (out, jout):
+        with open(os.path.join(d, "positives.metrics.jsonl")) as fh:
+            events[d] = [e for e in map(json.loads, fh) if e["event"] == "cgs_done"]
+    assert len(events[out]) == len(events[jout]) == (3 if case == "cgs_3" else
+                                                     int(case.startswith("cgs_")))
+    for e, je in zip(events[out], events[jout]):
+        assert e["q"] == pytest.approx(je["q"], rel=1e-5)
+
+
 def test_cli_imports_no_jax(tmp_path):
     code = (
         "import sys\n"

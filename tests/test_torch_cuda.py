@@ -684,7 +684,7 @@ def check_loops(device) -> dict:
                                                        "host_reads": reads, "loop_graphs": loops}
             assert same, (path, seed, n_iters)
             want = n_iters if path == "cuda" else 0
-            assert n == {"b2": want, "b3": want, "uniforms": n_iters, "beta": n_iters}, n
+            assert n == {"b2": want, "b3": want, "cgs_z": n_iters, "cgs_beta": n_iters}, n
             assert reads == 0 and loops == 1, (reads, loops)
 
     eps = torch.zeros((), device=device)
@@ -729,11 +729,11 @@ def check_loops(device) -> dict:
 
 
 def cgs_loop(data, alphas, f_bg, v0, q0, path, use, seed, n_iters, burn_in, K=2, W=12):
-    """One ``gibbs.gibbs_optimize`` run of the chains keyed ``chain_keys(
+    """One ``gibbs.gibbs_optimize`` run of the chains keyed ``input_keys(
     seed, 0..M-1)`` on ``data``, graphed (``use``) or eager; settles the
     counters after it.  Returns (its results, host reads inside the call
-    under torch.cuda.set_sync_debug_mode("warn"), {"b2", "b3", "uniforms",
-    "beta": each wrapper's launches})."""
+    under torch.cuda.set_sync_debug_mode("warn"), {"b2", "b3", "cgs_z",
+    "cgs_beta": each wrapper's launches})."""
     import warnings
 
     from bammmotif2_tpu_torch.ops import cuda_draws
@@ -741,9 +741,9 @@ def cgs_loop(data, alphas, f_bg, v0, q0, path, use, seed, n_iters, burn_in, K=2,
 
     device = q0.device
     M, N = q0.shape[0], data["lens"].shape[0]
-    keys = gibbs.chain_keys(seed, range(M), device)
+    keys = gibbs.input_keys(seed, range(M), device)
     fns = {"b2": cuda_scores.window_scores_multi, "b3": cuda_counts.counts_from_r_multi,
-           "uniforms": cuda_draws.uniforms, "beta": cuda_draws.beta}
+           "cgs_z": cuda_draws.cgs_z, "cgs_beta": cuda_draws.cgs_beta}
     before = {k: fn.launches for k, fn in fns.items()}
     torch.cuda.synchronize(device)
     torch.cuda.set_sync_debug_mode("warn")

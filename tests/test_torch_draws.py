@@ -1,13 +1,13 @@
-"""The CGS sweep's counter-based draws (``ops/cuda_draws.py``): the plain
-Philox4x32-10 against Random123's known-answer vectors, the draws'
-invariants (row offsets, sweeps, chains) and their distributions, on the
-CPU; and, in the ``cuda`` lane, ``csrc/cgs_draws.cu`` against the plain
-versions and ``csrc/philox.cuh`` against cuRAND's Philox.
+"""The sampled paths' draws (``ops/cuda_draws.py``): the plain versions'
+invariants (a shard's rows, the key advance, chains and sweeps) and their
+distributions, on the CPU; and, in the ``cuda`` lane, ``csrc/jax_draws.cu``
+against the plain versions.
 
-``chip_smoke.py`` runs the card's checks (``check_uniforms``,
-``check_beta``, ``check_philox_curand``) at the main path's shapes.  The
-draws' distributions against ``jax.random``'s: tests/test_torch_gibbs.py.
-This module imports no JAX.
+``chip_smoke.py`` runs the card's checks (``check_markov``, ``check_z``,
+``check_beta``) at the main path's shapes.  The draws against
+``jax.random``'s, draw for draw: tests/test_torch_threefry.py (the
+streams), tests/test_torch_seqgen.py (the sampler) and
+tests/test_torch_gibbs.py (CGS).  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -17,32 +17,19 @@ import pytest
 import torch
 from scipy import stats
 
-from bammmotif2_tpu_torch.ops import cuda_draws
+from bammmotif2_tpu_torch.ops import cuda_draws, threefry
 from bammmotif2_tpu_torch.refinement import gibbs
 
 torch.set_num_threads(1)
 
-# Random123's kat_vectors for philox4x32_10: (counter, key, output words)
-KAT = {
-    "zeros": ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
-    "ones": ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
-             (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
-    "pi": ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
-           (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
-}
 # Beta shapes of the KS tests: a = n_occ + 1, b = n_real - n_occ + 1 at the
 # edges (no row occupied, one row) and in the middle of the sampler's range
 BETA_SHAPES = [(1.0, 1.0), (2.0, 300.0), (30.0, 12.0), (8_001.0, 2_000.0)]
-# the kernel's q against the plain version's where both took the same
-# candidates (float64 arithmetic; the card's log and cos may be an ulp
-# off), and the share of draws whose candidates may differ (a candidate at
-# its acceptance boundary flipped by such an ulp)
-BETA_RTOL, BETA_FLIP_SHARE = 1e-5, 1e-4
 Q_MIN, Q_MAX = gibbs.Q_MIN, gibbs.Q_MAX
-
-
-def sweep(i: int, device="cpu") -> torch.Tensor:
-    return torch.tensor([i], dtype=torch.int64, device=device)
+# the kernel's q against the plain version's where both took the same
+# attempts (both round float64's exp; the bound leaves room for an ulp), and
+# the share of draws whose attempts may differ
+BETA_RTOL, BETA_FLIP_SHARE = 1e-6, 0.0
 
 
 def random_keys(n: int, seed: int = 0, device="cpu") -> torch.Tensor:
@@ -51,89 +38,99 @@ def random_keys(n: int, seed: int = 0, device="cpu") -> torch.Tensor:
     return torch.as_tensor(rng.integers(0, 2 ** 32, (n, 2)), dtype=torch.int64, device=device)
 
 
-@pytest.mark.parametrize("name", sorted(KAT))
-def test_philox_known_answers(name):
-    ctr, key, want = KAT[name]
-    got = cuda_draws.philox4x32_10(ctr, key)
-    assert [int(x) for x in got] == list(want)
-
-
-def test_philox_broadcasts_over_counters_and_keys():
-    """A batch of counters under a batch of keys gives each pair's words."""
-    ctrs = [c for c, _k, _w in KAT.values()]
-    keys = [k for _c, k, _w in KAT.values()]
-    got = cuda_draws.philox4x32_10(tuple(torch.tensor(w) for w in zip(*ctrs)),
-                                   tuple(torch.tensor(w) for w in zip(*keys)))
-    assert torch.stack(got, dim=1).tolist() == [list(w) for _c, _k, w in KAT.values()]
-
-
 @pytest.mark.parametrize("row0,n", [(0, 37), (5, 20), (36, 1)])
-def test_uniforms_of_a_shard_are_the_whole_sets_rows(row0, n):
+def test_z_of_a_shard_is_the_whole_sets_rows(row0, n):
     """Rows row0 .. row0+n-1 drawn as a shard equal the same rows of the
-    whole set: a row's uniform depends on its global index only."""
-    keys, i = random_keys(3), sweep(4)
-    whole = cuda_draws.uniforms_ref(keys, i, 0, 40)
-    assert torch.equal(cuda_draws.uniforms_ref(keys, i, row0, n), whole[:, row0 : row0 + n])
+    whole set: a row's key is fold_in(sub, global row)."""
+    rng = np.random.default_rng(row0)
+    flat = torch.as_tensor(rng.normal(size=(3, 40, 11)).astype(np.float32))
+    keys = random_keys(3)
+    whole = cuda_draws.cgs_z_ref(flat, keys, 0)
+    assert torch.equal(cuda_draws.cgs_z_ref(flat[:, row0 : row0 + n].contiguous(), keys, row0),
+                       whole[:, row0 : row0 + n])
 
 
-def test_uniforms_are_the_first_word_in_24_bits():
-    """u = (x0 >> 8) 2^-24 of counter (row, sweep, 0, 0): in [0, 1), a
-    multiple of 2^-24, exact in float32."""
-    keys, i = random_keys(2, seed=1), sweep(7)
-    u = cuda_draws.uniforms_ref(keys, i, 3, 50)
-    x0 = cuda_draws.philox4x32_10((torch.arange(3, 53)[None], 7, 0, 0),
-                                  (keys[:, 0:1], keys[:, 1:2]))[0]
-    assert u.dtype == torch.float32 and ((u >= 0) & (u < 1)).all()
-    assert torch.equal(u.double() * 2 ** 24, (x0 >> 8).double())
+def test_z_is_the_row_keys_categorical():
+    """Row n's z is threefry.categorical of fold_in(split(key)[1], n) over
+    its logits; cgs_z leaves the keys as they were."""
+    rng = np.random.default_rng(1)
+    flat = torch.as_tensor(rng.normal(size=(2, 9, 30)).astype(np.float32))
+    keys = random_keys(2, seed=1)
+    before = keys.clone()
+    z = cuda_draws.cgs_z_ref(flat, keys, 4)
+    assert torch.equal(keys, before)
+    for m in range(2):
+        sub = threefry.split(keys[m])[1]
+        for n in range(9):
+            want = threefry.categorical(threefry.fold_in(sub, 4 + n), flat[m, n])
+            assert int(z[m, n]) == int(want)
+
+
+@pytest.mark.parametrize("draw", [True, False], ids=["draw", "advance"])
+def test_beta_advances_the_keys_by_two_splits(draw):
+    """cgs_beta leaves each key at split(split(key)[0])[0], drawn or not,
+    and draws q from split(split(key)[0])[1]."""
+    keys = random_keys(4, seed=2)
+    k1 = threefry.split(keys)[:, 0]
+    want_keys, sub_q = threefry.split(k1).unbind(dim=1)
+    a, b = torch.tensor([1.0, 5.0, 70.0, 2.0]), torch.tensor([3.0, 1.0, 40.0, 900.0])
+    q = cuda_draws.cgs_beta_ref(a, b, keys, Q_MIN, Q_MAX, draw=draw)
+    assert torch.equal(keys, want_keys)
+    if draw:
+        assert torch.equal(q, threefry.beta(sub_q, a, b).clamp(Q_MIN, Q_MAX))
+    else:
+        assert q is None
 
 
 def test_sweeps_and_chains_differ():
-    """Another sweep index, another chain, another row: other numbers; the
-    same (key, sweep, rows): the same numbers."""
-    keys = gibbs.chain_keys(3, [0, 1], "cpu")
-    u0, u1 = (cuda_draws.uniforms_ref(keys, sweep(i), 0, 500) for i in (0, 1))
-    assert torch.equal(u0, cuda_draws.uniforms_ref(keys, sweep(0), 0, 500))
-    assert (u0 != u1).float().mean() > 0.99
-    assert (u0[0] != u0[1]).float().mean() > 0.99
-    assert len(set(u0[0].tolist())) > 490
+    """Another sweep (the advanced keys), another chain, another row: other
+    numbers; the same keys: the same numbers."""
+    keys = gibbs.input_keys(3, [0, 1], "cpu")
+    flat = torch.zeros((2, 500, 64))
+    z0 = cuda_draws.cgs_z_ref(flat, keys)
+    assert torch.equal(z0, cuda_draws.cgs_z_ref(flat, keys.clone()))
     a, b = torch.full((2,), 40.0), torch.full((2,), 60.0)
-    q = [cuda_draws.beta_ref(keys, sweep(i), a, b, Q_MIN, Q_MAX) for i in range(3)]
+    q = [cuda_draws.cgs_beta_ref(a, b, keys, Q_MIN, Q_MAX) for _ in range(3)]
+    z1 = cuda_draws.cgs_z_ref(flat, keys)
+    assert (z0 != z1).float().mean() > 0.9
+    assert (z0[0] != z0[1]).float().mean() > 0.9
+    assert len(set(z0[0].tolist())) > 60
     assert q[0][0] != q[0][1] and q[0][0] != q[1][0] != q[2][0]
-    assert gibbs.chain_keys(3, [0], "cpu").tolist() != gibbs.chain_keys(4, [0], "cpu").tolist()
+    assert gibbs.input_keys(3, [0], "cpu").tolist() != gibbs.input_keys(4, [0], "cpu").tolist()
 
 
 @pytest.mark.parametrize("a,b", BETA_SHAPES)
 def test_beta_follows_scipy_beta(a, b):
-    """20,000 chains' draws at one sweep against scipy.stats.beta by a
-    Kolmogorov-Smirnov test (p > 1e-3, fixed keys); every draw took one of
-    the first candidates."""
+    """20,000 chains' draws against scipy.stats.beta by a Kolmogorov-Smirnov
+    test (p > 1e-3, fixed keys); no gamma took more than a few attempts."""
     n = 20_000
     keys = random_keys(n, seed=2)
-    q, cand = cuda_draws.beta_ref(keys, sweep(0), torch.full((n,), a), torch.full((n,), b),
-                                  Q_MIN, Q_MAX, candidates=True)
+    q, attempts = cuda_draws.cgs_beta_ref(torch.full((n,), a), torch.full((n,), b), keys, Q_MIN,
+                                          Q_MAX, attempts=True)
     pval = stats.kstest(q.double().numpy(), stats.beta(a, b).cdf).pvalue
     assert pval > 1e-3, pval
-    assert int(cand.max()) < 8
+    assert int(attempts.max()) < 8
 
 
-def test_gamma_candidates_follow_marsaglia_tsang():
-    """Each gamma draw is d v of its first accepted candidate, and about 5%
-    of first candidates are rejected at shape 1, far fewer at 100."""
+def test_gamma_attempts_follow_marsaglia_tsang():
+    """Each gamma's log draw follows Gamma(shape) by a Kolmogorov-Smirnov
+    test, and about 5% of first attempts are rejected at shape 1, far fewer
+    at 100."""
     n = 20_000
     keys = random_keys(n, seed=3)
     for shape, most in ((1.0, 0.06), (100.0, 0.002)):
-        g, first = cuda_draws.gamma_ref(keys, sweep(0), torch.full((n,), shape), cuda_draws.TAG_X)
-        assert (first < cuda_draws.BETA_CAP).all() and (g > 0).all()
-        assert float((first > 0).double().mean()) < most
-        pval = stats.kstest(g.numpy(), stats.gamma(shape).cdf).pvalue
+        lg, attempts = threefry.loggamma(keys, torch.full((n,), shape))
+        assert (attempts >= 1).all() and torch.isfinite(lg).all()
+        assert float((attempts > 1).double().mean()) < most
+        pval = stats.kstest(np.exp(lg.double().numpy()), stats.gamma(shape).cdf).pvalue
         assert pval > 1e-3, (shape, pval)
 
 
 def test_beta_rejects_shapes_below_one():
     keys = random_keys(2)
     with pytest.raises(ValueError, match=">= 1"):
-        cuda_draws.beta_ref(keys, sweep(0), torch.tensor([0.5, 2.0]), torch.tensor([3.0, 1.0]),
-                            Q_MIN, Q_MAX)
+        cuda_draws.cgs_beta_ref(torch.tensor([0.5, 2.0]), torch.tensor([3.0, 1.0]), keys, Q_MIN,
+                                Q_MAX)
 
 
 def test_z_draws_follow_the_softmax_by_ks():
@@ -146,7 +143,7 @@ def test_z_draws_follow_the_softmax_by_ks():
     logits = rng.normal(0.0, 1.5, (1, n, cols)).astype(np.float32)
     logits[0, rng.random(n) < 0.3, 4] = -1e30
     flat = torch.as_tensor(logits)
-    z = gibbs.draw_z(flat, gibbs.chain_keys(8, [0], "cpu"), sweep(2), True)[0].numpy()
+    z = gibbs.draw_z(flat, gibbs.input_keys(8, [0], "cpu"), True)[0].numpy()
     p = torch.softmax(flat[0].double(), dim=-1).numpy()
     cdf = np.cumsum(p, axis=1)
     rows = np.arange(n)
@@ -159,87 +156,117 @@ def test_z_draws_follow_the_softmax_by_ks():
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     """On CPU tensors the wrappers return the plain versions' results and
     launch nothing."""
-    keys, i = random_keys(3, seed=6), sweep(9)
+    keys = random_keys(3, seed=6)
     a, b = torch.tensor([1.0, 5.0, 70.0]), torch.tensor([3.0, 1.0, 40.0])
-    before = (cuda_draws.uniforms.launches, cuda_draws.beta.launches)
-    assert torch.equal(cuda_draws.uniforms(keys, i, 2, 11), cuda_draws.uniforms_ref(keys, i, 2, 11))
-    q, cand = cuda_draws.beta(keys, i, a, b, Q_MIN, Q_MAX, candidates=True)
-    q_ref, cand_ref = cuda_draws.beta_ref(keys, i, a, b, Q_MIN, Q_MAX, candidates=True)
-    assert torch.equal(q, q_ref) and torch.equal(cand, cand_ref)
-    assert (cuda_draws.uniforms.launches, cuda_draws.beta.launches) == before
+    flat = torch.as_tensor(np.random.default_rng(6).normal(size=(3, 11, 7)).astype(np.float32))
+    before = [f.launches for f in (cuda_draws.markov_codes, cuda_draws.cgs_z, cuda_draws.cgs_beta)]
+    assert torch.equal(cuda_draws.cgs_z(flat, keys, 2), cuda_draws.cgs_z_ref(flat, keys, 2))
+    k1, k2 = keys.clone(), keys.clone()
+    q, n = cuda_draws.cgs_beta(a, b, k1, Q_MIN, Q_MAX, attempts=True)
+    q_ref, n_ref = cuda_draws.cgs_beta_ref(a, b, k2, Q_MIN, Q_MAX, attempts=True)
+    assert torch.equal(q, q_ref) and torch.equal(n, n_ref) and torch.equal(k1, k2)
+    trans = (torch.full((4,), 0.25), torch.full((16,), 0.25))
+    lens = torch.tensor([5, 0, 7], dtype=torch.int32)
+    key = threefry.prng_key(1)
+    assert torch.equal(cuda_draws.markov_codes(key, trans, lens, L=8, s_order=1, A=4),
+                       cuda_draws.markov_codes_ref(key, trans, lens, L=8, s_order=1, A=4))
+    assert [f.launches for f in (cuda_draws.markov_codes, cuda_draws.cgs_z,
+                                 cuda_draws.cgs_beta)] == before
 
 
 # ---- on the card ----
 
-UNIFORM_SWEEPS, UNIFORM_ROW0S = (0, 1, 77), (0, 4_096)
+def _markov_inputs(device, N: int, L: int, s_order: int, seed: int):
+    """Random conditionals of orders 0 .. s_order (some zero), lengths from
+    0 to L, and a key."""
+    rng = np.random.default_rng(seed)
+    trans = []
+    for m in range(s_order + 1):
+        p = rng.random((4 ** m, 4)) ** 3
+        p[rng.random(p.shape) < 0.05] = 0.0
+        p[:, 0] += 1e-3
+        trans.append(torch.as_tensor((p / p.sum(axis=1, keepdims=True)).ravel(), dtype=torch.float32,
+                                     device=device))
+    lens = torch.as_tensor(rng.integers(0, L + 1, N), dtype=torch.int32, device=device)
+    return tuple(trans), lens, threefry.prng_key(seed, device)
 
 
-def check_uniforms(device, M: int = 16, N: int = 10_000) -> dict:
-    """cgs_uniforms against uniforms_ref at M chains and N rows (the 10k
-    set at a 16-seed stack) for each of UNIFORM_SWEEPS and UNIFORM_ROW0S:
-    bit-equal, one launch a call.  Returns {"cases", "mismatches",
-    "launches"}."""
-    keys = random_keys(M, seed=7, device=device)
-    bad, before, cases = 0, cuda_draws.uniforms.launches, 0
-    for i in UNIFORM_SWEEPS:
-        for row0 in UNIFORM_ROW0S:
-            got = cuda_draws.uniforms(keys, sweep(i, device), row0, N)
-            want = cuda_draws.uniforms_ref(keys, sweep(i, device), row0, N)
-            bad += int((got != want).sum())
-            cases += 1
+MARKOV_CASES = [(4_096, 200, 0), (4_096, 200, 2), (1_000, 57, 3), (333, 40, 5)]
+
+
+def check_markov(device, cases=MARKOV_CASES) -> dict:
+    """markov_codes against markov_codes_ref on the card for each (N, L,
+    s_order) of ``cases``: bit-equal, one launch a call.  Returns {"cases",
+    "rows", "mismatched_codes", "launches"}."""
+    bad, rows, before = 0, 0, cuda_draws.markov_codes.launches
+    for i, (N, L, s) in enumerate(cases):
+        trans, lens, key = _markov_inputs(device, N, L, s, i)
+        got = cuda_draws.markov_codes(key, trans, lens, L=L, s_order=s, A=4)
+        want = cuda_draws.markov_codes_ref(key, trans, lens, L=L, s_order=s, A=4)
+        bad += int((got != want).sum())
+        rows += N
     torch.cuda.synchronize(device)
-    out = {"cases": cases, "mismatches": bad, "launches": cuda_draws.uniforms.launches - before,
-           "M": M, "N": N}
-    assert bad == 0 and out["launches"] == cases, out
+    out = {"cases": len(cases), "rows": rows, "mismatched_codes": bad,
+           "launches": cuda_draws.markov_codes.launches - before}
+    assert bad == 0 and out["launches"] == len(cases), out
+    return out
+
+
+def check_z(device, M: int = 16, N: int = 10_000, C: int = 379) -> dict:
+    """cgs_z against cgs_z_ref at M chains, N rows and C logits a row (the
+    10k set at a 16-seed stack, bench's W), at row offsets 0 and 4,096, on
+    logits with NEG_INF windows: bit-equal, one launch a call.  Returns
+    {"cases", "rows", "mismatches", "launches"}."""
+    rng = np.random.default_rng(7)
+    flat = torch.as_tensor(rng.normal(0.0, 2.0, (M, N, C)).astype(np.float32), device=device)
+    flat[:, :, 5::7] = -1e30
+    keys = random_keys(M, seed=7, device=device)
+    bad, before = 0, cuda_draws.cgs_z.launches
+    for row0 in (0, 4_096):
+        got = cuda_draws.cgs_z(flat, keys, row0)
+        want = cuda_draws.cgs_z_ref(flat, keys, row0)
+        bad += int((got != want).sum())
+    torch.cuda.synchronize(device)
+    out = {"cases": 2, "rows": 2 * M * N, "mismatches": bad,
+           "launches": cuda_draws.cgs_z.launches - before}
+    assert bad == 0 and out["launches"] == 2, out
     return out
 
 
 def check_beta(device, n: int = 100_000) -> dict:
-    """cgs_beta against beta_ref on n (a, b) pairs (n chains, sweeps 0 and
-    12; shapes from 1 to 10^4, a tenth of them below 4): the same
-    candidates but for at most BETA_FLIP_SHARE of the draws, and q within
-    BETA_RTOL where the candidates agree.  Returns {"pairs", "flips",
-    "max_rel_err", "max_abs_err", "max_candidate", "launches"}."""
+    """cgs_beta against cgs_beta_ref on n (a, b) pairs (n chains, the keys
+    then advanced and drawn again, then advanced without a draw; shapes
+    from 1 to 10^4 + 1, a tenth of them below 4): the same attempts but for
+    at most BETA_FLIP_SHARE of the draws, q within BETA_RTOL where they
+    agree, and the same advanced keys.
+    Returns {"pairs", "flips", "max_rel_err", "max_abs_err",
+    "max_attempts", "launches"}."""
     rng = np.random.default_rng(8)
     shapes = np.where(rng.random((2, n)) < 0.1, rng.integers(1, 4, (2, n)),
-                      rng.integers(1, 10_001, (2, n))).astype(np.float32)
+                      rng.integers(1, 10_002, (2, n))).astype(np.float32)
     a = torch.as_tensor(shapes[0], device=device)
     b = torch.as_tensor(shapes[1], device=device)
     keys = random_keys(n, seed=9, device=device)
-    flips, rel, err, top, before = 0, 0.0, 0.0, 0, cuda_draws.beta.launches
-    for i in (0, 12):
-        q, cand = cuda_draws.beta(keys, sweep(i, device), a, b, Q_MIN, Q_MAX, candidates=True)
-        q_ref, cand_ref = cuda_draws.beta_ref(keys, sweep(i, device), a, b, Q_MIN, Q_MAX,
-                                              candidates=True)
-        same = (cand == cand_ref).all(dim=1)
+    ref_keys = keys.clone()
+    flips, rel, err, top, before = 0, 0.0, 0.0, 0, cuda_draws.cgs_beta.launches
+    for _ in range(2):
+        q, att = cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, attempts=True)
+        q_ref, att_ref = cuda_draws.cgs_beta_ref(a, b, ref_keys, Q_MIN, Q_MAX, attempts=True)
+        same = (att == att_ref).all(dim=1)
         flips += int((~same).sum())
         d = (q - q_ref).abs()[same]
         rel = max(rel, float((d / q_ref.abs()[same]).max()))
         err = max(err, float(d.max()))
-        top = max(top, int(cand.max()))
+        top = max(top, int(att.max()))
+        assert torch.equal(keys, ref_keys)
+    # --noQSampling: the keys advance, nothing is drawn
+    assert cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, draw=False) is None
+    cuda_draws.cgs_beta_ref(a, b, ref_keys, Q_MIN, Q_MAX, draw=False)
+    assert torch.equal(keys, ref_keys)
     torch.cuda.synchronize(device)
     out = {"pairs": 2 * n, "flips": flips, "max_rel_err": rel, "max_abs_err": err,
-           "max_candidate": top, "launches": cuda_draws.beta.launches - before}
-    assert flips <= BETA_FLIP_SHARE * 2 * n and rel <= BETA_RTOL and out["launches"] == 2, out
-    return out
-
-
-def check_philox_curand(device) -> dict:
-    """philox.cuh's Philox4x32-10 against cuRAND's curand_Philox4x32_10
-    on the card, on the known-answer pairs and 1,000 random ones; the
-    known answers also against Random123's words.  Returns {"pairs",
-    "mismatches_curand", "mismatches_known"}."""
-    rng = np.random.default_rng(10)
-    ctrs = np.concatenate([np.array([c for c, _k, _w in KAT.values()]),
-                           rng.integers(0, 2 ** 32, (1_000, 4))])
-    keys = np.concatenate([np.array([k for _c, k, _w in KAT.values()]),
-                           rng.integers(0, 2 ** 32, (1_000, 2))])
-    mine, theirs = cuda_draws.philox_pairs(torch.as_tensor(ctrs, device=device),
-                                           torch.as_tensor(keys, device=device))
-    known = torch.tensor([w for _c, _k, w in KAT.values()], device=device)
-    out = {"pairs": len(ctrs), "mismatches_curand": int((mine != theirs).any(dim=1).sum()),
-           "mismatches_known": int((mine[: len(KAT)] != known).any(dim=1).sum())}
-    assert out["mismatches_curand"] == 0 and out["mismatches_known"] == 0, out
+           "max_attempts": top, "launches": cuda_draws.cgs_beta.launches - before}
+    assert flips <= BETA_FLIP_SHARE * 2 * n and rel <= BETA_RTOL and out["launches"] == 3, out
     return out
 
 
@@ -259,8 +286,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_uniforms_kernel_bit_equal_to_plain(cuda_device):
-    check_uniforms(cuda_device)
+def test_markov_kernel_bit_equal_to_plain(cuda_device):
+    check_markov(cuda_device)
+
+
+@pytest.mark.cuda
+def test_z_kernel_bit_equal_to_plain(cuda_device):
+    check_z(cuda_device)
 
 
 @pytest.mark.cuda
@@ -269,19 +301,17 @@ def test_beta_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_philox_matches_curand(cuda_device):
-    check_philox_curand(cuda_device)
-
-
-@pytest.mark.cuda
 def test_draw_wrappers_reject_bad_inputs(cuda_device):
-    keys, i = random_keys(2, device=cuda_device), sweep(0, cuda_device)
+    keys = random_keys(2, device=cuda_device)
     a = torch.ones(2, device=cuda_device)
+    flat = torch.zeros((2, 3, 4), device=cuda_device)
     with pytest.raises(TypeError):
-        cuda_draws.uniforms(keys.int(), i, 0, 10)
+        cuda_draws.cgs_z(flat, keys.int())
     with pytest.raises(ValueError):
-        cuda_draws.uniforms(keys, i.cpu(), 0, 10)
+        cuda_draws.cgs_z(flat, keys[:1].contiguous())
     with pytest.raises(ValueError):
-        cuda_draws.beta(keys, i, a[:1], a, Q_MIN, Q_MAX)
+        cuda_draws.cgs_beta(a[:1], a, keys, Q_MIN, Q_MAX)
     with pytest.raises(ValueError):
-        cuda_draws.uniforms(keys, torch.zeros(2, dtype=torch.int64, device=cuda_device), 0, 10)
+        cuda_draws.markov_codes(keys[0].cpu(), (a,), torch.ones(2, dtype=torch.int32,
+                                                                  device=cuda_device),
+                                L=2, s_order=0, A=2)

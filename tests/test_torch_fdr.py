@@ -175,6 +175,28 @@ def test_fdr_em_matches_jax(fdr_data):
             assert prcurve.average_recall(a) == pytest.approx(jprcurve.average_recall(b), abs=1e-3)
 
 
+@pytest.mark.parametrize("refine", ["none", "EM", "CGS"])
+def test_fdr_sampled_negatives_match_jax(fdr_data, refine):
+    """Sampled negatives (no --negSeqFile): each fold's are the reference's,
+    from PRNGKey(seed + fold), so the .stats tables agree with the
+    reference's by the bars of test_fdr_em_matches_jax (scores atol 1e-4,
+    AvRec 1e-3), unrefined, EM-refined and CGS-refined with sampled z and q
+    (the chains the reference's, from its shared PRNGKey(seed))."""
+    sset, _neg, jbg, bg, psset, _pneg = fdr_data
+    params = Params(FDR=True, CGS=refine == "CGS", cvFold=3, mFold=2, q=0.5, seed=5,
+                    maxEMIterations=40, epsilon=1e-2, maxCGSIterations=8)
+    jms = _jseeds(sset)
+    jres = jfdr.evaluate_motifs(jms, jbg, sset, params, refine=refine)
+    res = fdr.evaluate_motifs([convert.motif(m) for m in jms], bg, psset, convert.params(params),
+                              refine=refine, device="cpu")
+    for i, (r, jr) in enumerate(zip(res, jres)):
+        for tag in ("zoops", "mops"):
+            a, b = getattr(r, tag), getattr(jr, tag)
+            assert a["score"].shape == b["score"].shape
+            np.testing.assert_allclose(a["score"], b["score"], atol=1e-4, err_msg=f"{tag} seed {i}")
+            assert prcurve.average_recall(a) == pytest.approx(jprcurve.average_recall(b), abs=1e-3)
+
+
 def _assert_same(ref, new):
     """The reference suite's TestFusedFDR bar: ZOOPS rtol 1e-4, MOPS rtol
     1e-5, pos_pvalues rtol 1e-5; iteration counts equal."""
@@ -275,23 +297,28 @@ def test_fdr_cgs_matches_jax(fdr_data):
 @pytest.mark.parametrize("negatives", ["sampled", "user"])
 def test_cgs_group_matches_per_seed(fdr_data, negatives):
     """Sampled CGS: the stacked group's chains are the per-seed path's
-    (evaluate_motif with the seed's index), bit for bit, so the two give
-    the same statistics."""
+    (evaluate_motif), bit for bit, so the two give the same statistics.
+    Every chain starts from PRNGKey(seed), as the reference's FDR keys it,
+    so a seed's chain does not depend on its position in the set."""
     sset, _neg, _jbg, bg, psset, pneg = fdr_data
     params = PParams(FDR=True, CGS=True, cvFold=3, mFold=2, q=0.5, maxCGSIterations=6)
     neg_set = pneg if negatives == "user" else None
     ms = [convert.motif(m) for m in _jseeds(sset, (MOTIF, "TGASTCAG", "ACGTACGT"))]
-    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set, index=i, device="cpu")
-           for i, m in enumerate(ms)]
+    ref = [fdr.evaluate_motif(m.copy(), bg, psset, params, neg_set=neg_set, device="cpu")
+           for m in ms]
     new = fdr.evaluate_motifs([m.copy() for m in ms], bg, psset, params, neg_set=neg_set, device="cpu")
     for r, n in zip(ref, new):
         np.testing.assert_array_equal(r.pos_pvalues, n.pos_pvalues)
         for k in SWEEP_KEYS:
             np.testing.assert_array_equal(r.zoops[k], n.zoops[k])
             np.testing.assert_array_equal(r.mops[k], n.mops[k])
-    # chains differ between seeds: the same seed at index 1 is another chain
-    other = fdr.evaluate_motif(ms[0].copy(), bg, psset, params, neg_set=neg_set, index=1, device="cpu")
-    assert not np.array_equal(other.zoops["score"], ref[0].zoops["score"])
+    # the reference's shared key: the same seeds in another order, the same
+    # chains (under --CGS alone each input index has its own)
+    swapped = fdr.evaluate_motifs([ms[1].copy(), ms[0].copy()], bg, psset, params,
+                                  neg_set=neg_set, device="cpu")
+    for r, n in zip(ref[:2], swapped[::-1]):
+        np.testing.assert_array_equal(r.zoops["score"], n.zoops["score"])
+        np.testing.assert_array_equal(r.mops["score"], n.mops["score"])
 
 
 def test_cvfold1_and_empty_set(fdr_data):
@@ -385,12 +412,12 @@ def test_fold_backgrounds_match_per_fold_fits(fdr_data, which, order, ss):
 
 @pytest.mark.parametrize("which,ss", [("planted", False), ("short", True)])
 def test_fold_negatives_match_generate_neg_data(fdr_data, which, ss):
-    """The fold tail's negatives, drawn from the stacked tables by a
-    generator seeded --seed + fold, are generate_neg_data's for that fold's
-    fit and lengths, bit for bit."""
+    """The fold tail's negatives, drawn from the stacked tables with the key
+    PRNGKey(--seed + fold), are generate_neg_data's for that fold's fit and
+    lengths, bit for bit."""
     ms, bg, psset, _neg, F = _program_inputs(fdr_data, "sampled", which)
     params = PParams(FDR=True, cvFold=F, mFold=3, sOrder=2, ss=ss, seed=11)
-    g = fdr._prepare_group(ms, bg, psset, params, None, "cpu", range(len(ms)))
+    g = fdr._prepare_group(ms, bg, psset, params, None, "cpu")
     fold_of = np.arange(psset.n) % F
     lens = np.asarray(psset.lens, np.int32)
     for f in range(F):
@@ -399,8 +426,7 @@ def test_fold_negatives_match_generate_neg_data(fdr_data, which, ss):
         ref, ref_lens = seqgen.generate_neg_data(
             fit, lens[fold_of == f], m_fold=3, seed=params.seed + f, K=ms[0].K, ss=ss,
             n_pad=g.inputs["neg_lens"].shape[1], pad_len=g.neg_pad_len, device="cpu")
-        gen = torch.Generator().manual_seed(params.seed + f)
-        got = fdr._negatives(g, g.inputs, torch.tensor([f]), gen)
+        got = fdr._negatives(g, g.inputs, torch.tensor([f]))
         assert got.dtype == ref.dtype and torch.equal(got, ref), f
         np.testing.assert_array_equal(g.inputs["neg_lens"][f].numpy(), ref_lens)
         np.testing.assert_array_equal(g.neg_keep[f], np.nonzero(ref_lens > 0)[0])

@@ -3,10 +3,11 @@ count-from-responsibilities op (``ops/cuda_counts.py``) against the JAX
 package, on numpy-seeded inputs at small sizes.
 
 The deterministic path (z = argmax, q fixed) is compared with the reference
-sweep for sweep; sampled chains cannot reproduce ``jax.random`` streams, so
-they are held to their own invariants (stacked = solo, independent of
-appended empty rows, independent across groups) and to their
-distributions.
+sweep for sweep.  Sampled chains draw from the reference's own
+``jax.random`` streams (``ops/threefry.py``), so they are compared with
+the reference's sampled runs too, and held to their own invariants
+(stacked = solo, independent of appended empty rows, independent across
+groups) and to their distributions.
 """
 
 import numpy as np
@@ -27,7 +28,7 @@ from bammmotif2_tpu.refinement import gibbs as jgibbs
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.models.motif import log_odds_lut
-from bammmotif2_tpu_torch.ops import cuda_counts, cuda_draws, cuda_scores
+from bammmotif2_tpu_torch.ops import cuda_counts, cuda_draws, cuda_scores, threefry
 from bammmotif2_tpu_torch.ops.escore import NEG_INF
 from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.utils.config import Params as PParams
@@ -191,8 +192,8 @@ def test_deterministic_sweeps_match_jax(small, stacked, learn_alpha, sweeps):
     jv = tuple(jnp.asarray(vk.numpy()) for vk in v)
     jq, jla, jda = jnp.asarray(q.numpy()), jnp.asarray(la.numpy()), jnp.asarray(da.numpy())
     kw = dict(A=4, K=K, W=W, sample_z=False, sample_q=False, learn_alpha=learn_alpha)
-    pkeys = gibbs.chain_keys(0, range(M), "cpu")
     keys = jnp.stack([jax.random.PRNGKey(i) for i in range(M)])
+    pkeys = threefry.from_jax_key(np.asarray(keys))
     for _ in range(sweeps):
         assert _margin(v, q, data) > ARGMAX_MARGIN
         if stacked:
@@ -247,7 +248,7 @@ def test_run_gibbs_deterministic_matches_jax(small, burn_in):
 
 def test_stacked_member_equals_solo_run(small):
     """(e) Sampling on: member i of run_gibbs_multi is run_gibbs(...,
-    index=i), bit for bit."""
+    key=fold_in(PRNGKey(seed), i)), bit for bit."""
     sset, _jbg, bg, seeds = small
     sset, params = convert.sequence_set(sset), PParams(CGS=True, q=0.5, maxCGSIterations=5, seed=9)
     stacked = [convert.motif(m) for m in seeds]
@@ -255,7 +256,8 @@ def test_stacked_member_equals_solo_run(small):
     assert res[0].group_seconds > 0
     for i, m in enumerate(seeds):
         solo = convert.motif(m)
-        r = gibbs.run_gibbs(solo, bg, sset, params, index=i, device="cpu")
+        r = gibbs.run_gibbs(solo, bg, sset, params, key=gibbs.input_keys(params.seed, [i], "cpu")[0],
+                            device="cpu")
         for a, b in zip(solo.v, stacked[i].v):
             np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(solo.alphas, stacked[i].alphas)
@@ -263,12 +265,39 @@ def test_stacked_member_equals_solo_run(small):
         assert r.group_seconds == 0.0
 
 
+@pytest.mark.parametrize("entry", ["run_gibbs", "multi_1", "multi_3"])
+def test_sampled_runs_match_jax(small, entry):
+    """Sampling on (z and q): the port draws the reference's chains, from
+    PRNGKey(seed) (run_gibbs) or fold_in(PRNGKey(seed), i) (run_gibbs_multi,
+    one seed and a stacked group of three): every sweep's ll within rtol
+    1e-5, the final q equal, v within atol 1e-5 and alpha within rtol 1e-4.
+    The two packages' logits agree to rounding, so their draws agree
+    unless a row's two best gumbel-shifted logits lie that close."""
+    sset, jbg, bg, seeds = small
+    params = Params(CGS=True, q=0.5, maxCGSIterations=8, seed=3)
+    n = 3 if entry == "multi_3" else 1
+    jms, ms = [m.copy() for m in seeds[:n]], [convert.motif(m) for m in seeds[:n]]
+    psset, pparams = convert.sequence_set(sset), convert.params(params)
+    if entry == "run_gibbs":
+        jres = [jgibbs.run_gibbs(jms[0], jbg, sset, params)]
+        res = [gibbs.run_gibbs(ms[0], bg, psset, pparams, device="cpu")]
+    else:
+        jres = jgibbs.run_gibbs_multi(jms, jbg, sset, params)
+        res = gibbs.run_gibbs_multi(ms, bg, psset, pparams, device="cpu")
+    for r, jr, m, jm in zip(res, jres, ms, jms):
+        np.testing.assert_allclose(r.ll_history, jr.ll_history, rtol=1e-5)
+        assert r.q == jr.q
+        for a, b in zip(m.v, jm.v):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+        np.testing.assert_allclose(m.alphas, jm.alphas, rtol=1e-4)
+
+
 def test_appended_empty_rows_keep_the_draws(small):
     """(f) Zero-length rows appended after the real ones change neither the
     real rows' z nor the sweep's counts, n_occ, ll and q (with n_real the
-    real row count).  Each row's uniform is keyed by its own index and the
-    sweep's, and q's by the sweep's alone, so nothing depends on how many
-    rows follow."""
+    real row count).  Each row's draw is keyed by its own index and the
+    sweep's key, and q's by the sweep's key alone, so nothing depends on how
+    many rows follow."""
     sset, jbg, _bg, seeds = small
     jdata = jem.prepare_data(sset, jbg, 2, False)
     data = convert.em_data(jdata["cidx"], jdata["lens"], jdata["bg_flat"], "cpu")
@@ -279,15 +308,15 @@ def test_appended_empty_rows_keep_the_draws(small):
               "lens": torch.cat([data["lens"], torch.zeros(extra, dtype=torch.int32)])}
     v, q, la, da, f_bg = convert.cgs_state(seeds[0], 0.5, "cpu")
     v, q, la, da = tuple(vk[None] for vk in v), q.reshape(1), la[None], da[None]
-    keys, i = gibbs.chain_keys(4, [0], "cpu"), torch.tensor([3])
+    keys = gibbs.input_keys(4, [0], "cpu")
     z = []
     for d in (data, padded):
         sc, mk = cuda_scores.window_scores_multi_ref(log_odds_lut(v, d["bg_flat"]), d["cidx"], d["lens"])
-        z.append(gibbs.draw_z(gibbs.flat_logits(sc, mk, q), keys, i, True))
+        z.append(gibbs.draw_z(gibbs.flat_logits(sc, mk, q), keys, True))
     N = sset.n
     assert torch.equal(z[1][:, :N], z[0]) and (z[1][:, N:] == 0).all()
-    kw = dict(A=4, K=2, W=8, sample_z=True, sample_q=True, learn_alpha=True, sweep=i)
-    out = [gibbs.gibbs_step_multi(v, q, la, keys, d, f_bg, da, float(N), **kw)
+    kw = dict(A=4, K=2, W=8, sample_z=True, sample_q=True, learn_alpha=True)
+    out = [gibbs.gibbs_step_multi(v, q, la, keys.clone(), d, f_bg, da, float(N), **kw)
            for d in (data, padded)]
     for c0, c1 in zip(out[0][5], out[1][5]):
         assert torch.equal(c0, c1)
@@ -297,25 +326,28 @@ def test_appended_empty_rows_keep_the_draws(small):
 
 def test_q_is_the_beta_draw_after_z(small):
     """Sampling on: a sweep's q is Beta(n_occ + 1, n_real - n_occ + 1) of
-    the z draws' n_occ, as X / (X + Y) of the chain's two gamma draws at
-    the sweep's counters (``ops.cuda_draws.beta``), clipped to [1e-4,
-    1 - 1e-4]; z's uniforms are the chain's at the same sweep."""
+    the z draws' n_occ, drawn from the chain's key after z's split
+    (``ops.cuda_draws.cgs_beta``), clipped to [1e-4, 1 - 1e-4], and the
+    sweep leaves the key split twice; z is drawn from the key the sweep
+    began with."""
     sset, jbg, _bg, seeds = small
     jdata = jem.prepare_data(sset, jbg, 2, False)
     data = convert.em_data(jdata["cidx"], jdata["lens"], jdata["bg_flat"], "cpu")
     v, q, la, da, f_bg = convert.cgs_state(seeds[0], 0.5, "cpu")
-    keys, i = gibbs.chain_keys(5, [0], "cpu"), torch.tensor([6])
+    keys = gibbs.input_keys(5, [0], "cpu")
     n_real = sset.n - 3.0
     v1, q1, la1 = tuple(vk[None] for vk in v), q.reshape(1), la[None]
-    out = gibbs.gibbs_step_multi(v1, q1, la1, keys, data, f_bg, da[None], n_real, A=4, K=2, W=8,
-                                 sample_z=True, sample_q=True, learn_alpha=True, sweep=i)
+    carried = keys.clone()
+    out = gibbs.gibbs_step_multi(v1, q1, la1, carried, data, f_bg, da[None], n_real, A=4, K=2,
+                                 W=8, sample_z=True, sample_q=True, learn_alpha=True)
     n_occ = out[4]
     assert 0 < float(n_occ) < sset.n
-    want = cuda_draws.beta_ref(keys, i, n_occ + 1.0, n_real - n_occ + 1.0, 1e-4, 1 - 1e-4)
-    assert torch.equal(out[1], want)
+    advanced = keys.clone()
+    want = cuda_draws.cgs_beta_ref(n_occ + 1.0, n_real - n_occ + 1.0, advanced, 1e-4, 1 - 1e-4)
+    assert torch.equal(out[1], want) and torch.equal(carried, advanced)
     sc, mk = cuda_scores.window_scores_multi_ref(log_odds_lut(v1, data["bg_flat"]), data["cidx"],
                                                  data["lens"])
-    z = gibbs.draw_z(gibbs.flat_logits(sc, mk, q1), keys, i, True)
+    z = gibbs.draw_z(gibbs.flat_logits(sc, mk, q1), keys, True)
     assert torch.equal(n_occ, (z > 0).sum(dim=1).to(torch.float32))
 
 
@@ -326,23 +358,22 @@ def test_z_draws_follow_the_softmax():
     logits = torch.tensor([np.log(0.2), 0.3, NEG_INF, -1.0, 1.2, NEG_INF - 5.0, 0.0])
     n = 6000
     flat = logits.expand(1, n, -1).contiguous()
-    z = gibbs.draw_z(flat, gibbs.chain_keys(1, [0], "cpu"), torch.tensor([0]), True)[0]
+    z = gibbs.draw_z(flat, gibbs.input_keys(1, [0], "cpu"), True)[0]
     p = torch.softmax(logits.double(), dim=0).numpy()
     obs = np.bincount(z.numpy(), minlength=p.size)
     assert obs[p == 0].sum() == 0
     keep = p > 0
     _chi2, pval = stats.chisquare(obs[keep], n * p[keep] / p[keep].sum())
     assert pval > 1e-3, (obs, n * p)
-    assert torch.equal(gibbs.draw_z(flat, None, None, False), torch.full((1, n), 4))
+    assert torch.equal(gibbs.draw_z(flat, None, False), torch.full((1, n), 4))
 
 
 def test_q_draws_follow_the_beta():
     """(g) 4,000 draws of Beta(30, 12), 400 chains over 10 sweeps: the mean
     and the variance within 4 standard errors of the Beta's."""
     a, b = torch.full((400,), 30.0), torch.full((400,), 12.0)
-    keys = gibbs.chain_keys(2, range(400), "cpu")
-    x = torch.cat([gibbs.draw_beta(a, b, keys, torch.tensor([i]))
-                   for i in range(10)]).double().numpy()
+    keys = gibbs.input_keys(2, range(400), "cpu")
+    x = torch.cat([gibbs.draw_beta(a, b, keys, True) for _ in range(10)]).double().numpy()
     n = x.size
     mean = 30 / 42
     var = 30 * 12 / (42 ** 2 * 43)
@@ -352,20 +383,20 @@ def test_q_draws_follow_the_beta():
 
 
 def test_draws_match_jax_random_in_distribution():
-    """The port's counter-based draws against the reference's jax.random on
-    the same parameters (p > 1e-3, fixed seeds): 4,000 Beta(30, 12) q draws
-    (jax.random.beta) by a two-sample Kolmogorov-Smirnov test, and the z
-    draws of 4,000 rows of one logit vector (jax.random.categorical), whose
-    column counts the chi-square test of the 2 x k table compares."""
+    """The port's draws against the reference's jax.random on the same
+    parameters from other keys (p > 1e-3, fixed seeds): 4,000 Beta(30, 12)
+    q draws (jax.random.beta) by a two-sample Kolmogorov-Smirnov test, and
+    the z draws of 4,000 rows of one logit vector (jax.random.categorical),
+    whose column counts the chi-square test of the 2 x k table compares."""
     n = 4000
-    keys = gibbs.chain_keys(3, range(n), "cpu")
-    q = gibbs.draw_beta(torch.full((n,), 30.0), torch.full((n,), 12.0), keys, torch.tensor([0]))
+    keys = gibbs.input_keys(3, range(n), "cpu")
+    q = gibbs.draw_beta(torch.full((n,), 30.0), torch.full((n,), 12.0), keys, True)
     jq = np.asarray(jax.random.beta(jax.random.PRNGKey(0), 30.0, 12.0, (n,)))
     pval = stats.ks_2samp(q.double().numpy(), jq).pvalue
     assert pval > 1e-3, pval
     logits = np.array([np.log(0.2), 0.3, NEG_INF, -1.0, 1.2, 0.0], np.float32)
     z = gibbs.draw_z(torch.as_tensor(logits).expand(1, n, -1).contiguous(), keys[:1],
-                     torch.tensor([0]), True)[0].numpy()
+                     True)[0].numpy()
     jz = np.asarray(jax.random.categorical(jax.random.PRNGKey(1), jnp.asarray(logits), shape=(n,)))
     table = np.stack([np.bincount(z, minlength=logits.size), np.bincount(jz, minlength=logits.size)])
     assert table[:, 2].sum() == 0
@@ -375,8 +406,8 @@ def test_draws_match_jax_random_in_distribution():
 
 def test_chains_of_two_groups_differ(small):
     """(h) The m-th members of two (W, K) groups are independent chains:
-    member i reproduces run_gibbs(..., index=i), and the group-local index
-    (0) does not."""
+    member i reproduces run_gibbs(..., key=fold_in(PRNGKey(seed), i)), and
+    the group-local index (0) does not."""
     sset, _jbg, bg, _seeds = small
     sset, params = convert.sequence_set(sset), PParams(CGS=True, q=0.5, maxCGSIterations=5, seed=11)
 
@@ -387,13 +418,14 @@ def test_chains_of_two_groups_differ(small):
     m8, m6 = mk("TGACTCAG"), mk("TGACTC")  # two (W, K) groups
     gibbs.run_gibbs_multi([m8, m6], bg, sset, params, device="cpu")
     solo6 = mk("TGACTC")
-    gibbs.run_gibbs(solo6, bg, sset, params, index=1, device="cpu")
+    gibbs.run_gibbs(solo6, bg, sset, params, key=gibbs.input_keys(11, [1], "cpu")[0], device="cpu")
     for a, b in zip(m6.v, solo6.v):
         np.testing.assert_array_equal(a, b)
     local6 = mk("TGACTC")
-    gibbs.run_gibbs(local6, bg, sset, params, index=0, device="cpu")
+    gibbs.run_gibbs(local6, bg, sset, params, key=gibbs.input_keys(11, [0], "cpu")[0], device="cpu")
     assert not all(np.allclose(a, b, atol=1e-6) for a, b in zip(m6.v, local6.v))
-    assert gibbs.chain_seed(11, 0) != gibbs.chain_seed(11, 1) != gibbs.chain_seed(12, 1)
+    keys = [gibbs.input_keys(s, [i], "cpu").tolist() for s, i in ((11, 0), (11, 1), (12, 1))]
+    assert keys[0] != keys[1] != keys[2]
 
 
 def test_sampled_cgs_on_the_planted_set():

@@ -228,15 +228,16 @@ def test_checkpoint_chunks_stay_exact(planted, monkeypatch, sync, every):
 def per_sweep_loop(v, q, log_alphas, keys, data, f_bg, default_alphas, n_real, *, A, K, W,
                    n_iters, burn_in, **statics):
     """``gibbs_optimize`` as the port stepped it before: a Python loop with a
-    host-side branch on the sweep index for the burn-in mean, the sweep
-    index handed to each sweep from the host."""
+    host-side branch on the sweep index for the burn-in mean, the chains'
+    keys carried from sweep to sweep by the host's loop."""
     M = q.shape[0]
+    keys = None if keys is None else keys.clone()
     acc = tuple(torch.zeros((M, A ** (k + 1), W)) for k in range(K + 1))
     lls, n_occs = [], []
     for i in range(n_iters):
         v, q, log_alphas, ll, n_occ, counts = gibbs.gibbs_step_multi(
             v, q, log_alphas, keys, data, f_bg, default_alphas, n_real, A=A, K=K, W=W,
-            sweep=torch.tensor([i]), **statics)
+            **statics)
         if i >= burn_in:
             acc = tuple(a + c for a, c in zip(acc, counts))
         lls.append(ll)
@@ -248,8 +249,8 @@ def per_sweep_loop(v, q, log_alphas, keys, data, f_bg, default_alphas, n_real, *
 @pytest.mark.parametrize("sampled", [True, False], ids=["sampled", "deterministic"])
 @pytest.mark.parametrize("burn_in", [0, 3])
 def test_gibbs_loop_equals_python_loop(planted, burn_in, sampled):
-    """Three stacked chains: the draws keyed by the device sweep counter,
-    the histories it writes and the burn-in mean by ``counts * (i >=
+    """Three stacked chains: the draws from the keys carried in the loop's
+    state, the histories the sweep counter indexes and the burn-in mean by ``counts * (i >=
     burn_in)`` equal the Python loop's bit for bit."""
     sset, _jbg, bg, psset = planted
     jms = [_seed(sset, p, soft) for p, soft in SEEDS]
@@ -261,7 +262,7 @@ def test_gibbs_loop_equals_python_loop(planted, burn_in, sampled):
     rest = (data, torch.as_tensor(jms[0].f_bg, dtype=torch.float32), alphas, float(psset.n))
     kw = dict(A=4, K=2, W=8, sample_z=sampled, sample_q=sampled, learn_alpha=True,
               path="plain", n_iters=9, burn_in=burn_in)
-    keys = gibbs.chain_keys(7, [0, 1, 2], "cpu")
+    keys = gibbs.input_keys(7, [0, 1, 2], "cpu")
     ref = per_sweep_loop(*args, keys, *rest, **kw)
     got = gibbs.gibbs_optimize(*args, keys, *rest, **kw)
     _assert_equal(got, ref)
@@ -273,7 +274,7 @@ def test_gibbs_loop_of_no_sweeps(planted):
     data = em.prepare_data(psset, bg, 0, False, "cpu")
     v = (torch.full((2, 4, 6), 0.25),)
     out = gibbs.gibbs_optimize(v, torch.full((2,), 0.9), torch.zeros((2, 1, 6)),
-                               gibbs.chain_keys(0, [0, 1], "cpu"), data,
+                               gibbs.input_keys(0, [0, 1], "cpu"), data,
                                torch.full((4,), 0.25), torch.ones((2, 1, 6)), float(psset.n),
                                A=4, K=0, W=6, sample_z=True, sample_q=True, learn_alpha=True,
                                path="plain", n_iters=0)
@@ -296,7 +297,7 @@ def test_gibbs_takes_the_device_loop_and_stops_at_n_iters(planted, monkeypatch, 
     v = tuple(torch.as_tensor(np.stack([m.v[k] for m in jms]), dtype=torch.float32)
               for k in range(3))
     alphas = torch.as_tensor(np.stack([m.alphas for m in jms]), dtype=torch.float32)
-    args = (v, torch.full((2,), 0.9), torch.log(alphas), gibbs.chain_keys(3, [0, 1], "cpu"),
+    args = (v, torch.full((2,), 0.9), torch.log(alphas), gibbs.input_keys(3, [0, 1], "cpu"),
             data, torch.as_tensor(jms[0].f_bg, dtype=torch.float32), alphas, float(psset.n))
     kw = dict(A=4, K=2, W=8, sample_z=True, sample_q=True, learn_alpha=True, path="plain",
               n_iters=n_iters, burn_in=n_iters - 1)

@@ -98,9 +98,9 @@ def gibbs_case(psset, bg, mesh, sample: bool) -> dict:
     v = tuple(f32(np.stack([m.v[k] for m in ms])) for k in range(3))
     alphas = f32(np.stack([m.alphas for m in ms]))
     step = gibbs.gibbs_step_multi(
-        v, torch.full((2,), params.q), torch.log(alphas), gibbs.chain_keys(5, [0, 1], "cpu"),
+        v, torch.full((2,), params.q), torch.log(alphas), gibbs.input_keys(5, [0, 1], "cpu"),
         data, f32(ms[0].f_bg), alphas, float(psset.n), A=4, K=2, W=8, sample_z=sample,
-        sample_q=sample, learn_alpha=True, sweep=torch.tensor([2]), mesh=mesh)
+        sample_q=sample, learn_alpha=True, mesh=mesh)
     rs = gibbs.run_gibbs_multi(ms, bg, psset, params, device="cpu", mesh=mesh)
     out = {f"{tag}_step_nocc": step[4].numpy(), f"{tag}_q": [r.q for r in rs],
            f"{tag}_ll": [r.ll for r in rs], f"{tag}_alphas": np.stack([r.alphas for r in rs])}

@@ -10,6 +10,7 @@ import torch
 import jax.numpy as jnp
 
 from bammmotif2_tpu.models import background as jbackground
+from bammmotif2_tpu.generator import seqgen as jseqgen
 from bammmotif2_tpu.models import seeds as jseeds
 from bammmotif2_tpu.ops import escore as jescore
 from bammmotif2_tpu.ops import pallas_em
@@ -18,6 +19,7 @@ from bammmotif2_tpu.scoring import scan as jscan
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu.utils.fasta import SequenceSet as JSequenceSet
 from bammmotif2_tpu_torch import convert
+from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.ops import cuda_scores, escore
 from bammmotif2_tpu_torch.scoring import scan
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
@@ -143,6 +145,28 @@ def test_find_occurrences_matches_jax(trained, cutoff):
     assert _rows(occ_dev) == _rows(occ_host) == _rows(jocc)
     for a, b, j in zip(occ_dev, occ_host, jocc):
         assert a.pvalue == b.pvalue and a.evalue == b.evalue and a.score == b.score
+        assert a.score == pytest.approx(j.score, abs=SC_ATOL)
+        assert a.pvalue == pytest.approx(j.pvalue, rel=1e-9)
+        assert a.evalue == pytest.approx(j.evalue, rel=1e-9)
+
+
+@pytest.mark.parametrize("cutoff", [1e-3, 0.02])
+def test_sampled_negatives_scan_matches_jax(trained, cutoff):
+    """--scoreSeqset with no --negSeqFile: the negatives sampled from
+    PRNGKey(--seed) are the reference's, so their per-window pool and every
+    occurrence's p-value and e-value are the reference's too."""
+    t = trained
+    m, jm = t["ms"][0], t["jms"][0]
+    jneg_set = jseqgen.generate_neg_set(t["jbg"], t["sset"].lens, m_fold=3, seed=42)
+    neg_set = seqgen.generate_neg_set(t["bg"], t["psset"].lens, m_fold=3, seed=42, device="cpu")
+    np.testing.assert_array_equal(neg_set.codes, np.asarray(jneg_set.codes))
+    jres = jscan.score_set(jm, t["jbg"], t["sset"])
+    jocc = jscan.find_occurrences(jres, t["sset"], jscan.score_set(jm, t["jbg"], jneg_set), cutoff)
+    res = scan.score_set(m, t["bg"], t["psset"], device="cpu")
+    neg = scan.score_set(m, t["bg"], neg_set, device="cpu")
+    occ = scan.find_occurrences(res, t["psset"], neg, cutoff)
+    assert len(jocc) > 0 and _rows(occ) == _rows(jocc)
+    for a, j in zip(occ, jocc):
         assert a.score == pytest.approx(j.score, abs=SC_ATOL)
         assert a.pvalue == pytest.approx(j.pvalue, rel=1e-9)
         assert a.evalue == pytest.approx(j.evalue, rel=1e-9)

@@ -1,16 +1,23 @@
 """Port checks of sequence generation (``generator/seqgen.py``).
 
-The port samples with ``torch.Generator`` streams, which cannot reproduce
-``jax.random``'s, so the sampled paths are held to the background they were
-fit to (by distribution, as ``tests/test_scan_fdr.py::TestSeqGen`` holds the
+The port samples from the reference's own ``jax.random`` streams, so its
+sets are held to the JAX package's from the same seed, row for row; the
+sampled paths are also held to the background they were fit to (by
+distribution, as ``tests/test_scan_fdr.py::TestSeqGen`` holds the
 reference), and the deterministic parts (lengths, padding, seeding, the
 encoded form) are checked exactly.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from bammmotif2_tpu.generator import seqgen as jseqgen
+from bammmotif2_tpu.models import seeds as jseeds
+from bammmotif2_tpu.models.background import BackgroundModel as JBackgroundModel
+from bammmotif2_tpu.utils.fasta import read_fasta
 from bammmotif2_tpu_torch import convert
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models import seeds as seeds_mod
@@ -25,6 +32,12 @@ from tests import test_em
 torch.set_num_threads(1)
 
 MOTIF = "TGACTCAG"
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples",
+                        "positives.fasta")
+# rows of a sampled set equal to the reference's (a near tie of two
+# gumbel-shifted logits, an ulp apart between the packages, could flip a
+# draw and the rest of its row)
+ROW_SHARE = 0.999
 
 
 def planted_set(**kw) -> SequenceSet:
@@ -153,3 +166,61 @@ def test_embed_and_mask_motif():
     after = hits(seqgen.mask_motif(sset, motif, bg, pval_cutoff=0.01, m_fold=5, device="cpu"))
     assert before > 100
     assert after < before * 0.1
+
+
+def _reference_sets():
+    """examples/ (500 rows of 80-150 bp) and a 1,000 x 200 bp planted set,
+    as the JAX package's SequenceSets."""
+    return {"examples": read_fasta(EXAMPLES),
+            "planted_1k": test_em.planted_set(n=1_000, l=200, motif=MOTIF, q=0.5, noise=0.3,
+                                              seed=21)}
+
+
+def _assert_rows_match(got: np.ndarray, want: np.ndarray) -> None:
+    """The same shape, and at least ROW_SHARE of the rows equal."""
+    assert got.shape == want.shape
+    same = (got == want).all(axis=1)
+    assert same.mean() >= ROW_SHARE, same.mean()
+
+
+@pytest.mark.parametrize("ss", [False, True], ids=["ds", "ss"])
+@pytest.mark.parametrize("order", [0, 1, 2, 3])
+@pytest.mark.parametrize("which", ["examples", "planted_1k"])
+def test_neg_set_matches_jax(which, order, ss):
+    """generate_neg_set against the reference's from the same seed and fit,
+    at --sOrder 0-3, with and without --ss: the same rows."""
+    sset = _reference_sets()[which]
+    jbg = JBackgroundModel.from_sequence_set(sset, order=order, alpha=1.0, ss=ss)
+    want = jseqgen.generate_neg_set(jbg, sset.lens, m_fold=2, seed=order + 40)
+    got = seqgen.generate_neg_set(convert.background(jbg), sset.lens, m_fold=2, seed=order + 40,
+                                  device="cpu")
+    np.testing.assert_array_equal(got.lens, want.lens)
+    _assert_rows_match(got.codes, np.asarray(want.codes))
+
+
+@pytest.mark.parametrize("ss", [False, True], ids=["ds", "ss"])
+def test_neg_data_matches_jax(ss):
+    """generate_neg_data's encoded tensors against the reference's on
+    examples/ lengths, padded as the FDR fold loop pads them."""
+    sset = _reference_sets()["examples"]
+    jbg = JBackgroundModel.from_sequence_set(sset, order=2, alpha=1.0, ss=ss)
+    n_pad, pad_len = 2 * sset.n + 7, int(sset.lens.max()) + 3
+    jcidx, jlens = jseqgen.generate_neg_data(jbg, sset.lens, m_fold=2, seed=9, K=2, ss=ss,
+                                             n_pad=n_pad, pad_len=pad_len)
+    cidx, lens = seqgen.generate_neg_data(convert.background(jbg), sset.lens, m_fold=2, seed=9,
+                                          K=2, ss=ss, n_pad=n_pad, pad_len=pad_len, device="cpu")
+    np.testing.assert_array_equal(lens, jlens)
+    got, want = cidx.numpy(), np.asarray(jcidx)
+    assert got.shape == want.shape
+    _assert_rows_match(got.transpose(1, 0, 2).reshape(n_pad, -1),
+                       want.transpose(1, 0, 2).reshape(n_pad, -1))
+
+
+def test_sample_motif_sites_match_jax():
+    """sample_motif_sites against the reference's from the same seed: the
+    same sites (one categorical key a position, on the host)."""
+    pwm = jseeds.iupac_to_pwm(MOTIF, soft=0.7)
+    jm = jseeds.motif_from_pwm(pwm, K=2, f_bg=np.full(4, 0.25))
+    want = jseqgen.sample_motif_sites(jm, 3_000, seed=6)
+    got = seqgen.sample_motif_sites(convert.motif(jm), 3_000, seed=6)
+    _assert_rows_match(got, np.asarray(want))
