@@ -25,24 +25,57 @@
 //   cgs_z: flat f32 [M, N, C] (each row's logits), keys int64 [M, 2] (the
 //     chains' carried keys, read), row0 -> z int64 [M, N]: sub =
 //     split(keys[m])[1], the row key fold_in(sub, row0 + n), z the first
-//     argmax over c of flat[m, n, c] + gumbel(row key, c).  A warp a row.
+//     argmax over c of flat[m, n, c] + gumbel(row key, c), NaN the largest.
+//     A warp a row, on the resident grid.
 //   cgs_beta: a, b f32 [M] (>= 1), keys int64 [M, 2] (updated in place),
 //     draw, lo, hi -> q f32 [M]: k1 = split(key)[0] (z's split), (k2,
 //     sub_q) = split(k1), q = clip(beta(sub_q, a, b), lo, hi) where draw is
 //     set, and key <- k2, as the reference splits twice a sweep whether or
 //     not it samples; attempts int32 [M, 2] (optional) the Marsaglia-Tsang
-//     attempts of each gamma.  A thread a chain.
+//     attempts of each gamma.  kBetaLanes lanes a chain.
 //   beta(key, a, b): (ka, kb) = split(key); la = log_gamma_one(split(ka,
 //     1)[0], a), lb likewise; m = max(la, lb); exp(la - m) / (exp(la - m)
 //     + exp(lb - m)), the exp rounded from float64's (ops/threefry.py::
 //     exp32): XLA's CPU exp is its own, within an ulp of it, the one float
 //     function here not bit-equal to the reference's.
 //
-// What bounds them: operations.  markov_codes evaluates A + 1 Threefry
-// hashes (20 rounds of add, rotate, xor) and 2 A Cephes logs a position;
-// cgs_z one hash and two logs an element of flat, the same work the
-// reference's categorical does.  They read their inputs once and write
-// their outputs once.  cgs_beta is a few hundred operations a chain.
+// What bounds them (chip_smoke.py::bound; H100 SXM: 3.35 TB/s, 67 TFLOP/s
+// f32, 132 SMs x 64 32-bit integer results a clock): the Threefry hashes'
+// integer work, THREEFRY_INT_OPS = 73 a hash (ops/cuda_draws.py).
+//   markov_codes: A hashes a letter of each position and row and L splits,
+//     2 A Cephes logs (GUMBEL_F32_OPS = 62 a draw) and the row's codes: at
+//     1M x 200 bp, sOrder 2: 5.8e10 integer operations (3.5 ms at 1,980
+//     MHz), 5.0e10 f32 (0.74 ms), 204 MB (0.06 ms).  A thread a row, its
+//     log tables in shared memory; each thread makes split(key, t) again.
+//   cgs_z: a hash and 62 f32 operations an element, 2 hashes a row, the
+//     logits read once: at M=1, 10k rows of 379 logits, 2.8e8 integer
+//     operations (16.6 us), 2.3e8 f32 (3.5 us), 15.2 MB (4.6 us).  So the
+//     work an element is cut to the hash's: the warps of the resident grid
+//     walk the rows (no second wave of blocks); a lane makes one row key
+//     for 32 rows and the warp shares them by shuffles; a row's key
+//     schedule (Schedule) is made once, so an element pays the 20 rounds
+//     and 5 injections alone; the rotate is one funnel shift; the two logs
+//     read exponent and mantissa from the bits (xla_logf_normal: Gumbel's
+//     inputs are normal, positive and finite); the compare tests for NaN
+//     only where v is not below the best; a lane loads kZElems logits
+//     before it hashes them.  On an H100 (700 W, tools/kernel_variants.py
+//     --design cgs_draws): 28.6 us at M=1 and 256 at M=10, against 28.9
+//     and 284 with one element a lane, 36.4 and 314 with the general logs
+//     and 30.3 and 247 with the rotate as two shifts; 8 elements or 6
+//     blocks an SM gained at most 3% at M >= 4 and lost as much at M=1.
+//   cgs_beta: 44 bytes and about 23 hashes a chain: latency, not work.  On
+//     one thread a chain's hashes run one after another, ~14 deep with both
+//     gammas; gamma a and gamma b run on lanes of their own, side by side,
+//     so a chain waits for ~8: the sweep's 2 splits, a gamma's 3, an
+//     attempt's 3.  kBetaSpec lanes a gamma run attempts 0 .. kBetaSpec - 1
+//     at once (lane j first makes attempt j's key, j more splits), the
+//     lowest accepted winning by ballot; a round with none goes on from the
+//     last lane's next key.  On an H100 (700 W, kernel_variants --design
+//     cgs_draws), 2 lanes a gamma took 3.57 us at M=1 against 3.39 with 1
+//     and 3.91 with 4, and 4.49 at M=16 against 5.03 with 1 (5.85 with 1
+//     where a = b = 1, one attempt in twenty rejected): kBetaSpec is 2.
+//     Threads are launched kBetaLanes a chain, so a warp holds 32 /
+//     kBetaLanes chains.
 
 #include <cstdint>
 
@@ -111,64 +144,151 @@ markov_codes_kernel(const long long* __restrict__ key, const float* __restrict__
   for (int t = len; t < L; ++t) row[t] = kPad;
 }
 
-// Warp w of block (x, m) draws row n = x * kWarps + w of chain m.
+// Elements of a row a lane has in flight in cgs_z_kernel.
+constexpr int kZElems = 4;
+
+// The (m, n) rows of z, m * N + n < rows, a warp a row: warp w of the
+// resident grid's `warps` takes rows w, w + warps, ...  Lane l of a warp
+// makes the row key of its 32 rows' l-th (the chain's split and the row's
+// fold_in, 2 hashes for 32 rows), the warp reads each row's key schedule
+// from it, and a lane then pays the 20 rounds alone for each of its
+// elements c = l, l + 32, ...
 __global__ void __launch_bounds__(kThreads)
 cgs_z_kernel(const float* __restrict__ flat, const long long* __restrict__ keys,
-             long long* __restrict__ z, long long row0, int N, int C) {
-  const int m = blockIdx.y;
-  const int n = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (n >= N) return;
-  const uint2 sub = split_key(key_at(keys, m), 1);
-  const uint2 row_key = split_key(sub, (unsigned)(row0 + n));
-  const float* r = flat + ((size_t)m * N + n) * C;
-  float best = 0.0f;
-  int bi = -1;
-  for (int c = lane; c < C; c += 32) {
-    const float v = __fadd_rn(gumbel_of(random_bits(row_key, (unsigned long long)c)), r[c]);
-    if (bi < 0 || better(v, c, best, bi)) {
-      best = v;
-      bi = c;
+             long long* __restrict__ z, long long row0, int N, int C, long long rows) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long first = blockIdx.x * (long long)kWarps + (threadIdx.x >> 5); first < rows;
+       first += 32 * warps) {
+    const long long mine = first + lane * warps;
+    uint2 row_key = make_uint2(0u, 0u);
+    if (mine < rows) {
+      const long long m = mine / N;
+      row_key = split_key(split_key(key_at(keys, (int)m), 1), (unsigned)(row0 + mine - m * N));
     }
-  }
+    for (int j = 0; j < 32; ++j) {
+      const long long row = first + j * warps;
+      if (row >= rows) break;  // the same for every lane of the warp
+      const Schedule ks = schedule_of(make_uint2(__shfl_sync(0xffffffffu, row_key.x, j),
+                                                 __shfl_sync(0xffffffffu, row_key.y, j)));
+      const float* r = flat + row * C;
+      // v > best, or a NaN on either side: a NaN v comes only from a NaN
+      // logit (the gumbel term is finite), and a NaN best stays; bi < 0
+      // until a v above -inf (a row of -inf draws 0)
+      float best = -__int_as_float(0x7f800000);
+      int bi = -1;
+      for (int c0 = lane; c0 < C; c0 += 32 * kZElems) {
+        float x[kZElems];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    if (oi >= 0 && (bi < 0 || better(ov, oi, best, bi))) {
-      best = ov;
-      bi = oi;
+        for (int e = 0; e < kZElems; ++e) {
+          const int c = c0 + 32 * e;
+          x[e] = c < C ? r[c] : 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < kZElems; ++e) {
+          const int c = c0 + 32 * e;
+          if (c >= C) break;
+          const float v = __fadd_rn(gumbel_fitted(random_bits(ks, (unsigned)c)), x[e]);
+          if (!(v <= best) && best == best) {
+            best = v;
+            bi = c;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, best, off);
+        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
+        if (oi >= 0 && (bi < 0 || better(ov, oi, best, bi))) {
+          best = ov;
+          bi = oi;
+        }
+      }
+      if (lane == 0) z[row] = bi < 0 ? 0 : bi;
     }
   }
-  if (lane == 0) z[(size_t)m * N + n] = bi;
 }
 
-__global__ void cgs_beta_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                long long* __restrict__ keys, float* __restrict__ q,
-                                int* __restrict__ attempts, int draw, float lo, float hi, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const uint2 k1 = split_key(key_at(keys, m), 0);
-  const uint2 k2 = split_key(k1, 0), sub_q = split_key(k1, 1);
-  if (draw) {
-    int na = 0, nb = 0;
-    float r = __int_as_float(0x7fc00000);
-    if (a[m] >= 1.0f && b[m] >= 1.0f) {
-      const float la = log_gamma_one(split_key(split_key(sub_q, 0), 0), a[m], &na);
-      const float lb = log_gamma_one(split_key(split_key(sub_q, 1), 0), b[m], &nb);
-      const float mx = fmaxf(la, lb);
-      const float ga = (float)exp((double)__fsub_rn(la, mx));
-      const float gb = (float)exp((double)__fsub_rn(lb, mx));
-      r = fminf(fmaxf(__fdiv_rn(ga, __fadd_rn(ga, gb)), lo), hi);
+// Lanes a gamma of cgs_beta_kernel: its attempts in flight at once.
+constexpr int kBetaSpec = 2;
+constexpr int kBetaLanes = 2 * kBetaSpec;  // a chain's: gamma a's, then gamma b's
+constexpr int kBetaThreads = 128;
+static_assert(32 % kBetaLanes == 0, "a chain's lanes lie in one warp");
+
+// log Gamma(alpha) from `key` (_gamma_one's key) on the kBetaSpec lanes
+// `group` of a warp, this one the j-th: in each round lane j runs attempt
+// round * kBetaSpec + j, whose key is the round's split(., 0) j times, and
+// the lowest accepted attempt wins (a ballot); a round without one goes on
+// from the last lane's next key.  Every lane of the group returns the
+// serial loop's result and *attempts its count.
+__device__ __forceinline__ float log_gamma_lanes(uint2 key, float alpha, int j, unsigned group,
+                                                 int* attempts) {
+  const float2 dc = gamma_dc(alpha);
+  const int first = __ffs(group) - 1;
+  for (int round = 0;; ++round) {
+    uint2 k = key, next;
+    for (int i = 0; i < j; ++i) k = split_key(k, 0);
+    float V;
+    const unsigned won = __ballot_sync(group, !gamma_attempt(k, dc.y, dc.x, &V, &next));
+    if (won) {
+      const int lane = __ffs(won) - 1;
+      *attempts = round * kBetaSpec + lane - first + 1;
+      return __fadd_rn(xla_logf(dc.x), xla_logf(__shfl_sync(group, V, lane)));
     }
-    q[m] = r;
-    if (attempts != nullptr) {
-      attempts[2 * m] = na;
-      attempts[2 * m + 1] = nb;
+    key = make_uint2(__shfl_sync(group, next.x, first + kBetaSpec - 1),
+                     __shfl_sync(group, next.y, first + kBetaSpec - 1));
+  }
+}
+
+// Chain m on kBetaLanes lanes of one warp: every lane makes the sweep's
+// splits; gamma a's lanes and gamma b's draw side by side
+// (log_gamma_lanes); the chain's first lane joins them and writes q,
+// the attempts and the advanced key.
+__global__ void __launch_bounds__(kBetaThreads)
+cgs_beta_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                long long* __restrict__ keys, float* __restrict__ q, int* __restrict__ attempts,
+                int draw, float lo, float hi, int M) {
+  const int t = blockIdx.x * kBetaThreads + threadIdx.x;
+  const int m = t / kBetaLanes, g = t % kBetaLanes, lane = threadIdx.x & 31;
+  const bool live = m < M;
+  const uint2 k1 = split_key(key_at(keys, live ? m : 0), 0);
+  const uint2 k2 = split_key(k1, 0), sub_q = split_key(k1, 1);
+  float lg = 0.0f;
+  int n = 0;
+  bool ok = false;
+  if (draw) {
+    const int gamma = g / kBetaSpec;
+    ok = live && a[m] >= 1.0f && b[m] >= 1.0f;  // the same on a chain's lanes
+    if (ok) {
+      const unsigned group = ((1u << kBetaSpec) - 1u) << (lane - g % kBetaSpec);
+      // loggamma's split(key, 1)[0], then _gamma_one's split(key)[0]
+      lg = log_gamma_lanes(split_key(split_key(split_key(sub_q, gamma), 0), 0),
+                           gamma ? b[m] : a[m], g % kBetaSpec, group, &n);
+    }
+    const int head = lane - g;  // the chain's first lane
+    const float la = __shfl_sync(0xffffffffu, lg, head);
+    const float lb = __shfl_sync(0xffffffffu, lg, head + kBetaSpec);
+    const int nb = __shfl_sync(0xffffffffu, n, head + kBetaSpec);
+    if (live && g == 0) {
+      float r = __int_as_float(0x7fc00000);
+      if (ok) {
+        const float mx = fmaxf(la, lb);
+        const float ga = (float)exp((double)__fsub_rn(la, mx));
+        const float gb = (float)exp((double)__fsub_rn(lb, mx));
+        r = fminf(fmaxf(__fdiv_rn(ga, __fadd_rn(ga, gb)), lo), hi);
+      }
+      q[m] = r;
+      if (attempts != nullptr) {
+        attempts[2 * m] = n;
+        attempts[2 * m + 1] = nb;
+      }
     }
   }
-  keys[2 * m] = k2.x;
-  keys[2 * m + 1] = k2.y;
+  __syncwarp();  // every lane has read its chain's key
+  if (live && g == 0) {
+    keys[2 * m] = k2.x;
+    keys[2 * m + 1] = k2.y;
+  }
 }
 
 }  // namespace
@@ -197,28 +317,32 @@ int markov_codes_launch(const long long* key, const float* trans, const int* len
   return (int)cudaGetLastError();
 }
 
-// Launches cgs_z_kernel on `stream` of `device`: z [M, N], one launch.
-// 1 <= M <= 65535, C >= 1.  Returns a cudaError_t (0 = success).
+// Launches cgs_z_kernel on `stream` of `device`: z [M, N], one launch of
+// the resident blocks (at most a warp a row).  M >= 1, C >= 1.  Returns a
+// cudaError_t (0 = success).
 int cgs_z_launch(const float* flat, const long long* keys, long long* z, long long row0, int N,
                  int C, int M, int device, void* stream) {
   const DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return (int)scope.error();
   if (N == 0) return (int)cudaSuccess;
-  const dim3 grid((N + kWarps - 1) / kWarps, M);
+  const long long rows = (long long)M * N;
+  int grid = 0;
+  const cudaError_t err = resident_grid(cgs_z_kernel, 0, (rows + kWarps - 1) / kWarps, 1, &grid);
+  if (err != cudaSuccess) return (int)err;
   cgs_z_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(flat, keys, z, row0, N,
-                                                                         C);
+                                                                         C, rows);
   return (int)cudaGetLastError();
 }
 
 // Launches cgs_beta_kernel on `stream` of `device`: q [M] where draw is
-// set (and attempts, where not null), the keys advanced; one launch.
-// Returns a cudaError_t (0 = success).
+// set (and attempts, where not null), the keys advanced; one launch of
+// kBetaLanes threads a chain.  Returns a cudaError_t (0 = success).
 int cgs_beta_launch(const float* a, const float* b, long long* keys, float* q, int* attempts,
                     int draw, float lo, float hi, int M, int device, void* stream) {
   const DeviceScope scope(device);
   if (scope.error() != cudaSuccess) return (int)scope.error();
-  const int threads = 64;
-  cgs_beta_kernel<<<(M + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (int)(((long long)M * kBetaLanes + kBetaThreads - 1) / kBetaThreads);
+  cgs_beta_kernel<<<blocks, kBetaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, keys, q, attempts, draw, lo, hi, M);
   return (int)cudaGetLastError();
 }

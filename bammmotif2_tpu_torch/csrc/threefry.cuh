@@ -32,15 +32,32 @@ constexpr float kNormalLo = -0.99999994f;        // nextafter(-1, 0)
 constexpr float kSqrt2 = 1.41421354f;            // float32(sqrt(2))
 
 __device__ __forceinline__ unsigned rotl32(unsigned x, int r) {
-  return (x << r) | (x >> (32 - r));
+  return __funnelshift_l(x, x, r);
 }
 
-// Threefry-2x32, 20 rounds, of the counter x under the key k.
-__device__ __forceinline__ uint2 threefry2x32(uint2 k, uint2 x) {
-  const unsigned ks[3] = {k.x, k.y, k.x ^ k.y ^ kParity};
+// A key's Threefry-2x32 schedule: its three words and the y words of the
+// five key injections (the injection's count added).  A draw of many
+// elements from one key computes it once.
+struct Schedule {
+  unsigned ks[3];
+  unsigned inj_y[5];
+};
+
+__device__ __forceinline__ Schedule schedule_of(uint2 k) {
+  Schedule s;
+  s.ks[0] = k.x;
+  s.ks[1] = k.y;
+  s.ks[2] = k.x ^ k.y ^ kParity;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) s.inj_y[i] = s.ks[(i + 2) % 3] + (unsigned)(i + 1);
+  return s;
+}
+
+// Threefry-2x32, 20 rounds, of the counter x under the schedule s.
+__device__ __forceinline__ uint2 threefry2x32(const Schedule& s, uint2 x) {
   constexpr int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x.x += ks[0];
-  x.y += ks[1];
+  x.x += s.ks[0];
+  x.y += s.ks[1];
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
 #pragma unroll
@@ -48,10 +65,15 @@ __device__ __forceinline__ uint2 threefry2x32(uint2 k, uint2 x) {
       x.x += x.y;
       x.y = rotl32(x.y, rot[i % 2][j]) ^ x.x;
     }
-    x.x += ks[(i + 1) % 3];
-    x.y += ks[(i + 2) % 3] + (unsigned)(i + 1);
+    x.x += s.ks[(i + 1) % 3];
+    x.y += s.inj_y[i];
   }
   return x;
+}
+
+// Threefry-2x32, 20 rounds, of the counter x under the key k.
+__device__ __forceinline__ uint2 threefry2x32(uint2 k, uint2 x) {
+  return threefry2x32(schedule_of(k), x);
 }
 
 // split(key, n)[i], which is also fold_in(key, i).
@@ -65,18 +87,20 @@ __device__ __forceinline__ unsigned random_bits(uint2 key, unsigned long long j)
   return w.x ^ w.y;
 }
 
+// The random bits of element j < 2^32 of a draw whose key's schedule is s.
+__device__ __forceinline__ unsigned random_bits(const Schedule& s, unsigned j) {
+  const uint2 w = threefry2x32(s, make_uint2(0u, j));
+  return w.x ^ w.y;
+}
+
 // float32 in [0, 1) from 32 bits.
 __device__ __forceinline__ float unit_float(unsigned bits) {
   return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
 }
 
-// XLA's CPU float32 log: inputs below the smallest normal count as zero.
-__device__ __forceinline__ float xla_logf(float x) {
-  if (x != x || x < 0.0f) return __int_as_float(0x7fc00000);
-  if (x < kTinyF) return -__int_as_float(0x7f800000);
-  if (x == __int_as_float(0x7f800000)) return x;
-  int ei;
-  float m = frexpf(x, &ei);
+// Cephes' logf of m * 2^ei, m in [0.5, 1) (frexpf's split), as XLA's CPU
+// code computes it.
+__device__ __forceinline__ float cephes_logf(float m, int ei) {
   const bool low = m < 0.707106769f;
   const float e = __fsub_rn((float)ei, low ? 1.0f : 0.0f);
   m = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
@@ -88,6 +112,23 @@ __device__ __forceinline__ float xla_logf(float x) {
   y = fmaf(fmaf(y, m3, y1), m3, y2);
   y = fmaf(y, m3, __fmul_rn(e, -2.12194440e-4f));
   return __fadd_rn(__fadd_rn(__fsub_rn(m, __fmul_rn(m2, 0.5f)), y), __fmul_rn(e, 0.693359375f));
+}
+
+// XLA's CPU float32 log: inputs below the smallest normal count as zero.
+__device__ __forceinline__ float xla_logf(float x) {
+  if (x != x || x < 0.0f) return __int_as_float(0x7fc00000);
+  if (x < kTinyF) return -__int_as_float(0x7f800000);
+  if (x == __int_as_float(0x7f800000)) return x;
+  int ei;
+  const float m = frexpf(x, &ei);
+  return cephes_logf(m, ei);
+}
+
+// xla_logf for a normal, positive, finite x: frexpf's mantissa and
+// exponent read from the bits, none of the other cases tested.
+__device__ __forceinline__ float xla_logf_normal(float x) {
+  const unsigned u = __float_as_uint(x);
+  return cephes_logf(__uint_as_float((u & 0x007FFFFFu) | 0x3F000000u), (int)(u >> 23) - 126);
 }
 
 // XLA's CPU float32 log1p.
@@ -147,6 +188,14 @@ __device__ __forceinline__ float gumbel_of(unsigned bits) {
   return -xla_logf(-xla_logf(u));
 }
 
+// gumbel_of with the logs fitted to their inputs' range: u is in [2^-126,
+// 1) and -log u in (0, 87.4], both normal, positive and finite, so
+// xla_logf_normal gives xla_logf's results.
+__device__ __forceinline__ float gumbel_fitted(unsigned bits) {
+  const float u = fmaxf(kTinyF, __fadd_rn(unit_float(bits), kTinyF));
+  return -xla_logf_normal(-xla_logf_normal(u));
+}
+
 // A standard normal (jax.random.normal) from 32 bits: the uniform's span
 // 1 - nextafter(-1, 0) rounds to 2 in float32, so its product is exact.
 __device__ __forceinline__ float normal_of(unsigned bits) {
@@ -154,38 +203,37 @@ __device__ __forceinline__ float normal_of(unsigned bits) {
   return __fmul_rn(kSqrt2, xla_erf_inv(u));
 }
 
-// jax.random's _gamma_one(key, alpha, log_space=True) for alpha >= 1:
-// Marsaglia and Tsang, its key splits an attempt as the reference makes
-// them.  Returns log d + log V; *attempts counts the attempts.
-__device__ __forceinline__ float log_gamma_one(uint2 key, float alpha, int* attempts) {
-  const float d = __fsub_rn(alpha, 0.333333343f);
-  // XLA computes (1/3) / sqrt(d) as (1/3) * rsqrt(d) (ops/threefry.py::rsqrt32)
-  const float c = __fmul_rn((float)(1.0 / sqrt((double)d)), 0.333333343f);
-  key = split_key(key, 0);  // key, subkey = split(key); subkey boosts alpha < 1 only
-  float V = 1.0f;
-  int n = 0;
-  bool reject = true;
-  while (reject) {
-    const uint2 x_key0 = split_key(key, 1), u_key = split_key(key, 2);
-    key = split_key(key, 0);
-    uint2 x_key = x_key0;
-    float x = 0.0f, v = -1.0f;
-    while (v <= 0.0f) {
-      const uint2 sub = split_key(x_key, 1);
-      x_key = split_key(x_key, 0);
-      x = normal_of(random_bits(sub, 0));
-      v = fmaf(x, c, 1.0f);
-    }
-    const float X = __fmul_rn(x, x);
-    V = __fmul_rn(__fmul_rn(v, v), v);
-    const float U = unit_float(random_bits(u_key, 0));
-    ++n;
-    reject = (U >= fmaf(-0.0331000011f, __fmul_rn(X, X), 1.0f)) &&
-             (xla_logf(U) >= fmaf(X, 0.5f, __fmul_rn(d, __fadd_rn(__fsub_rn(1.0f, V),
-                                                                 xla_logf(V)))));
+// One attempt of jax.random's _gamma_one(key, alpha, log_space=True) for
+// alpha >= 1 (Marsaglia and Tsang, d = alpha - 1/3, c = (1/3) / sqrt(d)),
+// its key splits as the reference makes them: from the attempt's key,
+// *next = split(key, 3)[0] (the next attempt's key), x ~ normal drawn by
+// split(x key) until v = 1 + x c > 0, U ~ uniform(U key); *V = v^3.
+// Returns whether the attempt is rejected.
+__device__ __forceinline__ bool gamma_attempt(uint2 key, float c, float d, float* V,
+                                              uint2* next) {
+  const uint2 x_key0 = split_key(key, 1), u_key = split_key(key, 2);
+  *next = split_key(key, 0);
+  uint2 x_key = x_key0;
+  float x = 0.0f, v = -1.0f;
+  while (v <= 0.0f) {
+    const uint2 sub = split_key(x_key, 1);
+    x_key = split_key(x_key, 0);
+    x = normal_of(random_bits(sub, 0));
+    v = fmaf(x, c, 1.0f);
   }
-  *attempts = n;
-  return __fadd_rn(xla_logf(d), xla_logf(V));
+  const float X = __fmul_rn(x, x);
+  *V = __fmul_rn(__fmul_rn(v, v), v);
+  const float U = unit_float(random_bits(u_key, 0));
+  return (U >= fmaf(-0.0331000011f, __fmul_rn(X, X), 1.0f)) &&
+         (xla_logf(U) >= fmaf(X, 0.5f, __fmul_rn(d, __fadd_rn(__fsub_rn(1.0f, *V),
+                                                              xla_logf(*V)))));
+}
+
+// _gamma_one's d and c for alpha: XLA computes (1/3) / sqrt(d) as (1/3) *
+// rsqrt(d) (ops/threefry.py::rsqrt32).
+__device__ __forceinline__ float2 gamma_dc(float alpha) {
+  const float d = __fsub_rn(alpha, 0.333333343f);
+  return make_float2(d, __fmul_rn((float)(1.0 / sqrt((double)d)), 0.333333343f));
 }
 
 }  // namespace

@@ -34,10 +34,28 @@ import functools
 import torch
 
 from bammmotif2_tpu_torch.ops import _build, threefry
-from bammmotif2_tpu_torch.ops.cuda_counts import current_stream
 from bammmotif2_tpu_torch.utils.fasta import PAD
 
 MAX_S_ORDER = 7  # csrc/jax_draws.cu: a row's table offsets
+
+# The work the draws need, for their bounds (chip_smoke.py).  Threefry-2x32's
+# 32-bit integer operations a hash (csrc/threefry.cuh): 2 key adds, 20
+# rounds of add, rotate and xor, 5 key injections of 2 adds, and the xor
+# that makes a draw's 32 bits of the two words.
+THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1
+# f32 operations a gumbel-shifted logit costs: two of XLA's logs (9 fused
+# multiply-adds, 2 operations each, and 11 other operations), the uniform's
+# 3, the logit's add.
+GUMBEL_F32_OPS = 2 * (9 * 2 + 11) + 3 + 1
+# Threefry hashes of a chain's q: the sweep's split k1 and the two of (k2,
+# sub_q), beta's (ka, kb); then per gamma 2 splits before its first attempt
+# (loggamma's and _gamma_one's) and 7 an attempt (its key, x and U keys,
+# the normal's key and subkey, the normal's and U's bits) whose normal is
+# accepted at once.
+BETA_CHAIN_HASHES, GAMMA_HASHES, ATTEMPT_HASHES = 5, 2, 7
+# cgs_beta's lanes a gamma, its attempts in flight (csrc/jax_draws.cu:
+# kBetaSpec)
+BETA_SPEC_LANES = 2
 
 
 @functools.cache
@@ -58,19 +76,31 @@ def _raise(lib, what: str, err: int) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.jax_draws_error_string(err).decode()}")
 
 
-def _check(dev, *named) -> None:
+def _check(*named) -> None:
+    """Raises unless each (name, tensor, dtype) of ``named`` is of its dtype
+    and contiguous."""
     for name, t, dtype in named:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} on {t.device}; all inputs must share one CUDA device")
-        if t.dtype != dtype:
+        if t.dtype is not dtype:
             raise TypeError(f"{name} is {t.dtype}, want {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_keys(keys: torch.Tensor) -> None:
-    if keys.dim() != 2 or keys.shape[1] != 2 or keys.shape[0] < 1:
-        raise ValueError(f"want keys [M, 2] with M >= 1, got {tuple(keys.shape)}")
+def _device(*tensors) -> int:
+    """The index of the one CUDA device that all ``tensors`` lie on, else
+    raises.  Reads the tensors' attributes only: no device objects."""
+    index = tensors[0].get_device()
+    for t in tensors:
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"inputs on {[str(t.device) for t in tensors]}; all must share one "
+                             "CUDA device")
+    return index
+
+
+def _stream(index: int) -> int:
+    """The handle of device ``index``'s current CUDA stream (the capture
+    stream under CUDA-graph capture)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 # ---- the plain versions ----
@@ -137,27 +167,26 @@ def markov_codes(key: torch.Tensor, trans: tuple, lens: torch.Tensor, *, L: int,
     [A^(m+1)] float32, m = 0 .. s_order), in one launch.  No host sync, so a
     CUDA graph can capture it.  ``markov_codes.launches`` counts
     launches."""
-    if key.device.type == "cpu" and lens.device.type == "cpu":
+    if key.is_cpu and lens.is_cpu:
         return markov_codes_ref(key, trans, lens, L=L, s_order=s_order, A=A)
-    dev = lens.device
     if len(trans) != s_order + 1 or not 0 <= s_order <= MAX_S_ORDER:
         raise ValueError(f"want s_order in [0, {MAX_S_ORDER}] and its {s_order + 1} tables, "
                          f"got {len(trans)}")
     table = torch.cat([t.reshape(-1) for t in trans])
-    _check(dev, ("key", key, torch.int64), ("trans", table, torch.float32),
-           ("lens", lens, torch.int32))
+    _check(("lens", lens, torch.int32), ("key", key, torch.int64), ("trans", table, torch.float32))
     if tuple(key.shape) != (2,) or lens.dim() != 1:
         raise ValueError(f"want key [2] and lens [N], got {tuple(key.shape)}, "
                          f"{tuple(lens.shape)}")
+    index = _device(lens, key, table)
     if table.numel() != sum(A ** (m + 1) for m in range(s_order + 1)):
         raise ValueError(f"trans holds {table.numel()} probabilities, not "
                          f"A^1 + .. + A^{s_order + 1}")
     N = lens.shape[0]
-    codes = torch.empty((N, L), dtype=torch.int8, device=dev)
+    codes = lens.new_empty((N, L), dtype=torch.int8)
     lib = library()
     _raise(lib, "markov_codes", lib.markov_codes_launch(
         key.data_ptr(), table.data_ptr(), lens.data_ptr(), codes.data_ptr(), N, L, s_order, A,
-        table.numel(), dev.index, current_stream(dev)))
+        table.numel(), index, _stream(index)))
     markov_codes.launches += 1
     return codes
 
@@ -170,21 +199,21 @@ def cgs_z(flat: torch.Tensor, keys: torch.Tensor, row0: int = 0) -> torch.Tensor
     (float32 [M, N, C]) under the chains' carried ``keys`` ([M, 2] int64,
     read only), rows numbered from ``row0``; one launch.
     ``cgs_z.launches`` counts launches."""
-    if flat.device.type == "cpu" and keys.device.type == "cpu":
+    if flat.is_cpu and keys.is_cpu:
         return cgs_z_ref(flat, keys, row0)
-    dev = flat.device
-    _check(dev, ("flat", flat, torch.float32), ("keys", keys, torch.int64))
-    _check_keys(keys)
+    _check(("flat", flat, torch.float32), ("keys", keys, torch.int64))
+    if flat.dim() != 3:
+        raise ValueError(f"want flat [M, N, C], got {tuple(flat.shape)}")
     M, N, C = flat.shape
-    if keys.shape[0] != M or M > 65535 or C < 1:
-        raise ValueError(f"want keys [{M}, 2], M <= 65535 and C >= 1, got "
-                         f"{tuple(keys.shape)}, C={C}")
+    if keys.shape != (M, 2) or M < 1 or C < 1:
+        raise ValueError(f"want keys [{M}, 2], M >= 1 and C >= 1, got {tuple(keys.shape)}, C={C}")
     if not (0 <= row0 and row0 + N <= 2 ** 32):
         raise ValueError(f"rows {row0} .. {row0 + N - 1} outside fold_in's 32-bit data")
-    z = torch.empty((M, N), dtype=torch.int64, device=dev)
+    index = _device(flat, keys)
+    z = keys.new_empty((M, N))
     lib = library()
     _raise(lib, "cgs_z", lib.cgs_z_launch(flat.data_ptr(), keys.data_ptr(), z.data_ptr(), row0, N,
-                                          C, M, dev.index, current_stream(dev)))
+                                          C, M, index, _stream(index)))
     cgs_z.launches += 1
     return z
 
@@ -200,21 +229,20 @@ def cgs_beta(a: torch.Tensor, b: torch.Tensor, keys: torch.Tensor, lo: float, hi
     advances the keys and returns None.  With ``attempts`` also the
     gammas' Marsaglia-Tsang attempts int32 [M, 2].  ``cgs_beta.launches``
     counts launches."""
-    if all(t.device.type == "cpu" for t in (a, b, keys)):
+    if a.is_cpu and b.is_cpu and keys.is_cpu:
         return cgs_beta_ref(a, b, keys, lo, hi, draw, attempts)
-    dev = keys.device
-    _check(dev, ("keys", keys, torch.int64), ("a", a, torch.float32), ("b", b, torch.float32))
-    _check_keys(keys)
-    M = keys.shape[0]
-    if tuple(a.shape) != (M,) or tuple(b.shape) != (M,):
-        raise ValueError(f"want a, b [{M}], got {tuple(a.shape)}, {tuple(b.shape)}")
-    q = torch.empty((M,), dtype=torch.float32, device=dev)
-    n = torch.zeros((M, 2), dtype=torch.int32, device=dev) if attempts and draw else None
+    _check(("keys", keys, torch.int64), ("a", a, torch.float32), ("b", b, torch.float32))
+    M = keys.shape[0] if keys.dim() == 2 else 0
+    if M < 1 or keys.shape[1] != 2 or a.shape != (M,) or b.shape != (M,):
+        raise ValueError(f"want keys [M, 2] with M >= 1 and a, b [M], got {tuple(keys.shape)}, "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    index = _device(keys, a, b)
+    q = torch.empty_like(a) if draw else None
+    n = torch.empty_like(keys, dtype=torch.int32) if attempts and draw else None
     lib = library()
     _raise(lib, "cgs_beta", lib.cgs_beta_launch(
-        a.data_ptr(), b.data_ptr(), keys.data_ptr(), q.data_ptr(),
-        None if n is None else n.data_ptr(), int(draw), lo, hi, M, dev.index,
-        current_stream(dev)))
+        a.data_ptr(), b.data_ptr(), keys.data_ptr(), None if q is None else q.data_ptr(),
+        None if n is None else n.data_ptr(), draw, lo, hi, M, index, _stream(index)))
     cgs_beta.launches += 1
     if not draw:
         return None

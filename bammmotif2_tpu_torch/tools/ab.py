@@ -1,7 +1,7 @@
 """A/B between two checkouts on one GPU, in interleaved processes, with rank
 tests.
 
-    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,fdr,flat,kernels,loops,sampler} \
+    python -m bammmotif2_tpu_torch.tools.ab {cgs,counts,draws,fdr,flat,kernels,loops,sampler} \
         BASE_DIR CHANGE_DIR [--rounds N]
         [--M 1 4 10 16]
 
@@ -12,8 +12,16 @@ base).  A process imports its checkout's package and ``chip_smoke`` and
 measures, through that checkout's code:
 
 ``cgs``: CGS sweeps/s (``chip_smoke.time_cgs``: bench.py's problem, 10k x
-  200 bp, W=12, K=2, one chain; two timed runs of 30 sweeps through the
-  kernels and two plain, interleaved), the mean of its two runs a path.
+  200 bp, W=12, K=2; two timed runs of 30 sweeps of each of its modes,
+  interleaved: one chain through the kernels and plain, each graphed and
+  eager, and ten chains through the kernels, graphed and eager), the mean
+  of its two runs a mode.
+
+``draws``: the CGS sweep's draw wrappers at bench's shapes: ``cuda_draws.
+  cgs_z`` on 10k rows of 379 logits at M=1 and 10 and ``cgs_beta`` at M=1
+  and 16 (shapes 8,001 and 2,000): the wrapper's ms (CUDA events over
+  back-to-back calls), its kernel's device ms (``device_ms``) and its host
+  µs a call (``host_us``).
 
 ``counts``: the two counts-from-r wrappers at bench's geometry (10k x 200
   bp, W=12, K=2, S=2, the sampler's 0/1 r): ``cuda_counts.
@@ -155,6 +163,9 @@ def device_ops(fn, n: int = 10) -> dict:
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+LEAD_OPS = 32  # spin kernels that open a device_ms window
+
+
 def device_ms(fn, n: int, kernel: str, attempts: int = 4, per_call: int = 1) -> dict:
     """Device time per call under torch.profiler over n calls after one
     warm-up: of the __global__ function ``kernel`` alone (its ``per_call``
@@ -162,9 +173,11 @@ def device_ms(fn, n: int, kernel: str, attempts: int = 4, per_call: int = 1) -> 
     enqueues (the wrapper's torch ops included).
 
     A profiler window of a long process sometimes drops device events, which
-    would read low.  So a window counts only if it traced ``kernel`` exactly
-    n * per_call times and every other device operation a whole multiple of
-    n times;
+    would read low: on an H100 the first 14 device operations of a window
+    went missing, window after window.  So a window opens with LEAD_OPS
+    short spin kernels (``torch.cuda._sleep``, left out of the counts), and
+    it counts only if it traced ``kernel`` exactly n * per_call times and
+    every other device operation a whole multiple of n times;
     otherwise it is retried, ``attempts`` windows in all, and both times are
     "not measured" if none counts."""
     import torch
@@ -175,10 +188,13 @@ def device_ms(fn, n: int, kernel: str, attempts: int = 4, per_call: int = 1) -> 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(attempts):
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(LEAD_OPS):
+                torch.cuda._sleep(1_000)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
         own = [e for e in evs if f"::{kernel}(" in e.key or f"::{kernel}<" in e.key]
         if sum(e.count for e in own) == n * per_call and all(e.count % n == 0 for e in evs):
             return {"kernel_device_ms": sum(e.self_device_time_total for e in own) / n / 1e3,
@@ -245,8 +261,37 @@ def make_inputs(out_dir: str, measure: str, Ms=None) -> None:
 def measure_cgs(chip_smoke, dev, _inputs) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         out = chip_smoke.time_cgs(dev, tmp)
-    runs = {f"sweeps_per_s_{p}": out[f"sweeps_per_s_{p}"] for p in ("cuda", "plain")}
+    runs = {k: v for k, v in out.items() if k.startswith("sweeps_per_s_")}
     return {k: sum(v) / len(v) for k, v in runs.items()}, {"runs": runs}
+
+
+def measure_draws(chip_smoke, dev, _inputs) -> tuple:
+    import numpy as np
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_draws
+
+    metrics = {}
+
+    def record(tag, call, kernel):
+        metrics[f"{tag}_ms"] = chip_smoke.time_cuda(call, 100)
+        metrics[f"{tag}_device_ms"] = device_ms(call, 10, kernel)["kernel_device_ms"]
+        metrics[f"{tag}_host_us"] = host_us(call)
+
+    C = 1 + 2 * (chip_smoke.SEQ_LEN - chip_smoke.W + 1)
+    for M in (1, 10):
+        flat = torch.randn((M, chip_smoke.N_SEQS, C),
+                           generator=torch.Generator().manual_seed(M)).to(dev)
+        keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)), device=dev)
+        record(f"z_M{M}", lambda flat=flat, keys=keys: cuda_draws.cgs_z(flat, keys),
+               "cgs_z_kernel")
+    for M in (1, 16):
+        keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)), device=dev)
+        a = torch.full((M,), 8_001.0, device=dev)
+        b = torch.full((M,), 2_000.0, device=dev)
+        record(f"beta_M{M}", lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta(
+            a, b, keys, 1e-4, 1 - 1e-4), "cgs_beta_kernel")
+    return metrics, {}
 
 
 def case_call(name: str, args):
@@ -490,7 +535,8 @@ def measure_sampler(chip_smoke, dev, _inputs) -> tuple:
     return metrics, {}
 
 
-MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "fdr": measure_fdr,
+MEASURES = {"cgs": measure_cgs, "counts": measure_cases, "draws": measure_draws,
+            "fdr": measure_fdr,
             "flat": measure_flat, "kernels": measure_kernels, "loops": measure_loops,
             "sampler": measure_sampler}
 
@@ -584,7 +630,7 @@ def main(argv=None) -> int:
     trees = {"base": args.base, "change": args.change}
     procs = []
     with tempfile.TemporaryDirectory() as inputs:
-        if args.measure not in ("cgs", "fdr", "loops", "sampler"):
+        if args.measure not in ("cgs", "draws", "fdr", "loops", "sampler"):
             make_inputs(inputs, args.measure, args.M)
         seeds = ("--M", *map(str, args.M)) if args.M else ()
         for rnd in range(args.rounds):

@@ -69,6 +69,19 @@ median (the spread), the fastest variant and launch_plan's against it.
   no_store       the full runs' float4 scores are not stored;
   no_mask        the mask is not written.
 
+``cgs_draws``: the CGS sweep's draw kernels (``csrc/jax_draws.cu`` over
+``threefry.cuh``), on cgs_z at M=1, 4 and 10 and cgs_beta at M=1 and 16
+(``sweep_draws``); every variant gives the plain versions' draws:
+  as_is          the source unchanged;
+  z_elems1, z_elems2, z_elems8  1, 2 or 8 elements a lane in flight in
+                 cgs_z, not 4;
+  z_min_blocks6  cgs_z's registers capped for 6 resident blocks an SM;
+  z_general_logs cgs_z's gumbel through the general xla_logf (frexpf, every
+                 case tested);
+  rotl_shifts    the Threefry rotate as two shifts and an or, not a funnel
+                 shift;
+  beta_spec1, beta_spec4  1 or 4 lanes a gamma (attempts in flight), not 2.
+
 ``counts_stream``: the streaming counts-from-r kernel (B3, with
 ``cuda_counts.launch_plan``), on the sampler's 0/1 r; beside the variants,
 ``torch.sum`` of the same r, a read of the same bytes by PyTorch:
@@ -115,6 +128,8 @@ _PR5_CARRY = """const unsigned xl = (unsigned)x, old = atomicAdd(lo, xl);
 
 _STAGES = "constexpr int kStages = 2;"
 _ROWS_CAP = "auto kern = KernelWidths::kernel(W, smem_lut != 0, pick);"
+_Z_ELEMS = "constexpr int kZElems = 4;"
+_BETA_SPEC = "constexpr int kBetaSpec = 2;"
 
 DESIGNS = {  # design -> (source, __global__, {variant: edits})
     "em_pr5": ("em_counts", "em_counts_kernel", {
@@ -142,6 +157,18 @@ DESIGNS = {  # design -> (source, __global__, {variant: edits})
     "scores_plans": ("window_scores", "window_scores_kernel", {"as_is": []}),
     "counts_plans": ("counts_from_r", "counts_kernel", {"as_is": []}),
     "fdr_rows": ("em_counts", "em_counts_kernel", {"as_is": []}),
+    "cgs_draws": ("jax_draws", "cgs_z_kernel", {
+        "as_is": [],
+        "z_elems1": [(_Z_ELEMS, "constexpr int kZElems = 1;")],
+        "z_elems2": [(_Z_ELEMS, "constexpr int kZElems = 2;")],
+        "z_elems8": [(_Z_ELEMS, "constexpr int kZElems = 8;")],
+        "z_min_blocks6": [("__launch_bounds__(kThreads)\ncgs_z_kernel(",
+                           "__launch_bounds__(kThreads, 6)\ncgs_z_kernel(")],
+        "z_general_logs": [("gumbel_fitted(random_bits(ks", "gumbel_of(random_bits(ks")],
+        "rotl_shifts": [("return __funnelshift_l(x, x, r);", "return (x << r) | (x >> (32 - r));")],
+        "beta_spec1": [(_BETA_SPEC, "constexpr int kBetaSpec = 1;")],
+        "beta_spec4": [(_BETA_SPEC, "constexpr int kBetaSpec = 4;")],
+    }),
     "counts_stream": ("counts_from_r", "counts_kernel", {
         "as_is": [],
         "stream_only": [("    bool keep = x != 0.f;", "    bool keep = false;"),
@@ -648,6 +675,90 @@ def summarize(paths: list) -> dict:
     return out
 
 
+def draws_callers(lib_path: str):
+    """(z, beta): calls of the library's cgs_z_launch(flat, keys) and
+    cgs_beta_launch(a, b, keys, attempts=True) on fresh outputs (beta on a
+    copy of the keys, so that every call draws the same numbers)."""
+    import torch
+
+    lib = ctypes.CDLL(lib_path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cgs_z_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
+    lib.cgs_beta_launch.argtypes = [p] * 5 + [i, ctypes.c_float, ctypes.c_float, i, i, p]
+
+    def z(flat, keys):
+        M, N, C = flat.shape
+        out = torch.empty((M, N), dtype=torch.int64, device=flat.device)
+        err = lib.cgs_z_launch(flat.data_ptr(), keys.data_ptr(), out.data_ptr(), 0, N, C, M,
+                               flat.device.index, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"cgs_z launch failed: {err}")
+        return out
+
+    def beta(a, b, keys):
+        M = a.shape[0]
+        keys = keys.clone()
+        q = torch.empty(M, device=a.device)
+        n = torch.empty((M, 2), dtype=torch.int32, device=a.device)
+        err = lib.cgs_beta_launch(a.data_ptr(), b.data_ptr(), keys.data_ptr(), q.data_ptr(),
+                                  n.data_ptr(), 1, 1e-4, 1 - 1e-4, M, a.device.index,
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"cgs_beta launch failed: {err}")
+        return q, n, keys
+
+    return z, beta
+
+
+def sweep_draws(libs: dict, dev) -> dict:
+    """``cgs_draws``: each variant's cgs_z on bench's 10k rows of 379
+    logits at M=1, 4 and 10, and cgs_beta at M=1 and 16 on the sampler's
+    shapes (8,001 and 2,000) and at a = b = 1 (most rejections), held to
+    the plain versions (z equal; q, attempts and keys equal) and timed
+    (``timed``, two rounds: in order, then reversed)."""
+    import numpy as np
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_draws
+
+    C = 1 + 2 * (200 - 12 + 1)
+    cases, ref = {}, {}
+    for M in (1, 4, 10):
+        flat = torch.randn((M, 10_000, C), generator=torch.Generator().manual_seed(M)).to(dev)
+        keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)), device=dev)
+        cases[f"z_M{M}"] = ("z", (flat, keys))
+        ref[f"z_M{M}"] = cuda_draws.cgs_z_ref(flat, keys)
+    for M, a, b in ((1, 8_001.0, 2_000.0), (16, 8_001.0, 2_000.0), (16, 1.0, 1.0)):
+        keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)), device=dev)
+        args = (torch.full((M,), a, device=dev), torch.full((M,), b, device=dev), keys)
+        tag = f"beta_M{M}" + ("_a1_b1" if a == 1.0 else "")
+        cases[tag] = ("beta", args)
+        k = keys.clone()
+        q, n = cuda_draws.cgs_beta_ref(*args[:2], k, 1e-4, 1 - 1e-4, attempts=True)
+        ref[tag] = (q, n, k)
+    out = {}
+    callers = {name: draws_callers(path) for name, path in libs.items()}
+    for tag, (which, args) in cases.items():
+        calls = {name: (lambda c=c, which=which, args=args: c[which == "beta"](*args))
+                 for name, c in callers.items()}
+        for name, fn in calls.items():
+            got, want = fn(), ref[tag]
+            same = (torch.equal(got, want) if which == "z" else
+                    torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+                    and bool(((got[0] - want[0]).abs() <= 1e-6 * want[0].abs()).all()))
+            if not same:
+                raise AssertionError(f"{name} differs from the plain version at {tag}")
+        kernel = "cgs_z_kernel" if which == "z" else "cgs_beta_kernel"
+        runs = {name: {} for name in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for name in order:
+                for k, v in timed(calls[name], kernel).items():
+                    runs[name].setdefault(k, []).append(v)
+        out[tag] = runs
+        print(tag, json.dumps(runs), flush=True)
+    return out
+
+
 SWEEPS = {"em_plans": sweep_em, "scores_plans": sweep_scores, "counts_plans": sweep_counts,
           "fdr_rows": sweep_fdr}
 
@@ -691,7 +802,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(os.path.abspath(a.source_root), tmp, source, variants)
         checks = chip_smoke.load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
-        if a.design in SWEEPS:
+        if source == "jax_draws":
+            out["cases"] = sweep_draws(libs, dev)
+            cases = {}
+        elif a.design in SWEEPS:
             out["cases"] = SWEEPS[a.design](a, libs["as_is"], checks, dev)
             cases = {}
         elif source == "window_scores":

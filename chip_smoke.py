@@ -28,11 +28,15 @@ Phases (any failure exits non-zero):
                kernels of the reference's jax.random streams
                (ops/cuda_draws.py, tests/test_torch_draws.py):
                markov_codes bit-equal to markov_codes_ref at sOrder 0-5
-               (check_markov), cgs_z bit-equal to cgs_z_ref at M=16, 10k
-               rows of 379 logits, two row offsets (check_z), cgs_beta
-               against cgs_beta_ref on 2 x 10^5 (a, b) pairs, the same
-               attempts, q within rtol 1e-6 and the same advanced keys
-               (check_beta); the kernels' draws against the CPU's plain
+               (check_markov), cgs_z bit-equal to cgs_z_ref on
+               Z_CASES: M=16, 10k rows of 379 logits at two row offsets,
+               M=1, C = 1, 31 and 33, N off a block's rows, the last rows
+               of fold_in's 32 bits, rows of NEG_INF, -inf, NaN and +inf
+               (check_z), cgs_beta against cgs_beta_ref on 2 x 10^5 (a, b)
+               pairs and on BETA_SMALL's shapes, the same attempts, q
+               within rtol 1e-6, the same advanced keys, and some gamma
+               past the kernel's lanes a gamma (check_beta); the kernels'
+               draws against the CPU's plain
                versions, which tests/test_torch_threefry.py holds to
                jax.random (check_draws_against_cpu); and check_loops: the EM loop
                and the CGS sweeps each as one launch of a WHILE-node graph
@@ -157,8 +161,10 @@ Phases (any failure exits non-zero):
                E+M kernel's device time at bench's geometry at K=2 and 4,
                M=1 and 4 (and on homopolymer rows), the window-score
                kernel's at config 5's at M=1 and 10; each
-               kernel's bound (bytes over 3.35 TB/s or f32 operations over
-               67 TFLOP/s, whichever is larger) and, where one PyTorch call computes
+               kernel's bound (bytes over 3.35 TB/s, f32 operations over
+               67 TFLOP/s or 32-bit integer operations over 132 SMs x 64 a
+               clock x the SM clock, whichever is largest) and, where one
+               PyTorch call computes
                the same function (embedding_bag for window scores on an
                index built beforehand, index_add_ for counts from r with its
                index built beforehand and, beside it, inside the timed
@@ -169,10 +175,12 @@ Phases (any failure exits non-zero):
                under torch.profiler over 10 graphed and 10 eager sweeps at
                M=1 and 10); the stop-test kernel at M=16; the draw kernels
                against their plain versions: markov_codes at config 5's 1M
-               x 200 bp and config 4's fold (20k x 200 bp), cgs_z at M=1 and
-               10 on 10k rows of 379 logits beside torch.rand and the argmax
-               of logits plus gumbel noise, cgs_beta at M=1 and 16 beside a
-               generator's torch._standard_gamma; the device
+               x 200 bp and config 4's fold (20k x 200 bp), cgs_z at M=1,
+               10 and 16 on 10k rows of 379 logits beside torch.rand and
+               the argmax of logits plus gumbel noise, cgs_beta at M=1, 10
+               and 16 beside a generator's torch._standard_gamma, where
+               cgs_beta's host µs go (beta_host_steps), each kernel's
+               bound by bytes, f32 and 32-bit integer operations; the device
                loop's own cost an iteration, a WHILE-node launch against a
                replay an iteration, on a body of two small kernels;
                the loops (time_loops): EM its/s eager against graphed at
@@ -195,6 +203,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -227,6 +236,10 @@ MULTI_SEEDS, MULTI_SEED_ORDERS = 16, ("0", "2")
 # memory bandwidth, and f32 arithmetic outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# 32-bit integer add, shift, funnel shift and bitwise results a clock on an SM
+# of compute capability 9.0 (NVIDIA's CUDA C++ Programming Guide, the
+# throughput table of its arithmetic instructions), on the H100's 132 SMs
+INT32_OPS_PER_SM_CLOCK, SMS = 64, 132
 
 
 def log(*a):
@@ -281,14 +294,30 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def bound(nbytes: int, ops: int) -> dict:
-    """The least time the card could take: the bytes a function must move
-    (each input read once, each output written once) over HBM_BYTES_PER_S,
-    or its f32 operations over F32_OPS_PER_S, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(nbytes), "ops": int(ops)}
+@functools.cache
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (nvidia-smi's clocks.max.sm)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+
+
+def bound(nbytes: int, ops: int, int_ops: int = 0, clock_mhz: float | None = None) -> dict:
+    """The least time the card could take: the largest of the bytes a
+    function must move (each input read once, each output written once)
+    over HBM_BYTES_PER_S, its f32 operations over F32_OPS_PER_S and its
+    32-bit integer operations over SMS x INT32_OPS_PER_SM_CLOCK x the SM
+    clock (``clock_mhz``, else the card's highest).  ``bound_by`` is
+    "bytes" or "operations", ``bound_term`` which of the three terms."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "f32": ops / F32_OPS_PER_S, "int32": 0.0}
+    if int_ops:
+        mhz = sm_clock_mhz() if clock_mhz is None else clock_mhz
+        terms["int32"] = int_ops / (SMS * INT32_OPS_PER_SM_CLOCK * mhz * 1e6)
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term] * 1e3,
+            "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term,
+            "bytes": int(nbytes), "ops": int(ops), "int_ops": int(int_ops)}
 
 
 def valid_windows(lens, S: int, W: int) -> int:
@@ -1761,27 +1790,88 @@ def time_cgs(device, tmp) -> dict:
     return out
 
 
-# f32 operations a gumbel-shifted logit costs (csrc/threefry.cuh): two of
-# XLA's logs (9 fused multiply-adds, 2 operations each, and 11 other
-# operations), the uniform's 3, the logit's add; the Threefry hash is
-# integer work, which the card's table of peaks has no line for
-GUMBEL_F32_OPS = 2 * (9 * 2 + 11) + 3 + 1
+def z_bound(M: int, N: int, C: int, clock_mhz: float | None = None) -> dict:
+    """cgs_z's bound on [M, N, C] logits: the logits and keys read, z
+    written; a gumbel-shifted logit an element; a hash an element and two a
+    row (the chain's split, the row's fold_in)."""
+    from bammmotif2_tpu_torch.ops.cuda_draws import GUMBEL_F32_OPS, THREEFRY_INT_OPS
+
+    return bound(M * N * C * 4 + M * 16 + M * N * 8, M * N * C * GUMBEL_F32_OPS,
+                 M * N * (C + 2) * THREEFRY_INT_OPS, clock_mhz)
+
+
+def beta_bound(attempts, draw: bool = True, clock_mhz: float | None = None) -> dict:
+    """cgs_beta's bound for the attempts int32 [M, 2] that this call's
+    gammas took (``draw`` False: the sweep's three splits alone): a, b and
+    the keys read, the keys and q written; the chains' and the gammas'
+    Threefry hashes (cuda_draws.BETA_CHAIN_HASHES, GAMMA_HASHES,
+    ATTEMPT_HASHES); a chain's few hundred float operations are left out."""
+    from bammmotif2_tpu_torch.ops import cuda_draws as d
+
+    M = attempts.shape[0]
+    hashes = M * 3 if not draw else (
+        M * (d.BETA_CHAIN_HASHES + 2 * d.GAMMA_HASHES)
+        + int(attempts.long().sum()) * d.ATTEMPT_HASHES)
+    return bound(2 * 16 * M + 8 * M + 4 * M, 0, hashes * d.THREEFRY_INT_OPS, clock_mhz)
+
+
+DRAW_MS = (1, 10, 16)  # chains of time_draws' cgs_z and cgs_beta
+
+
+def beta_host_steps(a, b, keys, n: int = 200) -> dict:
+    """Where cgs_beta's host µs a call go: each step of the wrapper (the
+    CPU test, dtype and contiguity checks, shapes, device, the output's
+    allocation, the pointers and stream, the ctypes launch) repeated n
+    times on its own, time.perf_counter around the n, µs a step."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_draws as d
+
+    M, lib = keys.shape[0], d.library()
+    q = torch.empty_like(a)
+    index = keys.get_device()
+    steps = {
+        "cpu_test": lambda: a.is_cpu and b.is_cpu and keys.is_cpu,
+        "dtypes": lambda: d._check(("keys", keys, torch.int64), ("a", a, torch.float32),
+                                   ("b", b, torch.float32)),
+        "shapes": lambda: (keys.dim() == 2 and keys.shape[1] == 2 and a.shape == (M,)
+                           and b.shape == (M,)),
+        "device": lambda: d._device(keys, a, b),
+        "alloc": lambda: torch.empty_like(a),
+        "pointers_stream": lambda: (a.data_ptr(), b.data_ptr(), keys.data_ptr(), q.data_ptr(),
+                                    d._stream(index)),
+        "launch": lambda: lib.cgs_beta_launch(a.data_ptr(), b.data_ptr(), keys.data_ptr(),
+                                              q.data_ptr(), None, True, 1e-4, 1 - 1e-4, M,
+                                              index, d._stream(index)),
+    }
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return out
 
 
 def time_draws(device, tmp) -> dict:
     """The draw kernels (ops/cuda_draws.py) against their plain versions at
     their paths' shapes: markov_codes on config 5's 1M x 200 bp negatives
     (``c5_negative_inputs``) and on config 4's fold (the first 20k of
-    them: 2,000 held-out rows x --mFold 10); cgs_z at M=1 and 10 on bench's
-    10k rows of C = 379 logits (W=12, both strands, 189 windows each); and
-    cgs_beta at M=1 and 16.  Each: the wrapper's ms (CUDA events over
-    back-to-back calls), its kernel's device ms (torch.profiler), its host
-    µs a call, its plain version's ms and its bound (the bytes it must move
-    over HBM_BYTES_PER_S, or its GUMBEL_F32_OPS a draw over F32_OPS_PER_S);
-    cgs_z beside the library calls that draw the same distribution from a
-    generator (torch.rand of the logits' shape, then the argmax of logits
-    plus -log(-log(u))), cgs_beta beside torch._standard_gamma of the 2M
-    shapes; markov_codes has no library call."""
+    them: 2,000 held-out rows x --mFold 10); cgs_z at M = DRAW_MS on
+    bench's 10k rows of C = 379 logits (W=12, both strands, 189 windows
+    each); and cgs_beta at M = DRAW_MS.  Each: the wrapper's ms (CUDA
+    events over back-to-back calls), its kernel's device ms
+    (torch.profiler), its host µs a call, its plain version's ms and its
+    bound (``bound``: bytes, f32 operations, and the Threefry hashes' 32-bit
+    integer operations, THREEFRY_INT_OPS a hash; markov_codes hashes a
+    letter a position of each row and L splits); cgs_z beside the library
+    calls that draw the same distribution from a generator (torch.rand of
+    the logits' shape, then the argmax of logits plus -log(-log(u))),
+    cgs_beta beside torch._standard_gamma of the 2M shapes; markov_codes
+    has no library call."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_draws
@@ -1790,7 +1880,7 @@ def time_draws(device, tmp) -> dict:
     out = {}
     key, trans, lens, s_order = c5_negative_inputs(device, tmp)
     table = sum(t.numel() for t in trans) * 4
-    for tag, n in (("markov_config5", lens.numel()), ("markov_config4_fold", 20_000)):
+    for tag, n in (("markov_config4_fold", 20_000), ("markov_config5", lens.numel())):
         ln = lens[:n].contiguous()
         call = lambda ln=ln: cuda_draws.markov_codes(key, trans, ln, L=SEQ_LEN,  # noqa: E731
                                                      s_order=s_order, A=4)
@@ -1799,13 +1889,14 @@ def time_draws(device, tmp) -> dict:
             "rows": n, "ms": time_cuda(call, 5 if n > 100_000 else 50),
             "plain_ms": time_cuda(lambda ln=ln: cuda_draws.markov_codes_ref(
                 key, trans, ln, L=SEQ_LEN, s_order=s_order, A=4), 1),
-            **device_ms(call, 3, "markov_codes_kernel"),
+            **device_ms(call, 3 if n > 100_000 else 20, "markov_codes_kernel", attempts=6),
             "host_us": host_us(call, 20),
-            **bound(n * 4 + table + 16 + n * SEQ_LEN, draws * GUMBEL_F32_OPS),
+            **bound(n * 4 + table + 16 + n * SEQ_LEN, draws * cuda_draws.GUMBEL_F32_OPS,
+                    (draws + SEQ_LEN) * cuda_draws.THREEFRY_INT_OPS),
             "library_ms": None,
         }
     C = 1 + 2 * (SEQ_LEN - W + 1)
-    for M in (1, 10):
+    for M in DRAW_MS:
         flat = torch.randn((M, N_SEQS, C), generator=torch.Generator().manual_seed(M)).to(device)
         keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)),
                                device=device)
@@ -1821,10 +1912,11 @@ def time_draws(device, tmp) -> dict:
             "plain_ms": time_cuda(lambda flat=flat, keys=keys: cuda_draws.cgs_z_ref(flat, keys), 3),
             **device_ms(call, 10, "cgs_z_kernel"),
             "host_us": host_us(call),
-            **bound(flat.numel() * 4 + M * 16 + M * N_SEQS * 8, flat.numel() * GUMBEL_F32_OPS),
+            **z_bound(M, N_SEQS, C),
             "library_ms": time_cuda(library, 50),
         }
-    for M in (1, 16):
+        del flat
+    for M in DRAW_MS:
         keys = torch.as_tensor(np.random.default_rng(M).integers(0, 2 ** 32, (M, 2)),
                                device=device)
         a = torch.full((M,), 8_001.0, device=device)
@@ -1832,19 +1924,21 @@ def time_draws(device, tmp) -> dict:
         gen = torch.Generator(device=device).manual_seed(0)
         beta = lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta(a, b, keys, 1e-4, 1 - 1e-4)  # noqa: E731
         ab = torch.cat([a, b])
+        _q, attempts = cuda_draws.cgs_beta(a, b, keys.clone(), 1e-4, 1 - 1e-4, attempts=True)
         out[f"beta_M{M}"] = {
             "ms": time_cuda(beta, 200),
             "plain_ms": time_cuda(lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta_ref(
                 a, b, keys, 1e-4, 1 - 1e-4), 5),
             **device_ms(beta, 10, "cgs_beta_kernel"),
             "host_us": host_us(beta),
-            **bound(2 * 16 * M + 8 * M + 4 * M, 0),
+            "host_steps_us": beta_host_steps(a, b, keys),
+            **beta_bound(attempts),
             "library_ms": time_cuda(lambda ab=ab, gen=gen: torch._standard_gamma(ab, generator=gen),
                                     200),
         }
     out["gpu"] = nvidia_smi()
-    log("timing draws (config 5's and config 4's negatives; 10k rows of 379 logits, M=1 "
-        "and 10; q at M=1 and 16): " + json.dumps(out))
+    log("timing draws (config 4's and config 5's negatives; 10k rows of 379 logits and q at M="
+        + "/".join(map(str, DRAW_MS)) + "): " + json.dumps(out))
     return out
 
 
@@ -2037,10 +2131,13 @@ def time_condition(device) -> dict:
     """The EM loop's stop-test kernel (``cuda_while.condition``) against its
     plain version at M=16 (a multi-seed --EM group's stack), CUDA events
     over back-to-back calls: it reads its [M], vds [M], cap and eps and
-    writes one byte; 2 M comparisons."""
+    writes one byte; M float comparisons (vds against eps) and 2 M integer
+    operations (its against cap, the join); also its kernel's device ms
+    (torch.profiler) and its host µs a call."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_while
+    from bammmotif2_tpu_torch.tools.ab import device_ms, host_us
 
     M = 16
     its = torch.arange(M, dtype=torch.int32, device=device)
@@ -2048,10 +2145,13 @@ def time_condition(device) -> dict:
     cap = torch.tensor(1000, dtype=torch.int32, device=device)
     eps = torch.tensor(1e-3, device=device)
     running = torch.tensor(False, device=device)
-    out = {"ms": time_cuda(lambda: cuda_while.condition(its, vds, cap, eps, running), 200),
+    call = lambda: cuda_while.condition(its, vds, cap, eps, running)  # noqa: E731
+    out = {"ms": time_cuda(call, 200),
            "plain_ms": time_cuda(
                lambda: running.copy_(cuda_while.condition_ref(its, vds, cap, eps)), 200),
-           **bound(8 * M + 4 + 4 + 1, 2 * M), "library_ms": None, "M": M}
+           **device_ms(call, 20, "loop_condition_kernel", attempts=6),
+           "host_us": host_us(call),
+           **bound(8 * M + 4 + 4 + 1, M, 2 * M), "library_ms": None, "M": M}
     log("timing loop_condition (M=16): " + json.dumps(out))
     return out
 
@@ -2207,7 +2307,8 @@ def main() -> int:
                  "replaces": tpu, "launches": slices["launches"][name],
                  "max_abs_err": max_err[name]}
         entry.update({k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        entry.update({k: t[k] for k in ("combined_ms", "kernel_device_ms", "call_device_ms",
+        entry.update({k: t[k] for k in ("bound_term", "combined_ms", "kernel_device_ms",
+                                        "call_device_ms",
                                         "combined_kernel_device_ms", "host_us",
                                         "library_with_index_ms") if k in t})
         kernels.append(entry)

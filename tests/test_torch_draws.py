@@ -212,61 +212,117 @@ def check_markov(device, cases=MARKOV_CASES) -> dict:
     return out
 
 
-def check_z(device, M: int = 16, N: int = 10_000, C: int = 379) -> dict:
-    """cgs_z against cgs_z_ref at M chains, N rows and C logits a row (the
-    10k set at a 16-seed stack, bench's W), at row offsets 0 and 4,096, on
-    logits with NEG_INF windows: bit-equal, one launch a call.  Returns
-    {"cases", "rows", "mismatches", "launches"}."""
-    rng = np.random.default_rng(7)
-    flat = torch.as_tensor(rng.normal(0.0, 2.0, (M, N, C)).astype(np.float32), device=device)
-    flat[:, :, 5::7] = -1e30
-    keys = random_keys(M, seed=7, device=device)
-    bad, before = 0, cuda_draws.cgs_z.launches
-    for row0 in (0, 4_096):
+# check_z's cases: name -> (M, N, C, row0, logits); the 10k set at a 16-seed
+# stack and bench's C (two row offsets), M=1 (the one chain's rows on the
+# resident grid), C around a warp's 32 lanes, N not a multiple of a block's
+# 8 rows, the last rows fold_in's 32 bits reach, and rows of special values
+Z_CASES = {
+    "M16_C379": (16, 10_000, 379, 0, "neg_inf_windows"),
+    "M16_C379_row4096": (16, 10_000, 379, 4_096, "neg_inf_windows"),
+    "M1_C379": (1, 10_000, 379, 0, "neg_inf_windows"),
+    "M3_C1": (3, 1_003, 1, 0, "normal"),
+    "M3_C31": (3, 1_003, 31, 17, "normal"),
+    "M3_C33": (3, 1_003, 33, 0, "normal"),
+    "M2_N10001_top_rows": (2, 10_001, 379, 2 ** 32 - 10_001, "neg_inf_windows"),
+    "M4_special_rows": (4, 2_003, 379, 0, "special"),
+}
+
+
+def z_logits(M: int, N: int, C: int, kind: str, seed: int = 7) -> np.ndarray:
+    """check_z's logits float32 [M, N, C]: normal(0, 2); with NEG_INF
+    (-1e30) at every 7th column (``neg_inf_windows``); or (``special``)
+    with rows all NEG_INF, rows all -inf, and rows with one or two NaNs,
+    one or two +inf, and a NaN beside a +inf."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 2.0, (M, N, C)).astype(np.float32)
+    if kind == "neg_inf_windows":
+        x[:, :, 5::7] = -1e30
+    elif kind == "special":
+        nan, inf = np.float32("nan"), np.float32("inf")
+        x[:, 0::11] = -1e30
+        x[:, 1::11] = -inf
+        x[:, 2::11, 200] = nan
+        x[:, 3::11, 17] = nan
+        x[:, 3::11, 300] = nan
+        x[:, 4::11, 50] = inf
+        x[:, 5::11, 9] = inf
+        x[:, 5::11, 10] = inf
+        x[:, 6::11, 301] = inf
+        x[:, 6::11, 302] = nan
+        x[:, 7::11, :] = x[:, 7::11, :1]  # all equal: the gumbel alone decides
+    return x
+
+
+def check_z(device, cases=Z_CASES) -> dict:
+    """cgs_z against cgs_z_ref for each case of ``cases`` (M chains, N
+    rows, C logits, rows from row0): bit-equal, one launch a call.
+    Returns {"cases", "rows", "mismatches", "launches"}."""
+    bad, rows, before = 0, 0, cuda_draws.cgs_z.launches
+    for i, (M, N, C, row0, kind) in enumerate(cases.values()):
+        flat = torch.as_tensor(z_logits(M, N, C, kind), device=device)
+        keys = random_keys(M, seed=7 + i, device=device)
         got = cuda_draws.cgs_z(flat, keys, row0)
         want = cuda_draws.cgs_z_ref(flat, keys, row0)
         bad += int((got != want).sum())
+        rows += M * N
+        del flat
     torch.cuda.synchronize(device)
-    out = {"cases": 2, "rows": 2 * M * N, "mismatches": bad,
+    out = {"cases": len(cases), "rows": rows, "mismatches": bad,
            "launches": cuda_draws.cgs_z.launches - before}
-    assert bad == 0 and out["launches"] == 2, out
+    assert bad == 0 and out["launches"] == len(cases), out
     return out
 
 
-def check_beta(device, n: int = 100_000) -> dict:
+# check_beta's small shapes: (a, b, chains); at a = b = 1 about one attempt
+# in twenty is rejected, so some gamma needs more attempts than the kernel
+# has lanes for (cuda_draws.BETA_SPEC_LANES) and the next round runs
+BETA_SMALL = ((1.0, 1.0, 200_000), (1.0, 2.0, 4_096), (2.0, 1.0, 1), (1.5, 3.0, 33))
+
+
+def check_beta(device, n: int = 100_000, small=BETA_SMALL) -> dict:
     """cgs_beta against cgs_beta_ref on n (a, b) pairs (n chains, the keys
     then advanced and drawn again, then advanced without a draw; shapes
-    from 1 to 10^4 + 1, a tenth of them below 4): the same attempts but for
-    at most BETA_FLIP_SHARE of the draws, q within BETA_RTOL where they
-    agree, and the same advanced keys.
+    from 1 to 10^4 + 1, a tenth of them below 4), and on the ``small``
+    shapes' chains: the same attempts but for at most BETA_FLIP_SHARE of
+    the draws, q within BETA_RTOL where they agree, and the same advanced
+    keys; some gamma took more attempts than cuda_draws.BETA_SPEC_LANES.
     Returns {"pairs", "flips", "max_rel_err", "max_abs_err",
-    "max_attempts", "launches"}."""
+    "max_attempts", "spec_lanes", "launches"}."""
     rng = np.random.default_rng(8)
     shapes = np.where(rng.random((2, n)) < 0.1, rng.integers(1, 4, (2, n)),
                       rng.integers(1, 10_002, (2, n))).astype(np.float32)
-    a = torch.as_tensor(shapes[0], device=device)
-    b = torch.as_tensor(shapes[1], device=device)
-    keys = random_keys(n, seed=9, device=device)
-    ref_keys = keys.clone()
-    flips, rel, err, top, before = 0, 0.0, 0.0, 0, cuda_draws.cgs_beta.launches
-    for _ in range(2):
-        q, att = cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, attempts=True)
-        q_ref, att_ref = cuda_draws.cgs_beta_ref(a, b, ref_keys, Q_MIN, Q_MAX, attempts=True)
-        same = (att == att_ref).all(dim=1)
-        flips += int((~same).sum())
-        d = (q - q_ref).abs()[same]
-        rel = max(rel, float((d / q_ref.abs()[same]).max()))
-        err = max(err, float(d.max()))
-        top = max(top, int(att.max()))
+    cases = [(torch.as_tensor(shapes[0], device=device), torch.as_tensor(shapes[1], device=device),
+              random_keys(n, seed=9, device=device), 2)]
+    for i, (sa, sb, m) in enumerate(small):
+        cases.append((torch.full((m,), sa, device=device), torch.full((m,), sb, device=device),
+                      random_keys(m, seed=10 + i, device=device), 1))
+    flips = pairs = top = calls = 0
+    rel = err = 0.0
+    before = cuda_draws.cgs_beta.launches
+    for a, b, keys, draws in cases:
+        ref_keys = keys.clone()
+        for _ in range(draws):
+            q, att = cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, attempts=True)
+            q_ref, att_ref = cuda_draws.cgs_beta_ref(a, b, ref_keys, Q_MIN, Q_MAX, attempts=True)
+            same = (att == att_ref).all(dim=1)
+            flips += int((~same).sum())
+            d = (q - q_ref).abs()[same]
+            rel = max(rel, float((d / q_ref.abs()[same]).max()))
+            err = max(err, float(d.max()))
+            top = max(top, int(att.max()))
+            pairs += a.shape[0]
+            assert torch.equal(keys, ref_keys)
+        # --noQSampling: the keys advance, nothing is drawn
+        assert cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, draw=False) is None
+        cuda_draws.cgs_beta_ref(a, b, ref_keys, Q_MIN, Q_MAX, draw=False)
         assert torch.equal(keys, ref_keys)
-    # --noQSampling: the keys advance, nothing is drawn
-    assert cuda_draws.cgs_beta(a, b, keys, Q_MIN, Q_MAX, draw=False) is None
-    cuda_draws.cgs_beta_ref(a, b, ref_keys, Q_MIN, Q_MAX, draw=False)
-    assert torch.equal(keys, ref_keys)
+        calls += draws + 1
     torch.cuda.synchronize(device)
-    out = {"pairs": 2 * n, "flips": flips, "max_rel_err": rel, "max_abs_err": err,
-           "max_attempts": top, "launches": cuda_draws.cgs_beta.launches - before}
-    assert flips <= BETA_FLIP_SHARE * 2 * n and rel <= BETA_RTOL and out["launches"] == 3, out
+    out = {"pairs": pairs, "flips": flips, "max_rel_err": rel, "max_abs_err": err,
+           "max_attempts": top, "spec_lanes": cuda_draws.BETA_SPEC_LANES,
+           "launches": cuda_draws.cgs_beta.launches - before}
+    assert flips <= BETA_FLIP_SHARE * pairs and rel <= BETA_RTOL and out["launches"] == calls, out
+    assert top > cuda_draws.BETA_SPEC_LANES, out
     return out
 
 
