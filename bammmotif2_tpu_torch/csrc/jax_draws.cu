@@ -40,29 +40,35 @@
 //     function here not bit-equal to the reference's.
 //
 // What bounds them (chip_smoke.py::bound; H100 SXM: 3.35 TB/s, 67 TFLOP/s
-// f32, 132 SMs x 64 32-bit integer results a clock): the Threefry hashes'
-// integer work, THREEFRY_INT_OPS = 73 a hash (ops/cuda_draws.py).
+// f32, and 132 SMs of two 32-bit integer pipes, 64 results a clock each:
+// shifts and bitwise operations on the ALU pipe alone, adds on either).  A
+// Threefry-2x32 hash is THREEFRY_INT_OPS = 73 integer operations, of them
+// THREEFRY_ALU_OPS = 41 rotates and xors (ops/cuda_draws.py): nvcc makes a
+// rotate one SHF and a xor one LOP3, and the adds IADD3 or IMAD.IADD
+// (tools/sass_mix.py), so a hash costs the ALU pipe at least 41 of its
+// results.  At 1,980 MHz:
 //   markov_codes: A hashes a letter of each position and row and L splits,
 //     2 A Cephes logs (GUMBEL_F32_OPS = 62 a draw) and the row's codes: at
-//     1M x 200 bp, sOrder 2: 5.8e10 integer operations (3.5 ms at 1,980
-//     MHz), 5.0e10 f32 (0.74 ms), 204 MB (0.06 ms).  A thread a row, its
-//     log tables in shared memory; each thread makes split(key, t) again.
-//   cgs_z: a hash and 62 f32 operations an element, 2 hashes a row, the
-//     logits read once: at M=1, 10k rows of 379 logits, 2.8e8 integer
-//     operations (16.6 us), 2.3e8 f32 (3.5 us), 15.2 MB (4.6 us).  So the
-//     work an element is cut to the hash's: the warps of the resident grid
-//     walk the rows (no second wave of blocks); a lane makes one row key
-//     for 32 rows and the warp shares them by shuffles; a row's key
-//     schedule (Schedule) is made once, so an element pays the 20 rounds
-//     and 5 injections alone; the rotate is one funnel shift; the two logs
-//     read exponent and mantissa from the bits (xla_logf_normal: Gumbel's
-//     inputs are normal, positive and finite); the compare tests for NaN
-//     only where v is not below the best; a lane loads kZElems logits
-//     before it hashes them.  On an H100 (700 W, tools/kernel_variants.py
-//     --design cgs_draws): 28.6 us at M=1 and 256 at M=10, against 28.9
-//     and 284 with one element a lane, 36.4 and 314 with the general logs
-//     and 30.3 and 247 with the rotate as two shifts; 8 elements or 6
-//     blocks an SM gained at most 3% at M >= 4 and lost as much at M=1.
+//     1M x 200 bp, sOrder 2, 2.0 ms of ALU-pipe work, 0.74 ms of f32, 0.06
+//     ms of bytes.  A thread a row, its log tables in shared memory; each
+//     thread makes split(key, t) again.  Its Gumbel is cgs_z's (gumbel_of,
+//     the logs fitted to their range).
+//   cgs_z: a hash and 62 f32 operations an element, a hash a row and a
+//     chain, the logits read once: at M=1, 10k rows of 379 logits, 9.3 us
+//     of ALU-pipe work, 3.5 of f32, 4.6 of bytes.  So the work an element
+//     is cut to the hash's: the warps of the resident grid walk the rows
+//     (no second wave of blocks); a lane makes one row key for 32 rows and
+//     the warp shares them by shuffles; a row's key schedule (Schedule) is
+//     made once, so an element pays the 20 rounds and 5 injections alone;
+//     the two logs read exponent and mantissa from the bits
+//     (xla_logf_normal: Gumbel's inputs are normal, positive and finite);
+//     the compare tests for NaN only where v is not below the best; a lane
+//     loads kZElems logits before it hashes them.  On an H100 (700 W,
+//     tools/kernel_variants.py --design cgs_draws): 29.7 us at M=1, 101 at
+//     M=4 and 245 at M=10, against 32.1, 118 and 275 with one element a
+//     lane; 8 elements took 27.5 / 101 / 245, 6 blocks an SM 30.4 / 101 /
+//     245; in an earlier sweep (the rotate then a funnel shift) the
+//     general logs took 36.4 / 128 / 314 against 28.6 / 105 / 256.
 //   cgs_beta: 44 bytes and about 23 hashes a chain: latency, not work.  On
 //     one thread a chain's hashes run one after another, ~14 deep with both
 //     gammas; gamma a and gamma b run on lanes of their own, side by side,
@@ -71,11 +77,11 @@
 //     at once (lane j first makes attempt j's key, j more splits), the
 //     lowest accepted winning by ballot; a round with none goes on from the
 //     last lane's next key.  On an H100 (700 W, kernel_variants --design
-//     cgs_draws), 2 lanes a gamma took 3.57 us at M=1 against 3.39 with 1
-//     and 3.91 with 4, and 4.49 at M=16 against 5.03 with 1 (5.85 with 1
-//     where a = b = 1, one attempt in twenty rejected): kBetaSpec is 2.
-//     Threads are launched kBetaLanes a chain, so a warp holds 32 /
-//     kBetaLanes chains.
+//     cgs_draws), 2 lanes a gamma took 3.53 us at M=1 against 3.37 with 1
+//     and 3.78 with 4, and 4.43 at M=16 against 4.98 with 1 and 4.31 with
+//     4 (5.79 with 1 where a = b = 1, one attempt in twenty rejected):
+//     kBetaSpec is 2.  Threads are launched kBetaLanes a chain, so a warp
+//     holds 32 / kBetaLanes chains.
 
 #include <cstdint>
 
@@ -188,7 +194,7 @@ cgs_z_kernel(const float* __restrict__ flat, const long long* __restrict__ keys,
         for (int e = 0; e < kZElems; ++e) {
           const int c = c0 + 32 * e;
           if (c >= C) break;
-          const float v = __fadd_rn(gumbel_fitted(random_bits(ks, (unsigned)c)), x[e]);
+          const float v = __fadd_rn(gumbel_of(random_bits(ks, (unsigned)c)), x[e]);
           if (!(v <= best) && best == best) {
             best = v;
             bi = c;
@@ -346,6 +352,9 @@ int cgs_beta_launch(const float* a, const float* b, long long* keys, float* q, i
       a, b, keys, q, attempts, draw, lo, hi, M);
   return (int)cudaGetLastError();
 }
+
+// cgs_beta_kernel's lanes a gamma: the attempts it runs at once.
+int cgs_beta_spec_lanes() { return kBetaSpec; }
 
 const char* jax_draws_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

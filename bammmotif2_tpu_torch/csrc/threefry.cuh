@@ -31,8 +31,13 @@ constexpr float kTinyF = 1.17549435e-38f;        // float32's smallest normal
 constexpr float kNormalLo = -0.99999994f;        // nextafter(-1, 0)
 constexpr float kSqrt2 = 1.41421354f;            // float32(sqrt(2))
 
+// Two shifts and an or, which nvcc makes one funnel shift (SHF.L.W), as it
+// does __funnelshift_l (tools/sass_mix.py).  In cgs_z this form took 39
+// registers against __funnelshift_l's 48 and, on an H100, 101 us at M=4
+// and 245 at M=10 against 104 and 253, 29.7 at M=1 against 28.3
+// (tools/kernel_variants.py --design cgs_draws).
 __device__ __forceinline__ unsigned rotl32(unsigned x, int r) {
-  return __funnelshift_l(x, x, r);
+  return (x << r) | (x >> (32 - r));
 }
 
 // A key's Threefry-2x32 schedule: its three words and the y words of the
@@ -182,16 +187,10 @@ __device__ __forceinline__ float xla_erf_inv(float x) {
   return __fmul_rn(p, x);
 }
 
-// Gumbel noise (jax.random.gumbel, mode "low") from 32 bits.
+// Gumbel noise (jax.random.gumbel, mode "low") from 32 bits.  Its logs'
+// inputs, u in [2^-126, 1) and -log u in (0, 87.4], are normal, positive
+// and finite, so xla_logf_normal gives xla_logf's results.
 __device__ __forceinline__ float gumbel_of(unsigned bits) {
-  const float u = fmaxf(kTinyF, __fadd_rn(unit_float(bits), kTinyF));
-  return -xla_logf(-xla_logf(u));
-}
-
-// gumbel_of with the logs fitted to their inputs' range: u is in [2^-126,
-// 1) and -log u in (0, 87.4], both normal, positive and finite, so
-// xla_logf_normal gives xla_logf's results.
-__device__ __forceinline__ float gumbel_fitted(unsigned bits) {
   const float u = fmaxf(kTinyF, __fadd_rn(unit_float(bits), kTinyF));
   return -xla_logf_normal(-xla_logf_normal(u));
 }

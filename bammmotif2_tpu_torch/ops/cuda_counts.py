@@ -86,10 +86,11 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def current_stream(device: torch.device) -> int:
-    """The handle of ``device``'s current CUDA stream (the capture stream
-    under CUDA-graph capture), without building a ``torch.cuda.Stream``."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+def current_stream(index: int) -> int:
+    """The handle of CUDA device ``index``'s current stream (the capture
+    stream under CUDA-graph capture), without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check(r, cidx, R: int, W: int) -> None:
@@ -139,7 +140,7 @@ def counts_from_r_multi(r: torch.Tensor, cidx: torch.Tensor, R: int, W: int) -> 
         return torch.zeros((M, R1, W), dtype=torch.float32, device=dev)
     C = torch.empty((M, R1, W), dtype=torch.float32, device=dev)
     lib = library()
-    stream = current_stream(dev)
+    stream = current_stream(dev.index)
     acc, tickets = workspace(dev, stream, M * R1 * W, M)
     err = lib.counts_from_r_launch(
         r.data_ptr(), cidx.data_ptr(), C.data_ptr(), acc.data_ptr(), tickets.data_ptr(),

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from bammmotif2_tpu_torch.ops import _build, threefry
+from bammmotif2_tpu_torch.ops.cuda_counts import current_stream
 from bammmotif2_tpu_torch.utils.fasta import PAD
 
 MAX_S_ORDER = 7  # csrc/jax_draws.cu: a row's table offsets
@@ -41,8 +42,11 @@ MAX_S_ORDER = 7  # csrc/jax_draws.cu: a row's table offsets
 # The work the draws need, for their bounds (chip_smoke.py).  Threefry-2x32's
 # 32-bit integer operations a hash (csrc/threefry.cuh): 2 key adds, 20
 # rounds of add, rotate and xor, 5 key injections of 2 adds, and the xor
-# that makes a draw's 32 bits of the two words.
+# that makes a draw's 32 bits of the two words.  Of them the rotates and
+# xors run only on an SM's ALU pipe (a rotate is at least one shift there,
+# SHF; a xor a LOP3); the adds may run on the FMA pipe too (IMAD.IADD).
 THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1
+THREEFRY_ALU_OPS = 20 * 2 + 1
 # f32 operations a gumbel-shifted logit costs: two of XLA's logs (9 fused
 # multiply-adds, 2 operations each, and 11 other operations), the uniform's
 # 3, the logit's add.
@@ -53,22 +57,31 @@ GUMBEL_F32_OPS = 2 * (9 * 2 + 11) + 3 + 1
 # the normal's key and subkey, the normal's and U's bits) whose normal is
 # accepted at once.
 BETA_CHAIN_HASHES, GAMMA_HASHES, ATTEMPT_HASHES = 5, 2, 7
-# cgs_beta's lanes a gamma, its attempts in flight (csrc/jax_draws.cu:
-# kBetaSpec)
-BETA_SPEC_LANES = 2
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    lib = _build.load("jax_draws")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/jax_draws.cu) with its functions' argument
+    and result types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.markov_codes_launch.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.cgs_z_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
     lib.cgs_beta_launch.argtypes = [p] * 5 + [i, ctypes.c_float, ctypes.c_float, i, i, p]
     lib.markov_codes_launch.restype = lib.cgs_z_launch.restype = lib.cgs_beta_launch.restype = i
+    lib.cgs_beta_spec_lanes.argtypes = []
+    lib.cgs_beta_spec_lanes.restype = i
     lib.jax_draws_error_string.argtypes = [i]
     lib.jax_draws_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    return bind(_build.load("jax_draws"))
+
+
+def beta_spec_lanes() -> int:
+    """cgs_beta's lanes a gamma: the attempts its kernel runs at once."""
+    return library().cgs_beta_spec_lanes()
 
 
 def _raise(lib, what: str, err: int) -> None:
@@ -95,12 +108,6 @@ def _device(*tensors) -> int:
             raise ValueError(f"inputs on {[str(t.device) for t in tensors]}; all must share one "
                              "CUDA device")
     return index
-
-
-def _stream(index: int) -> int:
-    """The handle of device ``index``'s current CUDA stream (the capture
-    stream under CUDA-graph capture)."""
-    return torch._C._cuda_getCurrentRawStream(index)
 
 
 # ---- the plain versions ----
@@ -186,7 +193,7 @@ def markov_codes(key: torch.Tensor, trans: tuple, lens: torch.Tensor, *, L: int,
     lib = library()
     _raise(lib, "markov_codes", lib.markov_codes_launch(
         key.data_ptr(), table.data_ptr(), lens.data_ptr(), codes.data_ptr(), N, L, s_order, A,
-        table.numel(), index, _stream(index)))
+        table.numel(), index, current_stream(index)))
     markov_codes.launches += 1
     return codes
 
@@ -213,7 +220,7 @@ def cgs_z(flat: torch.Tensor, keys: torch.Tensor, row0: int = 0) -> torch.Tensor
     z = keys.new_empty((M, N))
     lib = library()
     _raise(lib, "cgs_z", lib.cgs_z_launch(flat.data_ptr(), keys.data_ptr(), z.data_ptr(), row0, N,
-                                          C, M, index, _stream(index)))
+                                          C, M, index, current_stream(index)))
     cgs_z.launches += 1
     return z
 
@@ -242,7 +249,7 @@ def cgs_beta(a: torch.Tensor, b: torch.Tensor, keys: torch.Tensor, lo: float, hi
     lib = library()
     _raise(lib, "cgs_beta", lib.cgs_beta_launch(
         a.data_ptr(), b.data_ptr(), keys.data_ptr(), None if q is None else q.data_ptr(),
-        None if n is None else n.data_ptr(), draw, lo, hi, M, index, _stream(index)))
+        None if n is None else n.data_ptr(), draw, lo, hi, M, index, current_stream(index)))
     cgs_beta.launches += 1
     if not draw:
         return None

@@ -171,7 +171,7 @@ def em_counts(s_flat: torch.Tensor, qidx: torch.Tensor, lens: torch.Tensor, q,
         qidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), q.data_ptr(), map5.data_ptr(),
         C.data_ptr(), Cd.data_ptr(), logz.data_ptr(), ll.data_ptr(), S, N, L, W, R1,
         int(plan.smem_lut), plan.counts, plan.team, plan.codes_cap, dev.index,
-        cuda_counts.current_stream(dev),
+        cuda_counts.current_stream(dev.index),
     )
     _raise_on(lib, err, "flat em_counts")
     em_counts.launches += 1
@@ -225,7 +225,7 @@ def window_scores(s_flat: torch.Tensor, qidx: torch.Tensor, lens: torch.Tensor,
     err = lib.flat_scores_launch(
         qidx.data_ptr(), lens.data_ptr(), s_flat.data_ptr(), map5.data_ptr(), scores.data_ptr(),
         mask.data_ptr(), S, N, L, W, R1, Q, int(smem_lut), int(map_fits), cuda_scores.ROWS_CAP,
-        dev.index, cuda_counts.current_stream(dev),
+        dev.index, cuda_counts.current_stream(dev.index),
     )
     _raise_on(lib, err, "flat window_scores")
     window_scores.launches += 1
@@ -277,7 +277,7 @@ def counts_from_r(r_snl: torch.Tensor, qidx: torch.Tensor, map5: torch.Tensor, *
     C = torch.empty((R1, W), dtype=torch.float32, device=dev)
     smem_counts, smem_map = counts_plan(Q, R1, W)
     lib = library()
-    stream = cuda_counts.current_stream(dev)
+    stream = cuda_counts.current_stream(dev.index)
     acc, ticket = cuda_counts.workspace(dev, stream, R1 * W, 1)
     err = lib.flat_counts_launch(
         r_snl.data_ptr(), qidx.data_ptr(), map5.data_ptr(), C.data_ptr(), acc.data_ptr(),

@@ -76,10 +76,8 @@ median (the spread), the fastest variant and launch_plan's against it.
   z_elems1, z_elems2, z_elems8  1, 2 or 8 elements a lane in flight in
                  cgs_z, not 4;
   z_min_blocks6  cgs_z's registers capped for 6 resident blocks an SM;
-  z_general_logs cgs_z's gumbel through the general xla_logf (frexpf, every
-                 case tested);
-  rotl_shifts    the Threefry rotate as two shifts and an or, not a funnel
-                 shift;
+  rotl_funnel    the Threefry rotate as a funnel shift, not two shifts and
+                 an or;
   beta_spec1, beta_spec4  1 or 4 lanes a gamma (attempts in flight), not 2.
 
 ``counts_stream``: the streaming counts-from-r kernel (B3, with
@@ -164,8 +162,7 @@ DESIGNS = {  # design -> (source, __global__, {variant: edits})
         "z_elems8": [(_Z_ELEMS, "constexpr int kZElems = 8;")],
         "z_min_blocks6": [("__launch_bounds__(kThreads)\ncgs_z_kernel(",
                            "__launch_bounds__(kThreads, 6)\ncgs_z_kernel(")],
-        "z_general_logs": [("gumbel_fitted(random_bits(ks", "gumbel_of(random_bits(ks")],
-        "rotl_shifts": [("return __funnelshift_l(x, x, r);", "return (x << r) | (x >> (32 - r));")],
+        "rotl_funnel": [("return (x << r) | (x >> (32 - r));", "return __funnelshift_l(x, x, r);")],
         "beta_spec1": [(_BETA_SPEC, "constexpr int kBetaSpec = 1;")],
         "beta_spec4": [(_BETA_SPEC, "constexpr int kBetaSpec = 4;")],
     }),
@@ -681,10 +678,9 @@ def draws_callers(lib_path: str):
     copy of the keys, so that every call draws the same numbers)."""
     import torch
 
-    lib = ctypes.CDLL(lib_path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cgs_z_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
-    lib.cgs_beta_launch.argtypes = [p] * 5 + [i, ctypes.c_float, ctypes.c_float, i, i, p]
+    from bammmotif2_tpu_torch.ops import cuda_draws
+
+    lib = cuda_draws.bind(ctypes.CDLL(lib_path))
 
     def z(flat, keys):
         M, N, C = flat.shape

@@ -162,8 +162,9 @@ Phases (any failure exits non-zero):
                M=1 and 4 (and on homopolymer rows), the window-score
                kernel's at config 5's at M=1 and 10; each
                kernel's bound (bytes over 3.35 TB/s, f32 operations over
-               67 TFLOP/s or 32-bit integer operations over 132 SMs x 64 a
-               clock x the SM clock, whichever is largest) and, where one
+               67 TFLOP/s or 32-bit integer operations over 132 SMs' two
+               integer pipes of 64 a clock at the SM clock, whichever is
+               largest) and, where one
                PyTorch call computes
                the same function (embedding_bag for window scores on an
                index built beforehand, index_add_ for counts from r with its
@@ -178,9 +179,10 @@ Phases (any failure exits non-zero):
                x 200 bp and config 4's fold (20k x 200 bp), cgs_z at M=1,
                10 and 16 on 10k rows of 379 logits beside torch.rand and
                the argmax of logits plus gumbel noise, cgs_beta at M=1, 10
-               and 16 beside a generator's torch._standard_gamma, where
-               cgs_beta's host µs go (beta_host_steps), each kernel's
-               bound by bytes, f32 and 32-bit integer operations; the device
+               and 16 beside a generator's torch._standard_gamma (in
+               interleaved rounds, with spread and rank test), each
+               kernel's bound by bytes, f32 and 32-bit integer operations
+               (the ALU pipe's and both integer pipes'); the device
                loop's own cost an iteration, a WHILE-node launch against a
                replay an iteration, on a body of two small kernels;
                the loops (time_loops): EM its/s eager against graphed at
@@ -236,9 +238,11 @@ MULTI_SEEDS, MULTI_SEED_ORDERS = 16, ("0", "2")
 # memory bandwidth, and f32 arithmetic outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# 32-bit integer add, shift, funnel shift and bitwise results a clock on an SM
-# of compute capability 9.0 (NVIDIA's CUDA C++ Programming Guide, the
-# throughput table of its arithmetic instructions), on the H100's 132 SMs
+# 32-bit integer results a clock on an SM of compute capability 9.0, a pipe:
+# 64 of add, shift and bitwise operations (NVIDIA's CUDA C++ Programming
+# Guide, the throughput table of its arithmetic instructions) on the ALU
+# pipe, and 64 more integer adds and multiply-adds (IMAD) on the FMA pipe;
+# on the H100's 132 SMs
 INT32_OPS_PER_SM_CLOCK, SMS = 64, 132
 
 
@@ -303,21 +307,35 @@ def sm_clock_mhz() -> float:
     ).stdout.split()[0])
 
 
-def bound(nbytes: int, ops: int, int_ops: int = 0, clock_mhz: float | None = None) -> dict:
+def bound(nbytes: int, ops: int, int_ops: int = 0, alu_ops: int = 0,
+          clock_mhz: float | None = None) -> dict:
     """The least time the card could take: the largest of the bytes a
     function must move (each input read once, each output written once)
     over HBM_BYTES_PER_S, its f32 operations over F32_OPS_PER_S and its
-    32-bit integer operations over SMS x INT32_OPS_PER_SM_CLOCK x the SM
-    clock (``clock_mhz``, else the card's highest).  ``bound_by`` is
-    "bytes" or "operations", ``bound_term`` which of the three terms."""
+    32-bit integer operations over the SMs' two integer pipes: ``alu_ops``
+    of the ``int_ops`` run only on the ALU pipe (shifts, bitwise), the rest
+    on either, so they take max(alu_ops, int_ops / 2) clocks of SMS x
+    INT32_OPS_PER_SM_CLOCK results at the SM clock (``clock_mhz``, else the
+    card's highest).  ``bound_by`` is "bytes" or "operations",
+    ``bound_term`` which of the three terms."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S, "f32": ops / F32_OPS_PER_S, "int32": 0.0}
     if int_ops:
         mhz = sm_clock_mhz() if clock_mhz is None else clock_mhz
-        terms["int32"] = int_ops / (SMS * INT32_OPS_PER_SM_CLOCK * mhz * 1e6)
+        terms["int32"] = max(alu_ops, int_ops / 2) / (SMS * INT32_OPS_PER_SM_CLOCK * mhz * 1e6)
     term = max(terms, key=terms.get)
     return {"bound_ms": terms[term] * 1e3,
             "bound_by": "bytes" if term == "bytes" else "operations", "bound_term": term,
-            "bytes": int(nbytes), "ops": int(ops), "int_ops": int(int_ops)}
+            "bytes": int(nbytes), "ops": int(ops), "int_ops": int(int_ops),
+            "alu_ops": int(alu_ops)}
+
+
+def hash_bound(nbytes: int, ops: int, hashes: int, clock_mhz: float | None = None) -> dict:
+    """``bound`` of a function whose integer work is ``hashes`` Threefry-2x32
+    hashes (cuda_draws.THREEFRY_INT_OPS a hash, THREEFRY_ALU_OPS of them
+    on the ALU pipe alone)."""
+    from bammmotif2_tpu_torch.ops.cuda_draws import THREEFRY_ALU_OPS, THREEFRY_INT_OPS
+
+    return bound(nbytes, ops, hashes * THREEFRY_INT_OPS, hashes * THREEFRY_ALU_OPS, clock_mhz)
 
 
 def valid_windows(lens, S: int, W: int) -> int:
@@ -1792,12 +1810,12 @@ def time_cgs(device, tmp) -> dict:
 
 def z_bound(M: int, N: int, C: int, clock_mhz: float | None = None) -> dict:
     """cgs_z's bound on [M, N, C] logits: the logits and keys read, z
-    written; a gumbel-shifted logit an element; a hash an element and two a
-    row (the chain's split, the row's fold_in)."""
-    from bammmotif2_tpu_torch.ops.cuda_draws import GUMBEL_F32_OPS, THREEFRY_INT_OPS
+    written; a gumbel-shifted logit an element; a hash an element and a
+    row (the row's fold_in) and one a chain (its split)."""
+    from bammmotif2_tpu_torch.ops.cuda_draws import GUMBEL_F32_OPS
 
-    return bound(M * N * C * 4 + M * 16 + M * N * 8, M * N * C * GUMBEL_F32_OPS,
-                 M * N * (C + 2) * THREEFRY_INT_OPS, clock_mhz)
+    return hash_bound(M * N * C * 4 + M * 16 + M * N * 8, M * N * C * GUMBEL_F32_OPS,
+                      M * N * (C + 1) + M, clock_mhz)
 
 
 def beta_bound(attempts, draw: bool = True, clock_mhz: float | None = None) -> dict:
@@ -1812,47 +1830,29 @@ def beta_bound(attempts, draw: bool = True, clock_mhz: float | None = None) -> d
     hashes = M * 3 if not draw else (
         M * (d.BETA_CHAIN_HASHES + 2 * d.GAMMA_HASHES)
         + int(attempts.long().sum()) * d.ATTEMPT_HASHES)
-    return bound(2 * 16 * M + 8 * M + 4 * M, 0, hashes * d.THREEFRY_INT_OPS, clock_mhz)
+    return hash_bound(2 * 16 * M + 8 * M + 4 * M, 0, hashes, clock_mhz)
 
 
 DRAW_MS = (1, 10, 16)  # chains of time_draws' cgs_z and cgs_beta
+BETA_ROUNDS = 12  # interleaved rounds of cgs_beta against its library call
 
 
-def beta_host_steps(a, b, keys, n: int = 200) -> dict:
-    """Where cgs_beta's host µs a call go: each step of the wrapper (the
-    CPU test, dtype and contiguity checks, shapes, device, the output's
-    allocation, the pointers and stream, the ctypes launch) repeated n
-    times on its own, time.perf_counter around the n, µs a step."""
-    import torch
+def interleaved(fns: dict, n: int, rounds: int) -> dict:
+    """Each of ``fns`` (name -> call) timed by ``time_cuda`` over n calls,
+    in ``rounds`` rounds that take them in turn (the order flipping each
+    round): per name the rounds' ms, median, min and max, and "p" the
+    two-sided Mann-Whitney p of the first two names' rounds."""
+    from scipy import stats
 
-    from bammmotif2_tpu_torch.ops import cuda_draws as d
-
-    M, lib = keys.shape[0], d.library()
-    q = torch.empty_like(a)
-    index = keys.get_device()
-    steps = {
-        "cpu_test": lambda: a.is_cpu and b.is_cpu and keys.is_cpu,
-        "dtypes": lambda: d._check(("keys", keys, torch.int64), ("a", a, torch.float32),
-                                   ("b", b, torch.float32)),
-        "shapes": lambda: (keys.dim() == 2 and keys.shape[1] == 2 and a.shape == (M,)
-                           and b.shape == (M,)),
-        "device": lambda: d._device(keys, a, b),
-        "alloc": lambda: torch.empty_like(a),
-        "pointers_stream": lambda: (a.data_ptr(), b.data_ptr(), keys.data_ptr(), q.data_ptr(),
-                                    d._stream(index)),
-        "launch": lambda: lib.cgs_beta_launch(a.data_ptr(), b.data_ptr(), keys.data_ptr(),
-                                              q.data_ptr(), None, True, 1e-4, 1 - 1e-4, M,
-                                              index, d._stream(index)),
-    }
-    out = {}
-    for name, fn in steps.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        out[name] = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
+    names = list(fns)
+    runs = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            runs[name].append(time_cuda(fns[name], n))
+    out = {name: {"runs": v, "median": float(np.median(v)), "min": min(v), "max": max(v)}
+           for name, v in runs.items()}
+    out["p"] = float(stats.mannwhitneyu(runs[names[0]], runs[names[1]],
+                                        alternative="two-sided").pvalue)
     return out
 
 
@@ -1865,13 +1865,14 @@ def time_draws(device, tmp) -> dict:
     each); and cgs_beta at M = DRAW_MS.  Each: the wrapper's ms (CUDA
     events over back-to-back calls), its kernel's device ms
     (torch.profiler), its host µs a call, its plain version's ms and its
-    bound (``bound``: bytes, f32 operations, and the Threefry hashes' 32-bit
-    integer operations, THREEFRY_INT_OPS a hash; markov_codes hashes a
-    letter a position of each row and L splits); cgs_z beside the library
-    calls that draw the same distribution from a generator (torch.rand of
-    the logits' shape, then the argmax of logits plus -log(-log(u))),
-    cgs_beta beside torch._standard_gamma of the 2M shapes; markov_codes
-    has no library call."""
+    bound (``hash_bound``: bytes, f32 operations, and the Threefry hashes'
+    32-bit integer operations; markov_codes hashes a letter a position of
+    each row and L splits); cgs_z beside the library calls that draw the
+    same distribution from a generator (torch.rand of the logits' shape,
+    then the argmax of logits plus -log(-log(u))), cgs_beta beside
+    torch._standard_gamma of the 2M shapes, the two timed in BETA_ROUNDS
+    interleaved rounds (``interleaved``: ms and library_ms are the
+    medians); markov_codes has no library call."""
     import torch
 
     from bammmotif2_tpu_torch.ops import cuda_draws
@@ -1891,8 +1892,8 @@ def time_draws(device, tmp) -> dict:
                 key, trans, ln, L=SEQ_LEN, s_order=s_order, A=4), 1),
             **device_ms(call, 3 if n > 100_000 else 20, "markov_codes_kernel", attempts=6),
             "host_us": host_us(call, 20),
-            **bound(n * 4 + table + 16 + n * SEQ_LEN, draws * cuda_draws.GUMBEL_F32_OPS,
-                    (draws + SEQ_LEN) * cuda_draws.THREEFRY_INT_OPS),
+            **hash_bound(n * 4 + table + 16 + n * SEQ_LEN,
+                         draws * cuda_draws.GUMBEL_F32_OPS, draws + SEQ_LEN),
             "library_ms": None,
         }
     C = 1 + 2 * (SEQ_LEN - W + 1)
@@ -1925,16 +1926,17 @@ def time_draws(device, tmp) -> dict:
         beta = lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta(a, b, keys, 1e-4, 1 - 1e-4)  # noqa: E731
         ab = torch.cat([a, b])
         _q, attempts = cuda_draws.cgs_beta(a, b, keys.clone(), 1e-4, 1 - 1e-4, attempts=True)
+        rounds = interleaved({"ms": beta, "library_ms": lambda ab=ab, gen=gen:
+                              torch._standard_gamma(ab, generator=gen)}, 200, BETA_ROUNDS)
         out[f"beta_M{M}"] = {
-            "ms": time_cuda(beta, 200),
+            "ms": rounds["ms"]["median"],
             "plain_ms": time_cuda(lambda a=a, b=b, keys=keys: cuda_draws.cgs_beta_ref(
                 a, b, keys, 1e-4, 1 - 1e-4), 5),
             **device_ms(beta, 10, "cgs_beta_kernel"),
             "host_us": host_us(beta),
-            "host_steps_us": beta_host_steps(a, b, keys),
             **beta_bound(attempts),
-            "library_ms": time_cuda(lambda ab=ab, gen=gen: torch._standard_gamma(ab, generator=gen),
-                                    200),
+            "library_ms": rounds["library_ms"]["median"],
+            "vs_library": rounds,
         }
     out["gpu"] = nvidia_smi()
     log("timing draws (config 4's and config 5's negatives; 10k rows of 379 logits and q at M="
@@ -2151,7 +2153,7 @@ def time_condition(device) -> dict:
                lambda: running.copy_(cuda_while.condition_ref(its, vds, cap, eps)), 200),
            **device_ms(call, 20, "loop_condition_kernel", attempts=6),
            "host_us": host_us(call),
-           **bound(8 * M + 4 + 4 + 1, M, 2 * M), "library_ms": None, "M": M}
+           **bound(8 * M + 4 + 4 + 1, M, 2 * M, 2 * M), "library_ms": None, "M": M}
     log("timing loop_condition (M=16): " + json.dumps(out))
     return out
 

@@ -1,19 +1,20 @@
 """The draw kernels' wrappers and bounds on the CPU: ``ops/cuda_draws.py``'s
 ``cgs_z`` and ``cgs_beta`` raise on inputs their kernels do not take (meta
 tensors stand in for the card's), the work constants equal their
-derivations, and ``chip_smoke.bound`` names the term that bounds each draw
-kernel at its path's shapes.  Imports no JAX."""
+derivations, ``chip_smoke.bound`` names the term that bounds each draw
+kernel at its path's shapes, and ``tools/sass_mix.py`` counts a kernel's
+opcodes.  Imports no JAX."""
 
 from __future__ import annotations
 
 import importlib.util
 import os
-import re
 
 import pytest
 import torch
 
 from bammmotif2_tpu_torch.ops import cuda_draws, threefry
+from bammmotif2_tpu_torch.tools import sass_mix
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Q = (1e-4, 1 - 1e-4)
@@ -109,31 +110,50 @@ def test_gumbel_f32_ops_is_its_derivation(monkeypatch):
     assert cuda_draws.GUMBEL_F32_OPS == 2 * (9 * 2 + 11) + 3 + 1 == 62
 
 
-def test_beta_spec_lanes_match_the_source():
-    with open(os.path.join(ROOT, "bammmotif2_tpu_torch", "csrc", "jax_draws.cu")) as fh:
-        (spec,) = re.findall(r"constexpr int kBetaSpec = (\d+);", fh.read())
-    assert cuda_draws.BETA_SPEC_LANES == int(spec)
-    assert 32 % (2 * cuda_draws.BETA_SPEC_LANES) == 0
+def test_threefry_alu_ops_is_its_derivation():
+    """The ALU pipe's share of a hash: a rotate and a xor in each of the 20
+    rounds, and the bits' xor; the adds are the rest."""
+    rounds = 5 * len(threefry.ROTATIONS[0])
+    assert cuda_draws.THREEFRY_ALU_OPS == 2 * rounds + 1 == 41
+    adds = cuda_draws.THREEFRY_INT_OPS - cuda_draws.THREEFRY_ALU_OPS
+    assert adds == 2 + rounds + 2 * 5 == 32
 
 
 CLOCK_MHZ = 1980.0  # the H100 SXM's highest SM clock
-INT32_PER_S = 132 * 64 * CLOCK_MHZ * 1e6
+PIPE_PER_S = 132 * 64 * CLOCK_MHZ * 1e6  # one integer pipe's results a second
 
 
 @pytest.mark.parametrize("M", [1, 10, 16])
 def test_z_bound_is_its_integer_work_at_bench_shape(M):
-    """At bench's 10k rows of 379 logits the Threefry hashes bound cgs_z:
-    a hash an element and two a row, THREEFRY_INT_OPS each, over 132 SMs x
-    64 results a clock x the SM clock; bytes and f32 operations take
+    """At bench's 10k rows of 379 logits the Threefry hashes bound cgs_z: a
+    hash an element and a row and one a chain, of whose operations the
+    ALU pipe's (THREEFRY_ALU_OPS a hash) outweigh half of all; over 132
+    SMs x 64 results a clock x the SM clock; bytes and f32 operations take
     less."""
     cs = _chip_smoke()
     N, C = 10_000, 379
     b = cs.z_bound(M, N, C, clock_mhz=CLOCK_MHZ)
     assert b["bound_term"] == "int32" and b["bound_by"] == "operations"
-    assert b["int_ops"] == M * N * (C + 2) * 73
-    assert b["bound_ms"] == pytest.approx(b["int_ops"] / INT32_PER_S * 1e3, rel=1e-12)
+    hashes = M * N * (C + 1) + M
+    assert b["int_ops"] == hashes * 73 and b["alu_ops"] == hashes * 41
+    assert b["bound_ms"] == pytest.approx(b["alu_ops"] / PIPE_PER_S * 1e3, rel=1e-12)
     assert b["bytes"] / cs.HBM_BYTES_PER_S * 1e3 < b["bound_ms"]
     assert b["ops"] / cs.F32_OPS_PER_S * 1e3 < b["bound_ms"]
+
+
+@pytest.mark.parametrize("int_ops, alu_ops, clocks", [
+    (10 ** 12, 10 ** 11, 5 * 10 ** 11),  # adds fill both pipes
+    (10 ** 12, 8 * 10 ** 11, 8 * 10 ** 11),  # the ALU pipe's own work binds
+    (10 ** 12, 5 * 10 ** 11, 5 * 10 ** 11),  # the two balance
+])
+def test_bound_integer_term_is_the_busier_pipe(int_ops, alu_ops, clocks):
+    """Integer work takes max(ALU-only operations, all of them / 2) results
+    of one pipe: the ALU pipe's shifts and bitwise operations run there
+    alone, the adds on it or on the FMA pipe."""
+    cs = _chip_smoke()
+    b = cs.bound(1, 0, int_ops, alu_ops, clock_mhz=CLOCK_MHZ)
+    assert b["bound_term"] == "int32"
+    assert b["bound_ms"] == pytest.approx(clocks / PIPE_PER_S * 1e3, rel=1e-12)
 
 
 def test_bound_takes_the_largest_term():
@@ -150,6 +170,34 @@ def test_beta_bound_counts_the_attempts_taken():
     cs = _chip_smoke()
     att = torch.tensor([[1, 1], [3, 1]], dtype=torch.int32)
     b = cs.beta_bound(att, clock_mhz=CLOCK_MHZ)
-    assert b["int_ops"] == (2 * (5 + 2 * 2) + 6 * 7) * 73
+    hashes = 2 * (5 + 2 * 2) + 6 * 7
+    assert b["int_ops"] == hashes * 73 and b["alu_ops"] == hashes * 41
     assert b["bound_term"] == "int32"
     assert cs.beta_bound(att, draw=False, clock_mhz=CLOCK_MHZ)["int_ops"] == 2 * 3 * 73
+
+
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_112cgs_z_kernelEPKfPKxPxxiix
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 IMAD.SHL.U32 R5, R4, 0x2000, RZ ;
+        /*0020*/                   LOP3.LUT R5, R5, R6, R7, 0x96, !PT ;
+        /*0030*/                   SHF.R.U32.HI R6, RZ, 0x13, R4 ;
+        /*0040*/                   LOP3.LUT R5, R5, R6, R7, 0x96, !PT ;
+\t\tFunction : _ZN12_GLOBAL__N_115cgs_beta_kernelEv
+        /*0000*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("kernels, want", [
+    (["cgs_z_kernel"], {"cgs_z_kernel": 5}),
+    (None, {"cgs_z_kernel": 5, "cgs_beta_kernel": 1}),
+], ids=["one", "all"])
+def test_sass_mix_counts_each_kernels_opcodes(kernels, want):
+    """Instructions a kernel, each opcode bare and with its modifiers; a
+    predicate does not count as the opcode."""
+    got = sass_mix.mix(SASS, kernels)
+    short = {n: k for n in got for k in ("cgs_z_kernel", "cgs_beta_kernel") if k in n}
+    assert {short[n]: v["instructions"] for n, v in got.items()} == want
+    z = next(v["opcodes"] for n, v in got.items() if "cgs_z" in n)
+    assert z["LOP3"] == z["LOP3.LUT"] == 2
+    assert z["IMAD"] == z["IMAD.SHL.U32"] == 1 and z["SHF"] == 1 and z["LDC"] == 1

@@ -275,7 +275,7 @@ def check_z(device, cases=Z_CASES) -> dict:
 
 # check_beta's small shapes: (a, b, chains); at a = b = 1 about one attempt
 # in twenty is rejected, so some gamma needs more attempts than the kernel
-# has lanes for (cuda_draws.BETA_SPEC_LANES) and the next round runs
+# has lanes for (cuda_draws.beta_spec_lanes()) and the next round runs
 BETA_SMALL = ((1.0, 1.0, 200_000), (1.0, 2.0, 4_096), (2.0, 1.0, 1), (1.5, 3.0, 33))
 
 
@@ -285,7 +285,8 @@ def check_beta(device, n: int = 100_000, small=BETA_SMALL) -> dict:
     from 1 to 10^4 + 1, a tenth of them below 4), and on the ``small``
     shapes' chains: the same attempts but for at most BETA_FLIP_SHARE of
     the draws, q within BETA_RTOL where they agree, and the same advanced
-    keys; some gamma took more attempts than cuda_draws.BETA_SPEC_LANES.
+    keys; some gamma took more attempts than the kernel's lanes a gamma
+    (cuda_draws.beta_spec_lanes()).
     Returns {"pairs", "flips", "max_rel_err", "max_abs_err",
     "max_attempts", "spec_lanes", "launches"}."""
     rng = np.random.default_rng(8)
@@ -319,10 +320,10 @@ def check_beta(device, n: int = 100_000, small=BETA_SMALL) -> dict:
         calls += draws + 1
     torch.cuda.synchronize(device)
     out = {"pairs": pairs, "flips": flips, "max_rel_err": rel, "max_abs_err": err,
-           "max_attempts": top, "spec_lanes": cuda_draws.BETA_SPEC_LANES,
+           "max_attempts": top, "spec_lanes": cuda_draws.beta_spec_lanes(),
            "launches": cuda_draws.cgs_beta.launches - before}
     assert flips <= BETA_FLIP_SHARE * pairs and rel <= BETA_RTOL and out["launches"] == calls, out
-    assert top > cuda_draws.BETA_SPEC_LANES, out
+    assert top > out["spec_lanes"], out
     return out
 
 
