@@ -38,7 +38,7 @@ import torch
 from bammmotif2_tpu_torch.utils.alphabet import Alphabet
 from bammmotif2_tpu_torch.utils.config import Params
 from bammmotif2_tpu_torch.utils.fasta import read_fasta
-from bammmotif2_tpu_torch.utils.metrics import MetricsLogger
+from bammmotif2_tpu_torch.utils.metrics import MetricsLogger, span, tracing
 from bammmotif2_tpu_torch.evaluation.fdr import evaluate_motifs
 from bammmotif2_tpu_torch.evaluation.prcurve import average_recall
 from bammmotif2_tpu_torch.generator import seqgen
@@ -155,6 +155,11 @@ def run_pipeline(params: Params, device, mesh=None, graphs: bool = True) -> dict
     trace written into that directory (``<host>_<pid>.<time>.pt.trace.json``,
     readable by TensorBoard or chrome://tracing); with ``params.jsonl``
     every stage appends one event to ``BASENAME.metrics.jsonl``.
+
+    The run is traced (``utils.metrics``): its spans, rooted at ``run``,
+    and counters are returned as ``out["trace"]`` (``{"spans": [...],
+    "counts": {...}}``) and, under ``params.jsonl``, written as one
+    ``span`` event a span and one ``counts`` event before ``run_done``.
     """
     if params.profile and distributed.is_main():
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -183,14 +188,25 @@ def _run_pipeline(params: Params, device, mesh, graphs: bool) -> dict:
         else None
     )
     try:
-        return _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
-                                t_start, graphs)
+        with tracing() as trace:
+            with span("run"):
+                out = _pipeline_stages(params, device, mesh, writer, metrics, alphabet,
+                                       basename, graphs)
+        out["runtime_seconds"] = time.perf_counter() - t_start
+        out["trace"] = trace.export()
+        for rec in out["trace"]["spans"]:
+            metrics.event("span", **rec)
+        metrics.event("counts", run=trace.run, counts=out["trace"]["counts"])
+        metrics.event("run_done", runtime_seconds=round(out["runtime_seconds"], 3))
+        if params.verbose and writer:
+            print(f"Runtime: {out['runtime_seconds']:.2f}s")
+        return out
     finally:
         metrics.close()
 
 
 def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
-                     t_start, graphs) -> dict:
+                     graphs) -> dict:
     """The stages; ``writer``: this process writes files and prints."""
     out: dict = {"motifs": [], "files": []}
     verbose = params.verbose and writer
@@ -200,15 +216,16 @@ def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
         if v is not None and v is not False
     })
 
-    pos_set = read_fasta(params.posSequenceFile, alphabet)
+    with span("read"):
+        pos_set = read_fasta(params.posSequenceFile, alphabet)
+        neg_set = (
+            read_fasta(params.negSequenceFile, alphabet)
+            if params.negSequenceFile
+            else None
+        )
     metrics.event(
         "sequences_loaded", n=pos_set.n,
         min_len=pos_set.min_len, max_len=pos_set.max_len,
-    )
-    neg_set = (
-        read_fasta(params.negSequenceFile, alphabet)
-        if params.negSequenceFile
-        else None
     )
     if verbose:
         print(
@@ -217,92 +234,97 @@ def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
         )
 
     # background model: loaded, or fit on negatives if given, else positives
-    if params.bgModelFile:
-        bg = BackgroundModel.read(params.bgModelFile, alphabet)
-    else:
-        bg = BackgroundModel.from_sequence_set(
-            neg_set if neg_set is not None else pos_set,
-            order=params.bgModelOrder,
-            alpha=params.bgModelAlpha,
-            ss=params.ss,
-        )
+    with span("background"):
+        if params.bgModelFile:
+            bg = BackgroundModel.read(params.bgModelFile, alphabet)
+        else:
+            bg = BackgroundModel.from_sequence_set(
+                neg_set if neg_set is not None else pos_set,
+                order=params.bgModelOrder,
+                alpha=params.bgModelAlpha,
+                ss=params.ss,
+            )
     if writer:
-        out["files"] += list(bg.write(params.outputDirectory, basename))
+        with span("write", what="background"):
+            out["files"] += list(bg.write(params.outputDirectory, basename))
     out["bg"] = bg
 
-    motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
+    with span("seeds"):
+        motifs = load_motifs(params, pos_set.base_frequencies(), alphabet)
     out["motifs"] = motifs
 
     if params.saveInitialBaMMs and writer:
-        for m in motifs:
-            out["files"] += list(
-                m.write(params.outputDirectory, f"{basename}_init_{m.name}")
-            )
+        with span("write", what="initial models"):
+            for m in motifs:
+                out["files"] += list(
+                    m.write(params.outputDirectory, f"{basename}_init_{m.name}")
+                )
 
     if params.EM:
-        if params.checkpointEvery > 0:
-            # restartable path: per-motif EM, model file rewritten every
-            # N iterations (a saved BaMM is a valid --BaMMFile resume point)
-            results = []
-            for m in motifs:
-                def _ckpt(motif=None, iteration=0, _m=m):
-                    if writer:
-                        (_m if motif is None else motif).write(
-                            params.outputDirectory, f"{basename}_{_m.name}"
-                        )
-                    metrics.event("em_checkpoint", motif=_m.name, iteration=iteration)
+        with span("em"):
+            if params.checkpointEvery > 0:
+                # restartable path: per-motif EM, model file rewritten every
+                # N iterations (a saved BaMM is a valid --BaMMFile resume point)
+                results = []
+                for m in motifs:
+                    def _ckpt(motif=None, iteration=0, _m=m):
+                        if writer:
+                            with span("write", what="checkpoint"):
+                                (_m if motif is None else motif).write(
+                                    params.outputDirectory, f"{basename}_{_m.name}"
+                                )
+                        metrics.event("em_checkpoint", motif=_m.name, iteration=iteration)
 
-                results.append(
-                    run_em(m, bg, pos_set, params, checkpoint_fn=_ckpt, device=device, mesh=mesh,
-                           graphs=graphs)
+                    results.append(
+                        run_em(m, bg, pos_set, params, checkpoint_fn=_ckpt, device=device,
+                               mesh=mesh, graphs=graphs)
+                    )
+            else:
+                results = run_em_multi(motifs, bg, pos_set, params, device=device, mesh=mesh,
+                                       graphs=graphs)
+            out["em_results"] = results
+            for m, r in zip(motifs, results):
+                metrics.event(
+                    "em_done", motif=m.name, iterations=r.iterations,
+                    ll=r.ll, q=r.q, converged=r.converged,
+                    windows_per_sec=round(r.windows_per_sec),
+                    seconds=round(r.seconds, 3),
                 )
-        else:
-            results = run_em_multi(motifs, bg, pos_set, params, device=device, mesh=mesh,
-                                   graphs=graphs)
-        out["em_results"] = results
-        for m, r in zip(motifs, results):
-            metrics.event(
-                "em_done", motif=m.name, iterations=r.iterations,
-                ll=r.ll, q=r.q, converged=r.converged,
-                windows_per_sec=round(r.windows_per_sec),
-                seconds=round(r.seconds, 3),
-            )
-            if verbose:
-                print(
-                    f"EM {m.name}: {r.iterations} iters, ll={r.ll:.2f}, "
-                    f"q={r.q:.3f}, {r.windows_per_sec:,.0f} windows/s"
-                )
+                if verbose:
+                    print(
+                        f"EM {m.name}: {r.iterations} iters, ll={r.ll:.2f}, "
+                        f"q={r.q:.3f}, {r.windows_per_sec:,.0f} windows/s"
+                    )
 
     if params.CGS:
         # an independent stage, not an alternative to EM: --EM --CGS
         # Gibbs-refines the EM-refined models; all seeds of a (W, K) group
         # sweep together.  cgs_done carries this seed's share of its group's
         # seconds (as em_done does).
-        out["cgs_results"] = run_gibbs_multi(motifs, bg, pos_set, params, device=device,
-                                             mesh=mesh, graphs=graphs)
-        for m, r in zip(motifs, out["cgs_results"]):
-            metrics.event(
-                "cgs_done", motif=m.name, iterations=r.iterations, q=r.q,
-                seconds=round(r.seconds, 3),
-            )
+        with span("cgs"):
+            out["cgs_results"] = run_gibbs_multi(motifs, bg, pos_set, params, device=device,
+                                                 mesh=mesh, graphs=graphs)
+            for m, r in zip(motifs, out["cgs_results"]):
+                metrics.event(
+                    "cgs_done", motif=m.name, iterations=r.iterations, q=r.q,
+                    seconds=round(r.seconds, 3),
+                )
 
     if params.saveBaMMs and writer:
-        for m in motifs:
-            out["files"] += list(
-                m.write(params.outputDirectory, f"{basename}_{m.name}")
-            )
+        with span("write", what="models"):
+            for m in motifs:
+                out["files"] += list(
+                    m.write(params.outputDirectory, f"{basename}_{m.name}")
+                )
 
     if params.scoreSeqset:
-        _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, motifs,
-                    basename)
+        with span("scan"):
+            _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, motifs,
+                        basename)
     if params.FDR:
-        _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
-                   basename, graphs)
-
-    out["runtime_seconds"] = time.perf_counter() - t_start
-    metrics.event("run_done", runtime_seconds=round(out["runtime_seconds"], 3))
-    if verbose:
-        print(f"Runtime: {out['runtime_seconds']:.2f}s")
+        with span("fdr"):
+            _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
+                       basename, graphs)
     return out
 
 
@@ -313,41 +335,47 @@ def _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, moti
     background fit to the positives), one .occurrence file per motif.  Each
     scan_done event carries the seconds since the stage began."""
     t0 = time.perf_counter()
-    if neg_set is not None:
-        neg_sample = neg_set
-    else:
-        bg_fit = BackgroundModel.from_sequence_set(
-            pos_set, order=params.sOrder, alpha=params.bgModelAlpha, ss=params.ss,
-        )
-        neg_sample = seqgen.generate_neg_set(
-            bg_fit, pos_set.lens, m_fold=max(params.mFold, 1), seed=params.seed, device=device,
-        )
+    with span("scan.negatives"):
+        if neg_set is not None:
+            neg_sample = neg_set
+        else:
+            bg_fit = BackgroundModel.from_sequence_set(
+                pos_set, order=params.sOrder, alpha=params.bgModelAlpha, ss=params.ss,
+            )
+            neg_sample = seqgen.generate_neg_set(
+                bg_fit, pos_set.lens, m_fold=max(params.mFold, 1), seed=params.seed,
+                device=device,
+            )
     # motifs of equal (W, K) scan in one seed-stacked pass per chunk
     groups: dict = {}
     for m in motifs:
         groups.setdefault((m.W, m.K), []).append(m)
     kw = dict(ss=params.ss, device=device, use_pallas=params.use_pallas)
     pairs: list = []
-    for group in groups.values():
-        pairs += list(zip(group, scan.score_set_multi(group, bg, pos_set, **kw),
-                          scan.score_set_multi(group, bg, neg_sample, **kw)))
-    for m, res, neg_res in pairs:
-        # passing the negatives' ScanResult keeps their pool on the device
-        occs = scan.find_occurrences(res, pos_set, neg_res, params.pvalCutoff)
-        if writer:
-            path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.occurrence")
-            scan.write_occurrences(path, occs)
-            out["files"].append(path)
-        metrics.event(
-            "scan_done", motif=m.name, hits=len(occs),
-            windows=int(np.sum(np.maximum(pos_set.lens - m.W + 1, 0)))
-            * (1 if params.ss else 2),
-            seconds=round(time.perf_counter() - t0, 3),
-        )
-        if params.saveLogOdds and writer:
-            lo_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.logOdds")
-            scan.write_logodds(lo_path, res, pos_set)
-            out["files"].append(lo_path)
+    with span("scan.score"):
+        for group in groups.values():
+            pairs += list(zip(group, scan.score_set_multi(group, bg, pos_set, **kw),
+                              scan.score_set_multi(group, bg, neg_sample, **kw)))
+    with span("scan.occurrences"):
+        for m, res, neg_res in pairs:
+            # passing the negatives' ScanResult keeps their pool on the device
+            occs = scan.find_occurrences(res, pos_set, neg_res, params.pvalCutoff)
+            if writer:
+                path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.occurrence")
+                with span("write", what="occurrences"):
+                    scan.write_occurrences(path, occs)
+                out["files"].append(path)
+            metrics.event(
+                "scan_done", motif=m.name, hits=len(occs),
+                windows=int(np.sum(np.maximum(pos_set.lens - m.W + 1, 0)))
+                * (1 if params.ss else 2),
+                seconds=round(time.perf_counter() - t0, 3),
+            )
+            if params.saveLogOdds and writer:
+                lo_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.logOdds")
+                with span("write", what="log odds"):
+                    scan.write_logodds(lo_path, res, pos_set)
+                out["files"].append(lo_path)
 
 
 def _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alphabet,
@@ -360,10 +388,12 @@ def _fdr_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, alpha
                                graphs=graphs)
     for m, res in zip(seed_motifs, fdr_list):
         if params.savePRs and writer:
-            out["files"] += res.write(params.outputDirectory, f"{basename}_{m.name}")
+            with span("write", what="PR curves"):
+                out["files"] += res.write(params.outputDirectory, f"{basename}_{m.name}")
         if params.savePvalues and writer:
             pv_path = os.path.join(params.outputDirectory, f"{basename}_{m.name}.pvalues")
-            np.savetxt(pv_path, res.pos_pvalues, fmt="%.4e")
+            with span("write", what="p-values"):
+                np.savetxt(pv_path, res.pos_pvalues, fmt="%.4e")
             out["files"].append(pv_path)
         out.setdefault("fdr_results", []).append(res)
         metrics.event(

@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
@@ -56,6 +55,7 @@ import torch
 from bammmotif2_tpu_torch.utils.config import Params
 from bammmotif2_tpu_torch.utils.device import resolve
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.metrics import span
 from bammmotif2_tpu_torch.evaluation import prcurve
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
@@ -261,9 +261,22 @@ def _evaluate_group_loop(group: list, bg: BackgroundModel, sset: SequenceSet,
     ``stacked``: refine all seeds in one batched EM loop or one set of
     stacked CGS chains per fold; else (one seed) with ``run_em`` /
     ``run_gibbs``.  ``graphs``: False runs those loops eagerly on a CUDA
-    device too.
+    device too.  The results' ``group_seconds`` are its ``fdr.group``
+    span's.
     """
-    t0 = time.perf_counter()
+    with span("fdr.group", W=group[0].W, K=group[0].K, M=len(group),
+              refine=refine) as group_span:
+        results = _fold_loop(group, bg, sset, params, refine, neg_set, device,
+                             stacked=stacked, graphs=graphs)
+    for r in results:
+        r.group_seconds = group_span.seconds
+    return results
+
+
+def _fold_loop(group: list, bg: BackgroundModel, sset: SequenceSet, params: Params,
+               refine: str, neg_set: SequenceSet | None, device, *, stacked: bool,
+               graphs: bool) -> list:
+    """``_evaluate_group_loop``'s folds and sweeps."""
     A, K, W = group[0].A, group[0].K, group[0].W
     M = len(group)
     F = max(1, params.cvFold)
@@ -382,8 +395,6 @@ def _evaluate_group_loop(group: list, bg: BackgroundModel, sset: SequenceSet,
             m_fold=params.mFold,
             fold_iterations=[its[i] for its in fold_its],
         ))
-    for r in results:
-        r.group_seconds = time.perf_counter() - t0
     return results
 
 
@@ -663,23 +674,35 @@ def _evaluate_group_program(group: list, bg: BackgroundModel, sset: SequenceSet,
     ``_run_folds``, one ``_fetch``, then the host sweeps.  Needs cvFold >= 2
     and at least cvFold rows.  Its results equal ``_evaluate_group_loop``'s
     (stacked): the MOPS pools hold NEG_INF for a smaller fold's pad rows,
-    which the rank sweep counts as it counts invalid windows."""
-    t0 = time.perf_counter()
-    g = _prepare_group(group, bg, sset, params, neg_set, device)
-    pos_z, neg_z, iters, *ranks = _fetch(
-        _run_folds(g, group, bg, sset, params, refine, graphs))
-    results = []
-    for m in range(g.M):
-        pz = np.concatenate([pos_z[f, m, : g.fold_sizes[f]] for f in range(g.F)])
-        nz = np.concatenate([neg_z[f, m, g.neg_keep[f]] for f in range(g.F)])
-        results.append(FDRResult(
-            zoops=prcurve.threshold_sweep(pz, nz, g.m_fold_eff),
-            mops=prcurve.sweep_from_ranks(*(r[m] for r in ranks), g.m_fold_eff, g.n_pos_true,
-                                          g.n_neg_true),
-            pos_pvalues=empirical_pvalues(pz, nz),
-            m_fold=params.mFold,
-            fold_iterations=[int(x) for x in iters[:, m]],
-        ))
+    which the rank sweep counts as it counts invalid windows.
+
+    Spans (``utils.metrics``): ``fdr.group`` (its seconds are the results'
+    ``group_seconds``) holds ``fdr.prepare``, ``fdr.folds`` (enqueues the
+    folds: the device's work ends inside ``fdr.fetch``), ``fdr.fetch``
+    (attr ``iterations``: [F][M], each fold's EM iterations or CGS sweeps)
+    and ``fdr.sweeps``."""
+    with span("fdr.group", W=group[0].W, K=group[0].K, M=len(group),
+              refine=refine) as group_span:
+        with span("fdr.prepare"):
+            g = _prepare_group(group, bg, sset, params, neg_set, device)
+        with span("fdr.folds"):
+            outs = _run_folds(g, group, bg, sset, params, refine, graphs)
+        with span("fdr.fetch") as fetch_span:
+            pos_z, neg_z, iters, *ranks = _fetch(outs)
+            fetch_span.attrs["iterations"] = iters.tolist()
+        with span("fdr.sweeps"):
+            results = []
+            for m in range(g.M):
+                pz = np.concatenate([pos_z[f, m, : g.fold_sizes[f]] for f in range(g.F)])
+                nz = np.concatenate([neg_z[f, m, g.neg_keep[f]] for f in range(g.F)])
+                results.append(FDRResult(
+                    zoops=prcurve.threshold_sweep(pz, nz, g.m_fold_eff),
+                    mops=prcurve.sweep_from_ranks(*(r[m] for r in ranks), g.m_fold_eff,
+                                                  g.n_pos_true, g.n_neg_true),
+                    pos_pvalues=empirical_pvalues(pz, nz),
+                    m_fold=params.mFold,
+                    fold_iterations=[int(x) for x in iters[:, m]],
+                ))
     for r in results:
-        r.group_seconds = time.perf_counter() - t0
+        r.group_seconds = group_span.seconds
     return results

@@ -30,7 +30,6 @@ then holds the same sums and takes the same stop decision.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -45,6 +44,7 @@ from bammmotif2_tpu_torch.parallel import distributed
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.utils.device import resolve
+from bammmotif2_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -59,9 +59,9 @@ class EMResult:
                          # excluded); in batched group runs: this seed's
                          # iteration share of the group wall-clock
     windows_scored: int  # total windows scored across all iterations
-    compile_seconds: float = 0.0  # kernel build/load time (0 when cached)
     group_seconds: float = 0.0    # raw wall-clock of the batched group
-                                  # this seed ran in (0 = solo run)
+                                  # this seed ran in (its em.loop span;
+                                  # 0 = solo run)
 
     @property
     def windows_per_sec(self) -> float:
@@ -222,13 +222,10 @@ def synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_seconds(path: str) -> float:
+def load_kernels(path: str) -> None:
     """Build/load the path's kernel now, so EM timings exclude it."""
-    if path != "cuda":
-        return 0.0
-    t0 = time.perf_counter()
-    cuda_em.library()
-    return time.perf_counter() - t0
+    if path == "cuda":
+        cuda_em.library()
 
 
 def run_em(
@@ -266,88 +263,93 @@ def run_em(
     verbose = params.verbose if verbose is None else verbose
     A, K, W = motif.A, motif.K, motif.W
     device = resolve(device)
-    if data is None:
-        data = prepare_data(sset, bg, K, params.ss, device)
-    device = data["cidx"].device
+    with span("em.group", W=W, K=K, M=1) as group_span:
+        if data is None:
+            data = prepare_data(sset, bg, K, params.ss, device)
+        device = data["cidx"].device
 
-    n_real = int(data["lens"].shape[0]) if n_real is None else int(n_real)
-    lens_np = data["lens"].cpu().numpy()
-    n_win = int(data["cidx"].shape[0]) * int(np.maximum(lens_np - W + 1, 0).sum())
-    if mesh is not None:
-        data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
+        n_real = int(data["lens"].shape[0]) if n_real is None else int(n_real)
+        lens_np = data["lens"].cpu().numpy()
+        n_win = int(data["cidx"].shape[0]) * int(np.maximum(lens_np - W + 1, 0).sum())
+        if mesh is not None:
+            data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
 
-    def f32(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+        def f32(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
 
-    v = tuple(f32(vk) for vk in motif.v)
-    q = f32(params.q)
-    alphas = f32(motif.alphas)
-    f_bg = f32(motif.f_bg)
-    eps = f32(params.epsilon)
-    path = choose_path(params, device)
-    compile_seconds = build_seconds(path)
-    statics = dict(A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh)
-    ll_hist: list = []
-    seconds = 0.0
+        v = tuple(f32(vk) for vk in motif.v)
+        q = f32(params.q)
+        alphas = f32(motif.alphas)
+        f_bg = f32(motif.f_bg)
+        eps = f32(params.epsilon)
+        path = choose_path(params, device)
+        load_kernels(path)
+        statics = dict(A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh)
+        ll_hist: list = []
+        seconds = 0.0
 
-    def _sync_motif():
-        motif.v = [vk.cpu().numpy().astype(np.float64) for vk in v]
+        def _sync_motif():
+            motif.v = [vk.cpu().numpy().astype(np.float64) for vk in v]
 
-    ckpt_every = params.checkpointEvery if checkpoint_fn else 0
-    if not verbose and ckpt_every > 0:
-        # chunks of checkpointEvery iterations; the previous chunk's final
-        # ll carries into the next (ll0) so the |dll| stop criterion spans
-        # chunk boundaries exactly as in a one-shot run
-        it, ll, v_diff = 0, float("-inf"), float("inf")
-        converged = False
-        ll_carry = f32(float("-inf"))
-        while it < params.maxEMIterations and not converged:
-            chunk = min(ckpt_every, params.maxEMIterations - it)
-            t0 = time.perf_counter()
-            v, q, ll_dev, vd_dev, it_chunk = em_optimize(
-                v, q, data, alphas, f_bg, n_real, eps, ll_carry,
-                max_iters=chunk, graphs=graphs, **statics,
-            )
-            synchronize(device)
-            seconds += time.perf_counter() - t0
-            it += it_chunk
-            ll, v_diff = float(ll_dev), float(vd_dev)
-            ll_carry = ll_dev
-            ll_hist.append(ll)
-            converged = v_diff < params.epsilon or it_chunk < chunk
-            _sync_motif()
-            checkpoint_fn(motif=motif, iteration=it)
-    elif not verbose:
-        t0 = time.perf_counter()
-        v, q, ll_dev, vd_dev, it = em_optimize(
-            v, q, data, alphas, f_bg, n_real, eps, f32(float("-inf")),
-            max_iters=params.maxEMIterations, graphs=graphs, **statics,
-        )
-        synchronize(device)
-        seconds = time.perf_counter() - t0
-        ll, v_diff = float(ll_dev), float(vd_dev)
-        ll_hist.append(ll)
-        converged = v_diff < params.epsilon
-    else:
-        it, ll, v_diff = 0, float("-inf"), float("inf")
-        converged = False
-        for it in range(1, params.maxEMIterations + 1):
-            ll_prev = ll
-            t0 = time.perf_counter()
-            v, q, ll_dev, vd_dev = em_step(v, q, data, alphas, f_bg, n_real, **statics)
-            ll, v_diff = float(ll_dev), float(vd_dev)
-            seconds += time.perf_counter() - t0
-            ll_hist.append(ll)
-            if distributed.is_main():
-                print(f"  EM iter {it:4d}  ll={ll:.4f}  dv={v_diff:.3e}  q={float(q):.4f}")
-            if ckpt_every > 0 and it % ckpt_every == 0:
+        ckpt_every = params.checkpointEvery if checkpoint_fn else 0
+        if not verbose and ckpt_every > 0:
+            # chunks of checkpointEvery iterations; the previous chunk's final
+            # ll carries into the next (ll0) so the |dll| stop criterion spans
+            # chunk boundaries exactly as in a one-shot run
+            it, ll, v_diff = 0, float("-inf"), float("inf")
+            converged = False
+            ll_carry = f32(float("-inf"))
+            while it < params.maxEMIterations and not converged:
+                chunk = min(ckpt_every, params.maxEMIterations - it)
+                with span("em.loop") as loop_span:
+                    v, q, ll_dev, vd_dev, it_chunk = em_optimize(
+                        v, q, data, alphas, f_bg, n_real, eps, ll_carry,
+                        max_iters=chunk, graphs=graphs, **statics,
+                    )
+                    synchronize(device)
+                seconds += loop_span.seconds
+                it += it_chunk
+                ll, v_diff = float(ll_dev), float(vd_dev)
+                ll_carry = ll_dev
+                ll_hist.append(ll)
+                converged = v_diff < params.epsilon or it_chunk < chunk
                 _sync_motif()
                 checkpoint_fn(motif=motif, iteration=it)
-            if v_diff < params.epsilon or abs(ll - ll_prev) < params.epsilon:
-                converged = True
-                break
+        elif not verbose:
+            with span("em.loop") as loop_span:
+                v, q, ll_dev, vd_dev, it = em_optimize(
+                    v, q, data, alphas, f_bg, n_real, eps, f32(float("-inf")),
+                    max_iters=params.maxEMIterations, graphs=graphs, **statics,
+                )
+                synchronize(device)
+            seconds = loop_span.seconds
+            ll, v_diff = float(ll_dev), float(vd_dev)
+            ll_hist.append(ll)
+            converged = v_diff < params.epsilon
+        else:
+            # the host reads every iteration: the loop's seconds hold the
+            # prints (and checkpoints) too
+            it, ll, v_diff = 0, float("-inf"), float("inf")
+            converged = False
+            with span("em.loop") as loop_span:
+                for it in range(1, params.maxEMIterations + 1):
+                    ll_prev = ll
+                    v, q, ll_dev, vd_dev = em_step(v, q, data, alphas, f_bg, n_real, **statics)
+                    ll, v_diff = float(ll_dev), float(vd_dev)
+                    ll_hist.append(ll)
+                    if distributed.is_main():
+                        print(f"  EM iter {it:4d}  ll={ll:.4f}  dv={v_diff:.3e}  "
+                              f"q={float(q):.4f}")
+                    if ckpt_every > 0 and it % ckpt_every == 0:
+                        _sync_motif()
+                        checkpoint_fn(motif=motif, iteration=it)
+                    if v_diff < params.epsilon or abs(ll - ll_prev) < params.epsilon:
+                        converged = True
+                        break
+            seconds = loop_span.seconds
 
-    _sync_motif()
+        _sync_motif()
+        group_span.attrs.update(iterations=[it], windows=n_win)
     return EMResult(
         iterations=it,
         ll=ll,
@@ -357,5 +359,4 @@ def run_em(
         ll_history=ll_hist,
         seconds=seconds,
         windows_scored=n_win * it,
-        compile_seconds=compile_seconds,
     )

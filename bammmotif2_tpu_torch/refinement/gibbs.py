@@ -58,7 +58,6 @@ own data blocks.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -79,6 +78,7 @@ from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, synchr
 from bammmotif2_tpu_torch.refinement.multi import UNTIL
 from bammmotif2_tpu_torch.scoring.scan import score_fn
 from bammmotif2_tpu_torch.utils.device import resolve
+from bammmotif2_tpu_torch.utils.metrics import span
 
 ALPHA_LR = 0.05
 GRAD_CLIP = 10.0
@@ -99,9 +99,9 @@ class GibbsResult:
                          # the group wall clock
     ll_history: list
     alphas: np.ndarray
-    compile_seconds: float = 0.0  # kernel build/load time (0 when cached)
     group_seconds: float = 0.0    # raw wall-clock of the batched group
-                                  # this seed ran in (0 = solo run)
+                                  # this seed ran in (its cgs.loop span;
+                                  # 0 = solo run)
 
 
 def input_keys(seed: int, indices, device) -> torch.Tensor:
@@ -117,19 +117,17 @@ def counts_fn(path: str):
     return cuda_counts.counts_from_r_multi if path == "cuda" else cuda_counts.counts_from_r_multi_ref
 
 
-def build_seconds(path: str, device) -> float:
+def load_kernels(path: str, device) -> None:
     """Build/load the kernels a run on ``device`` takes now, so sweep
     timings exclude it: on a CUDA device the draws and the loop's stop
     test, and on the kernel path the score and count kernels."""
     if torch.device(device).type != "cuda":
-        return 0.0
-    t0 = time.perf_counter()
+        return
     cuda_draws.library()
     cuda_while.library()
     if path == "cuda":
         cuda_scores.library()
         cuda_counts.library()
-    return time.perf_counter() - t0
 
 
 def _log_alpha_posterior(log_alphas, counts, f_bg, default_alphas):
@@ -434,50 +432,50 @@ def _run_group(group: list, keys: torch.Tensor, data: dict, n_real: int, params:
     GibbsResults.  ``keys``: their chains' keys [M, 2] int64.  With
     ``mesh``, ``data`` is the whole set and each rank sweeps its block of
     it."""
-    if mesh is not None:
-        data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(group[0].A, group[0].K))
     A, K, W = group[0].A, group[0].K, group[0].W
     M = len(group)
-    dev = data["cidx"].device
+    with span("cgs.group", W=W, K=K, M=M):
+        if mesh is not None:
+            data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
+        dev = data["cidx"].device
 
-    def f32(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+        def f32(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
 
-    v = tuple(f32(np.stack([m.v[k] for m in group])) for k in range(K + 1))
-    q = torch.full((M,), params.q, dtype=torch.float32, device=dev)
-    alphas = f32(np.stack([m.alphas for m in group]))
-    f_bg = f32(group[0].f_bg)
-    path = choose_path(params, dev)
-    compile_seconds = build_seconds(path, dev)
-    keys = keys.to(dev)
+        v = tuple(f32(np.stack([m.v[k] for m in group])) for k in range(K + 1))
+        q = torch.full((M,), params.q, dtype=torch.float32, device=dev)
+        alphas = f32(np.stack([m.alphas for m in group]))
+        f_bg = f32(group[0].f_bg)
+        path = choose_path(params, dev)
+        load_kernels(path, dev)
+        keys = keys.to(dev)
 
-    t0 = time.perf_counter()
-    v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), keys, params,
-                                 A=A, K=K, W=W, path=path, mesh=mesh, graphs=graphs)
-    synchronize(dev)
-    seconds = time.perf_counter() - t0
-    graphs_mod.settle()
+        with span("cgs.loop") as loop_span:
+            v, q, la, lls = gibbs_chains(v, q, alphas, f_bg, data, float(n_real), keys, params,
+                                         A=A, K=K, W=W, path=path, mesh=mesh, graphs=graphs)
+            synchronize(dev)
+        seconds = loop_span.seconds
+        graphs_mod.settle()
 
-    lls_h = lls.cpu().numpy()  # [n_iters, M]
-    q_h = q.cpu().numpy()
-    alphas_h = torch.exp(la).cpu().numpy()
-    results = []
-    for gi, m in enumerate(group):
-        m.v = [v[k][gi].cpu().numpy().astype(np.float64) for k in range(K + 1)]
-        m.alphas = alphas_h[gi].astype(np.float64)
-        hist = [float(x) for x in lls_h[:, gi]]
-        results.append(GibbsResult(
-            iterations=len(hist),
-            ll=hist[-1] if hist else float("nan"),
-            q=float(q_h[gi]),
-            # every chain sweeps the same n_iters, so each is charged an
-            # equal share of the group's wall clock
-            seconds=seconds / M,
-            ll_history=hist,
-            alphas=alphas_h[gi],
-            compile_seconds=compile_seconds,
-            group_seconds=0.0 if solo else seconds,
-        ))
+        lls_h = lls.cpu().numpy()  # [n_iters, M]
+        q_h = q.cpu().numpy()
+        alphas_h = torch.exp(la).cpu().numpy()
+        results = []
+        for gi, m in enumerate(group):
+            m.v = [v[k][gi].cpu().numpy().astype(np.float64) for k in range(K + 1)]
+            m.alphas = alphas_h[gi].astype(np.float64)
+            hist = [float(x) for x in lls_h[:, gi]]
+            results.append(GibbsResult(
+                iterations=len(hist),
+                ll=hist[-1] if hist else float("nan"),
+                q=float(q_h[gi]),
+                # every chain sweeps the same n_iters, so each is charged an
+                # equal share of the group's wall clock
+                seconds=seconds / M,
+                ll_history=hist,
+                alphas=alphas_h[gi],
+                group_seconds=0.0 if solo else seconds,
+            ))
     return results
 
 

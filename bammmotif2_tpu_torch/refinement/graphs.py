@@ -49,6 +49,11 @@ loop and the operation, and nothing runs the eager loop instead.  So does a
 loop graph that cannot be built (``device_loop`` chose it): nothing goes
 back to the chunked loop.
 
+Under an active trace (``utils.metrics``) each capture is a
+``graph.capture`` span and counts ``graph.capture``; a call that finds
+its key cached counts ``graph.hit``, and each loop the cache drops
+``graph.evict``.
+
 Launch counters (``ops.cuda_*``'s ``.launches``) count launches: the
 wrappers add one when the body is captured, which launches nothing, so the
 capture's additions are taken back and added once per replay.  A device
@@ -60,10 +65,11 @@ from __future__ import annotations
 
 import collections
 import os
-import time
 import traceback
 
 import torch
+
+from bammmotif2_tpu_torch.utils import metrics
 
 CACHE_SIZE = 8  # captured loops kept (each holds its static buffers and graph pool)
 
@@ -138,10 +144,11 @@ def clear() -> None:
 
 
 def stats() -> list:
-    """One dict a cached loop: its name, capture ms, calls (the capture's
-    and later hits) and replays (a device loop's settled iterations); a
-    device loop's also its loop graph's launches and its captured body's
-    node types."""
+    """One dict a cached loop: its name, capture ms (its ``graph.capture``
+    span: the warm-up iteration, the capture and a device loop's loop
+    graph), calls (the capture's and later hits) and replays (a device
+    loop's settled iterations); a device loop's also its loop graph's
+    launches and its captured body's node types."""
     out = []
     for c in _CACHE.values():
         d = {"name": c.name, "capture_ms": c.capture_ms, "calls": c.calls, "replays": c.replays}
@@ -288,6 +295,7 @@ class Loop:
         else:
             _CACHE.move_to_end(self._key)
             entry.calls += 1
+            metrics.count("graph.hit")
             for k, t in state.items():  # the outputs are not in it
                 _copy_into(entry.state[k], t)
             for k, t in inputs.items():
@@ -357,6 +365,15 @@ class Loop:
         _UNSETTLED[id(entry)] = entry
 
     def _warm_up_and_capture(self, entry: _Captured) -> None:
+        """The warm-up iteration, the capture and (a device loop) the loop
+        graph, inside a ``graph.capture`` span: its seconds are the entry's
+        ``capture_ms``."""
+        with metrics.span("graph.capture", loop=self.name) as sp:
+            self._capture(entry)
+        entry.capture_ms = sp.seconds * 1e3
+        metrics.count("graph.capture")
+
+    def _capture(self, entry: _Captured) -> None:
         stream = _STREAMS.get(self.device.index)
         if stream is None:
             stream = _STREAMS[self.device.index] = torch.cuda.Stream(self.device)
@@ -377,7 +394,6 @@ class Loop:
             graph = torch.cuda.CUDAGraph(keep_graph=self.on_device)
             for g in entry.gens:
                 graph.register_generator_state(g)
-            t0 = time.perf_counter()
             graph.capture_begin()
             try:
                 captured(entry.state, entry.gens)
@@ -388,7 +404,6 @@ class Loop:
                     graph.capture_end()
                 except RuntimeError as err:
                     failed = failed or err
-            entry.capture_ms = (time.perf_counter() - t0) * 1e3
         current.wait_stream(stream)
         # the capture launched nothing: take back what the wrappers counted
         for fn, b in zip(fns, before):
@@ -404,12 +419,12 @@ class Loop:
         _CACHE[self._key] = entry
         while len(_CACHE) > CACHE_SIZE:
             _CACHE.popitem(last=False)
+            metrics.count("graph.evict")
 
     def _wrap(self, entry: _Captured, graph) -> None:
         """Build ``entry``'s loop graph around the captured body ``graph``."""
         from bammmotif2_tpu_torch.ops import cuda_while
 
-        t0 = time.perf_counter()
         try:
             body = int(graph.raw_cuda_graph())
             entry.body_nodes = cuda_while.node_types(body)
@@ -418,4 +433,3 @@ class Loop:
         except (RuntimeError, OSError, TypeError) as err:
             raise CaptureError(f"the loop graph of the {self.name} could not be built "
                                f"(body nodes {entry.body_nodes}): {err}") from err
-        entry.capture_ms += (time.perf_counter() - t0) * 1e3

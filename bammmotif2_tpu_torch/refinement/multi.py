@@ -15,8 +15,6 @@ refines its slice, and after the loop every rank gathers the whole group.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -28,9 +26,10 @@ from bammmotif2_tpu_torch.ops import cuda_while, encode
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import (
-    EMResult, build_seconds, choose_path, data_pass, prepare_data, synchronize,
+    EMResult, choose_path, data_pass, load_kernels, prepare_data, synchronize,
 )
 from bammmotif2_tpu_torch.utils.device import resolve
+from bammmotif2_tpu_torch.utils.metrics import span
 
 # ll-trace slots kept per seed; longer runs record every stride-th iteration
 HIST_CAP = 256
@@ -75,7 +74,20 @@ def run_em_multi(
 
     for (W, K, _fbg), idxs in groups.items():
         group = [motifs[i] for i in idxs]
-        A = group[0].A
+        with span("em.group", W=W, K=K, M=len(group)) as group_span:
+            _refine_group(group, idxs, results, sset, bg, params, device, mesh, graphs,
+                          group_span)
+    return results
+
+
+def _refine_group(group: list, idxs: list, results: list, sset, bg, params, device, mesh,
+                  graphs, group_span) -> None:
+    """One (W, K, f_bg) group of ``run_em_multi``: refines ``group`` (the
+    motifs at ``idxs``) in place and sets their ``results``; the seeds'
+    iterations and the windows of one data pass join ``group_span``'s
+    attrs."""
+    A, K, W, M = group[0].A, group[0].K, group[0].W, len(group)
+    with span("em.prepare"):
         data = prepare_data(sset, bg, K, params.ss, device)
         dev = data["cidx"].device
         n_real = int(data["lens"].shape[0])
@@ -88,7 +100,6 @@ def run_em_multi(
         def f32(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
 
-        M = len(group)
         v = tuple(f32(np.stack([m.v[k] for m in group])) for k in range(K + 1))
         q = torch.full((M,), params.q, dtype=torch.float32, device=dev)
         alphas = f32(np.stack([m.alphas for m in group]))
@@ -103,14 +114,14 @@ def run_em_multi(
             v = tuple(vk[keep] for vk in v)
             q, alphas = q[keep], alphas[keep]
         path = choose_path(params, dev)
-        build_seconds(path)
+        load_kernels(path)
 
         stride = max(1, -(-params.maxEMIterations // HIST_CAP))
         n_slots = -(-params.maxEMIterations // stride)
 
         step, inputs, key = group_step(data, alphas, f_bg, n_real, A=A, K=K, W=W,
                                        optimize_q=params.optimizeQ, path=path, mesh=mesh)
-        t0 = time.perf_counter()
+    with span("em.loop") as loop_span:
         v, q, lls, vds, its, hist = batched_while_loop(
             step, v, q, f32(params.epsilon), params.maxEMIterations,
             n_hist_slots=n_slots, hist_stride=stride, inputs=inputs, key=key, mesh=mesh,
@@ -121,9 +132,10 @@ def run_em_multi(
                 mesh, *v, q, lls, vds, its, hist.T)
             hist = hist.T
         synchronize(dev)
-        seconds = time.perf_counter() - t0
-        graphs_mod.settle()
+    seconds = loop_span.seconds
 
+    with span("em.fetch"):
+        graphs_mod.settle()
         # The group is one loop, so only its wall-clock is observable: each
         # seed is charged its iteration share, and its windows_per_sec then
         # equals the group's aggregate throughput (do not sum over seeds).
@@ -133,7 +145,7 @@ def run_em_multi(
         hist = hist.cpu().numpy()
         total_its = max(int(its[:M].sum()), 1)
         for gi, i in enumerate(idxs):
-            motifs[i].v = [v[k][gi].cpu().numpy().astype(np.float64) for k in range(K + 1)]
+            group[gi].v = [v[k][gi].cpu().numpy().astype(np.float64) for k in range(K + 1)]
             n_rec = -(-int(its[gi]) // stride)
             results[i] = EMResult(
                 iterations=int(its[gi]),
@@ -146,7 +158,7 @@ def run_em_multi(
                 windows_scored=n_win * int(its[gi]),
                 group_seconds=seconds,
             )
-    return results
+    group_span.attrs.update(iterations=[int(x) for x in its[:M]], windows=n_win)
 
 
 def group_step(data, alphas, f_bg, n_real, **statics) -> tuple:

@@ -195,9 +195,8 @@ Phases (any failure exits non-zero):
                end-to-end scan windows/s and config 4's EM-FDR and CGS-FDR
                seconds per (W, K) group; and the W=10 group of config 4
                through the FDR group program split by stage
-               (time_fdr_group, tools/fdr_split.py: group seconds,
-               refinement, fold tail, background fits, sweeps, fetch,
-               other host, the device's idle share).
+               (time_fdr_group: group seconds and the self seconds of
+               the program's fdr.* spans).
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them; the last line is {"ok": true, "device": {...}}.
 Imports no JAX.
@@ -2212,18 +2211,38 @@ def time_while_node(device) -> dict:
 
 def time_fdr_group(device, tmp) -> dict:
     """Config 4's (W=10, K=2) group through the group program, EM-FDR and
-    CGS-FDR: its seconds and where they go (tools/fdr_split.py: plain runs'
-    group seconds, the stages' seconds, the device's idle share under
-    torch.profiler)."""
+    CGS-FDR: its seconds and where they go, read from the program's spans
+    (``utils.metrics``): each run under an active trace, after an untraced
+    run that builds and captures; per run the ``fdr.group`` seconds, and
+    the self seconds of each span in it (``fdr.prepare``, ``fdr.folds``,
+    ``fdr.fetch``, ``fdr.sweeps``, ``fdr.group`` itself, ``graph.capture``)
+    summed by name, with the trace's counters."""
+    import torch
+
     from bammmotif2_tpu_torch.evaluation import fdr
     from bammmotif2_tpu_torch.tools import fdr_split
+    from bammmotif2_tpu_torch.utils import metrics
 
     out = {}
     for refine in ("EM", "CGS"):
         seeds, bg, pos, params = fdr_split.problem(sys.modules[__name__], tmp, refine, 10)
-        out[refine] = fdr_split.split(fdr, "bammmotif2_tpu_torch", seeds, bg, pos, params, runs=3)
+        fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=device)
+        runs = []
+        for _ in range(3):
+            with metrics.tracing() as trace:
+                fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=device)
+            torch.cuda.synchronize(device)
+            spans = trace.spans
+            own = metrics.self_seconds(spans)
+            stages: dict = {}
+            for sp in spans:
+                stages[sp["name"]] = stages.get(sp["name"], 0.0) + own[sp["id"]]
+            (group,) = [sp for sp in spans if sp["name"] == "fdr.group"]
+            runs.append({"group_seconds": (group["end_ns"] - group["start_ns"]) / 1e9,
+                         "stages": stages, "counts": trace.counts})
+        out[refine] = runs
     out["gpu"] = nvidia_smi()
-    log("timing FDR group program (config 4, W=10, K=2; tools/fdr_split.py): " + json.dumps(out))
+    log("timing FDR group program (config 4, W=10, K=2; fdr.* spans): " + json.dumps(out))
     return out
 
 

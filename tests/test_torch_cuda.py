@@ -654,6 +654,8 @@ def check_loops(device) -> dict:
       and window-score plans split into balanced chunks of several seeds a
       block), EM and CGS graphed against eager on the kernel path, as
       above, each wrapper counted by its launches a call.
+    - under an active trace, the cache's counters and capture spans
+      (``check_loop_trace``).
 
     Raises AssertionError on a mismatch; returns what it measured."""
     from bammmotif2_tpu_torch.refinement import gibbs, graphs
@@ -725,6 +727,7 @@ def check_loops(device) -> dict:
     assert all(e["name"] != "sync test loop" for e in graphs.stats())
     out["capture_error"] = message.splitlines()[0]
     out["chunked"] = check_chunked_loops(device)
+    out["trace"] = check_loop_trace(device)
     return out
 
 
@@ -837,6 +840,41 @@ def check_device_loop_cases(device) -> dict:
     # a --checkpointEvery chunk: the cached graph, another cap, start and ll0
     pair("cached_cap_7_ll0", f32(0.0), 7, v=first[0], ll0=first[2], cached=True)
     pair("cached_converged", f32(1e-3), 500, v=first[0], ll0=first[2], cached=True)
+    return out
+
+
+def check_loop_trace(device) -> dict:
+    """The loop cache under an active trace (``utils.metrics``), at a cache
+    of one loop: a first EM loop captures (one ``graph.capture`` count and
+    span, attr ``loop``, whose seconds are its ``capture_ms``), a second of
+    its key is a ``graph.hit``, and a loop of another key (the plain path)
+    captures and drops the first (``graph.evict``); no other span."""
+    from bammmotif2_tpu_torch.refinement import graphs
+    from bammmotif2_tpu_torch.utils import metrics
+
+    data, v0, alphas, f_bg = loop_inputs(2_000, 200, 12, 2, 2, seed=2, device=device)
+    q0 = torch.full((alphas.shape[0],), 0.9, device=device)
+    eps = torch.zeros((), device=device)
+    size = graphs.CACHE_SIZE
+    graphs.clear()
+    graphs.CACHE_SIZE = 1
+    try:
+        with metrics.tracing() as trace:
+            em_loop(data, alphas, f_bg, v0, q0, eps, 3, "cuda", True)
+            (first,) = graphs.stats()
+            em_loop(data, alphas, f_bg, v0, q0, eps, 5, "cuda", True)
+            em_loop(data, alphas, f_bg, v0, q0, eps, 3, "plain", True)
+    finally:
+        graphs.CACHE_SIZE = size
+        graphs.clear()
+    spans = trace.export()["spans"]
+    out = {"counts": trace.counts, "capture_ms": first["capture_ms"],
+           "spans": [(s["name"], s["attrs"]) for s in spans]}
+    assert trace.counts == {"graph.capture": 2, "graph.hit": 1, "graph.evict": 1}, out
+    assert [(s["name"], s["attrs"], s["parent"]) for s in spans] == \
+        [("graph.capture", {"loop": "EM loop"}, None)] * 2, out
+    span_ms = (spans[0]["end_ns"] - spans[0]["start_ns"]) / 1e6
+    assert abs(first["capture_ms"] - span_ms) <= 1e-9 * span_ms, out
     return out
 
 
@@ -1024,3 +1062,8 @@ def test_loop_condition_kernel_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_device_loop_converged_warm_up_stopped_and_cached(cuda_device):
     check_device_loop_cases(cuda_device)
+
+
+@pytest.mark.cuda
+def test_loop_cache_counts_and_capture_spans(cuda_device):
+    check_loop_trace(cuda_device)
