@@ -243,6 +243,7 @@ def _pipeline_stages(params, device, mesh, writer, metrics, alphabet, basename,
                 order=params.bgModelOrder,
                 alpha=params.bgModelAlpha,
                 ss=params.ss,
+                device=device,
             )
     if writer:
         with span("write", what="background"):
@@ -341,6 +342,7 @@ def _scan_stage(params, device, writer, metrics, out, pos_set, neg_set, bg, moti
         else:
             bg_fit = BackgroundModel.from_sequence_set(
                 pos_set, order=params.sOrder, alpha=params.bgModelAlpha, ss=params.ss,
+                device=device,
             )
             neg_sample = seqgen.generate_neg_set(
                 bg_fit, pos_set.lens, m_fold=max(params.mFold, 1), seed=params.seed,

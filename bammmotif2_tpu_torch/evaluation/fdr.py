@@ -359,7 +359,7 @@ def _fold_loop(group: list, bg: BackgroundModel, sset: SequenceSet, params: Para
             train_idx = np.nonzero(train_sel)[0]
             bg_fit = BackgroundModel.from_sequence_set(
                 sset.subset(train_idx if train_idx.size else test_rows),
-                order=params.sOrder, alpha=params.bgModelAlpha, ss=params.ss,
+                order=params.sOrder, alpha=params.bgModelAlpha, ss=params.ss, device=dev,
             )
             ncidx, nlens = seqgen.generate_neg_data(
                 bg_fit, lens_np[test_rows], m_fold=params.mFold, seed=params.seed + f,
@@ -399,22 +399,25 @@ def _fold_loop(group: list, bg: BackgroundModel, sset: SequenceSet, params: Para
 
 
 def fold_backgrounds(sset: SequenceSet, fold_of: np.ndarray, F: int, order: int, alpha: float,
-                     ss: bool) -> tuple:
+                     ss: bool, device="cpu") -> tuple:
     """The order-``order`` background fits to each fold's training rows,
     stacked: per order o, float32 [F, A^(o+1)] conditionals, row f equal to
     ``BackgroundModel.from_sequence_set(sset.subset(rows not in fold f))``'s
     (the reference fits them on the host too, ``_evaluate_group``).  One
-    k-mer index of the set, one count of it, and per fold the held-out
-    rows' counts taken off: integer counts, so each fit is exactly the
-    per-fold one."""
+    count on ``device`` of the set's memoised k-mer index keyed by fold
+    (``fold_of`` in [0, F)) gives each fold's held-out rows' counts, which
+    sum to the set's; each fit takes its fold's off that total: integer
+    counts, so each fit is exactly the per-fold one."""
     A = sset.alphabet.size
     n_idx = encode.num_rows(A, order) + 1
-    idx = BackgroundModel.kmer_index(sset, order, ss)  # [S, N, L]
-    total = np.bincount(idx.ravel(), minlength=n_idx)
+    idx, _lens = encode.strand_indices(sset, order, ss, device)  # [S, N, L]
+    fold = torch.as_tensor(np.asarray(fold_of, np.int32), device=idx.device)
+    held = torch.bincount((fold[None, :, None] * n_idx + idx).ravel(), minlength=F * n_idx)
+    held = held.cpu().numpy().reshape(F, n_idx)
+    total = held.sum(axis=0)
     tables = tuple(np.zeros((F, A ** (o + 1)), np.float32) for o in range(order + 1))
     for f in range(F):
-        held = np.bincount(idx[:, fold_of == f].ravel(), minlength=n_idx)
-        fit = BackgroundModel.from_kmer_counts(total - held, order, alpha, sset.alphabet)
+        fit = BackgroundModel.from_kmer_counts(total - held[f], order, alpha, sset.alphabet)
         for o, t in enumerate(tables):
             t[f] = np.asarray(fit.v[o], np.float32).ravel()
     return tables
@@ -495,7 +498,8 @@ def _prepare_group(group: list, bg: BackgroundModel, sset: SequenceSet, params: 
         for f in range(F):
             rep = np.tile(lens_np[fold_of == f], params.mFold)
             neg_lens[f, : rep.size] = rep
-        trans = fold_backgrounds(sset, fold_of, F, params.sOrder, params.bgModelAlpha, params.ss)
+        trans = fold_backgrounds(sset, fold_of, F, params.sOrder, params.bgModelAlpha, params.ss,
+                                 dev)
         inputs.update({f"trans{o}": put(t) for o, t in enumerate(trans)})
         inputs.update(neg_lens=put(neg_lens), comp=put(encode.comp_table(sset.alphabet)),
                       neg_keys=torch.stack([threefry.prng_key(params.seed + f, dev)

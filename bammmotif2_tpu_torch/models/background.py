@@ -1,9 +1,9 @@
 """Homogeneous background Markov model.
 
-Port of ``bammmotif2_tpu.models.background`` (host numpy; only the encoder
-import differs).  Counts all k-mers (k <= K_bg + 1) over a sequence set
-with one bincount of the combined k-mer index, then applies the
-interpolated pseudo-count recurrence with a single strength A:
+Port of ``bammmotif2_tpu.models.background``.  Counts all k-mers
+(k <= K_bg + 1) over a sequence set with one bincount of the combined
+k-mer index on the job's device, then applies on the host (numpy float64)
+the interpolated pseudo-count recurrence with a single strength A:
 
     v_bg^(k)(y) = ( n(y) + A * v_bg^(k-1)(y') ) / ( n(x) + A )
 
@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from bammmotif2_tpu_torch.utils.alphabet import Alphabet
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
@@ -47,28 +48,24 @@ class BackgroundModel:
 
     @staticmethod
     def from_sequence_set(
-        sset: SequenceSet, order: int = 2, alpha: float = 10.0, ss: bool = False
+        sset: SequenceSet, order: int = 2, alpha: float = 10.0, ss: bool = False,
+        device="cpu",
     ) -> "BackgroundModel":
-        """Count k-mers over the set (both strands unless ss) and estimate v."""
-        R = encode.num_rows(sset.alphabet.size, order)
-        C = np.bincount(BackgroundModel.kmer_index(sset, order, ss).ravel(), minlength=R + 1)
+        """Count k-mers over the set (both strands unless ss) on ``device``
+        and estimate v on the host."""
+        C = BackgroundModel.kmer_counts(sset, order, ss, device)
         return BackgroundModel.from_kmer_counts(C, order, alpha, sset.alphabet)
 
     @staticmethod
-    def kmer_index(sset: SequenceSet, order: int, ss: bool) -> np.ndarray:
-        """The combined k-mer index of every position, [S, N, L] (strands:
-        the set, then its reverse complement unless ss); positions past a
-        row's end or ambiguous hold the sentinel R.  Rows are independent,
-        so the counts of a subset are those of its rows here."""
-        A = sset.alphabet.size
-        strands = [np.asarray(sset.codes)]
-        if not ss:
-            strands.append(
-                encode.revcomp_codes(
-                    sset.codes, sset.lens, encode.comp_table(sset.alphabet)
-                )
-            )
-        return np.stack([encode.combined_kmer_index_np(c, A, order) for c in strands])
+    def kmer_counts(sset: SequenceSet, order: int, ss: bool, device="cpu") -> np.ndarray:
+        """int64 [R + 1]: how often each combined k-mer row indexes a
+        position of the set (strands: the set, then its reverse complement
+        unless ss), the sentinel R last (positions past a row's end or
+        ambiguous).  One bincount on ``device`` of the set's memoised
+        ``encode.strand_indices``, which EM reads too."""
+        R = encode.num_rows(sset.alphabet.size, order)
+        cidx, _lens = encode.strand_indices(sset, order, ss, device)
+        return torch.bincount(cidx.ravel(), minlength=R + 1).cpu().numpy()
 
     @staticmethod
     def from_kmer_counts(C: np.ndarray, order: int, alpha: float,

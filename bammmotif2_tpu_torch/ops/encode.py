@@ -15,9 +15,11 @@ The flat-layout passes (``ops.cuda_flat``) read base-(A+1) codes instead
 (``base5_kmer_index``, ``strand_base5_indices``), and the static map
 ``map_base5_to_combined`` takes each to its combined row.
 
-The numpy entry points (``combined_kmer_index_np``, ``revcomp_codes``) run
-the same torch code on CPU tensors, so host counting and the device encoder
-cannot drift apart.
+``strand_indices`` memoises a set's index on the set, so the background
+fit (``models.background``) and the EM data (``refinement.em.prepare_data``)
+count and read one tensor.  The numpy entry points
+(``combined_kmer_index_np``, ``revcomp_codes``) run the same torch code on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
+from bammmotif2_tpu_torch.utils.metrics import count
 
 
 def order_offsets(A: int, K: int) -> np.ndarray:
@@ -172,11 +175,29 @@ def strand_indices(sset: SequenceSet, K: int, ss: bool, device) -> tuple:
 
     Returns (cidx [S, N, L] int32, lens [N] int32) on ``device``, with
     S = 1 for single-strand (--ss) or 2 (forward, reverse-complement).
+    Memoised on the set under (K, ss, device), keeping the 2 newest
+    entries; the counters ``kmer_index.build`` and ``kmer_index.hit`` say
+    which.  The memo has its own attribute, apart from the JAX package's,
+    so one SequenceSet can feed both packages.  Callers never mutate the
+    returned tensors.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    cache = sset.__dict__.setdefault("_torch_strand_indices", {})
+    key = (K, ss, str(device))
+    hit = cache.get(key)
+    if hit is not None:
+        count("kmer_index.hit")
+        return hit
+    count("kmer_index.build")
+    while len(cache) >= 2:
+        cache.pop(next(iter(cache)))
     A = sset.alphabet.size
     strands, lens = _strand_codes(sset, ss, device)
     cidx = torch.stack([combined_kmer_index(c, A, K) for c in strands])
-    return cidx, lens
+    hit = cache[key] = (cidx, lens)
+    return hit
 
 
 def strand_base5_indices(sset: SequenceSet, K: int, ss: bool, device) -> torch.Tensor:

@@ -71,22 +71,15 @@ class EMResult:
 def prepare_data(sset: SequenceSet, bg: BackgroundModel, K: int, ss: bool, device) -> dict:
     """One-time tensorization for EM: {cidx [S, N, L], lens [N], bg_flat [R]}.
 
-    (cidx, lens) memoize per SequenceSet instance under (K, ss, device),
-    keeping the 2 newest entries.  The memo has its own attribute, apart
-    from the JAX package's, so one SequenceSet can feed both packages.
-    Callers never mutate the returned tensors.
+    (cidx, lens) are the set's memoised ``encode.strand_indices``, which
+    the background fit may have built already.  Callers never mutate the
+    returned tensors.
     """
     device = torch.device(device)
-    cache = sset.__dict__.setdefault("_torch_em_data_cache", {})
-    key = (K, ss, str(device))
-    hit = cache.get(key)
-    if hit is None:
-        while len(cache) >= 2:
-            cache.pop(next(iter(cache)))
-        hit = cache[key] = encode.strand_indices(sset, K, ss, device)
+    cidx, lens = encode.strand_indices(sset, K, ss, device)
     return {
-        "cidx": hit[0],
-        "lens": hit[1],
+        "cidx": cidx,
+        "lens": lens,
         "bg_flat": torch.as_tensor(bg.conditional_flat(K), dtype=torch.float32, device=device),
     }
 

@@ -937,6 +937,88 @@ def check_chunked_loops(device) -> dict:
     return out
 
 
+C4_SITES = ("TGACTCAG", "CACGTGACTT", "GGGGCGGGGCCA")
+
+
+def c4_problem(outdir: str, N: int = 10_000, L: int = 200, seed: int = 4) -> tuple:
+    """A planted N x L bp set as FASTA + seed MEME, shaped as BASELINE
+    config 4: site i of C4_SITES in 80% of the rows i, i + 3, ...; one base
+    in a hundred N; ten soft seeds, the sites' and perturbed copies (three
+    (W, K) groups, of 4, 3 and 3 at -k 2).  Returns (fasta, meme)."""
+    import os
+
+    from bammmotif2_tpu_torch.utils.fasta import write_fasta
+
+    rng = np.random.default_rng(seed)
+    alphabet = Alphabet.standard()
+    codes = rng.integers(0, 4, (N, L)).astype(np.int8)
+    sites = [alphabet.encode(s) for s in C4_SITES]
+    for i, site in enumerate(sites):
+        rows = np.arange(i, N, len(sites))
+        rows = rows[rng.random(rows.size) < 0.8]
+        pos = rng.integers(0, L - len(site), rows.size)
+        codes[rows[:, None], pos[:, None] + np.arange(len(site))] = site
+    codes[rng.random((N, L)) < 0.01] = -1
+    sset = SequenceSet(codes, np.full(N, L, np.int32), [f"s{i}" for i in range(N)], alphabet)
+    fasta = os.path.join(outdir, "c4.fasta")
+    write_fasta(fasta, sset)
+    meme = os.path.join(outdir, "c4.meme")
+    with open(meme, "w") as fh:
+        fh.write("MEME version 4\n\n")
+        for s in range(10):
+            site = sites[s % len(sites)]
+            pwm = np.full((len(site), 4), 0.1)
+            pwm[np.arange(len(site)), site] = 0.7
+            if s >= len(sites):
+                pwm = pwm * rng.uniform(0.8, 1.25, pwm.shape)
+            pwm /= pwm.sum(axis=1, keepdims=True)
+            fh.write(f"MOTIF seed{s + 1}\nletter-probability matrix: alength= 4 "
+                     f"w= {len(pwm)} nsites= 100\n")
+            fh.writelines(" ".join(f"{p:.6f}" for p in row) + "\n" for row in pwm)
+            fh.write("\n")
+    return fasta, meme
+
+
+def check_background(device, tmp: str) -> dict:
+    """The background fit on the card against the CPU, on c4_problem's set:
+    the same integer counts and byte-equal .hbcp/.hbp files at orders 0, 2
+    and 4, both strands and --ss; then a --EM job of c4_problem through
+    the CLI on the card builds the k-mer index once (the background fit's)
+    and its three (W, K) groups read it (``kmer_index.build`` 1,
+    ``kmer_index.hit`` 3)."""
+    import os
+    import pathlib
+
+    from bammmotif2_tpu_torch import cli
+    from bammmotif2_tpu_torch.utils.fasta import read_fasta
+
+    fasta, meme = c4_problem(tmp)
+    sset = read_fasta(fasta, Alphabet.standard())
+    out = {"cases": {}}
+    for order, ss in ((0, False), (2, False), (2, True), (4, False)):
+        C_card = BackgroundModel.kmer_counts(sset, order, ss, device)
+        C_cpu = BackgroundModel.kmer_counts(sset, order, ss, "cpu")
+        files = []
+        for where in (device, "cpu"):
+            bg = BackgroundModel.from_sequence_set(sset, order=order, ss=ss, device=where)
+            paths = bg.write(os.path.join(tmp, f"bg_{order}_{ss}_{torch.device(where).type}"))
+            files.append([pathlib.Path(p).read_bytes() for p in paths])
+        case = {"counts_equal": bool(np.array_equal(C_card, C_cpu)),
+                "files_equal": files[0] == files[1], "positions": int(C_cpu.sum())}
+        out["cases"][f"K{order}{'_ss' if ss else ''}"] = case
+        assert case["counts_equal"] and case["files_equal"], (order, ss, case)
+        assert case["positions"] == (1 if ss else 2) * sset.n * sset.l_max
+    params = cli.params_from_args([os.path.join(tmp, "em"), fasta, "--PWMFile", meme, "--EM",
+                                   "--optimizeQ", "-k", "2", "-K", "2", "--maxEMIterations",
+                                   "20", "--single-device"])
+    res = cli.run_pipeline(params, device)
+    counts = res["trace"]["counts"]
+    out["job_counts"] = counts
+    assert len(res["em_results"]) == 10
+    assert (counts.get("kmer_index.build"), counts.get("kmer_index.hit")) == (1, 3), counts
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     import shutil
@@ -1067,3 +1149,8 @@ def test_device_loop_converged_warm_up_stopped_and_cached(cuda_device):
 @pytest.mark.cuda
 def test_loop_cache_counts_and_capture_spans(cuda_device):
     check_loop_trace(cuda_device)
+
+
+@pytest.mark.cuda
+def test_background_counts_on_the_card_and_one_index_a_job(cuda_device, tmp_path):
+    check_background(cuda_device, str(tmp_path))

@@ -157,8 +157,8 @@ def test_prepare_data_memo_is_separate_from_jax(planted):
     data = em.prepare_data(psset, bg, 2, False, "cpu")
     assert isinstance(data["cidx"], torch.Tensor) and not isinstance(jdata["cidx"], torch.Tensor)
     assert em.prepare_data(psset, bg, 2, False, "cpu")["cidx"] is data["cidx"]
-    assert (2, False, "cpu") in psset.__dict__["_torch_em_data_cache"]
-    assert "_torch_em_data_cache" not in sset.__dict__
+    assert (2, False, "cpu") in psset.__dict__["_torch_strand_indices"]
+    assert "_torch_strand_indices" not in sset.__dict__
     np.testing.assert_array_equal(data["cidx"].numpy(), np.asarray(jdata["cidx"]))
 
 

@@ -143,12 +143,16 @@ def run_cli(out, flags) -> list:
         return [json.loads(line) for line in fh]
 
 
-@pytest.mark.parametrize("flags, names", [
-    (["--EM", "--maxEMIterations", "20"], EM_SPANS),
+# the counters: no graphs on the CPU; the k-mer index built once, by the
+# background fit, and read again by EM (and the scan's fit, FDR's data and
+# its fold backgrounds)
+@pytest.mark.parametrize("flags, names, counts", [
+    (["--EM", "--maxEMIterations", "20"], EM_SPANS,
+     {"kmer_index.build": 1, "kmer_index.hit": 1}),
     (["--EM", "--maxEMIterations", "4", "--FDR", "--scoreSeqset", "--cvFold", "2", "--mFold",
-      "1"], FDR_SCAN_SPANS),
+      "1"], FDR_SCAN_SPANS, {"kmer_index.build": 1, "kmer_index.hit": 4}),
 ], ids=["EM", "FDR_scoreSeqset"])
-def test_cli_writes_its_spans(tmp_path, flags, names):
+def test_cli_writes_its_spans(tmp_path, flags, names, counts):
     events = run_cli(tmp_path / "out", flags)
     kinds = [e["event"] for e in events]
     n = kinds.count("span")
@@ -158,7 +162,7 @@ def test_cli_writes_its_spans(tmp_path, flags, names):
     assert {s["name"] for s in spans} == names
     (root,) = [s for s in spans if s["parent"] is None]
     assert root["name"] == "run" and {s["run"] for s in spans} == {root["run"]}
-    assert events[-2]["run"] == root["run"] and events[-2]["counts"] == {}  # no graphs on the CPU
+    assert events[-2]["run"] == root["run"] and events[-2]["counts"] == counts
     by_id = {s["id"]: s for s in spans}
     assert len(by_id) == len(spans)
     for s in spans:
