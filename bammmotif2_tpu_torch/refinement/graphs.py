@@ -52,7 +52,15 @@ back to the chunked loop.
 Under an active trace (``utils.metrics``) each capture is a
 ``graph.capture`` span and counts ``graph.capture``; a call that finds
 its key cached counts ``graph.hit``, and each loop the cache drops
-``graph.evict``.
+``graph.evict``.  Where ``settle`` reads a device loop's iterations it
+counts the device operations they ran inside the loop graph's WHILE node
+(``graph.loop_ops``: an iteration's kernel, memcpy and memset nodes and
+its stop test's kernel).  A profiler that traces CUDA keeps a record of
+each operation run inside a WHILE node, and CUPTI 12.8 (CUDA 13.0, H100)
+holds about 349,500 such records a process and recycles none: past them
+the traced process drops records or faults with an illegal memory access
+(PERF.md).  So ``graph.loop_ops`` is what a traced run spends of that
+store.
 
 Launch counters (``ops.cuda_*``'s ``.launches``) count launches: the
 wrappers add one when the body is captured, which launches nothing, so the
@@ -122,7 +130,8 @@ def counted() -> tuple:
 def settle() -> None:
     """Add the iterations that device loops ran since the last call to the
     launch counters (each wrapper's launches an iteration, and the stop
-    test's kernel once) and to their loops' replays: one host read a loop.
+    test's kernel once), to their loops' replays and to the active trace's
+    ``graph.loop_ops``: one host read a loop.
     Call it where the loops' results are read."""
     if not _UNSETTLED:
         return
@@ -135,7 +144,17 @@ def settle() -> None:
         for fn, d in entry.per_iteration.items():
             fn.launches += d * n
         cuda_while.condition.launches += n
+        metrics.count("graph.loop_ops", n * body_ops(entry.body_nodes))
     _UNSETTLED.clear()
+
+
+def body_ops(body_nodes: dict) -> int:
+    """The device operations one iteration of a loop graph runs, from its
+    captured body's node types (``ops.cuda_while.node_types``): the kernel,
+    memcpy and memset nodes, and the stop test's kernel.  The port's
+    captured bodies hold no other node that runs device work (no child
+    graph, no conditional node): the card tests check it on every loop."""
+    return sum(body_nodes.get(t, 0) for t in ("kernel", "memcpy", "memset")) + 1
 
 
 def clear() -> None:

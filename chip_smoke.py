@@ -115,6 +115,14 @@ Phases (any failure exits non-zero):
                  (no host sync from the first fold to the fetch: an EM
                  fold's loop and a CGS fold's sweeps are one launch of a
                  loop graph), B2 and B1 or B3 launched;
+               - FDR under torch.profiler (fdr_trace_slice, tests/
+                 test_torch_cuda.py's check_traced_fdr, each case a process
+                 of its own): EM-FDR, unrefined and CGS-FDR groups in the
+                 benchmark's traced order and an --EM --FDR --profile CLI
+                 job, results and files equal to the untraced job's, every
+                 fold-loop iteration's em_counts_kernel launched inside
+                 bamm::fdr.folds, graph.loop_ops no more than the trace's
+                 device records;
                - the flat-layout entry points (ops/cuda_flat.py, the port of
                  tools/pallas_flat.py) on the planted 10k x 200 bp set at
                  K=2: FLAT_ITERS EM iterations through flat em_counts, then
@@ -1003,6 +1011,7 @@ def fdr_program_slice(device, tmp) -> dict:
     from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
     from bammmotif2_tpu_torch.tools import fdr_split
 
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
     out = {}
     for refine in ("EM", "CGS"):
         seeds, bg, pos, params = fdr_split.problem(sys.modules[__name__], tmp, refine, None)
@@ -1029,12 +1038,7 @@ def fdr_program_slice(device, tmp) -> dict:
         loop = fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params, device=device,
                                    program=False)
         loop_secs = time.perf_counter() - t0
-        same = all(
-            a.fold_iterations == b.fold_iterations
-            and np.array_equal(a.pos_pvalues, b.pos_pvalues)
-            and all(np.array_equal(a.zoops[k], b.zoops[k]) and np.array_equal(a.mops[k], b.mops[k])
-                    for k in a.zoops)
-            for a, b in zip(prog, loop, strict=True))
+        same = checks.fdr_results_equal(prog, loop)
         dirs = [os.path.join(tmp, f"fdr_program_{refine}_{t}") for t in ("program", "loop")]
         for d, res in zip(dirs, (prog, loop)):
             for m, r in zip(seeds, res):
@@ -1156,6 +1160,22 @@ def flat_slice(device, tmp) -> dict:
     return out
 
 
+def fdr_trace_slice(tmp) -> dict:
+    """tests/test_torch_cuda.py's traced FDR checks (``check_traced_fdr``:
+    EM-FDR, unrefined FDR, CGS-FDR and an ``--EM --FDR --profile`` CLI job,
+    each traced in a process of its own against the same job untraced)."""
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    out = {}
+    for case in sorted(checks.TRACED_FDR_CASES):
+        d = os.path.join(tmp, f"traced_{case}")
+        os.makedirs(d)
+        res = out[case] = checks.check_traced_fdr(case, d)
+        log(f"slice traced_fdr {case}: " + json.dumps(
+            {k: res[k] for k in ("results_equal", "files_equal", "counts", "device_records",
+                                 "em_counts", "fold_loop_iterations", "trace_bytes")}))
+    return out
+
+
 def phase_slice(device, tmp) -> dict:
     examples = os.path.join(ROOT, "examples")
     ex_fa, ex_meme = os.path.join(examples, "positives.fasta"), os.path.join(examples, "seed.meme")
@@ -1192,6 +1212,9 @@ def phase_slice(device, tmp) -> dict:
     fdr_program = fdr_program_slice(device, tmp)
     secs["fdr_program"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    fdr_traced = fdr_trace_slice(tmp)
+    secs["fdr_traced"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     flat = flat_slice(device, tmp)
     secs["flat"] = time.perf_counter() - t0
     log("slice seconds: " + json.dumps(secs))
@@ -1204,7 +1227,8 @@ def phase_slice(device, tmp) -> dict:
                          "cgs_z": cgs["cgs_10k"]["launches"]["cgs_z"],
                          "cgs_beta": cgs["cgs_10k"]["launches"]["cgs_beta"],
                          **flat["launches"]},
-            "config5": c5, "config4": c4, "cgs": cgs, "fdr_program": fdr_program, "flat": flat}
+            "config5": c5, "config4": c4, "cgs": cgs, "fdr_program": fdr_program,
+            "fdr_traced": fdr_traced, "flat": flat}
 
 
 PARALLEL_SWEEPS = 20  # CGS sweeps of the parallel phase

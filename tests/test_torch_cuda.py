@@ -16,6 +16,11 @@ what a flat E+M or window-score call enqueues, ``check_condition`` for the
 loops' stop-test kernel, ``check_loops`` for the EM loop and the CGS
 sweeps each as one WHILE-node graph) at the main path's shapes; the CGS
 draw kernels' checks are in tests/test_torch_draws.py.
+``check_traced_fdr`` runs an FDR job under torch.profiler against the same
+job untraced, and ``check_cupti_store`` a WHILE-node loop under it, each
+in a process of its own (``python tests/test_torch_cuda.py KIND CASE
+TMP``): CUPTI keeps a bounded store of records of the operations run
+inside WHILE nodes, for the life of a process (CUPTI_LOOP_RECORDS).
 This module imports no JAX.
 """
 
@@ -688,6 +693,7 @@ def check_loops(device) -> dict:
             want = n_iters if path == "cuda" else 0
             assert n == {"b2": want, "b3": want, "cgs_z": n_iters, "cgs_beta": n_iters}, n
             assert reads == 0 and loops == 1, (reads, loops)
+    out["cgs_bodies"] = loop_bodies()
 
     eps = torch.zeros((), device=device)
 
@@ -706,6 +712,7 @@ def check_loops(device) -> dict:
             assert reads_e == want and reads_g == 0, (reads_e, reads_g, want)
             assert n["b1"] == (LOOP_ITERS if path == "cuda" else 0), n
             assert n["condition"] == LOOP_ITERS, n
+    out["em_bodies"] = loop_bodies()
     out["em_device_loop"] = check_device_loop_cases(device)
 
     state = {"q": torch.zeros(2, device=device)}
@@ -729,6 +736,18 @@ def check_loops(device) -> dict:
     out["chunked"] = check_chunked_loops(device)
     out["trace"] = check_loop_trace(device)
     return out
+
+
+def loop_bodies() -> list:
+    """The node types of the cached device loops' captured bodies, each of
+    which holds no node that runs device work ``graphs.body_ops`` does not
+    count (a child graph or a conditional node), so that ``graph.loop_ops``
+    counts every operation run inside the WHILE nodes."""
+    from bammmotif2_tpu_torch.refinement import graphs
+
+    bodies = [c["body_nodes"] for c in graphs.stats() if "body_nodes" in c]
+    assert bodies and not any({"graph", "conditional"} & set(b) for b in bodies), bodies
+    return bodies
 
 
 def cgs_loop(data, alphas, f_bg, v0, q0, path, use, seed, n_iters, burn_in, K=2, W=12):
@@ -848,7 +867,9 @@ def check_loop_trace(device) -> dict:
     of one loop: a first EM loop captures (one ``graph.capture`` count and
     span, attr ``loop``, whose seconds are its ``capture_ms``), a second of
     its key is a ``graph.hit``, and a loop of another key (the plain path)
-    captures and drops the first (``graph.evict``); no other span."""
+    captures and drops the first (``graph.evict``); no other span.  The
+    loop graphs' iterations times their bodies' ``graphs.body_ops`` are
+    ``graph.loop_ops``."""
     from bammmotif2_tpu_torch.refinement import graphs
     from bammmotif2_tpu_torch.utils import metrics
 
@@ -864,13 +885,19 @@ def check_loop_trace(device) -> dict:
             (first,) = graphs.stats()
             em_loop(data, alphas, f_bg, v0, q0, eps, 5, "cuda", True)
             em_loop(data, alphas, f_bg, v0, q0, eps, 3, "plain", True)
+            (last,) = graphs.stats()
     finally:
         graphs.CACHE_SIZE = size
         graphs.clear()
     spans = trace.export()["spans"]
     out = {"counts": trace.counts, "capture_ms": first["capture_ms"],
            "spans": [(s["name"], s["attrs"]) for s in spans]}
-    assert trace.counts == {"graph.capture": 2, "graph.hit": 1, "graph.evict": 1}, out
+    # the loop graphs' iterations: 2 and 5 of the first key (its capture's
+    # warm-up iteration runs eagerly), 2 of the second
+    loop_ops = (7 * graphs.body_ops(first["body_nodes"])
+                + 2 * graphs.body_ops(last["body_nodes"]))
+    assert trace.counts == {"graph.capture": 2, "graph.hit": 1, "graph.evict": 1,
+                            "graph.loop_ops": loop_ops}, out
     assert [(s["name"], s["attrs"], s["parent"]) for s in spans] == \
         [("graph.capture", {"loop": "EM loop"}, None)] * 2, out
     span_ms = (spans[0]["end_ns"] - spans[0]["start_ns"]) / 1e6
@@ -940,11 +967,13 @@ def check_chunked_loops(device) -> dict:
 C4_SITES = ("TGACTCAG", "CACGTGACTT", "GGGGCGGGGCCA")
 
 
-def c4_problem(outdir: str, N: int = 10_000, L: int = 200, seed: int = 4) -> tuple:
+def c4_problem(outdir: str, N: int = 10_000, L: int = 200, seed: int = 4,
+               site_strings: tuple = C4_SITES) -> tuple:
     """A planted N x L bp set as FASTA + seed MEME, shaped as BASELINE
-    config 4: site i of C4_SITES in 80% of the rows i, i + 3, ...; one base
-    in a hundred N; ten soft seeds, the sites' and perturbed copies (three
-    (W, K) groups, of 4, 3 and 3 at -k 2).  Returns (fasta, meme)."""
+    config 4: site i of the n ``site_strings`` in 80% of the rows i, i + n,
+    ...; one base in a hundred N; ten soft seeds, the
+    sites' and perturbed copies (with C4_SITES three (W, K) groups, of 4, 3
+    and 3 at -k 2).  Returns (fasta, meme)."""
     import os
 
     from bammmotif2_tpu_torch.utils.fasta import write_fasta
@@ -952,7 +981,7 @@ def c4_problem(outdir: str, N: int = 10_000, L: int = 200, seed: int = 4) -> tup
     rng = np.random.default_rng(seed)
     alphabet = Alphabet.standard()
     codes = rng.integers(0, 4, (N, L)).astype(np.int8)
-    sites = [alphabet.encode(s) for s in C4_SITES]
+    sites = [alphabet.encode(s) for s in site_strings]
     for i, site in enumerate(sites):
         rows = np.arange(i, N, len(sites))
         rows = rows[rng.random(rows.size) < 0.8]
@@ -1016,6 +1045,302 @@ def check_background(device, tmp: str) -> dict:
     out["job_counts"] = counts
     assert len(res["em_results"]) == 10
     assert (counts.get("kmer_index.build"), counts.get("kmer_index.hit")) == (1, 3), counts
+    return out
+
+
+# The records CUPTI keeps, a process, of the device operations run inside
+# WHILE nodes: 8 MiB of 24-byte records.  A traced loop of ten torch kernels
+# an iteration faulted between 341,031 and 352,032 such operations in its
+# first traced window, and at 1.45 to 1.98 stores where a window holding
+# such records had stopped first (CUPTI 12.8, CUDA 13.0, H100; PERF.md
+# section 7 item 2).
+CUPTI_LOOP_RECORDS = 8 * 2 ** 20 // 24
+# the traced FDR checks' flags: small iteration caps keep a job's loop
+# operations (``graph.loop_ops``) far under CUPTI_LOOP_RECORDS
+TRACED_FDR_FLAGS = ["--maxPWM", "10", "-q", "0.5", "-k", "2", "-K", "2", "--cvFold", "5",
+                    "--mFold", "10", "--maxEMIterations", "30", "--maxCGSIterations", "8"]
+# case -> the FDR refinement ("cli": an --EM --FDR --profile job of the CLI)
+TRACED_FDR_CASES = {"em_fdr": "EM", "unrefined_fdr": "none", "cgs_fdr": "CGS",
+                    "cli_profile": "cli"}
+TRACED_FDR_ARGS = {"EM": ["--FDR", "--optimizeQ"], "none": ["--FDR"], "CGS": ["--CGS", "--FDR"],
+                   "cli": ["--EM", "--FDR", "--optimizeQ"]}
+
+
+def run_worker(kind: str, case: str, tmp: str, timeout: int = 900) -> dict:
+    """``python tests/test_torch_cuda.py KIND CASE TMP`` in a process of its
+    own (CUPTI's store of loop records lasts a process, and a fault ends
+    it): the JSON of its last line."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [
+        root, os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), kind, case, tmp],
+                          capture_output=True, text=True, timeout=timeout, cwd=root, env=env)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"{kind} {case} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def fdr_results_equal(a: list, b: list) -> bool:
+    """Two lists of FDRResults with the same iterations, p-values and sweeps."""
+    return len(a) == len(b) and all(
+        x.fold_iterations == y.fold_iterations and np.array_equal(x.pos_pvalues, y.pos_pvalues)
+        and all(np.array_equal(x.zoops[k], y.zoops[k]) for k in x.zoops)
+        and all(np.array_equal(x.mops[k], y.mops[k]) for k in x.mops)
+        for x, y in zip(a, b))
+
+
+def fold_loop_iterations(results: list, groups: list) -> int:
+    """The fold loops' iterations of FDR results whose seeds fall into
+    ``groups`` (lists of result indices): a group's loop iterates, each
+    fold, as long as its longest-running seed."""
+    return sum(max(results[i].fold_iterations[f] for i in g)
+               for g in groups for f in range(len(results[g[0]].fold_iterations)))
+
+
+def in_spans(times: list, spans: list) -> int:
+    """How many of ``times`` lie in one of the (start, end) ``spans``."""
+    return sum(any(a <= t <= b for a, b in spans) for t in times)
+
+
+def fold_kernels(events: list, kernel: str) -> dict:
+    """Where a Chrome trace's (``traceEvents``) runs of the ``__global__``
+    function ``kernel`` lie against its ``bamm::fdr.folds`` annotations:
+    running between one's start and the end of the group's
+    ``bamm::fdr.fetch`` (``in_fold_stages``: the folds enqueue the device's
+    work, which ends inside the fetch), and launched by a host call inside
+    one (``launched_in_folds``: the call that the run's correlation id
+    names; ``without_launch``: runs whose id names no traced call)."""
+    def spans(name):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("name") == name and e.get("cat") == "user_annotation")
+
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    runs = [e for e in events if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    launched = [calls.get(e.get("args", {}).get("correlation")) for e in runs]
+    folds = spans("bamm::fdr.folds")
+    stages = [(a, d) for (a, _b), (_c, d) in zip(folds, spans("bamm::fdr.fetch"))]
+    return {"folds": len(folds), "runs": len(runs),
+            "in_fold_stages": in_spans([e["ts"] for e in runs], stages),
+            "launched_in_folds": in_spans([t for t in launched if t is not None], folds),
+            "without_launch": sum(t is None for t in launched)}
+
+
+def traced_fdr_worker(case: str, tmp: str) -> dict:
+    """One traced FDR job against the same job untraced, on a 2,000 x 200 bp
+    c4_problem of two (W, K) groups at TRACED_FDR_FLAGS, with a loop cache
+    of two (one where nothing refines), so that each group's loops evict
+    the other's.  The group
+    program (``fdr.evaluate_motifs``) runs as the benchmark's traced run
+    does: an untraced job, a first profiler window, ``graphs.clear()``, a
+    job that captures, then the job under torch.profiler (CPU and CUDA);
+    ``cli_profile`` runs ``--EM --FDR --profile DIR`` through the CLI in a
+    fresh process, then the same job untraced."""
+    import glob
+    import json
+    import os
+
+    from bammmotif2_tpu_torch import cli
+    from bammmotif2_tpu_torch.evaluation import fdr
+    from bammmotif2_tpu_torch.models.motifset import load_motifs
+    from bammmotif2_tpu_torch.refinement import graphs
+    from bammmotif2_tpu_torch.utils import metrics
+    from bammmotif2_tpu_torch.utils.fasta import read_fasta
+
+    device = torch.device("cuda")
+    refine = TRACED_FDR_CASES[case]
+    fasta, meme = c4_problem(tmp, N=2_000, site_strings=C4_SITES[:2])
+    argv = [fasta, "--PWMFile", meme, *TRACED_FDR_FLAGS, *TRACED_FDR_ARGS[refine]]
+    params = cli.params_from_args([os.path.join(tmp, "out"), *argv])
+    alphabet = Alphabet.from_type(params.alphabetType)
+    pos = read_fasta(fasta, alphabet)
+    seeds = load_motifs(params, pos.base_frequencies(), alphabet)
+    graphs.CACHE_SIZE = 1 if refine == "none" else 2
+
+    def read(paths):
+        out = {}
+        for p in paths:
+            with open(p, "rb") as fh:
+                out[os.path.basename(p)] = fh.read()
+        return out
+
+    prof_dir = os.path.join(tmp, "profile")
+    if refine == "cli":
+        runs = {}
+        for tag, extra in (("traced", ["--profile", prof_dir]), ("untraced", [])):
+            res = cli.run_pipeline(cli.params_from_args([os.path.join(tmp, tag), *argv, *extra]),
+                                   device)
+            torch.cuda.synchronize()
+            runs[tag] = (res, read(res["files"]))
+        got, ref = runs["traced"][0]["fdr_results"], runs["untraced"][0]["fdr_results"]
+        files, ref_files = runs["traced"][1], runs["untraced"][1]
+        counts = runs["traced"][0]["trace"]["counts"]
+    else:
+        bg = BackgroundModel.from_sequence_set(pos, order=params.bgModelOrder,
+                                               alpha=params.bgModelAlpha, ss=params.ss)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+        def job(tag):
+            with metrics.tracing() as trace:
+                res = fdr.evaluate_motifs([m.copy() for m in seeds], bg, pos, params,
+                                          refine=refine, device=device)
+            torch.cuda.synchronize()
+            paths = [p for m, r in zip(seeds, res) for p in r.write(os.path.join(tmp, tag),
+                                                                    m.name)]
+            return res, read(paths), trace.counts
+
+        ref, ref_files, _ = job("untraced")
+        first = torch.profiler.profile(activities=acts)
+        first.start()
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+        first.stop()
+        graphs.clear()
+        job("capture")
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        got, files, counts = job("traced")
+        prof.stop()
+        os.makedirs(prof_dir)
+        prof.export_chrome_trace(os.path.join(prof_dir, "job.pt.trace.json"))
+    (path,) = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    groups: dict = {}
+    for i, m in enumerate(seeds):
+        groups.setdefault((m.W, m.K), []).append(i)
+    records = sum(e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for e in events)
+    bodies = loop_bodies() if refine != "none" else []
+    return {"case": case, "results_equal": fdr_results_equal(ref, got),
+            "files_equal": files == ref_files, "files": sorted(files), "counts": counts,
+            "device_records": records, "loop_bodies": bodies,
+            "em_counts": fold_kernels(events, "em_counts_kernel"),
+            "fold_loop_iterations": fold_loop_iterations(got, list(groups.values())),
+            "trace_bytes": os.path.getsize(path)}
+
+
+def check_traced_fdr(case: str, tmp: str) -> dict:
+    """``traced_fdr_worker``'s case in a process of its own: the traced
+    job's FDRResults and written files equal the untraced job's byte for
+    byte; its trace counts captures and evictions (and, with a refinement,
+    loop operations, far under CUPTI_LOOP_RECORDS and no more than the
+    trace's device records: ``graph.loop_ops`` misses no operation run
+    inside a WHILE node, ``loop_bodies``); where EM refines, every
+    fold-loop iteration's ``em_counts_kernel`` lies inside a
+    ``bamm::fdr.folds`` annotation of the trace; ``--profile`` wrote its
+    Chrome trace."""
+    out = run_worker("traced-fdr", case, tmp)
+    refine = TRACED_FDR_CASES[case]
+    counts = out["counts"]
+    assert out["results_equal"] and out["files_equal"] and out["files"], out
+    assert counts.get("graph.capture", 0) > 0 and counts.get("graph.evict", 0) > 0, out
+    assert out["em_counts"]["folds"] == 2 and out["trace_bytes"] > 0, out
+    if refine == "none":
+        assert "graph.loop_ops" not in counts, out
+    else:
+        assert 0 < counts["graph.loop_ops"] < CUPTI_LOOP_RECORDS // 4, out
+        assert out["device_records"] >= counts["graph.loop_ops"], out
+    if refine in ("EM", "cli"):
+        assert out["em_counts"]["in_fold_stages"] == out["fold_loop_iterations"] > 0, \
+            (out["em_counts"], out["fold_loop_iterations"])
+    return out
+
+
+def cupti_store_worker(tmp: str) -> dict:
+    """The store of loop records, standalone: a WHILE-node loop
+    (``ops.cuda_while.WhileGraph``) around a captured body of ten small
+    torch kernels.  Untraced, loops of 2.5 CUPTI_LOOP_RECORDS operations;
+    after a first profiler window (CUDA), a loop graph built anew, traced
+    in a window of half the store (its records counted), then in a second
+    window up to 2.2 stores in all, stopped at the first CUDA error."""
+    from bammmotif2_tpu_torch.refinement import graphs
+
+    dev = torch.device("cuda")
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+
+    def loop(iters: int):
+        its = torch.zeros(1, dtype=torch.int32, device=dev)
+        state = (its, torch.ones(1, device=dev), torch.full((), iters, dtype=torch.int32,
+                                                            device=dev),
+                 torch.zeros((), device=dev), torch.ones((), dtype=torch.bool, device=dev),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        x = torch.zeros(256, device=dev)
+
+        def body():
+            its.add_(1)
+            for _ in range(9):
+                x.add_(1.0)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.capture_begin()
+            body()
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        raw = int(graph.raw_cuda_graph())
+        ops = graphs.body_ops(cuda_while.node_types(raw)) * iters
+        while_graph = cuda_while.WhileGraph(raw, *state)
+
+        def launch():
+            its.zero_()
+            state[4].fill_(True)
+            while_graph.launch()
+            torch.cuda.synchronize(dev)
+            assert int(its.item()) == iters
+            return ops
+
+        launch.keep = (graph, while_graph, state, x)
+        return launch
+
+    out = {}
+    untraced = loop(20_000)
+    out["untraced_ops"] = sum(untraced() for _ in range(4))
+    first = torch.profiler.profile(activities=acts)
+    first.start()
+    torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize(dev)
+    first.stop()
+    traced = loop(2_000)
+
+    def window(limit):
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        ops = 0
+        try:
+            while ops < limit:
+                ops += traced()
+        except Exception as err:  # the fault's CUDA error (torch.AcceleratorError)
+            return ops, None, str(err).splitlines()[0]
+        prof.stop()
+        return ops, sum(1 for e in prof.events() if e.device_type.name == "CUDA"), None
+
+    out["first_ops"], out["first_records"], out["first_error"] = window(CUPTI_LOOP_RECORDS // 2)
+    out["second_ops"], out["second_records"], out["second_error"] = window(
+        int(2.2 * CUPTI_LOOP_RECORDS) - out["first_ops"])
+    return out
+
+
+def check_cupti_store(tmp: str) -> dict:
+    """``cupti_store_worker`` in a process of its own: untraced loops run
+    well past the store; a traced window inside it runs and records every
+    loop operation; and where a traced window faults, it is past the
+    store (what CUPTI 12.8 does there: PERF.md section 7 item 2)."""
+    out = run_worker("cupti-store", "", tmp)
+    assert out["untraced_ops"] > 2 * CUPTI_LOOP_RECORDS, out
+    assert out["first_error"] is None and out["first_records"] >= out["first_ops"], out
+    if out["second_error"] is not None:
+        assert out["first_ops"] + out["second_ops"] >= CUPTI_LOOP_RECORDS, out
     return out
 
 
@@ -1154,3 +1479,25 @@ def test_loop_cache_counts_and_capture_spans(cuda_device):
 @pytest.mark.cuda
 def test_background_counts_on_the_card_and_one_index_a_job(cuda_device, tmp_path):
     check_background(cuda_device, str(tmp_path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TRACED_FDR_CASES))
+def test_traced_fdr_job_equals_untraced(cuda_device, case, tmp_path):
+    check_traced_fdr(case, str(tmp_path))
+
+
+@pytest.mark.cuda
+def test_cupti_faults_only_past_its_store_of_loop_records(cuda_device, tmp_path):
+    check_cupti_store(str(tmp_path))
+
+
+if __name__ == "__main__":
+    import json
+    import os
+    import sys
+
+    kind, case, tmp = sys.argv[1:4]
+    res = traced_fdr_worker(case, tmp) if kind == "traced-fdr" else cupti_store_worker(tmp)
+    print(json.dumps(res), flush=True)
+    os._exit(0)  # after a CUDA fault, the interpreter's teardown would touch the context

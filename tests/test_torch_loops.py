@@ -7,6 +7,8 @@ graph and the eager loop and between the loop on the device and the
 chunked one, and the stop test against the reference's ``cond``.  The
 graphed loops on the card: ``check_loops`` in tests/test_torch_cuda.py."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -431,6 +433,44 @@ def test_cpu_loop_with_its_stop_test_runs_in_chunks():
     assert not bool(state["running"])
     with pytest.raises(RuntimeError, match="run\\(n\\)"):
         loop.run_while()
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["traced", "untraced"])
+def test_settle_counts_loop_iterations_and_operations(monkeypatch, traced):
+    """``settle`` reads each device loop launched since the last settle
+    once: the iterations since then go to its replays, to the launch
+    counters and, under an active trace, to ``graph.loop_ops`` (iterations
+    times the body's kernel, memcpy and memset nodes and the stop test's
+    kernel: what a CUDA profiler records inside WHILE nodes).  Fakes stand in for the loop graphs: each loop's
+    device counter is a CPU tensor."""
+    from bammmotif2_tpu_torch.ops import cuda_while
+    from bammmotif2_tpu_torch.utils import metrics
+
+    class Wrapper:
+        launches = 0
+
+    em_body = {"kernel": 68, "memcpy": 5}
+    cgs_body = {"kernel": 322, "memcpy": 4, "memset": 2, "event_record": 1}
+    assert (graphs.body_ops(em_body), graphs.body_ops(cgs_body)) == (74, 329)
+    entries = []
+    for name, body, total, settled in (("EM loop", em_body, 30, 10),
+                                       ("CGS sweep loop", cgs_body, 7, 0)):
+        e = graphs._Captured(name, {}, {}, [], None)
+        e.body_nodes = body
+        e.count, e.settled, e.replays = torch.tensor(total), settled, settled
+        e.per_iteration = {Wrapper: 2}
+        entries.append(e)
+    monkeypatch.setattr(graphs, "_UNSETTLED", {id(e): e for e in entries})
+    monkeypatch.setattr(cuda_while.condition, "launches", 0)
+    monkeypatch.setattr(Wrapper, "launches", 0)
+    with metrics.tracing() if traced else contextlib.nullcontext() as trace:
+        graphs.settle()
+        graphs.settle()  # nothing left to read
+    assert [(e.replays, e.settled) for e in entries] == [(30, 30), (7, 7)]
+    assert (Wrapper.launches, cuda_while.condition.launches) == (2 * 27, 27)
+    assert not graphs._UNSETTLED
+    if traced:
+        assert trace.counts == {"graph.loop_ops": 20 * 74 + 7 * 329}
 
 
 def _scripted(table, xp):
