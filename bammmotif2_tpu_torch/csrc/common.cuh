@@ -1,9 +1,9 @@
 // Device helpers, reductions and launch arithmetic shared by the kernels of
-// csrc/ (em_counts.cu, window_scores.cu, counts_from_r.cu, flat.cu).  Each
-// source keeps its own __global__ passes and C entry points; the passes
-// themselves live in em.cuh, scores.cuh and counts.cuh, each shared by a
-// combined-layout kernel and its flat-layout twin; ops/_build.py rebuilds
-// every library when a header changes.
+// csrc/ (em_counts.cu, em_update.cu, window_scores.cu, counts_from_r.cu,
+// flat.cu).  Each source keeps its own __global__ passes and C entry points;
+// the passes themselves live in em.cuh, scores.cuh and counts.cuh, each
+// shared by a combined-layout kernel and its flat-layout twin; ops/_build.py
+// rebuilds every library when a header changes.
 
 #pragma once
 
@@ -90,20 +90,36 @@ __global__ void round_counts_kernel(const double* __restrict__ Cd, float* __rest
     C[k] = (float)Cd[k];
 }
 
-// ll[m] = sum_n logz[m, n]: one block per seed, fixed order, double sums.
-__global__ void __launch_bounds__(kThreads)
-ll_reduce_kernel(const float* __restrict__ logz, int N, float* __restrict__ ll) {
-  __shared__ double part[kThreads];
-  const float* row = logz + (size_t)blockIdx.x * N;
-  double acc = 0.0;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) acc += (double)row[n];
+// The sum of every thread's acc over a block of kThreads threads, pairwise
+// in a fixed order through part (kThreads doubles of shared memory); every
+// thread gets it.  Called by every thread.
+__device__ __forceinline__ double block_sum(double acc, double* part) {
   part[threadIdx.x] = acc;
   __syncthreads();
   for (int h = kThreads / 2; h > 0; h >>= 1) {
     if (threadIdx.x < h) part[threadIdx.x] += part[threadIdx.x + h];
     __syncthreads();
   }
-  if (threadIdx.x == 0) ll[blockIdx.x] = (float)part[0];
+  const double sum = part[0];
+  __syncthreads();  // part is reused by the next sum
+  return sum;
+}
+
+// sum_n row[n] over a block of kThreads threads, in double: thread t adds
+// n = t, t + kThreads, ..., then block_sum.  ll_reduce_kernel and
+// em_update.cu's ll both take it, so the two give the same bits.
+__device__ __forceinline__ double row_sum(const float* __restrict__ row, int N, double* part) {
+  double acc = 0.0;
+  for (int n = threadIdx.x; n < N; n += kThreads) acc += (double)row[n];
+  return block_sum(acc, part);
+}
+
+// ll[m] = sum_n logz[m, n]: one block per seed, fixed order, double sums.
+__global__ void __launch_bounds__(kThreads)
+ll_reduce_kernel(const float* __restrict__ logz, int N, float* __restrict__ ll) {
+  __shared__ double part[kThreads];
+  const double sum = row_sum(logz + (size_t)blockIdx.x * N, N, part);
+  if (threadIdx.x == 0) ll[blockIdx.x] = (float)sum;
 }
 
 // The current device's streaming-multiprocessor count, queried once a

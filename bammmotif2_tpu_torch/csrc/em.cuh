@@ -322,7 +322,9 @@ cudaError_t em_launch_plan(Pick pick, const int* codes, const int* lens, const f
 // The whole E+M call on `stream`: checks the plan, launches the pass, then
 // rounds the f64 counts Cd into C and reduces logz into ll in a fixed order.
 // Cd ([M, R1, W] f64) must be zeroed by the caller; C and logz are written in
-// full.  The plan (ops/cuda_em.py::launch_plan): seeds_per_block seeds share
+// full.  With C null it stops after the pass, leaving the counts in Cd and
+// writing neither C nor ll (em_update.cu's kernel finishes them in the EM
+// loop).  The plan (ops/cuda_em.py::launch_plan): seeds_per_block seeds share
 // a block; smem_lut says whether the LUTs live in shared memory (which needs
 // the counts there too), counts where the partial counts live (0 float64
 // global atomics, 1 a float shared table, 2 a fixed-point shared table); team
@@ -359,7 +361,7 @@ cudaError_t em_run(Pick pick, const int* codes, const int* lens, const float* s_
           : counts == kCountsFloat ? (smem_lut ? EM_LAUNCH(kThreads, true, kCountsFloat) : EM_LAUNCH(kThreads, false, kCountsFloat))
           : EM_LAUNCH(kThreads, false, kCountsGlobal);
 #undef EM_LAUNCH
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || C == nullptr) return err;
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   round_counts_kernel<<<sms * 4, kThreads, 0, st>>>(Cd, C, (size_t)M * R1 * W);

@@ -99,7 +99,8 @@ em_counts_kernel(const int* __restrict__ cidx, const int* __restrict__ lens,
 extern "C" {
 
 // Launches the kernels on `stream` (em.cuh's em_run): Cd ([M, R1, W] f64)
-// must be zeroed by the caller; C, logz and ll are written in full.  The plan
+// must be zeroed by the caller; C, logz and ll are written in full, or, with
+// C and ll null, the pass alone runs (Cd and logz are its results).  The plan
 // is ops/cuda_em.py::launch_plan's (seeds_per_block, smem_lut, counts: 0
 // float64 global atomics, 1 a float shared table, 2 a fixed-point shared
 // table; team 32 or 256; codes_cap).

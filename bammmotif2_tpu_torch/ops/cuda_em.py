@@ -181,14 +181,48 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
         return em_counts_multi_ref(s_flat, cidx, lens, q, unrounded)
     _check(s_flat, cidx, lens, q)
     M, R1, W = s_flat.shape
-    S, N, L = cidx.shape
+    N = cidx.shape[1]
     dev = cidx.device
     C = torch.zeros((M, R1, W), dtype=torch.float32, device=dev)
     ll = torch.zeros((M,), dtype=torch.float32, device=dev)
     Cd = torch.zeros((M, R1, W), dtype=torch.float64, device=dev)
     if M == 0:
         return (Cd if unrounded else C), ll
-    logz = torch.empty((M, N), dtype=torch.float32, device=dev)
+    _launch(s_flat, cidx, lens, q, Cd, torch.empty((M, N), dtype=torch.float32, device=dev),
+            C, ll)
+    return (Cd if unrounded else C), ll
+
+
+em_counts_multi.launches = 0
+
+
+def em_pass(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor, q: torch.Tensor,
+            Cd: torch.Tensor, logz: torch.Tensor) -> None:
+    """B1's data pass alone, as the EM loop's body runs it before
+    ``cuda_update.em_update``: adds the counts into ``Cd`` (f64 [M, R+1,
+    W], zero on entry) and writes ``logz`` (f32 [M, N], each sequence's log
+    marginal), with ``em_counts_multi``'s arguments, plan and launches
+    (counted in ``em_counts_multi.launches``), and neither rounds the
+    counts nor sums ll."""
+    _check(s_flat, cidx, lens, q)
+    M, R1, W = s_flat.shape
+    N = cidx.shape[1]
+    for name, t, dtype, shape in (("Cd", Cd, torch.float64, (M, R1, W)),
+                                  ("logz", logz, torch.float32, (M, N))):
+        if t.device != cidx.device or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} on "
+                             f"{cidx.device}, got {t.dtype} {list(t.shape)} on {t.device}")
+    if M:
+        _launch(s_flat, cidx, lens, q, Cd, logz, None, None)
+
+
+def _launch(s_flat, cidx, lens, q, Cd, logz, C, ll) -> None:
+    """``em_counts_launch`` for each of ``seed_launches``' ranges in turn on
+    the current stream; C and ll None run the pass alone."""
+    M, R1, W = s_flat.shape
+    S, N, L = cidx.shape
+    dev = cidx.device
     plan = launch_plan(M, R1, W, S, L)
     lib = library()
     with torch.cuda.device(dev):
@@ -196,7 +230,8 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
         for m0, m1 in seed_launches(plan, M):
             err = lib.em_counts_launch(
                 cidx.data_ptr(), lens.data_ptr(), s_flat[m0].data_ptr(), q[m0:].data_ptr(),
-                C[m0].data_ptr(), Cd[m0].data_ptr(), logz[m0].data_ptr(), ll[m0:].data_ptr(),
+                None if C is None else C[m0].data_ptr(), Cd[m0].data_ptr(),
+                logz[m0].data_ptr(), None if ll is None else ll[m0:].data_ptr(),
                 S, N, L, W, R1, m1 - m0, plan.seeds_per_block, int(plan.smem_lut), plan.counts,
                 plan.team, plan.codes_cap, stream,
             )
@@ -205,10 +240,6 @@ def em_counts_multi(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor
                     f"em_counts launch failed: {lib.em_counts_error_string(err).decode()}"
                 )
             em_counts_multi.launches += 1
-    return (Cd if unrounded else C), ll
-
-
-em_counts_multi.launches = 0
 
 
 def em_counts_multi_ref(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor,

@@ -171,28 +171,21 @@ def em_optimize(
     """The EM convergence loop: stop when v_diff < eps or |dll| < eps
     (EM::optimize), capped at ``max_iters``.  The comparison is in float32
     on the device, as in the JAX loop.  ``refinement.multi.
-    batched_while_loop`` runs ``em_step`` with one seed: on the card one
-    launch of its loop graph, which tests the stop on the device (with a
-    mesh, or ``graphs`` False, the host reads the stop flag once per
-    ``multi.SYNC_EVERY`` iterations).
+    batched_while_loop`` runs ``multi.group_step``'s iteration, which is
+    ``em_step``'s, with one seed: on the card one launch of its loop graph,
+    which tests the stop on the device (with a mesh, or ``graphs`` False,
+    the host reads the stop flag once per ``multi.SYNC_EVERY``
+    iterations).
 
     ``ll0``: the likelihood the first iteration's dll compares against
     (-inf for a fresh run; the previous chunk's ll under --checkpointEvery).
 
     Returns (v, q, ll, v_diff, iterations).
     """
-    from bammmotif2_tpu_torch.refinement.multi import batched_while_loop
+    from bammmotif2_tpu_torch.refinement.multi import batched_while_loop, group_step
 
-    tensors, consts = graphs_mod.split(data)
-    inputs = {**tensors, "alphas": alphas, "f_bg": f_bg}
-    statics = dict(A=A, K=K, W=W, optimize_q=optimize_q, path=path)
-
-    def step(vm, qm):
-        v2, q2, ll, vd = em_step(tuple(x[0] for x in vm), qm[0], {**data, **inputs},
-                                 inputs["alphas"], inputs["f_bg"], n_real, mesh=mesh, **statics)
-        return tuple(x[None] for x in v2), q2.reshape(1), ll.reshape(1), vd.reshape(1)
-
-    key = ("em_step", float(n_real), consts, tuple(sorted(statics.items())))
+    step, inputs, key = group_step(data, alphas[None], f_bg, n_real, A=A, K=K, W=W,
+                                   optimize_q=optimize_q, path=path, mesh=mesh)
     v, q, lls, vds, its, _hist = batched_while_loop(
         step, tuple(vk[None] for vk in v), q.reshape(1), epsilon, max_iters,
         inputs=inputs, key=key, ll0=ll0.reshape(1), mesh=mesh, graphs=graphs,

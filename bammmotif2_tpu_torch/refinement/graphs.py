@@ -118,10 +118,10 @@ def device_loop(device, mesh=None, n_gens: int = 0) -> bool:
 def counted() -> tuple:
     """The kernel wrappers whose ``.launches`` count launches."""
     from bammmotif2_tpu_torch.ops import (
-        cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_while,
+        cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_update, cuda_while,
     )
 
-    return (cuda_em.em_counts_multi, cuda_scores.window_scores_multi,
+    return (cuda_em.em_counts_multi, cuda_update.em_update, cuda_scores.window_scores_multi,
             cuda_counts.counts_from_r_multi, cuda_flat.em_counts, cuda_flat.window_scores,
             cuda_flat.counts_from_r, cuda_while.condition, cuda_draws.markov_codes,
             cuda_draws.cgs_z, cuda_draws.cgs_beta)

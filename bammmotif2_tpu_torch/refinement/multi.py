@@ -22,14 +22,14 @@ from bammmotif2_tpu_torch.utils.config import Params
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import motif as motif_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
-from bammmotif2_tpu_torch.ops import cuda_while, encode
+from bammmotif2_tpu_torch.ops import cuda_em, cuda_update, cuda_while, encode
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import (
     EMResult, choose_path, data_pass, load_kernels, prepare_data, synchronize,
 )
 from bammmotif2_tpu_torch.utils.device import resolve
-from bammmotif2_tpu_torch.utils.metrics import span
+from bammmotif2_tpu_torch.utils.metrics import count, span
 
 # ll-trace slots kept per seed; longer runs record every stride-th iteration
 HIST_CAP = 256
@@ -165,7 +165,10 @@ def group_step(data, alphas, f_bg, n_real, **statics) -> tuple:
     """(step, inputs, key) of ``batched_step`` on ``data`` for
     ``batched_while_loop``: step(v, q) reads the tensors of ``data``,
     ``alphas`` and ``f_bg`` through ``inputs``, and ``key`` holds the rest
-    (``n_real``, the data's row bounds, ``statics``)."""
+    (``n_real``, the data's row bounds, ``statics``).  Where the data pass
+    is the kernel's on a CUDA device with no mesh, ``step.fused`` is the
+    same iteration as two kernels (``FusedStep``), which the loop runs
+    instead; elsewhere it is None."""
     tensors, consts = graphs_mod.split(data)
     inputs = {**tensors, "alphas": alphas, "f_bg": f_bg}
 
@@ -173,6 +176,11 @@ def group_step(data, alphas, f_bg, n_real, **statics) -> tuple:
         return batched_step(v, q, {**data, **inputs}, inputs["alphas"], inputs["f_bg"], n_real,
                             **statics)
 
+    step.fused = None
+    if (statics["path"] == "cuda" and statics.get("mesh") is None
+            and data["cidx"].device.type == "cuda"):
+        step.fused = FusedStep(inputs, n_real, A=statics["A"], K=statics["K"],
+                               optimize_q=statics["optimize_q"])
     key = ("batched_step", float(n_real), consts,
            tuple(sorted((k, x) for k, x in statics.items() if k != "mesh")))
     return step, inputs, key
@@ -182,11 +190,19 @@ def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path,
     """One EM iteration for a seed-stacked group: (v, q) with a leading seed
     axis M -> (v_new, q_new, ll [M], v_diff [M]).  One E+M data pass serves
     all M seeds (with a mesh: this rank's rows, summed over the data group);
-    the model update runs batched over the seed axis."""
-    R = encode.num_rows(A, K)
+    the model update (``update``) runs batched over the seed axis."""
     n_rows = data.get("n_padded", data["lens"].shape[0])
     s_flat = motif_mod.log_odds_lut(v, data["bg_flat"])  # [M, R+1, W]
     C, ll = data_pass(path, s_flat, data, q, mesh)
+    return update(C, ll, v, q, alphas, f_bg, n_real, n_rows, A=A, K=K, optimize_q=optimize_q)
+
+
+def update(C, ll, v, q, alphas, f_bg, n_real, n_rows, *, A, K, optimize_q) -> tuple:
+    """The model update after the data pass of M seeds (C f32 [M, R+1, W],
+    ll f32 [M]) from (v, q): (v_new, q_new, ll, v_diff), ll taking the
+    log(1-q) of each of the n_rows - n_real rows of length 0.
+    ``ops.cuda_update.em_update`` computes the same in one kernel."""
+    R = encode.num_rows(A, K)
     counts = motif_mod.counts_from_combined(C[:, :R], A, K)
     v_new = motif_mod.update_v(counts, alphas, f_bg)
     if optimize_q:
@@ -197,6 +213,64 @@ def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path,
     # zero-length pad rows each contribute log(1-q) (cf. em_step)
     ll = ll - (n_rows - n_real) * torch.log1p(-q)
     return v_new, q_new, ll, vd
+
+
+def advance(s: dict, v2, q2, ll2, vd2, n_hist_slots: int, hist_stride: int) -> None:
+    """The loop state's step after an iteration that gave (v2, q2, ll2,
+    vd2): the seeds still active (the group running, the seed not frozen:
+    the reference's ``cond`` and its per-seed ``where``) take them, their
+    effective v_diff min(vd2, |dll|) and one more iteration; ll2 goes to
+    the history slot its // hist_stride (the last slot past the end)."""
+    M, dev = s["q"].shape[0], s["q"].device
+    active = s["running"] & (s["vds"] >= s["eps"])
+    vd_eff = torch.minimum(vd2, (ll2 - s["lls"]).abs())
+    for a, b in zip(s["v"], v2):
+        a.copy_(torch.where(active[:, None, None], b, a))
+    if n_hist_slots > 0:
+        slot = torch.clamp(s["its"] // hist_stride, max=n_hist_slots - 1).long()
+        seeds = torch.arange(M, device=dev)
+        s["hist"][slot, seeds] = torch.where(active, ll2, s["hist"][slot, seeds])
+    s["q"].copy_(torch.where(active, q2, s["q"]))
+    s["lls"].copy_(torch.where(active, ll2, s["lls"]))
+    s["vds"].copy_(torch.where(active, vd_eff, s["vds"]))
+    s["its"].add_(active.to(torch.int32))
+
+
+class FusedStep:
+    """``batched_step`` and ``advance`` as two kernels, for a group whose
+    data pass is the kernel's on one CUDA device with no mesh: B1's pass
+    (``cuda_em.em_pass``), then the model update, the loop state's step
+    and the next iteration's LUT in one launch (``cuda_update.em_update``).
+    Its loop state (``state``) keeps v stacked [M, R, W] beside the LUT
+    ``s_flat``, B1's float64 counts ``Cd`` (zero between iterations) and
+    ``logz``.  It reads the data, ``alphas`` and ``f_bg`` through
+    ``inputs``, as ``group_step``'s step does."""
+
+    def __init__(self, inputs: dict, n_real, *, A: int, K: int, optimize_q: bool):
+        self.inputs, self.n_real = inputs, n_real
+        self.A, self.K, self.optimize_q = A, K, optimize_q
+
+    def state(self, v0: tuple) -> dict:
+        """The loop state's tensors of its own, from the seeds' v0."""
+        bg_flat, dev = self.inputs["bg_flat"], v0[0].device
+        M, W = v0[0].shape[0], v0[0].shape[-1]
+        return {"v": motif_mod.combined_v(v0), "s_flat": motif_mod.log_odds_lut(v0, bg_flat),
+                "Cd": torch.zeros((M, bg_flat.shape[0] + 1, W), dtype=torch.float64, device=dev),
+                "logz": torch.empty((M, self.inputs["lens"].shape[0]), device=dev)}
+
+    def split(self, v: torch.Tensor) -> tuple:
+        """The stacked v [M, R, W] as one tensor an order."""
+        off = encode.order_offsets(self.A, self.K)
+        return tuple(v[:, off[k]:off[k + 1]].clone() for k in range(self.K + 1))
+
+    def __call__(self, s: dict, n_hist_slots: int, hist_stride: int) -> None:
+        i = self.inputs
+        cuda_em.em_pass(s["s_flat"], i["cidx"], i["lens"], s["q"], s["Cd"], s["logz"])
+        cuda_update.em_update(s["Cd"], s["logz"], s["v"], s["s_flat"], s["q"], s["lls"],
+                              s["vds"], s["its"], s["hist"], s["running"], s["eps"],
+                              i["alphas"], i["f_bg"], i["bg_flat"], n_real=self.n_real,
+                              optimize_q=self.optimize_q, hist_slots=n_hist_slots,
+                              hist_stride=hist_stride)
 
 
 def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
@@ -213,13 +287,16 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
     The iteration is one in-place body (``graphs.Loop``): every seed steps,
     and only those still active (the group running, the seed not frozen:
     the reference's ``cond`` and its per-seed ``where``) take the new
-    state, so a step past a seed's exit, or past the group's inside a
-    chunk, changes nothing.  The stop test (``_running``) follows each
-    iteration.  On a CUDA device with no mesh the loop runs on the device
-    to its end, as the reference's does: one launch of a graph whose WHILE
-    node repeats the captured iteration while the test's kernel
-    (``ops.cuda_while``) holds, with no host read (``graphs.device_loop``;
-    the caller calls ``graphs.settle`` where it reads the results).
+    state (``advance``), so a step past a seed's exit, or past the group's
+    inside a chunk, changes nothing.  A ``step`` of ``group_step`` whose
+    ``fused`` is set runs as that ``FusedStep`` instead, two kernels an
+    iteration (counted once a loop in ``em.update_fused``).  The stop test
+    (``_running``) follows each iteration.  On a CUDA device with no mesh
+    the loop runs on the device to its end, as the reference's does: one
+    launch of a graph whose WHILE node repeats the captured iteration while
+    the test's kernel (``ops.cuda_while``) holds, with no host read
+    (``graphs.device_loop``; the caller calls ``graphs.settle`` where it
+    reads the results).
     Elsewhere the host runs SYNC_EVERY iterations, then reads one flag:
     eagerly, or as replays of a CUDA graph where the mesh's data group runs
     NCCL (``graphs.enabled``); ``graphs`` False runs it eagerly.  ``step``
@@ -232,6 +309,7 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
     """
     M = q0.shape[0]
     dev = q0.device
+    fused = getattr(step, "fused", None)
     state = {
         "v": tuple(vk.clone() for vk in v0),
         "q": q0.clone(),
@@ -245,21 +323,15 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
         "cap": torch.full((), max_iters, dtype=torch.int32, device=dev),
     }
     state["running"] = _running(state)
+    if fused is not None:
+        state.update(fused.state(v0))
+        count("em.update_fused")
 
     def body(s, _gens):
-        active = s["running"] & (s["vds"] >= s["eps"])
-        v2, q2, ll2, vd2 = step(s["v"], s["q"])
-        vd_eff = torch.minimum(vd2, (ll2 - s["lls"]).abs())
-        for a, b in zip(s["v"], v2):
-            a.copy_(torch.where(active[:, None, None], b, a))
-        if n_hist_slots > 0:
-            slot = torch.clamp(s["its"] // hist_stride, max=n_hist_slots - 1).long()
-            seeds = torch.arange(M, device=dev)
-            s["hist"][slot, seeds] = torch.where(active, ll2, s["hist"][slot, seeds])
-        s["q"].copy_(torch.where(active, q2, s["q"]))
-        s["lls"].copy_(torch.where(active, ll2, s["lls"]))
-        s["vds"].copy_(torch.where(active, vd_eff, s["vds"]))
-        s["its"].add_(active.to(torch.int32))
+        if fused is not None:
+            fused(s, n_hist_slots, hist_stride)
+        else:
+            advance(s, *step(s["v"], s["q"]), n_hist_slots, hist_stride)
 
     with graphs_mod.Loop("EM loop", key, state, inputs or {}, body, mesh=mesh,
                          graphs=graphs and key is not None, until=UNTIL) as loop:
@@ -276,8 +348,9 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
                 done += n
                 if done < max_iters and not bool(s["running"]):  # the chunk's one host read
                     break
-        return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["lls"].clone(),
-                s["vds"].clone(), s["its"].clone(), s["hist"].clone())
+        v = fused.split(s["v"]) if fused is not None else tuple(vk.clone() for vk in s["v"])
+        return (v, s["q"].clone(), s["lls"].clone(), s["vds"].clone(), s["its"].clone(),
+                s["hist"].clone())
 
 
 def _running(s: dict) -> torch.Tensor:

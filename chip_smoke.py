@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   : nvcc builds csrc/em_counts.cu, csrc/window_scores.cu,
-               csrc/counts_from_r.cu, csrc/flat.cu, csrc/while_loop.cu and
-               csrc/jax_draws.cu in parallel; prints
+  1. build   : nvcc builds csrc/em_counts.cu, csrc/em_update.cu,
+               csrc/window_scores.cu, csrc/counts_from_r.cu, csrc/flat.cu,
+               csrc/while_loop.cu and csrc/jax_draws.cu in parallel; prints
                the toolchain, the card, the CUDA
                driver's and runtime's versions (a WHILE graph node needs
                12.3) and the ptxas resource reports.
@@ -38,7 +38,13 @@ Phases (any failure exits non-zero):
                past the kernel's lanes a gamma (check_beta); the kernels'
                draws against the CPU's plain
                versions, which tests/test_torch_threefry.py holds to
-               jax.random (check_draws_against_cpu); and check_loops: the EM loop
+               jax.random (check_draws_against_cpu); the EM loop's fused
+               update (ops/cuda_update.py) against the PyTorch update it
+               replaces, fed the same pass, on UPDATE_CASES (check_update:
+               K=0-4, W=1-30, M=1-16, frozen seeds, rows of length 0),
+               and a whole run_em_multi of c4.em's groups with it against
+               one without, its bodies of at most 4 device operations
+               (check_em_multi_fused); and check_loops: the EM loop
                and the CGS sweeps each as one launch of a WHILE-node graph
                (refinement/graphs.py) against their eager loops (CGS bit
                for bit, also at 1 and 2 sweeps; EM within the bars: at a
@@ -182,7 +188,9 @@ Phases (any failure exits non-zero):
                each graphed and eager, under set_sync_debug_mode("error"),
                the loop graph's body nodes and the device's busy share
                under torch.profiler over 10 graphed and 10 eager sweeps at
-               M=1 and 10); the stop-test kernel at M=16; the draw kernels
+               M=1 and 10); the stop-test kernel at M=16; the EM loop's
+               fused update against the PyTorch chain it replaces on one
+               c4.em group (W=12, K=2, M=4); the draw kernels
                against their plain versions: markov_codes at config 5's 1M
                x 200 bp and config 4's fold (20k x 200 bp), cgs_z at M=1,
                10 and 16 on 10k rows of 379 logits beside torch.rand and
@@ -226,8 +234,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCES = ("em_counts", "window_scores", "counts_from_r", "flat", "while_loop",
-                  "jax_draws")
+KERNEL_SOURCES = ("em_counts", "em_update", "window_scores", "counts_from_r", "flat",
+                  "while_loop", "jax_draws")
 
 # bench.py's problem
 N_SEQS, SEQ_LEN, W, N_TIMED = 10_000, 200, 12, 30
@@ -276,10 +284,11 @@ def load_by_path(name: str, rel: str):
 def counted() -> dict:
     """Each kernel's name -> the wrapper that counts its launches."""
     from bammmotif2_tpu_torch.ops import (
-        cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_while,
+        cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_update, cuda_while,
     )
 
     return {"em_counts": cuda_em.em_counts_multi,
+            "em_update": cuda_update.em_update,
             "window_scores": cuda_scores.window_scores_multi,
             "counts_from_r": cuda_counts.counts_from_r_multi,
             "flat_em_counts": cuda_flat.em_counts,
@@ -441,13 +450,15 @@ def phase_build():
     import torch
 
     from bammmotif2_tpu_torch.ops import (
-        _build, cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_while,
+        _build, cuda_counts, cuda_draws, cuda_em, cuda_flat, cuda_scores, cuda_update,
+        cuda_while,
     )
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:  # one nvcc per source, together
         paths = list(ex.map(_build.library_path, KERNEL_SOURCES))
     cuda_em.library()
+    cuda_update.library()
     cuda_scores.library()
     cuda_counts.library()
     cuda_flat.library()
@@ -512,6 +523,13 @@ def phase_kernel(device) -> dict:
         f"the same advanced keys): " + json.dumps(res))
     log("kernel draws against the CPU's plain versions: "
         + json.dumps(check_draws_against_cpu(device)))
+    for name, case in checks.UPDATE_CASES.items():
+        res = checks.check_update(case, device)
+        worst["em_update"] = max(worst["em_update"], res["v_ulps"])
+        log(f"kernel em_update {name} (max_abs_err counts v's float32 spacings): "
+            + json.dumps(res))
+    log("kernel em_update in run_em_multi (c4.em's groups, fused against the PyTorch "
+        "update): " + json.dumps(checks.check_em_multi_fused(device)))
     log("kernel loops (graphed against eager, host reads, counters, failed capture): "
         + json.dumps(checks.check_loops(device)))
     return worst
@@ -701,6 +719,9 @@ def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None,
     if k["launches"]["loop_condition"] < its:
         raise AssertionError(f"{tag}: {k['launches']['loop_condition']} stop tests for {its} "
                              f"EM iterations")
+    if k["launches"]["em_update"] < its:
+        raise AssertionError(f"{tag}: {k['launches']['em_update']} fused updates for {its} "
+                             f"EM iterations")
     dirs = (os.path.join(tmp, tag + "_kernel"), os.path.join(tmp, tag + "_plain"))
     if compare:
         pairs = [(a["iterations"], b["iterations"]) for a, b in zip(ev_k, ev_p, strict=True)]
@@ -737,6 +758,7 @@ def em_slice(tag, fasta, meme, extra, device, tmp, compare, planted=None,
         "graphed_vs_eager": graphed_vs_eager,
         "launches": n,
         "condition_launches": k["launches"]["loop_condition"],
+        "update_launches": k["launches"]["em_update"],
         "iterations_kernel": [e["iterations"] for e in ev_k],
         "iterations_plain": [e["iterations"] for e in ev_p],
         "max_abs_dp": worst,
@@ -1220,6 +1242,7 @@ def phase_slice(device, tmp) -> dict:
     log("slice seconds: " + json.dumps(secs))
     return {"em_converged": conv,
             "launches": {"em_counts": conv["launches"],
+                         "em_update": conv["update_launches"],
                          "loop_condition": conv["condition_launches"],
                          "window_scores": c5["launches"]["window_scores"],
                          "counts_from_r": cgs["cgs_10k"]["launches"]["counts_from_r"],
@@ -2181,6 +2204,87 @@ def time_condition(device) -> dict:
     return out
 
 
+def time_update(device) -> dict:
+    """The EM loop's fused update (``cuda_update.em_update``) against the
+    PyTorch chain it replaces on one c4.em group (10k x 200 bp, W=12, K=2,
+    M=4), both after the same B1 pass and on the same loop state (epsilon
+    0, so every seed stays active): the chain rounds the counts, sums ll,
+    zeroes the counts (B1's launcher and ``em_counts_multi``'s fills),
+    then ``multi.update``, ``multi.advance`` and the next iteration's
+    ``log_odds_lut``.  ms a call (CUDA events over back-to-back calls), the
+    kernel's and the call's device ms (torch.profiler), host µs a call, the
+    device operations a call enqueues, and the kernel's bound from its
+    bytes: the counts read and zeroed, logz read, v and the state read and
+    written, the LUT written, alphas and the backgrounds read."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from bammmotif2_tpu_torch.models.motif import log_odds_lut
+    from bammmotif2_tpu_torch.ops import cuda_em, cuda_update, encode
+    from bammmotif2_tpu_torch.refinement import multi
+    from bammmotif2_tpu_torch.tools.ab import device_ms, host_us
+
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    N, K, M = N_SEQS, 2, 4
+    data, v, alphas, f_bg = checks.loop_inputs(N, SEQ_LEN, W, K, M, device=device)
+    R = encode.num_rows(4, K)
+    q = torch.full((M,), 0.5, device=device)
+    s_flat = log_odds_lut(v, data["bg_flat"]).contiguous()
+    Cd = torch.zeros((M, R + 1, W), dtype=torch.float64, device=device)
+    logz = torch.empty((M, N), device=device)
+    cuda_em.em_pass(s_flat, data["cidx"], data["lens"], q, Cd, logz)
+
+    def state():
+        return {"q": q.clone(), "lls": torch.full((M,), float("-inf"), device=device),
+                "vds": torch.ones(M, device=device),
+                "its": torch.zeros(M, dtype=torch.int32, device=device),
+                "hist": torch.zeros((256, M), device=device),
+                "running": torch.tensor(True, device=device),
+                "eps": torch.zeros((), device=device)}
+
+    fs = {**state(), "v": torch.cat(v, dim=1), "s_flat": s_flat.clone(), "Cd": Cd.clone()}
+    ts = {**state(), "v": tuple(vk.clone() for vk in v), "s_flat": s_flat.clone(),
+          "Cd": Cd.clone()}
+
+    def fused():
+        cuda_update.em_update(fs["Cd"], logz, fs["v"], fs["s_flat"], fs["q"], fs["lls"],
+                              fs["vds"], fs["its"], fs["hist"], fs["running"], fs["eps"], alphas,
+                              f_bg, data["bg_flat"], n_real=N, optimize_q=True, hist_slots=256,
+                              hist_stride=1)
+
+    def chain():
+        C = ts["Cd"].float()
+        ll = logz.double().sum(dim=1).float()
+        ts["Cd"].zero_()
+        upd = multi.update(C, ll, ts["v"], ts["q"], alphas, f_bg, N, N, A=4, K=K,
+                           optimize_q=True)
+        multi.advance(ts, *upd, 256, 1)
+        ts["s_flat"].copy_(log_odds_lut(ts["v"], data["bg_flat"]))
+
+    def ops_a_call(fn) -> int:
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+    nbytes = (16 * M * (R + 1) * W + 4 * M * N + 8 * M * R * W + 4 * M * R * W
+              + 4 * M * (K + 1) * W + 4 * R + 16 + 4 * 9 * M)
+    out = {"ms": time_cuda(fused, 200), "plain_ms": time_cuda(chain, 200),
+           **device_ms(fused, 20, "em_update_kernel", attempts=6),
+           "plain_call_device_ms": device_ms(chain, 20, "em_update_kernel", attempts=4,
+                                             per_call=0)["call_device_ms"],
+           "host_us": host_us(fused), "plain_host_us": host_us(chain),
+           "device_ops_a_call": ops_a_call(fused), "plain_device_ops_a_call": ops_a_call(chain),
+           **bound(nbytes, 0), "library_ms": None, "M": M, "K": K, "W": W, "N": N,
+           "gpu": nvidia_smi()}
+    log("timing em_update (one c4.em group, W=12, K=2, M=4; against the PyTorch chain): "
+        + json.dumps(out))
+    return out
+
+
 WHILE_ITERS = 2_000  # iterations of time_while_node's loops
 
 
@@ -2273,7 +2377,8 @@ def time_fdr_group(device, tmp) -> dict:
 def phase_timing(device, tmp, slices: dict) -> dict:
     out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
            "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
-           "condition": time_condition(device), "draws": time_draws(device, tmp),
+           "condition": time_condition(device), "update": time_update(device),
+           "draws": time_draws(device, tmp),
            "while_node": time_while_node(device),
            "loops": time_loops(device, tmp, slices), "fdr_group": time_fdr_group(device, tmp)}
     c5, c4 = slices["config5"], slices["config4"]
@@ -2339,6 +2444,8 @@ def main() -> int:
         # and its jax.random draws: the negatives' sampler, CGS's z and q
         ("loop_condition", "while_loop.cu", "bammmotif2_tpu/refinement/multi.py:303",
          timing["condition"]),
+        ("em_update", "em_update.cu", "bammmotif2_tpu/refinement/multi.py:307",
+         timing["update"]),
         ("markov_codes", "jax_draws.cu", "bammmotif2_tpu/generator/seqgen.py:29",
          timing["draws"]["markov_config5"]),
         ("cgs_z", "jax_draws.cu", "bammmotif2_tpu/refinement/gibbs.py:379",

@@ -869,7 +869,8 @@ def check_loop_trace(device) -> dict:
     its key is a ``graph.hit``, and a loop of another key (the plain path)
     captures and drops the first (``graph.evict``); no other span.  The
     loop graphs' iterations times their bodies' ``graphs.body_ops`` are
-    ``graph.loop_ops``."""
+    ``graph.loop_ops``, and the kernel path's two loops each count one
+    ``em.update_fused``."""
     from bammmotif2_tpu_torch.refinement import graphs
     from bammmotif2_tpu_torch.utils import metrics
 
@@ -897,7 +898,7 @@ def check_loop_trace(device) -> dict:
     loop_ops = (7 * graphs.body_ops(first["body_nodes"])
                 + 2 * graphs.body_ops(last["body_nodes"]))
     assert trace.counts == {"graph.capture": 2, "graph.hit": 1, "graph.evict": 1,
-                            "graph.loop_ops": loop_ops}, out
+                            "graph.loop_ops": loop_ops, "em.update_fused": 2}, out
     assert [(s["name"], s["attrs"], s["parent"]) for s in spans] == \
         [("graph.capture", {"loop": "EM loop"}, None)] * 2, out
     span_ms = (spans[0]["end_ns"] - spans[0]["start_ns"]) / 1e6
@@ -961,6 +962,226 @@ def check_chunked_loops(device) -> dict:
     assert dv <= LOOP_V_ATOL, dv
     assert reads == 0, reads
     assert n["b1"] == LOOP_ITERS * per_call["b1"] and n["condition"] == LOOP_ITERS, (n, per_call)
+    return out
+
+
+# name -> the fused update's case (``check_update``): loop_inputs' geometry,
+# the seeds frozen at the iteration's start, the rows of length 0 (a fold's
+# held-out rows), --optimizeQ, the ll history's stride.  K=4 at W=30 and
+# K=4 at W=12 keep their count tables in device memory, the rest in shared
+# memory; K=4 at W=30 is also the float-count plan of the pass (a launch a
+# seed).  ``q_exact``: PyTorch gives each output of q's column sum one thread
+# there, whose order the kernel takes (c4.em's groups), so q is bit-equal.
+UPDATE_CASES = {
+    "c4_K2_W12_M4": dict(N=2_000, W=12, K=2, M=4, frozen=(1,), pad=0, optimize_q=True,
+                         hist_stride=1, q_exact=True),
+    "K0_W1_M1": dict(N=500, W=1, K=0, M=1, frozen=(), pad=0, optimize_q=True, hist_stride=1),
+    "K1_W8_M16_pad": dict(N=1_000, W=8, K=1, M=16, frozen=(0, 5, 15), pad=200,
+                          optimize_q=True, hist_stride=3),
+    "K2_W30_M4_no_q": dict(N=1_000, W=30, K=2, M=4, frozen=(3,), pad=0, optimize_q=False,
+                           hist_stride=2),
+    "K3_W12_M16_pad_no_q": dict(N=1_000, W=12, K=3, M=16, frozen=(2, 3), pad=100,
+                                optimize_q=False, hist_stride=1),
+    "K4_W12_M4_device_table": dict(N=1_000, W=12, K=4, M=4, frozen=(0,), pad=50,
+                                   optimize_q=True, hist_stride=4),
+    "K4_W30_M4_float_counts": dict(N=1_000, W=30, K=4, M=4, frozen=(2,), pad=0,
+                                   optimize_q=True, hist_stride=1),
+}
+# float32 spacings the fused update's v and LUT may lie from the PyTorch
+# chain's (its sums of four may associate otherwise: PyTorch sums the four
+# rows of a column pairwise where W=1), and the relative error of its
+# sums: q's column (PyTorch splits it over threads at larger shapes) and
+# v_diff (summed in double)
+UPDATE_ULPS, UPDATE_SUM_RTOL = 2, 1e-6
+
+
+def ulps_off(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor | None = None) -> float:
+    """The largest |a - b| in float32 spacings of |b|, or of the larger of
+    |b| and ``scale`` (0 where equal; inf where one is NaN)."""
+    ref = b.abs() if scale is None else torch.maximum(b.abs(), scale)
+    spacing = torch.nextafter(ref, torch.tensor(float("inf"), device=b.device)) - ref
+    gap = (a - b).abs()
+    err = torch.where(a == b, torch.zeros_like(gap), gap / spacing)
+    return float(torch.nan_to_num(err, nan=float("inf")).max())
+
+
+def check_update(case: dict, device) -> dict:
+    """The fused update (``cuda_update.em_update``) against the PyTorch
+    chain it replaces (``multi.update``, then ``multi.advance`` and the next
+    iteration's ``log_odds_lut``), fed the same B1 pass (``cuda_em.em_pass``:
+    Cd and logz) and the same loop state: some seeds frozen, lls of -inf
+    (a first iteration) and of a likelihood, iteration counts past the ll
+    history's end, rows of length 0.  C, ll (ll_reduce_kernel's sum of the
+    same logz, through ``em_counts_multi``), the ll history and the
+    iteration counts bit-equal (q too where ``q_exact``); v and the LUT
+    within UPDATE_ULPS (the LUT's log(v) - log(bg) in spacings of log(v)
+    where that is larger); q within UPDATE_SUM_RTOL, v_diff within it plus
+    the UPDATE_ULPS of v that each of its terms |v' - v| may take (a sum
+    of four that associates otherwise, as at W=1, moves v by a spacing,
+    which its small differences magnify); the frozen seeds' state
+    untouched; Cd left zero.  Then the same call with the loop stopped
+    changes nothing but Cd.  Raises AssertionError on a mismatch; returns
+    the errors."""
+    from bammmotif2_tpu_torch.ops import cuda_update
+    from bammmotif2_tpu_torch.refinement import multi
+
+    N, W, K, M = case["N"], case["W"], case["K"], case["M"]
+    data, v, alphas, f_bg = loop_inputs(N, 200, W, K, M, seed=K + W, device=device)
+    n_real = N - case["pad"]
+    lens = data["lens"].clone()
+    lens[n_real:] = 0
+    R = encode.num_rows(4, K)
+    g = torch.Generator(device=device).manual_seed(M)
+    q = 0.3 + 0.6 * torch.rand(M, generator=g, device=device)
+    s_flat = log_odds_lut(v, data["bg_flat"]).contiguous()
+    Cd = torch.zeros((M, R + 1, W), dtype=torch.float64, device=device)
+    logz = torch.empty((M, N), device=device)
+    cuda_em.em_pass(s_flat, data["cidx"], lens, q, Cd, logz)
+    _C, ll = cuda_em.em_counts_multi(s_flat, data["cidx"], lens, q)
+    C_ref = Cd.float()
+
+    slots, stride = 5, case["hist_stride"]
+    frozen = torch.zeros(M, dtype=torch.bool, device=device)
+    frozen[list(case["frozen"])] = True
+    eps = torch.tensor(1e-3, device=device)
+    state = {
+        "q": q.clone(),
+        "lls": torch.where(torch.arange(M, device=device) % 2 == 0, float("-inf"), ll - 0.5),
+        "vds": torch.where(frozen, 1e-4, 0.5 + torch.rand(M, generator=g, device=device)),
+        "its": torch.randint(0, 3 * slots * stride, (M,), generator=g, device=device,
+                             dtype=torch.int32),
+        "hist": torch.randn((slots, M), generator=g, device=device),
+        "running": torch.tensor(True, device=device), "eps": eps,
+    }
+    ref = {**{k: t.clone() for k, t in state.items()}, "v": tuple(vk.clone() for vk in v)}
+    upd = multi.update(C_ref, ll, ref["v"], ref["q"], alphas, f_bg, n_real, N, A=4, K=K,
+                       optimize_q=case["optimize_q"])
+    multi.advance(ref, *upd, slots, stride)
+    ref_lut = log_odds_lut(ref["v"], data["bg_flat"])
+
+    got = {**{k: t.clone() for k, t in state.items()}, "v": torch.cat(v, dim=1),
+           "s_flat": s_flat.clone()}
+    C = torch.full_like(C_ref, float("nan"))
+    args = lambda s: (Cd, logz, s["v"], s["s_flat"], s["q"], s["lls"], s["vds"],  # noqa: E731
+                      s["its"], s["hist"], s["running"], s["eps"], alphas, f_bg,
+                      data["bg_flat"])
+    kw = dict(n_real=n_real, optimize_q=case["optimize_q"], hist_slots=slots,
+              hist_stride=stride)
+    launches = cuda_update.em_update.launches
+    cuda_update.em_update(*args(got), C=C, **kw)
+    torch.cuda.synchronize(device)
+    off = encode.order_offsets(4, K)
+    v_got = tuple(got["v"][:, off[k]:off[k + 1]] for k in range(K + 1))
+    out = {
+        "C_bit_equal": torch.equal(C, C_ref),
+        "Cd_zero": not bool(Cd.any()),
+        "ll_bit_equal": torch.equal(got["lls"], ref["lls"]),
+        "its_equal": torch.equal(got["its"], ref["its"]),
+        "hist_bit_equal": torch.equal(got["hist"], ref["hist"]),
+        "v_ulps": max(ulps_off(a, b) for a, b in zip(v_got, ref["v"])),
+        # in spacings of the difference's larger term, log(v), as well
+        "lut_ulps": ulps_off(got["s_flat"], ref_lut, log_odds_lut(ref["v"], torch.ones_like(
+            data["bg_flat"])).abs()),
+        "q_rel": float(((got["q"] - ref["q"]).abs() / ref["q"]).max()),
+        "q_bit_equal": torch.equal(got["q"], ref["q"]),
+        "vd_rel": float(((got["vds"] - ref["vds"]).abs() / ref["vds"].abs()).max()),
+        "vd_over_bound": float(((got["vds"] - ref["vds"]).abs() / (
+            UPDATE_SUM_RTOL * ref["vds"].abs() + UPDATE_ULPS * sum(
+                (torch.nextafter(vk.abs(), torch.tensor(float("inf"), device=device))
+                 - vk.abs()).sum(dim=(1, 2)) for vk in ref["v"]))).max()),
+        "frozen_untouched": all(
+            torch.equal(got[k][frozen], state[k][frozen]) for k in ("q", "lls", "vds", "its"))
+        and torch.equal(got["s_flat"][frozen], s_flat[frozen]),
+        "launches": cuda_update.em_update.launches - launches,
+    }
+    assert out["C_bit_equal"] and out["Cd_zero"] and out["ll_bit_equal"], out
+    assert out["its_equal"] and out["hist_bit_equal"] and out["frozen_untouched"], out
+    assert out["v_ulps"] <= UPDATE_ULPS and out["lut_ulps"] <= UPDATE_ULPS, out
+    assert out["q_rel"] <= UPDATE_SUM_RTOL and out["vd_over_bound"] <= 1, out
+    assert out["q_bit_equal"] or not case.get("q_exact"), out
+    assert out["launches"] == 1, out
+
+    # the loop stopped: only Cd changes (back to zero)
+    stopped = {k: (t.clone() if isinstance(t, torch.Tensor) else t) for k, t in got.items()}
+    stopped["running"] = torch.tensor(False, device=device)
+    Cd.copy_(C_ref.double())
+    cuda_update.em_update(*args(stopped), **kw)
+    torch.cuda.synchronize(device)
+    out["stopped_unchanged"] = all(torch.equal(stopped[k], got[k]) for k in
+                                   ("v", "s_flat", "q", "lls", "vds", "its", "hist"))
+    assert out["stopped_unchanged"] and not bool(Cd.any()), out
+    return out
+
+
+def c4_group_motifs(sset, planted, K: int = 2) -> list:
+    """c4.em's (W, K) groups on a set with a 12-wide planted motif: four
+    seeds of W=8, three of W=10 and three of W=12 (the planted PWM's prefix,
+    each copy softer), at order K."""
+    motifs = []
+    for W, n in ((8, 4), (10, 3), (12, 3)):
+        for m in range(n):
+            pwm = np.full((W, 4), (0.3 + 0.1 * m) / 3)
+            pwm[np.arange(W), planted[:W]] = 0.7 - 0.1 * m
+            motifs.append(seeds_mod.motif_from_pwm(pwm, K, sset.base_frequencies()))
+    return motifs
+
+
+def check_em_multi_fused(device) -> dict:
+    """One traced ``run_em_multi`` of c4.em's groups (``c4_group_motifs``,
+    4 + 3 + 3 seeds at K=2) on 2,000 planted rows, --optimizeQ at a fixed
+    budget of 30 iterations (epsilon 0), with the fused update against the
+    same run with the PyTorch update (``group_step``'s ``fused`` taken
+    away): every seed's conditionals within the benchmark's model_dp (1e-3),
+    ll within its ll_rel (2e-4) and q within its q_abs (1e-4), the same
+    iterations.  The fused run's captured EM bodies hold at most 4 device
+    operations (``graphs.body_ops``: B1, the update, the stop test) and only
+    kernel, memcpy or memset nodes; its trace counts ``em.update_fused``
+    once a group and ``graph.loop_ops`` as its loop graphs' iterations times
+    their bodies' operations; the PyTorch run counts no ``em.update_fused``.
+    Raises AssertionError on a mismatch; returns what it measured."""
+    from bammmotif2_tpu_torch.refinement import graphs, multi
+    from bammmotif2_tpu_torch.utils import metrics
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    rng = np.random.default_rng(24)
+    sset, planted = planted_set(2_000, 200, 12, 4, False, rng)
+    bg = BackgroundModel.from_sequence_set(sset, order=2)
+    params = Params(EM=True, optimizeQ=True, maxEMIterations=30, epsilon=0.0)
+    group_step = multi.group_step
+
+    def torch_update(*args, **kw):
+        step, inputs, key = group_step(*args, **kw)
+        step.fused = None
+        return step, inputs, key
+
+    runs = {}
+    for name in ("fused", "torch"):
+        motifs = c4_group_motifs(sset, planted)
+        graphs.clear()
+        multi.group_step = group_step if name == "fused" else torch_update
+        try:
+            with metrics.tracing() as trace:
+                res = multi.run_em_multi(motifs, bg, sset, params, device=device)
+        finally:
+            multi.group_step = group_step
+        bodies = [c["body_nodes"] for c in graphs.stats() if c["name"] == "EM loop"]
+        runs[name] = (motifs, res, dict(trace.counts), bodies)
+    (mf, rf, cf, bf), (mt, rt, ct, _bt) = runs["fused"], runs["torch"]
+    out = {
+        "model_dp": max(float(np.abs(a - b).max()) for x, y in zip(mf, mt)
+                        for a, b in zip(x.v, y.v)),
+        "ll_rel": max(abs(x.ll - y.ll) / abs(y.ll) for x, y in zip(rf, rt)),
+        "q_abs": max(abs(x.q - y.q) for x, y in zip(rf, rt)),
+        "iterations": [x.iterations for x in rf], "body_nodes": bf,
+        "body_ops": [graphs.body_ops(b) for b in bf], "counts": cf, "torch_counts": ct,
+    }
+    assert out["model_dp"] <= 1e-3 and out["ll_rel"] <= 2e-4 and out["q_abs"] <= 1e-4, out
+    assert out["iterations"] == [x.iterations for x in rt] == [30] * 10, out
+    assert len(bf) == 3 and all(n <= 4 for n in out["body_ops"]), out
+    assert all(set(b) <= {"kernel", "memcpy", "memset"} for b in bf), out
+    assert cf.get("em.update_fused") == 3 and "em.update_fused" not in ct, out
+    # each group's loop graph runs 29 iterations (its first is the capture's)
+    assert cf["graph.loop_ops"] == 29 * sum(out["body_ops"]), out
     return out
 
 
@@ -1474,6 +1695,17 @@ def test_device_loop_converged_warm_up_stopped_and_cached(cuda_device):
 @pytest.mark.cuda
 def test_loop_cache_counts_and_capture_spans(cuda_device):
     check_loop_trace(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(UPDATE_CASES))
+def test_update_kernel_matches_torch_update(cuda_device, name):
+    check_update(UPDATE_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+def test_em_multi_fused_within_the_benchmark_limits_and_four_ops_an_iteration(cuda_device):
+    check_em_multi_fused(cuda_device)
 
 
 @pytest.mark.cuda

@@ -124,6 +124,52 @@ def test_batched_loop_chunks_equal_per_iteration(planted, monkeypatch, sync, max
         assert len(set(its)) == 3 and max(its) < max_iters, its
 
 
+@pytest.mark.parametrize("case", ["cpu", "plain", "mesh"])
+def test_update_fused_only_on_the_kernel_path_of_one_card(planted, case):
+    """``group_step`` gives its step the fused update (``multi.FusedStep``,
+    two kernels an iteration) only where the data pass is the kernel's on
+    a CUDA device with no mesh.  A group on the CPU (whose kernel path runs
+    the plain pass), on path "plain" or under a mesh keeps the PyTorch
+    update: its loop counts no ``em.update_fused`` and gives the
+    per-iteration loop's results bit for bit."""
+    from bammmotif2_tpu_torch.utils import metrics
+
+    _jms, _step, inputs, _key, v0, q0, eps, slots, stride = _group(planted, 30)
+    _sset, _jbg, bg, psset = planted
+    data = em.prepare_data(psset, bg, 2, False, "cpu")
+    mesh = Mesh(1, 1, 0, 0) if case == "mesh" else None
+    step, inputs, key = multi.group_step(data, inputs["alphas"], inputs["f_bg"], psset.n, A=4,
+                                         K=2, W=8, optimize_q=True,
+                                         path="plain" if case == "plain" else "cuda", mesh=mesh)
+    assert step.fused is None
+    if mesh is not None:  # its data pass all-reduces over a process group
+        return
+    ref = per_iteration_loop(step, v0, q0, eps, 30, slots, stride)
+    with metrics.tracing() as trace:
+        got = multi.batched_while_loop(step, v0, q0, eps, 30, slots, stride, inputs=inputs,
+                                       key=key)
+    _assert_equal(got, ref)
+    assert "em.update_fused" not in trace.counts
+
+
+def test_fused_state_stacks_v_and_its_lut():
+    """``FusedStep.state`` stacks the orders of v0 (``motif.combined_v``)
+    beside their LUT (``motif.log_odds_lut``), zero float64 counts and a
+    logz row a sequence; ``split`` gives the orders back."""
+    from bammmotif2_tpu_torch.models import motif
+
+    g = torch.Generator().manual_seed(0)
+    v0 = tuple(torch.rand((3, 4 ** (k + 1), 5), generator=g) for k in range(3))
+    inputs = {"bg_flat": torch.rand(84, generator=g), "lens": torch.zeros(7, dtype=torch.int32)}
+    fused = multi.FusedStep(inputs, 7, A=4, K=2, optimize_q=True)
+    s = fused.state(v0)
+    assert torch.equal(s["v"], motif.combined_v(v0))
+    assert torch.equal(s["s_flat"], motif.log_odds_lut(v0, inputs["bg_flat"]))
+    assert s["Cd"].dtype == torch.float64 and s["Cd"].shape == (3, 85, 5) and not s["Cd"].any()
+    assert s["logz"].shape == (3, 7) and s["logz"].dtype == torch.float32
+    assert all(torch.equal(a, b) for a, b in zip(fused.split(s["v"]), v0))
+
+
 @pytest.mark.parametrize("sync", [1, 3, 8])
 def test_batched_loop_matches_jax(planted, monkeypatch, sync):
     """The chunked loop against the reference's ``lax.while_loop`` on the
