@@ -45,9 +45,8 @@ from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models.background import BackgroundModel
 from bammmotif2_tpu_torch.models.motifset import load_motifs
 from bammmotif2_tpu_torch.parallel import distributed
-from bammmotif2_tpu_torch.refinement.em import run_em
 from bammmotif2_tpu_torch.refinement.gibbs import run_gibbs_multi
-from bammmotif2_tpu_torch.refinement.multi import run_em_multi
+from bammmotif2_tpu_torch.refinement.multi import run_em, run_em_multi
 from bammmotif2_tpu_torch.scoring import scan
 from bammmotif2_tpu_torch.utils.device import resolve
 

@@ -48,7 +48,7 @@ def cgs_state(m, q, device) -> tuple:
 
 
 def em_data(cidx, lens, bg_flat, device) -> dict:
-    """The dict ``refinement.em.em_step`` takes, from the reference's
+    """The dict ``refinement.em.prepare_data`` makes, from the reference's
     ``prepare_data`` output (or any cidx [S, N, L], lens [N], bg_flat [R])."""
     return {
         "cidx": indices(cidx, device),

@@ -63,8 +63,8 @@ from bammmotif2_tpu_torch.models.motif import Motif, log_odds_lut
 from bammmotif2_tpu_torch.ops import encode, threefry
 from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
-from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data, run_em
-from bammmotif2_tpu_torch.refinement.multi import batched_while_loop, group_step
+from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data
+from bammmotif2_tpu_torch.refinement.multi import em_loop, run_em
 from bammmotif2_tpu_torch.scoring.scan import empirical_pvalues, score_fn
 
 
@@ -191,7 +191,7 @@ def evaluate_motif(
 
     Folds are round-robin by sequence index, so pooled outputs
     (``pos_pvalues``, the sweep pools) are in fold-major order.  Each fold
-    refines with the single-seed EM loop (``refinement.em.run_em``) or CGS
+    refines with the single-seed EM loop (``refinement.multi.run_em``) or CGS
     (``refinement.gibbs.run_gibbs``, its chain from ``PRNGKey(--seed)``).
     ``neg_set``: user-provided negatives, folded round-robin like the positives; when absent,
     negatives are sampled per fold.  ``device``: None runs on the current
@@ -334,11 +334,9 @@ def _fold_loop(group: list, bg: BackgroundModel, sset: SequenceSet, params: Para
             elif stacked:
                 # every fold's data has one shape (held-out rows have length
                 # 0), so the folds replay one captured loop with their lens
-                step, inputs, key = group_step(tdata, alphas, f_bg, n_train, A=A, K=K, W=W,
-                                               optimize_q=params.optimizeQ, path=path)
-                v, _q, _lls, _vds, its_t, _h = batched_while_loop(
-                    step, v0, q0, eps, params.maxEMIterations, inputs=inputs, key=key,
-                    graphs=graphs)
+                v, _q, _lls, _vds, its_t, _h = em_loop(
+                    v0, q0, tdata, alphas, f_bg, n_train, eps, params.maxEMIterations,
+                    graphs=graphs, A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path)
                 its = [int(x) for x in its_t.cpu()]
                 graphs_mod.settle()
             else:
@@ -577,7 +575,7 @@ def _tail(g: _Group, graphs: bool) -> graphs_mod.Loop:
     state = {"v": tuple(vk.clone() for vk in g.v0),
              "fold": torch.zeros((1,), dtype=torch.int64, device=dev)}
 
-    def body(s, _gens):
+    def body(s):
         fold = s["fold"]
         s_flat = log_odds_lut(s["v"], inputs["bg_flat"]).contiguous()  # [M, R+1, W]
         pz, pm = _score_rows(s_flat, inputs["cidx"], inputs["lens"],
@@ -623,33 +621,31 @@ def _run_folds(g: _Group, group: list, bg: BackgroundModel, sset: SequenceSet,
     M, F, dev = g.M, g.F, g.q0.device
     its0 = params.maxCGSIterations if refine == "CGS" else 0
     iters = torch.full((F, M), its0, dtype=torch.int32, device=dev)
-    with _tail(g, graphs) as tail:
-        # the folds' outputs: ZOOPS maxima [F, M, n], MOPS pools [M, F, X]
-        # (fold-major: each seed's pool is one [F * X] row)
-        maxima = {k: tail.state[k].new_empty((F, *tail.state[k].shape))
-                  for k in ("pos_z", "neg_z")}
-        pools = {k: tail.state[k].new_empty((M, F, tail.state[k].shape[1]))
-                 for k in ("pos_m", "neg_m")}
-        for f in range(F):
-            v = g.v0
-            if refine in ("EM", "CGS"):
-                tdata = {**g.data, "lens": g.train_lens[f]}
-                if refine == "CGS":
-                    v = _cgs_fold(group, g.keys, g.v0, g.q0, g.alphas, g.f_bg, tdata,
-                                  g.n_train[f], params, g.path, True, bg, sset, graphs)
-                else:
-                    step, inputs, key = group_step(tdata, g.alphas, g.f_bg, g.n_train[f],
-                                                   A=g.A, K=g.K, W=g.W,
-                                                   optimize_q=params.optimizeQ, path=g.path)
-                    v, _q, _lls, _vds, its, _h = batched_while_loop(
-                        step, g.v0, g.q0, g.eps, params.maxEMIterations, inputs=inputs, key=key,
-                        graphs=graphs)
-                    iters[f].copy_(its)
-            _run_tail(tail, v, f)
-            for k, x in maxima.items():
-                x[f].copy_(tail.state[k])
-            for k, x in pools.items():
-                x[:, f].copy_(tail.state[k])
+    tail = _tail(g, graphs)
+    # the folds' outputs: ZOOPS maxima [F, M, n], MOPS pools [M, F, X]
+    # (fold-major: each seed's pool is one [F * X] row)
+    maxima = {k: tail.state[k].new_empty((F, *tail.state[k].shape))
+              for k in ("pos_z", "neg_z")}
+    pools = {k: tail.state[k].new_empty((M, F, tail.state[k].shape[1]))
+             for k in ("pos_m", "neg_m")}
+    for f in range(F):
+        v = g.v0
+        if refine in ("EM", "CGS"):
+            tdata = {**g.data, "lens": g.train_lens[f]}
+            if refine == "CGS":
+                v = _cgs_fold(group, g.keys, g.v0, g.q0, g.alphas, g.f_bg, tdata,
+                              g.n_train[f], params, g.path, True, bg, sset, graphs)
+            else:
+                v, _q, _lls, _vds, its, _h = em_loop(
+                    g.v0, g.q0, tdata, g.alphas, g.f_bg, g.n_train[f], g.eps,
+                    params.maxEMIterations, graphs=graphs, A=g.A, K=g.K, W=g.W,
+                    optimize_q=params.optimizeQ, path=g.path)
+                iters[f].copy_(its)
+        _run_tail(tail, v, f)
+        for k, x in maxima.items():
+            x[f].copy_(tail.state[k])
+        for k, x in pools.items():
+            x[:, f].copy_(tail.state[k])
     ranks = _mops_ranks(pools["pos_m"].reshape(M, -1), pools["neg_m"].reshape(M, -1),
                         g.rows_thin, g.n_neg_true)
     return [maxima["pos_z"], maxima["neg_z"], iters, *ranks]

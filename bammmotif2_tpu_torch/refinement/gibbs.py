@@ -375,7 +375,7 @@ def gibbs_optimize(
     statics = dict(A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
                    learn_alpha=learn_alpha, path=path)
 
-    def body(s, _gens):
+    def body(s):
         v2, q2, la2, ll, n_occ, counts = gibbs_step_multi(
             s["v"], s["q"], s["la"], s.get("keys"), {**data, **inputs}, inputs["f_bg"],
             inputs["default_alphas"], n_real, mesh=mesh, **statics,
@@ -393,17 +393,17 @@ def gibbs_optimize(
         s["its"].add_(1)
 
     key = ("gibbs_step_multi", float(n_real), burn_in, consts, tuple(sorted(statics.items())))
-    with graphs_mod.Loop("CGS sweep loop", key, state, inputs, body, mesh=mesh, graphs=graphs,
-                         until=UNTIL) as loop:
-        if loop.on_device:
-            if n_iters > 0:
-                loop.run_while()
-        else:
-            loop.run(n_iters)
-        s = loop.state
-        n_avg = max(n_iters - burn_in, 1)
-        return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["la"].clone(),
-                s["lls"].clone(), s["n_occs"].clone(), tuple(a / n_avg for a in s["acc"]))
+    loop = graphs_mod.Loop("CGS sweep loop", key, state, inputs, body, mesh=mesh, graphs=graphs,
+                           until=UNTIL)
+    if loop.on_device:
+        if n_iters > 0:
+            loop.run_while()
+    else:
+        loop.run(n_iters)
+    s = loop.state
+    n_avg = max(n_iters - burn_in, 1)
+    return (tuple(vk.clone() for vk in s["v"]), s["q"].clone(), s["la"].clone(),
+            s["lls"].clone(), s["n_occs"].clone(), tuple(a / n_avg for a in s["acc"]))
 
 
 def gibbs_chains(v, q, alphas, f_bg, data, n_real, keys, params: Params, *,

@@ -4,7 +4,7 @@ The reference runs EM's convergence loop in ``lax.while_loop`` and the CGS
 sweeps in ``lax.scan``: one device program that the host starts and reads
 (``bammmotif2_tpu/refinement/multi.py::batched_while_loop``,
 ``gibbs.py::gibbs_optimize`` and its ``lru_cache``d ``_batched_gibbs_loop``).
-Here a loop's iteration is a ``body(state, gens)`` that reads its inputs and
+Here a loop's iteration is a ``body(state)`` that reads its inputs and
 updates its state in place (``copy_`` into the state's buffers).  ``Loop``
 runs it:
 
@@ -13,9 +13,9 @@ runs it:
     capture stream of the device (it warms the kernel launchers' cached
     queries and creates ``ops.cuda_counts.workspace``'s buffers for that
     stream); then the body is captured once as a ``torch.cuda.CUDAGraph``,
-    the body's generators registered with it, and each further iteration
-    is one replay.  Captured loops stay in a small cache keyed by the loop's
-    name, its constants and its tensors' shapes, the counterpart of the
+    and each further iteration is one replay.  Captured loops stay in a
+    small cache keyed by the loop's name, its constants and its tensors'
+    shapes, the counterpart of the
     reference's ``lru_cache``: a later call with the same key (the next
     group of equal shape, the next FDR fold) copies its inputs and initial
     state into the static buffers and replays at once;
@@ -105,14 +105,13 @@ def enabled(device, mesh=None) -> bool:
     return dist.get_backend(mesh.data_group) == "nccl"
 
 
-def device_loop(device, mesh=None, n_gens: int = 0) -> bool:
+def device_loop(device, mesh=None) -> bool:
     """Whether a loop that holds its stop test (``Loop``'s ``until``) runs
     to its end on the device as one WHILE-node graph: it is graphed
-    (``enabled``), has no mesh and registers no generators (a replay
-    advances a generator's offsets from the host, which a body looped on
-    the device never gets: the port's draws use keys read on the device
-    instead, ``ops.cuda_draws``)."""
-    return mesh is None and n_gens == 0 and enabled(device)
+    (``enabled``) and has no mesh.  A body looped on the device draws from
+    keys read on the device (``ops.cuda_draws``), never from a
+    ``torch.Generator``, whose offsets a replay advances from the host."""
+    return mesh is None and enabled(device)
 
 
 def counted() -> tuple:
@@ -229,11 +228,11 @@ def _with_outputs(state: dict, outputs: dict) -> dict:
 
 
 class _Captured:
-    """A cached loop: static state and inputs, registered generators and the
-    graph of one iteration, with the launches one iteration makes."""
+    """A cached loop: static state and inputs and the graph of one
+    iteration, with the launches one iteration makes."""
 
-    def __init__(self, name, state, inputs, gens, mesh):
-        self.name, self.state, self.inputs, self.gens = name, state, inputs, gens
+    def __init__(self, name, state, inputs, mesh):
+        self.name, self.state, self.inputs = name, state, inputs
         self.mesh = mesh  # pinned: the key holds its id
         self.graph = None  # a device loop's keeps the body's memory pool
         self.while_graph = None  # a device loop's ops.cuda_while.WhileGraph
@@ -249,17 +248,15 @@ class _Captured:
 
 
 class Loop:
-    """One run of a loop's iteration ``body(state, gens)``.
+    """One run of a loop's iteration ``body(state)``.
 
     ``state``: name -> tensor or tuple of tensors, the loop's state: fresh
     tensors that the loop owns and updates.  ``inputs``: name -> tensor,
     what the body reads and never writes; the body reads them through this
-    dict, whose values the loop replaces by its static copies.  ``gens``:
-    the ``torch.Generator``s the body draws from (the port's own paths
-    draw from keys on the device instead and register none).  ``key``: hashable, the
-    body's constants; with the loop's name, the device, the mesh and the
-    tensors' shapes and dtypes it decides which captured graph a call
-    reuses.
+    dict, whose values the loop replaces by its static copies.  ``key``:
+    hashable, the body's constants; with the loop's name, the device, the
+    mesh and the tensors' shapes and dtypes it decides which captured graph
+    a call reuses.
 
     ``outputs``: name -> a function of no arguments making a state tensor
     that the body writes whole before it reads it (a fold's scores, where
@@ -273,42 +270,30 @@ class Loop:
     ``device_loop`` allows (``on_device``), ``run_while`` runs the loop to
     its end on the device; elsewhere ``run(n)`` runs n iterations and the
     caller reads ``running`` between chunks (CGS, whose count is fixed,
-    runs them in one).  A loop with generators that asks for it raises
-    CaptureError.
+    runs them in one).
 
     After construction read the state from ``.state`` (the static buffers
     when graphed: copy out what must outlive the next loop of the same key)
-    and call ``run(n)`` for n iterations, or ``run_while()``.  A captured
-    graph keeps the generators of the call that captured it; a later call
-    of its key lends them its generators' state, and used as a context
-    manager the loop hands that state back advanced as an eager loop
-    leaves it.
+    and call ``run(n)`` for n iterations, or ``run_while()``.
     """
 
-    def __init__(self, name: str, key, state: dict, inputs: dict, body, *, gens=(),
+    def __init__(self, name: str, key, state: dict, inputs: dict, body, *,
                  outputs=None, mesh=None, graphs: bool = True, until=None):
-        if until is not None and gens:
-            raise CaptureError(f"the {name} registers generators, so it cannot run on the "
-                               f"device to its end: a replay advances their offsets from the host")
         self.name, self._body, self._until = name, body, until
         self.device = next(_tensors(state)).device
-        self._caller_gens = list(gens)
         self._entry = None
         self.on_device = False
         outputs = outputs or {}
-        self.state, self.gens = state, self._caller_gens
         if not (graphs and enabled(self.device, mesh)):
             self.state = _with_outputs(state, outputs)
             return
-        self.on_device = until is not None and device_loop(self.device, mesh, len(gens))
+        self.on_device = until is not None and device_loop(self.device, mesh)
         self._key = (name, key, str(self.device), _signature(state), _signature(inputs),
-                     tuple(sorted(outputs)), len(self._caller_gens),
-                     None if mesh is None else id(mesh), self.on_device)
+                     tuple(sorted(outputs)), None if mesh is None else id(mesh), self.on_device)
         entry = _CACHE.get(self._key)
         if entry is None:
             entry = _Captured(name, _with_outputs(state, outputs),
-                              {k: t.clone() for k, t in inputs.items()}, self._caller_gens,
-                              mesh)
+                              {k: t.clone() for k, t in inputs.items()}, mesh)
             if self.on_device:
                 entry.count = torch.zeros((), dtype=torch.int64, device=self.device)
         else:
@@ -319,30 +304,20 @@ class Loop:
                 _copy_into(entry.state[k], t)
             for k, t in inputs.items():
                 entry.inputs[k].copy_(t)
-            for cached, g in zip(entry.gens, self._caller_gens):
-                cached.set_state(g.get_state())
         inputs.update(entry.inputs)
-        self._entry, self.state, self.gens = entry, entry.state, entry.gens
+        self._entry, self.state = entry, entry.state
 
     @property
     def graphed(self) -> bool:
         return self._entry is not None
 
-    def __enter__(self) -> "Loop":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        for cached, g in zip(self.gens, self._caller_gens):
-            if cached is not g:
-                g.set_state(cached.get_state())
-
     def _test(self, state: dict) -> tuple:
         """The stop test's tensors in ``state``: (running, its, vds, cap, eps)."""
         return tuple(state[k] for k in self._until)
 
-    def _step(self, state: dict, gens) -> None:
+    def _step(self, state: dict) -> None:
         """One iteration and, with ``until``, the stop test's plain version."""
-        self._body(state, gens)
+        self._body(state)
         if self._until is not None:
             from bammmotif2_tpu_torch.ops.cuda_while import condition_ref
 
@@ -359,7 +334,7 @@ class Loop:
         entry = self._entry
         if entry is None:
             for _ in range(n):
-                self._step(self.state, self.gens)
+                self._step(self.state)
             return
         if entry.graph is None:
             self._warm_up_and_capture(entry)
@@ -403,7 +378,7 @@ class Loop:
         # a device loop's captured body leaves the test to the loop graph
         captured = self._body if self.on_device else self._step
         with torch.cuda.stream(stream):
-            captured(entry.state, entry.gens)  # a real iteration, counted
+            captured(entry.state)  # a real iteration, counted
             if self.on_device:
                 from bammmotif2_tpu_torch.ops import cuda_while
 
@@ -411,11 +386,9 @@ class Loop:
                 cuda_while.condition(*args, running)
             before = [fn.launches for fn in fns]
             graph = torch.cuda.CUDAGraph(keep_graph=self.on_device)
-            for g in entry.gens:
-                graph.register_generator_state(g)
             graph.capture_begin()
             try:
-                captured(entry.state, entry.gens)
+                captured(entry.state)
             except RuntimeError as err:
                 failed = err
             finally:

@@ -7,6 +7,12 @@ kernel launch), and the model update runs batched over the seed axis.
 The loop steps until every seed froze (v_diff or |dll| under epsilon) or
 the iteration cap hits; a frozen seed keeps its state and iteration count.
 
+``em_loop`` runs a group's loop, and is the only caller of ``group_step``
+and ``batched_while_loop``: ``run_em_multi`` runs it once a group, FDR once
+a fold, and ``run_em`` (one seed, the reference's ``EM::optimize``) is its
+view at M=1, once or in --checkpointEvery chunks, or steps
+``batched_step`` at M=1 eagerly under --verbose.
+
 With a mesh (``parallel.mesh``) the rows shard over the data axis as in
 ``refinement.em``, and the seeds over the seed axis: the group pads to a
 multiple of the seed axis by repeating its last member, each seed index
@@ -22,7 +28,9 @@ from bammmotif2_tpu_torch.utils.config import Params
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.models import motif as motif_mod
 from bammmotif2_tpu_torch.models.background import BackgroundModel
+from bammmotif2_tpu_torch.models.motif import Motif
 from bammmotif2_tpu_torch.ops import cuda_em, cuda_update, cuda_while, encode
+from bammmotif2_tpu_torch.parallel import distributed
 from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import (
@@ -58,7 +66,7 @@ def run_em_multi(
     ``device``: None runs on the current CUDA device; pass "cpu" for the
     CPU.  ``mesh``: shard rows over its data axis and seeds over its seed
     axis; every rank ends with every refined motif.  ``graphs``: False
-    runs the loop eagerly on a CUDA device too (``batched_while_loop``).
+    runs the loop eagerly on a CUDA device too (``em_loop``).
     Returns a list of EMResult aligned with ``motifs``.
     """
     params = params or Params(EM=True)
@@ -80,30 +88,48 @@ def run_em_multi(
     return results
 
 
+def _stack(group: list, sset, bg, params: Params, device, mesh, data=None,
+           n_real=None) -> tuple:
+    """What a group's loop starts from: (v, q [M], alphas [M, ...], f_bg,
+    eps, data, n_real, n_win, statics).  v holds the seeds' models stacked,
+    a tensor an order; ``data`` (``prepare_data``'s unless given) is
+    sharded over a mesh's data axis; ``n_real`` defaults to its rows;
+    ``n_win`` counts the windows of one data pass over the whole set; the
+    statics are the step's constants, with the path's kernel loaded."""
+    A, K, W, M = group[0].A, group[0].K, group[0].W, len(group)
+    if data is None:
+        data = prepare_data(sset, bg, K, params.ss, device)
+    dev = data["cidx"].device
+    n_real = int(data["lens"].shape[0]) if n_real is None else int(n_real)
+    n_win = int(data["cidx"].shape[0]) * int(
+        np.maximum(data["lens"].cpu().numpy() - W + 1, 0).sum()
+    )
+    if mesh is not None:
+        data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+
+    v = tuple(f32(np.stack([m.v[k] for m in group])) for k in range(K + 1))
+    q = torch.full((M,), params.q, dtype=torch.float32, device=dev)
+    alphas = f32(np.stack([m.alphas for m in group]))
+    path = choose_path(params, dev)
+    load_kernels(path)
+    statics = dict(A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh)
+    return v, q, alphas, f32(group[0].f_bg), f32(params.epsilon), data, n_real, n_win, statics
+
+
 def _refine_group(group: list, idxs: list, results: list, sset, bg, params, device, mesh,
                   graphs, group_span) -> None:
     """One (W, K, f_bg) group of ``run_em_multi``: refines ``group`` (the
     motifs at ``idxs``) in place and sets their ``results``; the seeds'
     iterations and the windows of one data pass join ``group_span``'s
     attrs."""
-    A, K, W, M = group[0].A, group[0].K, group[0].W, len(group)
+    K, M = group[0].K, len(group)
     with span("em.prepare"):
-        data = prepare_data(sset, bg, K, params.ss, device)
-        dev = data["cidx"].device
-        n_real = int(data["lens"].shape[0])
-        n_win = int(data["cidx"].shape[0]) * int(
-            np.maximum(data["lens"].cpu().numpy() - W + 1, 0).sum()
-        )
-        if mesh is not None:
-            data = mesh_mod.shard_em_data(mesh, data, encode.num_rows(A, K))
-
-        def f32(x):
-            return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
-
-        v = tuple(f32(np.stack([m.v[k] for m in group])) for k in range(K + 1))
-        q = torch.full((M,), params.q, dtype=torch.float32, device=dev)
-        alphas = f32(np.stack([m.alphas for m in group]))
-        f_bg = f32(group[0].f_bg)
+        v, q, alphas, f_bg, eps, data, n_real, n_win, statics = _stack(
+            group, sset, bg, params, device, mesh)
+        dev = q.device
         if mesh is not None:
             # pad to a multiple of the seed axis with copies of the last
             # member (they step as it does; sliced off below); keep this
@@ -113,20 +139,9 @@ def _refine_group(group: list, idxs: list, results: list, sset, bg, params, devi
             keep = keep.clamp(max=M - 1)
             v = tuple(vk[keep] for vk in v)
             q, alphas = q[keep], alphas[keep]
-        path = choose_path(params, dev)
-        load_kernels(path)
-
-        stride = max(1, -(-params.maxEMIterations // HIST_CAP))
-        n_slots = -(-params.maxEMIterations // stride)
-
-        step, inputs, key = group_step(data, alphas, f_bg, n_real, A=A, K=K, W=W,
-                                       optimize_q=params.optimizeQ, path=path, mesh=mesh)
     with span("em.loop") as loop_span:
-        v, q, lls, vds, its, hist = batched_while_loop(
-            step, v, q, f32(params.epsilon), params.maxEMIterations,
-            n_hist_slots=n_slots, hist_stride=stride, inputs=inputs, key=key, mesh=mesh,
-            graphs=graphs,
-        )
+        v, q, lls, vds, its, hist = em_loop(v, q, data, alphas, f_bg, n_real, eps,
+                                            params.maxEMIterations, graphs=graphs, **statics)
         if mesh is not None:
             *v, q, lls, vds, its, hist = mesh_mod.all_gather_seeds(
                 mesh, *v, q, lls, vds, its, hist.T)
@@ -139,7 +154,8 @@ def _refine_group(group: list, idxs: list, results: list, sset, bg, params, devi
         # The group is one loop, so only its wall-clock is observable: each
         # seed is charged its iteration share, and its windows_per_sec then
         # equals the group's aggregate throughput (do not sum over seeds).
-        # ll_history holds one entry per hist_stride iterations.
+        # ll_history holds one entry per trace_stride iterations.
+        stride = trace_stride(params.maxEMIterations)
         its = its.cpu().numpy()
         lls, vds, q = lls.cpu().numpy(), vds.cpu().numpy(), q.cpu().numpy()
         hist = hist.cpu().numpy()
@@ -159,6 +175,144 @@ def _refine_group(group: list, idxs: list, results: list, sset, bg, params, devi
                 group_seconds=seconds,
             )
     group_span.attrs.update(iterations=[int(x) for x in its[:M]], windows=n_win)
+
+
+def run_em(
+    motif: Motif,
+    bg: BackgroundModel,
+    sset: SequenceSet,
+    params: Params | None = None,
+    data: dict | None = None,
+    verbose: bool | None = None,
+    checkpoint_fn=None,
+    n_real: int | None = None,
+    device=None,
+    mesh=None,
+    graphs: bool = True,
+) -> EMResult:
+    """Refine ``motif`` in place with ZOOPS EM (``EM::optimize``): the
+    group loop (``em_loop``) at M=1.
+
+    ``device``: where it runs (None: the current CUDA device; pass "cpu"
+    for the CPU).  ``n_real``: number of real sequences in ``data`` when
+    some rows are masked out with length 0; defaults to the row count.
+
+    With ``mesh`` (``parallel.mesh.Mesh``): the rows shard over its data
+    axis and every iteration sums the counts over the data group; every
+    rank ends with the same model.  Only rank 0 prints under ``verbose``.
+
+    ``graphs``: False runs the loop eagerly on a CUDA device too.
+
+    ``checkpoint_fn(motif=, iteration=)``: when set together with
+    ``params.checkpointEvery > 0``, the loop runs in chunks of that many
+    iterations and the callback fires after each chunk with the refreshed
+    motif (the written model file is a valid ``--BaMMFile`` resume point).
+    ``verbose`` steps ``batched_step`` one iteration at a time on the host
+    instead, printing each iteration's ll, raw v_diff and q, and stops
+    where v_diff or |dll| falls under epsilon; the checkpoints fire every
+    checkpointEvery iterations.
+    """
+    params = params or Params(EM=True)
+    verbose = params.verbose if verbose is None else verbose
+    device = resolve(device)
+    with span("em.group", W=motif.W, K=motif.K, M=1) as group_span:
+        v, q, alphas, f_bg, eps, data, n_real, n_win, statics = _stack(
+            [motif], sset, bg, params, device, mesh, data, n_real)
+        args = (data, alphas, f_bg, n_real)
+        ll_hist: list = []
+        seconds = 0.0
+        it, ll, v_diff, converged = 0, float("-inf"), float("inf"), False
+
+        def checkpoint():
+            motif.v = [vk[0].cpu().numpy().astype(np.float64) for vk in v]
+            checkpoint_fn(motif=motif, iteration=it)
+
+        def loop(cap, ll0=None):
+            """One em_loop of at most ``cap`` iterations from (v, q):
+            (lls [1], v_diff, iterations)."""
+            nonlocal v, q, seconds
+            with span("em.loop") as loop_span:
+                v, q, lls, vds, its, _hist = em_loop(v, q, *args, eps, cap, ll0, graphs=graphs,
+                                                     **statics)
+                its = int(its[0])
+                graphs_mod.settle()
+                synchronize(q.device)
+            seconds += loop_span.seconds
+            ll_hist.append(float(lls[0]))
+            return lls, float(vds[0]), its
+
+        ckpt_every = params.checkpointEvery if checkpoint_fn else 0
+        if verbose:
+            # the host reads every iteration: the loop's seconds hold the
+            # prints (and checkpoints) too
+            with span("em.loop") as loop_span:
+                for it in range(1, params.maxEMIterations + 1):
+                    ll_prev = ll
+                    v, q, ll_dev, vd_dev = batched_step(v, q, *args, **statics)
+                    ll, v_diff = float(ll_dev[0]), float(vd_dev[0])
+                    ll_hist.append(ll)
+                    if distributed.is_main():
+                        print(f"  EM iter {it:4d}  ll={ll:.4f}  dv={v_diff:.3e}  "
+                              f"q={float(q[0]):.4f}")
+                    if ckpt_every > 0 and it % ckpt_every == 0:
+                        checkpoint()
+                    if v_diff < params.epsilon or abs(ll - ll_prev) < params.epsilon:
+                        converged = True
+                        break
+            seconds = loop_span.seconds
+        elif ckpt_every > 0:
+            # chunks of checkpointEvery iterations; the previous chunk's final
+            # ll carries into the next (ll0) so the |dll| stop criterion spans
+            # chunk boundaries exactly as in a one-shot run
+            lls = None
+            while it < params.maxEMIterations and not converged:
+                chunk = min(ckpt_every, params.maxEMIterations - it)
+                lls, v_diff, it_chunk = loop(chunk, lls)
+                it += it_chunk
+                ll = ll_hist[-1]
+                converged = v_diff < params.epsilon or it_chunk < chunk
+                checkpoint()
+        else:
+            _lls, v_diff, it = loop(params.maxEMIterations)
+            ll = ll_hist[-1]
+            converged = v_diff < params.epsilon
+
+        motif.v = [vk[0].cpu().numpy().astype(np.float64) for vk in v]
+        group_span.attrs.update(iterations=[it], windows=n_win)
+    return EMResult(
+        iterations=it,
+        ll=ll,
+        q=float(q[0]),
+        v_diff=v_diff,
+        converged=converged,
+        ll_history=ll_hist,
+        seconds=seconds,
+        windows_scored=n_win * it,
+    )
+
+
+def trace_stride(max_iters: int) -> int:
+    """Iterations a slot of ``em_loop``'s ll trace: 1 up to HIST_CAP
+    iterations, else as many as keep the trace within HIST_CAP slots."""
+    return max(1, -(-max_iters // HIST_CAP))
+
+
+def em_loop(v0, q0, data, alphas, f_bg, n_real, epsilon, max_iters: int, ll0=None, *,
+            graphs: bool = True, **statics) -> tuple:
+    """A group's EM convergence loop: ``batched_while_loop`` of
+    ``group_step``'s step from the stacked (v0, q0), at most ``max_iters``
+    iterations, with an ll trace of one slot per ``trace_stride``
+    iterations.  ``ll0`` [M]: the likelihoods the first dll compares
+    against (default -inf; a --checkpointEvery chunk carries the previous
+    one's).  The caller calls ``graphs.settle`` where it reads the results.
+
+    Returns (v, q, lls, vds, its, hist), as ``batched_while_loop``.
+    """
+    stride = trace_stride(max_iters)
+    step, inputs, key = group_step(data, alphas, f_bg, n_real, **statics)
+    return batched_while_loop(step, v0, q0, epsilon, max_iters, -(-max_iters // stride), stride,
+                              inputs=inputs, key=key, ll0=ll0, mesh=statics.get("mesh"),
+                              graphs=graphs)
 
 
 def group_step(data, alphas, f_bg, n_real, **statics) -> tuple:
@@ -210,7 +364,7 @@ def update(C, ll, v, q, alphas, f_bg, n_real, n_rows, *, A, K, optimize_q) -> tu
     else:
         q_new = q
     vd = sum((a - b).abs().sum(dim=(-2, -1)) for a, b in zip(v_new, v))
-    # zero-length pad rows each contribute log(1-q) (cf. em_step)
+    # zero-length pad rows each contribute log(1-q)
     ll = ll - (n_rows - n_real) * torch.log1p(-q)
     return v_new, q_new, ll, vd
 
@@ -327,30 +481,30 @@ def batched_while_loop(step, v0, q0, epsilon, max_iters: int,
         state.update(fused.state(v0))
         count("em.update_fused")
 
-    def body(s, _gens):
+    def body(s):
         if fused is not None:
             fused(s, n_hist_slots, hist_stride)
         else:
             advance(s, *step(s["v"], s["q"]), n_hist_slots, hist_stride)
 
-    with graphs_mod.Loop("EM loop", key, state, inputs or {}, body, mesh=mesh,
-                         graphs=graphs and key is not None, until=UNTIL) as loop:
-        s = loop.state
-        if loop.on_device:
-            if max_iters > 0:
-                loop.run_while()
-        else:
-            done = 0
-            # past the cap every step is a no-op, so no chunk runs beyond it
-            while done < max_iters:
-                n = min(SYNC_EVERY, max_iters - done)
-                loop.run(n)
-                done += n
-                if done < max_iters and not bool(s["running"]):  # the chunk's one host read
-                    break
-        v = fused.split(s["v"]) if fused is not None else tuple(vk.clone() for vk in s["v"])
-        return (v, s["q"].clone(), s["lls"].clone(), s["vds"].clone(), s["its"].clone(),
-                s["hist"].clone())
+    loop = graphs_mod.Loop("EM loop", key, state, inputs or {}, body, mesh=mesh,
+                           graphs=graphs and key is not None, until=UNTIL)
+    s = loop.state
+    if loop.on_device:
+        if max_iters > 0:
+            loop.run_while()
+    else:
+        done = 0
+        # past the cap every step is a no-op, so no chunk runs beyond it
+        while done < max_iters:
+            n = min(SYNC_EVERY, max_iters - done)
+            loop.run(n)
+            done += n
+            if done < max_iters and not bool(s["running"]):  # the chunk's one host read
+                break
+    v = fused.split(s["v"]) if fused is not None else tuple(vk.clone() for vk in s["v"])
+    return (v, s["q"].clone(), s["lls"].clone(), s["vds"].clone(), s["its"].clone(),
+            s["hist"].clone())
 
 
 def _running(s: dict) -> torch.Tensor:

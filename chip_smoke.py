@@ -1115,8 +1115,9 @@ def flat_slice(device, tmp) -> dict:
     from bammmotif2_tpu_torch.models import seeds as seeds_mod
     from bammmotif2_tpu_torch.models.background import BackgroundModel
     from bammmotif2_tpu_torch.ops import cuda_counts, cuda_flat, cuda_scores, encode
-    from bammmotif2_tpu_torch.refinement.em import em_step, prepare_data
+    from bammmotif2_tpu_torch.refinement.em import prepare_data
     from bammmotif2_tpu_torch.refinement.gibbs import occupancy
+    from bammmotif2_tpu_torch.refinement.multi import batched_step
 
     outputs = load_by_path("bamm_torch_outputs", "tests/torch_outputs.py")
     K = 2
@@ -1141,7 +1142,7 @@ def flat_slice(device, tmp) -> dict:
         C, ll = cuda_flat.em_counts(motif_mod.log_odds_lut(v, data["bg_flat"]), qidx, lens, q,
                                     map5, R=R, **kw)
         v = motif_mod.update_v(motif_mod.counts_from_combined(C[:R], 4, K), alphas, f_bg)
-        q = torch.clamp(C.sum(dim=0)[0] / lens.shape[0], 1e-4, 1.0 - 1e-4)  # as em_step
+        q = torch.clamp(C.sum(dim=0)[0] / lens.shape[0], 1e-4, 1.0 - 1e-4)  # as multi.update
     s_flat = motif_mod.log_odds_lut(v, data["bg_flat"])
     sc, mk = cuda_flat.window_scores(s_flat, qidx, lens, map5, **kw)
     S, N, n_win = sc.shape
@@ -1155,11 +1156,11 @@ def flat_slice(device, tmp) -> dict:
     if flat_n["flat_em_counts"] != FLAT_ITERS or min(flat_n.values()) == 0:
         raise AssertionError(f"flat: launches {n} for {FLAT_ITERS} EM iterations")
 
-    vc, qc = v0, q0
+    vc, qc = tuple(vk[None] for vk in v0), q0.reshape(1)  # one seed of the batched step
     for _ in range(FLAT_ITERS):
-        vc, qc, llc, _vd = em_step(vc, qc, data, alphas, f_bg, A=4, K=K, W=W, optimize_q=True,
-                                   path="cuda")
-    dv = max((a - b).abs().max().item() for a, b in zip(v, vc))
+        vc, qc, llc, _vd = batched_step(vc, qc, data, alphas[None], f_bg, int(lens.shape[0]),
+                                        A=4, K=K, W=W, optimize_q=True, path="cuda")
+    dv = max((a - b[0]).abs().max().item() for a, b in zip(v, vc))
     consensus = v[0].argmax(dim=0).cpu().numpy()
     b2, b2_mk = cuda_scores.window_scores(s_flat, data["cidx"], lens)
     b3 = cuda_counts.counts_from_r(r, data["cidx"], R, W)
@@ -1326,8 +1327,8 @@ def parallel_worker(kind: str, tmp: str) -> int:
     from bammmotif2_tpu_torch.parallel import distributed
     from bammmotif2_tpu_torch.parallel import mesh as mesh_mod
     from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
-    from bammmotif2_tpu_torch.refinement.em import run_em
     from bammmotif2_tpu_torch.refinement.gibbs import run_gibbs_multi
+    from bammmotif2_tpu_torch.refinement.multi import run_em
     from bammmotif2_tpu_torch.utils.config import Params
 
     rank = int(os.environ["RANK"])
@@ -1514,7 +1515,8 @@ def time_em(device, tmp) -> dict:
     from bammmotif2_tpu_torch.models.background import BackgroundModel
     from bammmotif2_tpu_torch.models.motif import log_odds_lut
     from bammmotif2_tpu_torch.ops import cuda_em
-    from bammmotif2_tpu_torch.refinement.em import em_step, prepare_data
+    from bammmotif2_tpu_torch.refinement.em import prepare_data
+    from bammmotif2_tpu_torch.refinement.multi import batched_step
 
     sset, _, _, planted, _pos, _has = planted_problem(tmp)
     bg = BackgroundModel.from_sequence_set(sset, order=2, alpha=10.0, ss=False)
@@ -1539,10 +1541,10 @@ def time_em(device, tmp) -> dict:
     out["kernel_device_ms"] = out["device"]["K2_M1"]["kernel_device_ms"]
     for path in ("cuda", "plain"):
         def loop(n):
-            v, q = v0, q0
+            v, q = tuple(vk[None] for vk in v0), q0.reshape(1)  # one seed of the batched step
             for _ in range(n):
-                v, q, _ll, _vd = em_step(v, q, data, alphas, f_bg, N_SEQS, A=4, K=2, W=W,
-                                         optimize_q=True, path=path)
+                v, q, _ll, _vd = batched_step(v, q, data, alphas[None], f_bg, N_SEQS, A=4, K=2,
+                                              W=W, optimize_q=True, path=path)
             return v
 
         loop(1)
@@ -2021,13 +2023,12 @@ def em_rate(device, prob: dict, M: int, graphed: bool, params=None) -> tuple:
     M seeds of ``prob``: run_em at M=1, run_em_multi else; ``params``
     defaults to LOOP_ITERS iterations at epsilon 0."""
     from bammmotif2_tpu_torch.refinement import multi
-    from bammmotif2_tpu_torch.refinement.em import run_em
     from bammmotif2_tpu_torch.utils.config import Params
 
     params = params or Params(EM=True, maxEMIterations=LOOP_ITERS, epsilon=0.0, optimizeQ=True)
     seeds, sset, bg = prob["seeds"], prob["sset"], prob["bg"]
     if M == 1:
-        r = run_em(seeds[0].copy(), bg, sset, params, device=device, graphs=graphed)
+        r = multi.run_em(seeds[0].copy(), bg, sset, params, device=device, graphs=graphed)
         return r.iterations / r.seconds, r.iterations
     rs = multi.run_em_multi([m.copy() for m in seeds[:M]], bg, sset, params, device=device,
                             graphs=graphed)
@@ -2304,7 +2305,7 @@ def time_while_node(device) -> dict:
     from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
     from bammmotif2_tpu_torch.refinement.multi import UNTIL
 
-    def body(s, _gens):
+    def body(s):
         s["x"].add_(1.0)
         s["its"].add_(1)
 
@@ -2317,13 +2318,13 @@ def time_while_node(device) -> dict:
         s["running"] = cuda_while.condition_ref(*(s[k] for k in UNTIL[1:]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with graphs_mod.Loop("while node timing", ("while node timing",), s, {}, body,
-                             until=UNTIL if on_device else None) as loop:
-            if on_device:
-                loop.run_while()
-            else:
-                loop.run(WHILE_ITERS)
-            torch.cuda.synchronize()
+        loop = graphs_mod.Loop("while node timing", ("while node timing",), s, {}, body,
+                               until=UNTIL if on_device else None)
+        if on_device:
+            loop.run_while()
+        else:
+            loop.run(WHILE_ITERS)
+        torch.cuda.synchronize()
         return (time.perf_counter() - t0) / WHILE_ITERS * 1e6
 
     out = {}

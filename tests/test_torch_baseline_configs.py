@@ -32,7 +32,7 @@ from bammmotif2_tpu.utils.fasta import write_fasta
 from bammmotif2_tpu_torch import cli, convert
 from bammmotif2_tpu_torch.evaluation import fdr
 from bammmotif2_tpu_torch.evaluation.prcurve import average_recall
-from bammmotif2_tpu_torch.refinement import em, multi
+from bammmotif2_tpu_torch.refinement import multi
 
 from tests import torch_outputs
 from tests.test_em import planted_set
@@ -76,7 +76,7 @@ def test_single_seed_em_configs(chipseq_like, config, K):
     jm = _seed(sset, K)
     m = convert.motif(jm)
     jr = jem.run_em(jm, jbg, sset, params)
-    r = em.run_em(m, bg, psset, convert.params(params), device="cpu")
+    r = multi.run_em(m, bg, psset, convert.params(params), device="cpu")
     _assert_parity(r, jr, m, jm)
     assert _consensus(m) == _consensus(jm) == MOTIF and np.isfinite(r.ll)
     assert len(m.v) == K + 1 and m.v[K].shape[0] == 4 ** (K + 1)

@@ -717,7 +717,7 @@ def check_loops(device) -> dict:
 
     state = {"q": torch.zeros(2, device=device)}
 
-    def syncing_body(s, _gens):
+    def syncing_body(s):
         s["q"].add_(1)
         if s["q"].sum().item() < 0:  # a host read: illegal under capture
             s["q"].zero_()

@@ -14,7 +14,7 @@ from bammmotif2_tpu_torch.evaluation import fdr
 from bammmotif2_tpu_torch.generator import seqgen
 from bammmotif2_tpu_torch.models import seeds
 from bammmotif2_tpu_torch.models.background import BackgroundModel
-from bammmotif2_tpu_torch.refinement import em, gibbs, multi
+from bammmotif2_tpu_torch.refinement import gibbs, multi
 from bammmotif2_tpu_torch.scoring import scan
 from bammmotif2_tpu_torch.utils.alphabet import Alphabet
 from bammmotif2_tpu_torch.utils.config import Params
@@ -34,7 +34,7 @@ def small(tmp_path_factory):
 
 
 def _em(t, **kw):
-    return em.run_em(t[2].copy(), t[1], t[0], Params(EM=True, maxEMIterations=2), **kw)
+    return multi.run_em(t[2].copy(), t[1], t[0], Params(EM=True, maxEMIterations=2), **kw)
 
 
 def _em_multi(t, **kw):

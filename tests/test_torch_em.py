@@ -1,5 +1,10 @@
 """Port parity: one EM step, the EM loop in its three modes, and the batched
-multi-seed loop (refinement/*.py) against the JAX package's gather path."""
+multi-seed loop (refinement/*.py) against the JAX package's gather path;
+``run_em`` as the one-seed view of the group loop; the refinement modules'
+import direction."""
+
+import ast
+import pathlib
 
 import numpy as np
 import pytest
@@ -51,13 +56,16 @@ def test_em_step_matches_jax(planted, K, optimize_q, ss, n_real):
                        None if n_real is None else jnp.float32(n_real), path="gather", **kw)
     v, alphas, f_bg = convert.motif_state(jm, "cpu")
     data = convert.em_data(jdata["cidx"], jdata["lens"], jdata["bg_flat"], "cpu")
-    out = em.em_step(v, convert.floats(0.7, "cpu"), data, alphas, f_bg, n_real, path="plain", **kw)
+    # one seed of the batched step; n_real None is every row real
+    out = multi.batched_step(tuple(vk[None] for vk in v), convert.floats([0.7], "cpu"), data,
+                             alphas[None], f_bg, sset.n if n_real is None else n_real,
+                             path="plain", **kw)
     for a, b in zip(out[0], jout[0]):
-        assert a.dtype == torch.float32
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        assert a.dtype == torch.float32 and a.shape[0] == 1
+        np.testing.assert_allclose(a[0].numpy(), np.asarray(b), atol=1e-5)
     for i in (1, 2):  # q, ll
-        np.testing.assert_allclose(float(out[i]), float(jout[i]), rtol=1e-5)
-    np.testing.assert_allclose(float(out[3]), float(jout[3]), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(float(out[i][0]), float(jout[i]), rtol=1e-5)
+    np.testing.assert_allclose(float(out[3][0]), float(jout[3]), rtol=1e-4, atol=1e-5)
 
 
 def _check_result(res, jres, m, jm):
@@ -83,12 +91,96 @@ def test_run_em_matches_jax(planted, mode, capsys):
     ckpt = (lambda motif, iteration: calls.append(iteration)) if mode != "one_shot" else None
     jres = jem.run_em(jm, jbg, sset, params, checkpoint_fn=jckpt)
     jout = capsys.readouterr().out
-    res = em.run_em(m, bg, psset, convert.params(params), checkpoint_fn=ckpt, device="cpu")
+    res = multi.run_em(m, bg, psset, convert.params(params), checkpoint_fn=ckpt, device="cpu")
     out = capsys.readouterr().out
     _check_result(res, jres, m, jm)
     assert calls == jcalls
     if mode == "verbose":
         assert out.count("EM iter") == jout.count("EM iter") == res.iterations
+
+
+def _bit_equal(res, ref, m, m_ref):
+    assert (res.iterations, res.ll, res.q, res.converged) == \
+        (ref.iterations, ref.ll, ref.q, ref.converged)
+    for a, b in zip(m.v, m_ref.v):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("optimize_q", [True, False], ids=["optimizeQ", "fixed_q"])
+@pytest.mark.parametrize("K", [0, 2])
+def test_run_em_is_the_group_loop_of_one_seed(planted, K, optimize_q):
+    """``run_em`` (one-shot) and ``run_em_multi`` of the same one seed run
+    one loop: iterations, ll, q and v bit for bit."""
+    sset, _jbg, bg, psset = planted
+    jm = _seed(sset, K)
+    params = PParams(EM=True, modelOrder=K, optimizeQ=optimize_q, q=0.8)
+    m, m_multi = convert.motif(jm), convert.motif(jm)
+    res = multi.run_em(m, bg, psset, params, device="cpu")
+    (res_multi,) = multi.run_em_multi([m_multi], bg, psset, params, device="cpu")
+    assert res.iterations > 1
+    _bit_equal(res, res_multi, m, m_multi)
+    assert res.v_diff == res_multi.v_diff and res.ll_history == [res_multi.ll]
+
+
+@pytest.mark.parametrize("optimize_q", [True, False], ids=["optimizeQ", "fixed_q"])
+def test_run_em_verbose_steps_the_loops_iteration(planted, optimize_q, capsys):
+    """--verbose steps ``batched_step`` at M=1 on the host, one printed line
+    an iteration, and ends where the one-shot loop ends: the same
+    iterations, final ll, q and v bit for bit, and its ll_history is the
+    M=1 loop's ll trace."""
+    sset, _jbg, bg, psset = planted
+    jm = _seed(sset, 2)
+    params = PParams(EM=True, modelOrder=2, optimizeQ=optimize_q, q=0.8, maxEMIterations=200)
+    runs = []
+    for verbose in (False, True):
+        m = convert.motif(jm)
+        runs.append((multi.run_em(m, bg, psset, params, verbose=verbose, device="cpu"), m))
+    (res, m), (res_v, m_v) = runs
+    (res_multi,) = multi.run_em_multi([convert.motif(jm)], bg, psset, params, device="cpu")
+    assert 1 < res.iterations < 200
+    _bit_equal(res_v, res, m_v, m)
+    assert res_v.ll_history == res_multi.ll_history and len(res_v.ll_history) == res.iterations
+    assert capsys.readouterr().out.count("EM iter") == res.iterations
+
+
+def _names(path: pathlib.Path) -> tuple:
+    """(modules imported from, names used) of a Python file, at every
+    level: imports, plain names and attributes."""
+    modules, names = set(), set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            modules.add(node.module or "")
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            modules.update(a.name for a in node.names)
+        elif isinstance(node, ast.Name):
+            names.add(node.id)
+        elif isinstance(node, ast.Attribute):
+            names.add(node.attr)
+    return modules, names
+
+
+PACKAGE = pathlib.Path(multi.__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("rule", ["em_below_multi", "one_loop_caller"])
+def test_refinement_imports_point_one_way(rule):
+    """``refinement/em.py`` imports nothing of ``refinement.multi`` (nor
+    the module itself); no module of the package but
+    ``refinement/multi.py`` names ``group_step`` or ``batched_while_loop``,
+    and the one-seed EM helpers that ``multi`` replaced are gone."""
+    if rule == "em_below_multi":
+        modules, names = _names(PACKAGE / "refinement" / "em.py")
+        assert not any(m.endswith("multi") for m in modules), modules
+        assert not {"multi", "em_step", "em_optimize", "run_em"} & names
+        return
+    files = sorted(PACKAGE.rglob("*.py"))
+    assert len(files) > 20
+    for path in files:
+        _modules, names = _names(path)
+        assert not {"em_step", "em_optimize"} & names, path
+        if path != PACKAGE / "refinement" / "multi.py":
+            assert not {"group_step", "batched_while_loop"} & names, path
 
 
 def test_run_em_multi_matches_jax(planted):

@@ -196,22 +196,24 @@ def test_batched_loop_matches_jax(planted, monkeypatch, sync):
 
 
 def _single(planted, ll0):
+    """One seed stacked for ``multi.em_loop``: (jm, (v [1, ...], q [1],
+    data, alphas [1, ...], f_bg, n_real, eps), ll0 [1], statics)."""
     sset, jbg, bg, psset = planted
     jm = _seed(sset, MOTIF, 0.6)
     data = em.prepare_data(psset, bg, 2, False, "cpu")
     v, alphas, f_bg = convert.motif_state(jm, "cpu")
-    args = (v, torch.tensor(0.8), data, alphas, f_bg, psset.n, torch.tensor(1e-3),
-            torch.tensor(ll0, dtype=torch.float32))
+    args = (tuple(vk[None] for vk in v), torch.tensor([0.8]), data, alphas[None], f_bg, psset.n,
+            torch.tensor(1e-3))
     statics = dict(A=4, K=2, W=jm.W, optimize_q=True, path="plain")
-    return jm, args, statics
+    return jm, args, torch.tensor([ll0], dtype=torch.float32), statics
 
 
 def per_iteration_em(v, q, data, alphas, f_bg, n_real, epsilon, ll0, *, max_iters, **statics):
-    """``em_optimize`` as the port stepped it before: one host sync per
-    iteration."""
-    ll, vd, it = ll0, torch.tensor(float("inf")), 0
+    """The one-seed EM loop as the port stepped it before its loops stayed
+    on the device: ``batched_step`` at M=1, one host sync per iteration."""
+    ll, vd, it = ll0, torch.tensor([float("inf")]), 0
     while it < max_iters and bool(vd >= epsilon):
-        v, q, ll_new, vd2 = em.em_step(v, q, data, alphas, f_bg, n_real, **statics)
+        v, q, ll_new, vd2 = multi.batched_step(v, q, data, alphas, f_bg, n_real, **statics)
         vd = torch.minimum(vd2, (ll_new - ll).abs())
         ll = ll_new
         it += 1
@@ -222,18 +224,21 @@ def per_iteration_em(v, q, data, alphas, f_bg, n_real, epsilon, ll0, *, max_iter
 @pytest.mark.parametrize("max_iters", [300, 7], ids=["converged", "cap"])
 @pytest.mark.parametrize("sync", SYNCS)
 def test_em_optimize_chunks_equal_per_iteration(planted, monkeypatch, sync, max_iters, ll0):
-    _jm, args, statics = _single(planted, ll0)
-    ref = per_iteration_em(*args, max_iters=max_iters, **statics)
+    """``multi.em_loop`` at M=1 (``run_em``'s loop and each of its
+    --checkpointEvery chunks, ``ll0`` carried) gives the per-iteration
+    loop's results bit for bit."""
+    _jm, args, ll0, statics = _single(planted, ll0)
+    ref = per_iteration_em(*args, ll0, max_iters=max_iters, **statics)
     _sync(monkeypatch, sync, max_iters)
-    got = em.em_optimize(*args, max_iters=max_iters, **statics)
-    assert got[4] == ref[4] and (got[4] == max_iters) == (max_iters == 7)
-    _assert_equal(got[:4], ref[:4])
+    v, q, lls, vds, its, _hist = multi.em_loop(*args, max_iters, ll0, **statics)
+    assert its.tolist() == [ref[4]] and (ref[4] == max_iters) == (max_iters == 7)
+    _assert_equal((v, q, lls, vds), ref[:4])
 
 
 @pytest.mark.parametrize("sync", [1, 8])
 def test_em_optimize_matches_jax(planted, monkeypatch, sync):
     sset, jbg, _bg, _psset = planted
-    jm, args, statics = _single(planted, float("-inf"))
+    jm, args, _ll0, statics = _single(planted, float("-inf"))
     jdata = jem.prepare_data(sset, jbg, 2, False)
     jout = jem.em_optimize(tuple(jnp.asarray(vk, jnp.float32) for vk in jm.v), jnp.float32(0.8),
                            jdata, jnp.asarray(jm.alphas, jnp.float32),
@@ -241,12 +246,12 @@ def test_em_optimize_matches_jax(planted, monkeypatch, sync):
                            jnp.float32(1e-3), jnp.float32(-jnp.inf), max_iters=300,
                            **{**statics, "path": "gather"})
     _sync(monkeypatch, sync, 300)
-    v, q, ll, _vd, it = em.em_optimize(*args, max_iters=300, **statics)
-    assert it == int(jout[4])
-    np.testing.assert_allclose(float(ll), float(jout[2]), rtol=1e-5)
-    np.testing.assert_allclose(float(q), float(jout[1]), rtol=1e-5)
+    v, q, ll, _vd, its, _hist = multi.em_loop(*args, 300, **statics)
+    assert its.tolist() == [int(jout[4])]
+    np.testing.assert_allclose(float(ll[0]), float(jout[2]), rtol=1e-5)
+    np.testing.assert_allclose(float(q[0]), float(jout[1]), rtol=1e-5)
     for a, b in zip(v, jout[0]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        np.testing.assert_allclose(a[0].numpy(), np.asarray(b), atol=1e-5)
 
 
 @pytest.mark.parametrize("sync,every", [(3, 5), (8, 5), (8, 3), (4, 10), (8, 16)])
@@ -262,7 +267,7 @@ def test_checkpoint_chunks_stay_exact(planted, monkeypatch, sync, every):
         monkeypatch.setattr(multi, "SYNC_EVERY", s)
         m = convert.motif(_seed(sset, MOTIF, 0.6))
         calls = []
-        res = em.run_em(m, bg, psset, params, device="cpu",
+        res = multi.run_em(m, bg, psset, params, device="cpu",
                         checkpoint_fn=lambda motif, iteration: calls.append(iteration))
         runs.append((res, m, calls))
     (r1, m1, c1), (r2, m2, c2) = runs
@@ -355,9 +360,9 @@ def test_gibbs_takes_the_device_loop_and_stops_at_n_iters(planted, monkeypatch, 
     def run_while(loop):
         assert loop.on_device
         loops.append(loop)
-        loop._step(loop.state, loop.gens)  # the warm-up sweep and its test
+        loop._step(loop.state)  # the warm-up sweep and its test
         while bool(loop.state["running"]):  # the WHILE node
-            loop._step(loop.state, loop.gens)
+            loop._step(loop.state)
 
     monkeypatch.setattr(graphs, "enabled", lambda device, mesh=None: True)
     monkeypatch.setattr(graphs.Loop, "run_while", run_while)
@@ -365,7 +370,7 @@ def test_gibbs_takes_the_device_loop_and_stops_at_n_iters(planted, monkeypatch, 
     _assert_equal(got, ref)
     (loop,) = loops
     s = loop.state
-    assert loop._until == multi.UNTIL and not loop.gens
+    assert loop._until == multi.UNTIL
     assert s["its"].tolist() == [n_iters] * 2 and s["i"].tolist() == [n_iters]
     assert int(s["cap"]) == n_iters and not bool(s["running"])
 
@@ -388,23 +393,20 @@ def test_graph_or_eager_rule(monkeypatch, device, backend, graphed):
 
 def test_cpu_loop_runs_the_body_eagerly_on_its_state():
     """On the CPU the loop runs the body on the caller's tensors, caches
-    nothing and leaves the inputs and the generators as they are."""
+    nothing and leaves the inputs as they are."""
     state = {"q": torch.zeros(2), "v": (torch.ones(3),)}
-    inputs = {"x": torch.full((2,), 2.0)}
-    gens = [torch.Generator().manual_seed(1)]
+    x = torch.tensor([2.0, 3.0])
+    inputs = {"x": x}
     before = len(graphs.stats())
 
-    def body(s, g):
-        s["q"].add_(inputs["x"] + torch.rand(2, generator=g[0]))
+    def body(s):
+        s["q"].add_(inputs["x"])
         s["v"][0].mul_(2)
 
-    with graphs.Loop("test loop", ("k",), state, inputs, body, gens=gens) as loop:
-        loop.run(3)
-        assert not loop.graphed and loop.state is state and loop.gens[0] is gens[0]
-    ref, g = torch.zeros(2), torch.Generator().manual_seed(1)
-    for _ in range(3):
-        ref.add_(torch.full((2,), 2.0) + torch.rand(2, generator=g))
-    assert torch.equal(state["q"], ref) and torch.equal(gens[0].get_state(), g.get_state())
+    loop = graphs.Loop("test loop", ("k",), state, inputs, body)
+    loop.run(3)
+    assert not loop.graphed and loop.state is state and inputs["x"] is x
+    assert state["q"].tolist() == [6.0, 9.0] and x.tolist() == [2.0, 3.0]
     assert state["v"][0].tolist() == [8.0] * 3 and len(graphs.stats()) == before
 
 
@@ -419,7 +421,7 @@ def test_cpu_loop_makes_its_outputs():
         made.append(torch.empty(3))
         return made[-1]
 
-    def body(s, _g):
+    def body(s):
         s["y"].copy_(s["x"] * 2)
 
     for n in (1, 2):
@@ -429,36 +431,21 @@ def test_cpu_loop_makes_its_outputs():
         assert loop.state["y"].tolist() == [0.0, 2.0, 4.0] and loop.state["x"] is state["x"]
 
 
-@pytest.mark.parametrize("n_gens", [0, 1], ids=["no_gens", "gens"])
 @pytest.mark.parametrize("backend", [None, "nccl", "gloo"], ids=["no_mesh", "nccl", "gloo"])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_device_loop_rule(monkeypatch, device, backend, n_gens):
+def test_device_loop_rule(monkeypatch, device, backend):
     """A loop that holds its stop test runs to its end on the device iff it
-    is graphed, has no mesh and registers no generators."""
+    is graphed and has no mesh."""
     mesh = None
     if backend is not None:
         group = object()
         mesh = Mesh(1, 1, 0, 0, data_group=group, seed_group=object())
         monkeypatch.setattr(torch.distributed, "get_backend",
                             lambda g=None: backend if g is group else "other")
-    want = device == "cuda" and backend is None and n_gens == 0
-    assert graphs.device_loop(torch.device(device), mesh, n_gens) is want
+    want = device == "cuda" and backend is None
+    assert graphs.device_loop(torch.device(device), mesh) is want
     if want:
         assert graphs.enabled(torch.device(device), mesh)
-
-
-def test_loop_with_generators_asking_for_the_device_loop_raises():
-    """A body that draws cannot loop on the device (a replay advances its
-    generators' offsets from the host): asking raises before anything
-    runs, and nothing falls back."""
-    state = {"running": torch.tensor(True), "its": torch.zeros(2, dtype=torch.int32),
-             "vds": torch.full((2,), float("inf")), "cap": torch.tensor(3, dtype=torch.int32),
-             "eps": torch.tensor(0.0)}
-    ran = []
-    with pytest.raises(graphs.CaptureError, match="generators"):
-        graphs.Loop("test loop", ("k",), state, {}, lambda s, g: ran.append(1),
-                    gens=[torch.Generator().manual_seed(0)], until=multi.UNTIL)
-    assert not ran
 
 
 def test_cpu_loop_with_its_stop_test_runs_in_chunks():
@@ -468,7 +455,7 @@ def test_cpu_loop_with_its_stop_test_runs_in_chunks():
              "vds": torch.full((2,), float("inf")), "cap": torch.tensor(3, dtype=torch.int32),
              "eps": torch.tensor(0.0)}
 
-    def body(s, _g):
+    def body(s):
         s["its"].add_(1)
 
     loop = graphs.Loop("test loop", ("k",), state, {}, body, until=multi.UNTIL)
@@ -501,7 +488,7 @@ def test_settle_counts_loop_iterations_and_operations(monkeypatch, traced):
     entries = []
     for name, body, total, settled in (("EM loop", em_body, 30, 10),
                                        ("CGS sweep loop", cgs_body, 7, 0)):
-        e = graphs._Captured(name, {}, {}, [], None)
+        e = graphs._Captured(name, {}, {}, None)
         e.body_nodes = body
         e.count, e.settled, e.replays = torch.tensor(total), settled, settled
         e.per_iteration = {Wrapper: 2}

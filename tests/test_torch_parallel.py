@@ -72,7 +72,7 @@ def _cgs_params(sample: bool) -> Params:
 
 def em_case(psset, bg, mesh) -> dict:
     m = _seed(psset)
-    r = em.run_em(m, bg, psset, EM_PARAMS, device="cpu", mesh=mesh)
+    r = multi.run_em(m, bg, psset, EM_PARAMS, device="cpu", mesh=mesh)
     return {"em_iterations": r.iterations, "em_ll": r.ll, "em_q": r.q,
             **{f"em_v{k}": vk for k, vk in enumerate(m.v)}}
 
