@@ -36,6 +36,16 @@ struct MappedRows {
   }
 };
 
+// Whether seed m of an EM group steps at this iteration: the loop running
+// and the seed not frozen (vds[m] >= eps; a NaN freezes it), the reference's
+// cond and its per-seed where.  B1's pass (em.cuh) deals its blocks to these
+// seeds and em_update_kernel updates them; both read the loop state before
+// em_update_kernel writes it, so within an iteration they agree.
+__device__ __forceinline__ bool seed_active(const bool* running, const float* vds,
+                                            const float* eps, int m) {
+  return *running && vds[m] >= *eps;
+}
+
 // (m, s) <- logsumexp merge of (m, s) and (m2, s2); s holds sum exp(x - m)
 __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
   const float mn = fmaxf(m, m2);

@@ -180,23 +180,67 @@ __device__ __forceinline__ void scatter_counts(const int* c, int nc, const float
   }
 }
 
-// The pass over sequences blockIdx.x * teams + team (grid-strided) and the
-// seeds of chunk blockIdx.y.  Every thread of the block calls it; row_of
-// maps a code of `codes` to its table row.
+// The EM loop's state that tells the pass which seeds still step
+// (refinement/multi.py::FusedStep): the group's running flag, the seeds'
+// effective v_diff [M] and epsilon, on the device.  A null running (every
+// other caller) serves every seed.
+struct SeedActivity {
+  const bool* running;
+  const float* vds;
+  const float* eps;
+};
+
+// Deals a launch's gridDim.x * gridDim.y blocks (one seed a block) to the
+// seeds active at this iteration (common.cuh's seed_active): taken in order,
+// in consecutive shares whose sizes differ by at most one, the r-th share to
+// the r-th active seed.  Sets the block's seed m and its place bx among the
+// nbx blocks of that seed's share, and returns false where no seed is
+// active.  With every seed active it is seed blockIdx.y and block blockIdx.x
+// of gridDim.x, the launch's own grid; a seed's share only grows as others
+// freeze.  Called by every thread, with the same result.
+__device__ __forceinline__ bool deal_block(const SeedActivity& act, int M, int& m, int& bx,
+                                           int& nbx) {
+  int active = 0;
+  for (int k = 0; k < M; ++k) active += seed_active(act.running, act.vds, act.eps, k);
+  if (active == 0) return false;
+  const long long blocks = (long long)gridDim.x * gridDim.y;
+  const long long b = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  int r = (int)(((b + 1) * active - 1) / blocks);  // the share that holds block b
+  const long long lo = r * blocks / active;
+  bx = (int)(b - lo);
+  nbx = (int)((r + 1) * blocks / active - lo);
+  for (m = 0; m < M; ++m)
+    if (seed_active(act.running, act.vds, act.eps, m) && r-- == 0) break;
+  return true;
+}
+
+// The pass over sequences bx * teams + team (grid-strided over the nbx
+// blocks that serve the same seeds) and the seeds [m0, m1): chunk
+// blockIdx.y's seeds and blockIdx.x of gridDim.x, or, where act has a
+// running flag, the active seed that deal_block gives the block (one seed a
+// block).  Every thread of the block calls it; row_of maps a code of
+// `codes` to its table row.
 template <int kTeam, bool kSmemLut, int kCounts, typename RowOf>
 __device__ __forceinline__ void em_pass(const int* __restrict__ codes, const int* __restrict__ lens,
                                         const float* __restrict__ s_flat, const float* __restrict__ q,
                                         double* __restrict__ Cd, float* __restrict__ logz,
                                         int S, int N, int L, int W, int R1, int M,
                                         int seeds_per_block, int table_floats, int codes_cap,
-                                        RowOf row_of) {
+                                        SeedActivity act, RowOf row_of) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kTeams = kThreads / kTeam;
   const int RW = R1 * W;
-  // chunk blockIdx.y of gridDim.y balanced chunks (sizes differ by at most
-  // one, the largest at most seeds_per_block: the launcher's ceil(M / spb))
-  const int m0 = (int)((long long)blockIdx.y * M / gridDim.y);
-  const int m1 = (int)((long long)(blockIdx.y + 1) * M / gridDim.y);
+  int m0, m1, bx = blockIdx.x, nbx = gridDim.x;
+  if (act.running == nullptr) {
+    // chunk blockIdx.y of gridDim.y balanced chunks (sizes differ by at
+    // most one, the largest at most seeds_per_block: the launcher's
+    // ceil(M / spb))
+    m0 = (int)((long long)blockIdx.y * M / gridDim.y);
+    m1 = (int)((long long)(blockIdx.y + 1) * M / gridDim.y);
+  } else {
+    if (!deal_block(act, M, m0, bx, nbx)) return;  // the same for the whole block
+    m1 = m0 + 1;
+  }
   float* red = smem;                                       // 2 * kWarps (block teams)
   float* lut_s = red + 2 * kWarps;                         // [spb, W, R1] with kSmemLut
   float* Cs = lut_s + (kSmemLut ? table_floats : 0);       // [spb, W, R1], kCounts' words
@@ -212,7 +256,7 @@ __device__ __forceinline__ void em_pass(const int* __restrict__ codes, const int
   for (int k = threadIdx.x; k < counts_words; k += blockDim.x) Cs[k] = 0.f;
   __syncthreads();
 
-  for (int n = blockIdx.x * kTeams + team; n < N; n += gridDim.x * kTeams) {
+  for (int n = bx * kTeams + team; n < N; n += nbx * kTeams) {
     const int len = min(max(__ldg(lens + n), 0), L);
     const int nwin = max(len - W + 1, 0);
     const int total = S * nwin;
@@ -307,6 +351,7 @@ cudaError_t em_launch_plan(Pick pick, const int* codes, const int* lens, const f
   if constexpr (kCounts == kCountsFixed) {
     // an entry sums at most one count a row the block scores: past 2^16
     // rows a block, the float table (half the words, same launch) takes over
+    // (a seed dealt the grid gets at least gx blocks, so no more rows)
     const long long rows = ((long long)N + (long long)gx * kTeams - 1) / ((long long)gx * kTeams) * kTeams;
     if (rows >= (1ll << (64 - kFixedBits)))
       return em_launch_plan<kTeam, kSmemLut, kCountsFloat>(

@@ -69,6 +69,11 @@
 //     KB) the scatter adds to the float64 global counts directly, and where
 //     the LUT does not fit beside the counts it is read through the
 //     read-only path in its own [R1, W] layout;
+//   * in the EM loop a group's seeds freeze tens to hundreds of iterations
+//     apart, and the loop runs until the last one stops: there the launch
+//     reads the loop's running flag, v_diffs and epsilon on the device and
+//     deals all its blocks to the seeds still active (em.cuh's deal_block),
+//     so a frozen seed costs no pass and the others take its blocks;
 //   * global counts are float64 (Cd; fp64 global atomics are native on
 //     sm_90) and a second kernel rounds them into C once; ll comes from a
 //     third, fixed-order kernel (double accumulation), so it does not depend
@@ -82,16 +87,18 @@
 
 namespace {
 
-// em.cuh's pass on combined-row codes, for the seeds of chunk blockIdx.y.
+// em.cuh's pass on combined-row codes, for the seeds of chunk blockIdx.y,
+// or, with act's running flag, for the active seed its block is dealt.
 template <int kTeam, bool kSmemLut, int kCounts>
 __global__ void __launch_bounds__(kThreads)
 em_counts_kernel(const int* __restrict__ cidx, const int* __restrict__ lens,
                  const float* __restrict__ s_flat, const float* __restrict__ q,
                  double* __restrict__ Cd, float* __restrict__ logz,
                  int S, int N, int L, int W, int R1, int M,
-                 int seeds_per_block, int table_floats, int codes_cap) {
+                 int seeds_per_block, int table_floats, int codes_cap, SeedActivity act) {
   em_pass<kTeam, kSmemLut, kCounts>(cidx, lens, s_flat, q, Cd, logz, S, N, L, W, R1, M,
-                                    seeds_per_block, table_floats, codes_cap, CombinedRows{});
+                                    seeds_per_block, table_floats, codes_cap, act,
+                                    CombinedRows{});
 }
 
 }  // namespace
@@ -103,20 +110,27 @@ extern "C" {
 // C and ll null, the pass alone runs (Cd and logz are its results).  The plan
 // is ops/cuda_em.py::launch_plan's (seeds_per_block, smem_lut, counts: 0
 // float64 global atomics, 1 a float shared table, 2 a fixed-point shared
-// table; team 32 or 256; codes_cap).
+// table; team 32 or 256; codes_cap).  running, vds and eps (the EM loop's
+// state: bool [], f32 [M], f32 []; all null or none) make the pass serve only
+// the active seeds, one a block: a frozen seed's Cd and logz rows are left as
+// they are.
 // Returns a cudaError_t (0 = success) from the launch checks.
 int em_counts_launch(const int* cidx, const int* lens, const float* s_flat,
                      const float* q, float* C, double* Cd, float* logz, float* ll,
+                     const bool* running, const float* vds, const float* eps,
                      int S, int N, int L, int W, int R1, int M,
                      int seeds_per_block, int smem_lut, int counts, int team,
                      int codes_cap, void* stream) {
+  const bool dealt = running != nullptr;
+  if ((vds != nullptr) != dealt || (eps != nullptr) != dealt || (dealt && seeds_per_block != 1))
+    return (int)cudaErrorInvalidValue;
   auto pick = [](auto team_c, auto lut_c, auto counts_c) {
     return em_counts_kernel<decltype(team_c)::value, decltype(lut_c)::value,
                             decltype(counts_c)::value>;
   };
   return (int)em_run(pick, cidx, lens, s_flat, q, C, Cd, logz, ll, S, N, L, W, R1, M,
                      seeds_per_block, smem_lut, counts, team, codes_cap,
-                     static_cast<cudaStream_t>(stream));
+                     static_cast<cudaStream_t>(stream), SeedActivity{running, vds, eps});
 }
 
 const char* em_counts_error_string(int err) {

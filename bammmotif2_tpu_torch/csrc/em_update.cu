@@ -20,8 +20,8 @@
 //   running bool []         the loop's condition at the iteration's start
 //   eps     f32 []
 //   alphas  f32 [M, K+1, W], f_bg f32 [A], bg_flat f32 [R]
-// the loop state, updated in place for each active seed (running and
-// vds[m] >= eps, the reference's per-seed where):
+// the loop state, updated in place for each active seed (common.cuh's
+// seed_active: running and vds[m] >= eps, the reference's per-seed where):
 //   v       f32 [M, R, W]   the conditionals of every order (combined_v)
 //   s_flat  f32 [M, R1, W]  the log-odds LUT of v; the zero sentinel row R is
 //                           never written
@@ -51,7 +51,8 @@
 //   hist[min(its / hist_stride, hist_slots - 1), m] = ll (hist_slots > 0);
 //   q, lls, vds = q', ll, vd_eff;  its += 1
 // A frozen seed only has its Cd zeroed (and C written): its v, LUT and state
-// stay.  Sums over a and b run in the order written, PyTorch's over four
+// stay.  In the loop B1's pass gives a frozen seed no blocks, so its Cd is
+// zero already.  Sums over a and b run in the order written, PyTorch's over four
 // rows; logf and log1pf are IEEE (no --use_fast_math).
 //
 // What bounds it: latency, not bytes or operations.  A block a seed works
@@ -110,7 +111,7 @@ em_update_kernel(double* __restrict__ Cd, const float* __restrict__ logz, float*
   double* Cdm = Cd + (size_t)m * R1W;
   // every thread reads the seed's state before thread 0 writes it (the
   // barriers of the sums lie between)
-  const bool active = *running && vds[m] >= *eps;
+  const bool active = seed_active(running, vds, eps, m);
   const float q_m = q[m], lls_m = lls[m];
   const int its_m = its[m];
   float* n = work != nullptr ? work + (size_t)m * R1W : smem;  // [R1, W] counts

@@ -71,7 +71,7 @@ flat_em_kernel(const int* __restrict__ qidx, const int* __restrict__ lens,
                const int* __restrict__ map5) {
   em_pass<kTeam, kSmemLut, kCounts>(qidx, lens, s_flat, q, Cd, logz, S, N, L, W, R1, M,
                                     seeds_per_block, table_floats, codes_cap,
-                                    MappedRows<false>{map5});
+                                    SeedActivity{}, MappedRows<false>{map5});
 }
 
 // --------------------------------------------------------------- scores --

@@ -64,7 +64,7 @@ from bammmotif2_tpu_torch.ops import encode, threefry
 from bammmotif2_tpu_torch.refinement import gibbs
 from bammmotif2_tpu_torch.refinement import graphs as graphs_mod
 from bammmotif2_tpu_torch.refinement.em import choose_path, prepare_data
-from bammmotif2_tpu_torch.refinement.multi import em_loop, run_em
+from bammmotif2_tpu_torch.refinement.multi import count_seed_passes, em_loop, fuses, run_em
 from bammmotif2_tpu_torch.scoring.scan import empirical_pvalues, score_fn
 
 
@@ -339,6 +339,7 @@ def _fold_loop(group: list, bg: BackgroundModel, sset: SequenceSet, params: Para
                     graphs=graphs, A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path)
                 its = [int(x) for x in its_t.cpu()]
                 graphs_mod.settle()
+                count_seed_passes(its, fuses(tdata, path))
             else:
                 m = group[0].copy()
                 r = run_em(m, bg, sset, params, data=tdata, n_real=n_train, device=dev,
@@ -690,6 +691,9 @@ def _evaluate_group_program(group: list, bg: BackgroundModel, sset: SequenceSet,
         with span("fdr.fetch") as fetch_span:
             pos_z, neg_z, iters, *ranks = _fetch(outs)
             fetch_span.attrs["iterations"] = iters.tolist()
+            if refine == "EM":
+                for its in iters:
+                    count_seed_passes(its, fuses(g.data, g.path))
         with span("fdr.sweeps"):
             results = []
             for m in range(g.M):

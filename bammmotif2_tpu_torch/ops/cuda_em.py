@@ -12,7 +12,9 @@ of its own, one launch's grid holds the M seeds' blocks side by side with
 the resident blocks split evenly over them (rounded down, so no block waits
 for a second wave); where the counts are summed in float each seed gets a
 launch of its own, in turn on the stream (PERF.md §6, the seed-stack
-sweep).
+sweep).  Inside the EM loop (``em_pass`` with the loop's ``activity``) a
+launch deals its blocks to the seeds still active at each iteration, on
+the device, so a frozen seed's blocks go to the others.
 """
 
 from __future__ import annotations
@@ -128,7 +130,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load("em_counts")
     if lib.em_counts_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.em_counts_launch.argtypes = [p] * 8 + [i] * 11 + [p]
+        lib.em_counts_launch.argtypes = [p] * 11 + [i] * 11 + [p]
         lib.em_counts_launch.restype = i
         lib.em_counts_error_string.argtypes = [i]
         lib.em_counts_error_string.restype = ctypes.c_char_p
@@ -197,29 +199,41 @@ em_counts_multi.launches = 0
 
 
 def em_pass(s_flat: torch.Tensor, cidx: torch.Tensor, lens: torch.Tensor, q: torch.Tensor,
-            Cd: torch.Tensor, logz: torch.Tensor) -> None:
+            Cd: torch.Tensor, logz: torch.Tensor, activity: tuple | None = None) -> None:
     """B1's data pass alone, as the EM loop's body runs it before
     ``cuda_update.em_update``: adds the counts into ``Cd`` (f64 [M, R+1,
     W], zero on entry) and writes ``logz`` (f32 [M, N], each sequence's log
     marginal), with ``em_counts_multi``'s arguments, plan and launches
     (counted in ``em_counts_multi.launches``), and neither rounds the
-    counts nor sums ll."""
+    counts nor sums ll.
+
+    ``activity``: the loop state (running bool [], vds f32 [M], eps f32
+    []) that ``em_update`` steps the seeds by.  The pass then serves only
+    the seeds active at this iteration (running and vds >= eps, read on
+    the device), dealing each launch's blocks to them; a frozen seed's
+    ``Cd`` and ``logz`` rows are left as they are.  None serves every
+    seed."""
     _check(s_flat, cidx, lens, q)
     M, R1, W = s_flat.shape
     N = cidx.shape[1]
-    for name, t, dtype, shape in (("Cd", Cd, torch.float64, (M, R1, W)),
-                                  ("logz", logz, torch.float32, (M, N))):
+    tensors = [("Cd", Cd, torch.float64, (M, R1, W)), ("logz", logz, torch.float32, (M, N))]
+    if activity is not None:
+        running, vds, eps = activity
+        tensors += [("running", running, torch.bool, ()), ("vds", vds, torch.float32, (M,)),
+                    ("eps", eps, torch.float32, ())]
+    for name, t, dtype, shape in tensors:
         if t.device != cidx.device or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} on "
                              f"{cidx.device}, got {t.dtype} {list(t.shape)} on {t.device}")
     if M:
-        _launch(s_flat, cidx, lens, q, Cd, logz, None, None)
+        _launch(s_flat, cidx, lens, q, Cd, logz, None, None, activity)
 
 
-def _launch(s_flat, cidx, lens, q, Cd, logz, C, ll) -> None:
+def _launch(s_flat, cidx, lens, q, Cd, logz, C, ll, activity=None) -> None:
     """``em_counts_launch`` for each of ``seed_launches``' ranges in turn on
-    the current stream; C and ll None run the pass alone."""
+    the current stream; C and ll None run the pass alone; ``activity``
+    (running, vds, eps) deals each launch's blocks to its active seeds."""
     M, R1, W = s_flat.shape
     S, N, L = cidx.shape
     dev = cidx.device
@@ -228,12 +242,14 @@ def _launch(s_flat, cidx, lens, q, Cd, logz, C, ll) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for m0, m1 in seed_launches(plan, M):
+            running, vds, eps = (None, None, None) if activity is None else (
+                activity[0].data_ptr(), activity[1][m0:].data_ptr(), activity[2].data_ptr())
             err = lib.em_counts_launch(
                 cidx.data_ptr(), lens.data_ptr(), s_flat[m0].data_ptr(), q[m0:].data_ptr(),
                 None if C is None else C[m0].data_ptr(), Cd[m0].data_ptr(),
-                logz[m0].data_ptr(), None if ll is None else ll[m0:].data_ptr(),
-                S, N, L, W, R1, m1 - m0, plan.seeds_per_block, int(plan.smem_lut), plan.counts,
-                plan.team, plan.codes_cap, stream,
+                logz[m0].data_ptr(), None if ll is None else ll[m0:].data_ptr(), running, vds,
+                eps, S, N, L, W, R1, m1 - m0, plan.seeds_per_block, int(plan.smem_lut),
+                plan.counts, plan.team, plan.codes_cap, stream,
             )
             if err != 0:
                 raise RuntimeError(

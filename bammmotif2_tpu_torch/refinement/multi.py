@@ -5,7 +5,10 @@ form a group; every EM iteration of a group runs ONE E+M data pass for all
 its seeds (``ops.cuda_em.em_counts_multi`` stacks the M LUTs into one
 kernel launch), and the model update runs batched over the seed axis.
 The loop steps until every seed froze (v_diff or |dll| under epsilon) or
-the iteration cap hits; a frozen seed keeps its state and iteration count.
+the iteration cap hits; a frozen seed keeps its state and iteration count,
+and on the fused kernel path (``FusedStep``) costs no data pass: the
+counters ``em.seed_passes`` and ``em.seed_passes_skipped`` count the
+passes run and skipped (``count_seed_passes``).
 
 ``em_loop`` runs a group's loop, and is the only caller of ``group_step``
 and ``batched_while_loop``: ``run_em_multi`` runs it once a group, FDR once
@@ -175,6 +178,7 @@ def _refine_group(group: list, idxs: list, results: list, sset, bg, params, devi
                 group_seconds=seconds,
             )
     group_span.attrs.update(iterations=[int(x) for x in its[:M]], windows=n_win)
+    count_seed_passes(its[:M], fuses(data, statics["path"], mesh))
 
 
 def run_em(
@@ -279,6 +283,7 @@ def run_em(
 
         motif.v = [vk[0].cpu().numpy().astype(np.float64) for vk in v]
         group_span.attrs.update(iterations=[it], windows=n_win)
+        count_seed_passes([it], False)  # one seed: no pass to skip
     return EMResult(
         iterations=it,
         ll=ll,
@@ -331,13 +336,31 @@ def group_step(data, alphas, f_bg, n_real, **statics) -> tuple:
                             **statics)
 
     step.fused = None
-    if (statics["path"] == "cuda" and statics.get("mesh") is None
-            and data["cidx"].device.type == "cuda"):
+    if fuses(data, statics["path"], statics.get("mesh")):
         step.fused = FusedStep(inputs, n_real, A=statics["A"], K=statics["K"],
                                optimize_q=statics["optimize_q"])
     key = ("batched_step", float(n_real), consts,
            tuple(sorted((k, x) for k, x in statics.items() if k != "mesh")))
     return step, inputs, key
+
+
+def fuses(data, path: str, mesh=None) -> bool:
+    """Whether a group loop on ``data`` runs ``FusedStep``: the data pass is
+    the kernel's, on a CUDA device, with no mesh."""
+    return path == "cuda" and mesh is None and data["cidx"].device.type == "cuda"
+
+
+def count_seed_passes(its, fused: bool) -> None:
+    """Counts a group loop whose seeds ran ``its`` iterations: its seeds'
+    data passes, sum(its), in ``em.seed_passes``, and in
+    ``em.seed_passes_skipped`` those B1 no longer runs because the loop went
+    on past a seed's stop, M * max(its) - sum(its) where the loop is
+    ``fused`` (B1 deals its blocks to the active seeds), else 0 (every seed
+    is scored every iteration)."""
+    its = [int(x) for x in its]
+    passes = sum(its)
+    count("em.seed_passes", passes)
+    count("em.seed_passes_skipped", len(its) * max(its) - passes if fused and its else 0)
 
 
 def batched_step(v, q, data, alphas, f_bg, n_real, *, A, K, W, optimize_q, path, mesh=None):
@@ -393,8 +416,10 @@ def advance(s: dict, v2, q2, ll2, vd2, n_hist_slots: int, hist_stride: int) -> N
 class FusedStep:
     """``batched_step`` and ``advance`` as two kernels, for a group whose
     data pass is the kernel's on one CUDA device with no mesh: B1's pass
-    (``cuda_em.em_pass``), then the model update, the loop state's step
-    and the next iteration's LUT in one launch (``cuda_update.em_update``).
+    (``cuda_em.em_pass``, its blocks dealt to the seeds still active, read
+    from the loop state on the device), then the model update, the loop
+    state's step and the next iteration's LUT in one launch
+    (``cuda_update.em_update``).
     Its loop state (``state``) keeps v stacked [M, R, W] beside the LUT
     ``s_flat``, B1's float64 counts ``Cd`` (zero between iterations) and
     ``logz``.  It reads the data, ``alphas`` and ``f_bg`` through
@@ -419,7 +444,8 @@ class FusedStep:
 
     def __call__(self, s: dict, n_hist_slots: int, hist_stride: int) -> None:
         i = self.inputs
-        cuda_em.em_pass(s["s_flat"], i["cidx"], i["lens"], s["q"], s["Cd"], s["logz"])
+        cuda_em.em_pass(s["s_flat"], i["cidx"], i["lens"], s["q"], s["Cd"], s["logz"],
+                        activity=(s["running"], s["vds"], s["eps"]))
         cuda_update.em_update(s["Cd"], s["logz"], s["v"], s["s_flat"], s["q"], s["lls"],
                               s["vds"], s["its"], s["hist"], s["running"], s["eps"],
                               i["alphas"], i["f_bg"], i["bg_flat"], n_real=self.n_real,

@@ -267,7 +267,7 @@ def em_caller(lib_path: str, args: tuple, plan, launches=None):
 
     lib = ctypes.CDLL(lib_path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.em_counts_launch.argtypes = [p] * 8 + [i] * 11 + [p]
+    lib.em_counts_launch.argtypes = [p] * 11 + [i] * 11 + [p]
     lib.em_counts_launch.restype = i
     s_flat, cidx, lens, q = args
     M, R1, W = s_flat.shape
@@ -287,7 +287,7 @@ def em_caller(lib_path: str, args: tuple, plan, launches=None):
             err = lib.em_counts_launch(
                 cidx.data_ptr(), lens.data_ptr(), s_flat[m0].data_ptr(), q[m0:].data_ptr(),
                 C[m0].data_ptr(), Cd[m0].data_ptr(), logz[m0].data_ptr(), ll[m0:].data_ptr(),
-                S, N, L, W, R1, m1 - m0, min(plan.seeds_per_block, m1 - m0),
+                None, None, None, S, N, L, W, R1, m1 - m0, min(plan.seeds_per_block, m1 - m0),
                 int(plan.smem_lut), plan.counts, plan.team, plan.codes_cap, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: {err}")

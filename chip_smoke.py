@@ -43,8 +43,12 @@ Phases (any failure exits non-zero):
                replaces, fed the same pass, on UPDATE_CASES (check_update:
                K=0-4, W=1-30, M=1-16, frozen seeds, rows of length 0),
                and a whole run_em_multi of c4.em's groups with it against
-               one without, its bodies of at most 4 device operations
-               (check_em_multi_fused); and check_loops: the EM loop
+               one without, its bodies of at most 4 device operations,
+               also with seeds that stop at different iterations
+               (check_em_multi_fused); B1's pass dealt to the active seeds
+               against the pass that serves every seed, for every set of
+               active seeds (ACTIVITY_CASES / check_activity); and
+               check_loops: the EM loop
                and the CGS sweeps each as one launch of a WHILE-node graph
                (refinement/graphs.py) against their eager loops (CGS bit
                for bit, also at 1 and 2 sweeps; EM within the bars: at a
@@ -174,7 +178,10 @@ Phases (any failure exits non-zero):
                5's; the
                E+M kernel's device time at bench's geometry at K=2 and 4,
                M=1 and 4 (and on homopolymer rows), the window-score
-               kernel's at config 5's at M=1 and 10; each
+               kernel's at config 5's at M=1 and 10; B1's pass as the
+               EM loop runs it on c4.em's W=8 group (M=4) with its blocks
+               dealt to 4, 3, 2 and 1 active seeds against the pass that
+               serves every seed, and one seed's pass (time_em_active); each
                kernel's bound (bytes over 3.35 TB/s, f32 operations over
                67 TFLOP/s or 32-bit integer operations over 132 SMs' two
                integer pipes of 64 a clock at the SM clock, whichever is
@@ -486,6 +493,9 @@ def phase_kernel(device) -> dict:
         res = checks.check_kernel(case, device)
         worst["em_counts"] = max(worst["em_counts"], res["max_abs_err"])
         log(f"kernel em_counts {name}: " + json.dumps({k: float(v) for k, v in res.items()}))
+    for name, case in checks.ACTIVITY_CASES.items():
+        log(f"kernel em_counts dealt to the active seeds {name}: "
+            + json.dumps(checks.check_activity(case, device)))
     for name, case in checks.SCORE_CASES.items():
         res = checks.check_scores(case, device)
         worst["window_scores"] = max(worst["window_scores"], res["max_abs_err"])
@@ -1559,6 +1569,66 @@ def time_em(device, tmp) -> dict:
     return out
 
 
+# c4.em's W=8 group on bench's set (kernel_inputs options): 4 seeds, the
+# group that runs most of a job's EM iterations
+EM_ACTIVE_CASE = dict(N=N_SEQS, L=SEQ_LEN, W=8, K=2, M=4, S=2)
+EM_ACTIVE_ROUNDS = 6
+
+
+def time_em_active(device) -> dict:
+    """B1's pass as the EM loop's body runs it (``cuda_em.em_pass``) on
+    EM_ACTIVE_CASE: with no activity (``all_seeds``, every seed on the
+    launch's own grid, as before the deal) against the loop's activity with
+    4, 3, 2 and 1 seeds active (the last ones frozen), the grid dealt to
+    them, and one seed's pass alone (M=1).  ms a call by CUDA events (the
+    median of EM_ACTIVE_ROUNDS rounds, the cases interleaved) and the
+    kernel's device ms (torch.profiler, two rounds, the median); each
+    against ``all_seeds`` (``active_4``'s is the deal's own cost)."""
+    import torch
+
+    from bammmotif2_tpu_torch.ops import cuda_em
+    from bammmotif2_tpu_torch.tools.ab import device_ms
+
+    checks = load_by_path("bamm_torch_cuda_checks", "tests/test_torch_cuda.py")
+    s_flat, cidx, lens, q = checks.kernel_inputs(**EM_ACTIVE_CASE, device=device)
+    M, R1, w = s_flat.shape
+    Cd = torch.zeros((M, R1, w), dtype=torch.float64, device=device)
+    logz = torch.empty((M, cidx.shape[1]), device=device)
+    running, eps = torch.tensor(True, device=device), torch.tensor(1e-3, device=device)
+
+    def call(active: int | None, m: int = M):
+        act = None if active is None else (
+            running, (torch.arange(M, device=device) < active).float(), eps)
+        return lambda: cuda_em.em_pass(s_flat[:m], cidx, lens, q[:m], Cd[:m], logz[:m],
+                                       activity=act)
+
+    cases = {"all_seeds": call(None), **{f"active_{n}": call(n) for n in range(M, 0, -1)},
+             "one_seed": call(None, 1)}
+    ms: dict = {k: [] for k in cases}
+    dev: dict = {k: [] for k in cases}
+    for r in range(EM_ACTIVE_ROUNDS):
+        for k in (cases if r % 2 == 0 else reversed(cases)):
+            ms[k].append(time_cuda(cases[k], N_TIMED))
+    for r in range(2):
+        for k in (cases if r % 2 == 0 else reversed(cases)):
+            dev[k].append(device_ms(cases[k], 10, "em_counts_kernel")["kernel_device_ms"])
+    out = {}
+    for k in cases:
+        d = [x for x in dev[k] if not isinstance(x, str)]
+        out[k] = {"ms": float(np.median(ms[k])), "ms_rounds": ms[k],
+                  "kernel_device_ms": float(np.median(d)) if d else "not measured"}
+    base = out["all_seeds"]
+    for k, o in out.items():
+        o["ms_over_all_seeds"] = o["ms"] / base["ms"]
+        if not isinstance(o["kernel_device_ms"], str) \
+                and not isinstance(base["kernel_device_ms"], str):
+            o["device_over_all_seeds"] = o["kernel_device_ms"] / base["kernel_device_ms"]
+    out["case"], out["gpu"] = EM_ACTIVE_CASE, nvidia_smi()
+    log("timing em_counts dealt to the active seeds (c4.em's W=8 group, 10k x 200 bp, K=2, "
+        "M=4): " + json.dumps(out))
+    return out
+
+
 EM_DEVICE_CASES = {  # bench's geometry (10k x 200 bp, S=2, W=12); kernel_inputs options
     "K2_M1": dict(K=2, M=1), "K2_M4": dict(K=2, M=4), "K4_M1": dict(K=4, M=1),
     "K4_M4": dict(K=4, M=4), "K2_M1_homopolymer": dict(K=2, M=1, homopolymer=True),
@@ -2376,7 +2446,8 @@ def time_fdr_group(device, tmp) -> dict:
 
 
 def phase_timing(device, tmp, slices: dict) -> dict:
-    out = {"em": time_em(device, tmp), "scores": time_scores(device, tmp),
+    out = {"em": time_em(device, tmp), "em_active": time_em_active(device),
+           "scores": time_scores(device, tmp),
            "counts": time_counts(device), "flat": time_flat(device), "cgs": time_cgs(device, tmp),
            "condition": time_condition(device), "update": time_update(device),
            "draws": time_draws(device, tmp),

@@ -163,7 +163,10 @@ def test_em_job_builds_the_index_once_for_background_and_em(tmp_path, monkeypatc
     assert len(out["em_results"]) == 3
     groups = [s for s in out["trace"]["spans"] if s["name"] == "em.group"]
     assert sorted(g["attrs"]["W"] for g in groups) == [6, 7, 8]
-    assert out["trace"]["counts"] == {"kmer_index.build": builds, "kmer_index.hit": hits}
+    counts = dict(out["trace"]["counts"])  # beside them the EM loops' seed passes
+    assert counts.pop("em.seed_passes") == sum(r.iterations for r in out["em_results"])
+    assert counts.pop("em.seed_passes_skipped") == 0
+    assert counts == {"kmer_index.build": builds, "kmer_index.hit": hits}
     assert len(counted) == 1 and len(prepared) == 3
     assert all(c is prepared[0] for c in prepared)
     assert (counted[0] is prepared[0]) == (bg_order == 2)

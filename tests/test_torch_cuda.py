@@ -269,6 +269,76 @@ def check_kernel(case: dict, device) -> dict:
     return out
 
 
+# B1's pass dealt to the seeds still active (``cuda_em.em_pass``'s
+# ``activity``): c4.em's W=8 and W=12 groups (10k x 200 bp, K=2, M=4), and a
+# float-count plan (K=4, W=20), which launches each seed on its own
+ACTIVITY_CASES = {
+    "c4_W8_M4": dict(N=10_000, L=200, W=8, K=2, M=4, S=2),
+    "c4_W12_M4": dict(N=10_000, L=200, W=12, K=2, M=4, S=2),
+    "K4_W20_M4_float_counts": dict(N=10_000, L=200, W=20, K=4, M=4, S=2),
+}
+
+
+def check_activity(case: dict, device) -> dict:
+    """B1's pass with the EM loop's activity (running, vds, eps) against
+    the pass without it, for every set of active seeds, from all M down to
+    one with the frozen ones at every position (a frozen seed's v_diff
+    under epsilon, or NaN), and for the loop stopped: each active seed's Cd
+    within the E+M bar of the full pass's and its ll (its logz row's sum)
+    within LL_RTOL; each frozen seed's Cd left zero and its logz row
+    untouched (a sentinel); the launches of the full pass (a float-count
+    plan's launch of a frozen seed returns at once).  Raises AssertionError
+    on a mismatch; returns the errors."""
+    import itertools
+
+    s_flat, cidx, lens, q = kernel_inputs(**case, device=device)
+    M, R1, W = s_flat.shape
+    N = cidx.shape[1]
+    plan = cuda_em.launch_plan(M, R1, W, cidx.shape[0], cidx.shape[2])
+    per_call = len(cuda_em.seed_launches(plan, M))
+    Cd_ref = torch.zeros((M, R1, W), dtype=torch.float64, device=device)
+    logz_ref = torch.empty((M, N), device=device)
+    cuda_em.em_pass(s_flat, cidx, lens, q, Cd_ref, logz_ref)
+    ll_ref = logz_ref.double().sum(dim=1)
+    bound = C_ATOL + C_RTOL * Cd_ref.abs()
+    eps, sentinel = torch.tensor(1e-3, device=device), 12345.0
+    frozen_vd = torch.tensor([1e-4, float("nan")], device=device)[
+        torch.arange(M, device=device) % 2]
+    sets = [(a, True) for n in range(M, 0, -1) for a in itertools.combinations(range(M), n)]
+    running = torch.tensor(True, device=device)
+    for bad in ((running, eps.reshape(1), eps), (running.int(), frozen_vd, eps),
+                (running, frozen_vd.cpu(), eps)):
+        with pytest.raises(ValueError):
+            cuda_em.em_pass(s_flat, cidx, lens, q, Cd_ref.clone(), logz_ref.clone(),
+                            activity=bad)
+    out = {"plan": plan._asdict(), "launches_a_call": per_call, "cases": 0,
+           "max_err_over_bound": 0.0, "ll_max_rel_err": 0.0, "logz_bit_equal": True}
+    for active, running in sets + [(tuple(range(M)), False)]:
+        on = torch.zeros(M, dtype=torch.bool, device=device)
+        on[list(active)] = True
+        vds = torch.where(on, torch.tensor(0.5, device=device), frozen_vd)
+        on &= running
+        Cd = torch.zeros_like(Cd_ref)
+        logz = torch.full((M, N), sentinel, device=device)
+        launches = cuda_em.em_counts_multi.launches
+        cuda_em.em_pass(s_flat, cidx, lens, q, Cd, logz,
+                        activity=(torch.tensor(running, device=device), vds, eps))
+        torch.cuda.synchronize(device)
+        tag = {"active": active, "running": running}
+        assert cuda_em.em_counts_multi.launches - launches == per_call, tag
+        assert not bool(Cd[~on].any()) and bool((logz[~on] == sentinel).all()), tag
+        if bool(on.any()):
+            err = ((Cd[on] - Cd_ref[on]).abs() / bound[on]).max().item()
+            ll_rel = ((logz[on].double().sum(dim=1) - ll_ref[on]).abs()
+                      / ll_ref[on].abs()).max().item()
+            out["max_err_over_bound"] = max(out["max_err_over_bound"], err)
+            out["ll_max_rel_err"] = max(out["ll_max_rel_err"], ll_rel)
+            out["logz_bit_equal"] &= torch.equal(logz[on], logz_ref[on])
+            assert err <= 1 and ll_rel <= LL_RTOL, {**tag, **out}
+        out["cases"] += 1
+    return out
+
+
 def check_scores(case: dict, device) -> dict:
     """Window-score kernel vs plain on the same CUDA tensors; raises
     AssertionError on a mismatch.  Returns the errors."""
@@ -1182,6 +1252,55 @@ def check_em_multi_fused(device) -> dict:
     assert cf.get("em.update_fused") == 3 and "em.update_fused" not in ct, out
     # each group's loop graph runs 29 iterations (its first is the capture's)
     assert cf["graph.loop_ops"] == 29 * sum(out["body_ops"]), out
+    assert cf["em.seed_passes"] == 300 and cf["em.seed_passes_skipped"] == 0, out
+    assert ct["em.seed_passes"] == 300 and ct["em.seed_passes_skipped"] == 0, out
+    out["stopping"] = check_em_multi_fused_stopping(device, sset, planted, bg, torch_update)
+    return out
+
+
+def check_em_multi_fused_stopping(device, sset, planted, bg, torch_update) -> dict:
+    """``check_em_multi_fused``'s groups at the benchmark's epsilon (1e-3),
+    so their seeds stop at different iterations and the fused loop's B1
+    pass serves fewer seeds as they freeze: each seed's model, ll and q
+    within the benchmark's limits of the PyTorch update's run of that seed
+    alone to the same iterations (``torch_update``, epsilon 0), at most 4
+    device operations a loop body, and the counters at the passes run and
+    skipped (M * max(its) - sum(its) a group, more than none)."""
+    from bammmotif2_tpu_torch.refinement import graphs, multi
+    from bammmotif2_tpu_torch.utils import metrics
+    from bammmotif2_tpu_torch.utils.config import Params
+
+    motifs = c4_group_motifs(sset, planted)
+    graphs.clear()
+    with metrics.tracing() as trace:
+        res = multi.run_em_multi(motifs, bg, sset, Params(
+            EM=True, optimizeQ=True, maxEMIterations=1000, epsilon=1e-3), device=device)
+    bodies = [c["body_nodes"] for c in graphs.stats() if c["name"] == "EM loop"]
+    its = [r.iterations for r in res]
+    groups = (its[:4], its[4:7], its[7:])
+    out = {"iterations": its, "body_ops": [graphs.body_ops(b) for b in bodies],
+           "counts": {k: v for k, v in trace.counts.items() if k.startswith("em.")},
+           "model_dp": 0.0, "ll_rel": 0.0, "q_abs": 0.0}
+    group_step = multi.group_step
+    for i, (m, r) in enumerate(zip(motifs, res)):
+        alone = c4_group_motifs(sset, planted)[i]
+        multi.group_step = torch_update
+        try:
+            (ra,) = multi.run_em_multi([alone], bg, sset, Params(
+                EM=True, optimizeQ=True, maxEMIterations=r.iterations, epsilon=0.0),
+                device=device)
+        finally:
+            multi.group_step = group_step
+        assert ra.iterations == r.iterations, (i, ra.iterations, r.iterations)
+        out["model_dp"] = max(out["model_dp"], max(float(np.abs(a - b).max())
+                                                   for a, b in zip(m.v, alone.v)))
+        out["ll_rel"] = max(out["ll_rel"], abs(r.ll - ra.ll) / abs(ra.ll))
+        out["q_abs"] = max(out["q_abs"], abs(r.q - ra.q))
+    skipped = sum(len(g) * max(g) - sum(g) for g in groups)
+    assert out["model_dp"] <= 1e-3 and out["ll_rel"] <= 2e-4 and out["q_abs"] <= 1e-4, out
+    assert len(bodies) == 3 and all(n <= 4 for n in out["body_ops"]), out
+    assert out["counts"]["em.seed_passes"] == sum(its), out
+    assert out["counts"]["em.seed_passes_skipped"] == skipped > 0, out
     return out
 
 
@@ -1584,6 +1703,12 @@ def cuda_device():
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
 def test_kernel_matches_plain(cuda_device, name):
     check_kernel(KERNEL_CASES[name], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ACTIVITY_CASES))
+def test_pass_dealt_to_the_active_seeds_matches_the_full_pass(cuda_device, name):
+    check_activity(ACTIVITY_CASES[name], cuda_device)
 
 
 @pytest.mark.cuda

@@ -152,6 +152,52 @@ def test_update_fused_only_on_the_kernel_path_of_one_card(planted, case):
     assert "em.update_fused" not in trace.counts
 
 
+@pytest.mark.parametrize("its, fused, want", [
+    ([292, 257, 280, 344], True, (1173, 203)),
+    ([58, 59, 64], True, (181, 11)),
+    ([30, 30, 30, 30], True, (120, 0)),
+    ([58], True, (58, 0)),
+    ([292, 257, 280, 344], False, (1173, 0)),
+    ([], True, (0, 0)),
+], ids=["w8_group", "w10_group", "all_to_the_cap", "one_seed", "pytorch_update", "no_seeds"])
+def test_seed_passes_counts_what_the_fused_loop_skips(its, fused, want):
+    """A group loop whose seeds ran ``its`` iterations ran sum(its) seed
+    passes; the fused loop, whose B1 pass serves only the seeds still
+    active, skipped M * max(its) - sum(its) of the group's iterations,
+    none with one seed or all seeds to the end, and the PyTorch update
+    (every seed scored every iteration) none.  ``count_seed_passes`` adds
+    both to the run's counters, zeros too, from a list or the loop's
+    int32 tensor."""
+    from bammmotif2_tpu_torch.utils import metrics
+
+    with metrics.tracing() as trace:
+        multi.count_seed_passes(its, fused)
+        multi.count_seed_passes(torch.tensor(its, dtype=torch.int32), fused)
+    assert trace.counts == {"em.seed_passes": 2 * want[0], "em.seed_passes_skipped": 2 * want[1]}
+
+
+def test_cpu_group_loops_count_their_seed_passes(planted):
+    """On the CPU (the PyTorch update) ``run_em_multi`` counts its seeds'
+    iterations as ``em.seed_passes`` and skips none, though the seeds freeze
+    at different iterations; ``run_em`` counts its one seed's."""
+    from bammmotif2_tpu_torch.utils import metrics
+    from bammmotif2_tpu_torch.utils.config import Params as PParams
+
+    sset, _jbg, bg, psset = planted
+    params = PParams(EM=True, optimizeQ=True, maxEMIterations=600)
+    with metrics.tracing() as trace:
+        res = multi.run_em_multi([convert.motif(_seed(sset, p, soft)) for p, soft in SEEDS], bg,
+                                 psset, params, device="cpu")
+    its = [r.iterations for r in res]
+    assert len(set(its)) == 3 and max(its) < 600, its
+    assert trace.counts["em.seed_passes"] == sum(its)
+    assert trace.counts["em.seed_passes_skipped"] == 0
+    with metrics.tracing() as trace:
+        r = multi.run_em(convert.motif(_seed(sset, *SEEDS[1])), bg, psset, params, device="cpu")
+    assert trace.counts["em.seed_passes"] == r.iterations
+    assert trace.counts["em.seed_passes_skipped"] == 0
+
+
 def test_fused_state_stacks_v_and_its_lut():
     """``FusedStep.state`` stacks the orders of v0 (``motif.combined_v``)
     beside their LUT (``motif.log_odds_lut``), zero float64 counts and a

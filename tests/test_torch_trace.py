@@ -145,7 +145,8 @@ def run_cli(out, flags) -> list:
 
 # the counters: no graphs on the CPU; the k-mer index built once, by the
 # background fit, and read again by EM (and the scan's fit, FDR's data and
-# its fold backgrounds)
+# its fold backgrounds); beside them the EM loops' seed passes (the EM
+# stage's and FDR's folds' iterations), none skipped on the PyTorch update
 @pytest.mark.parametrize("flags, names, counts", [
     (["--EM", "--maxEMIterations", "20"], EM_SPANS,
      {"kmer_index.build": 1, "kmer_index.hit": 1}),
@@ -162,7 +163,12 @@ def test_cli_writes_its_spans(tmp_path, flags, names, counts):
     assert {s["name"] for s in spans} == names
     (root,) = [s for s in spans if s["parent"] is None]
     assert root["name"] == "run" and {s["run"] for s in spans} == {root["run"]}
-    assert events[-2]["run"] == root["run"] and events[-2]["counts"] == counts
+    got = dict(events[-2]["counts"])
+    passes = sum(e["iterations"] for e in events if e["event"] == "em_done") + sum(
+        sum(map(sum, e["attrs"]["iterations"])) for e in events
+        if e["event"] == "span" and e["name"] == "fdr.fetch")
+    assert got.pop("em.seed_passes") == passes > 0 and got.pop("em.seed_passes_skipped") == 0
+    assert events[-2]["run"] == root["run"] and got == counts
     by_id = {s["id"]: s for s in spans}
     assert len(by_id) == len(spans)
     for s in spans:
