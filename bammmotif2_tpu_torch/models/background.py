@@ -10,7 +10,8 @@ the interpolated pseudo-count recurrence with a single strength A:
 with base case v_bg^(0)(a) = (n(a) + A/|A|) / (N + A).
 
 File IO: ``.hbcp`` (conditional probs, loadable via --bgModelFile) and
-``.hbp`` (full k-mer probs).
+``.hbp`` (full k-mer probs); a write adds the numbers it formats to the
+run's counter ``write.values`` (``utils.metrics``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from bammmotif2_tpu_torch.utils.alphabet import Alphabet
 from bammmotif2_tpu_torch.utils.fasta import SequenceSet
 from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.utils.metrics import count
 
 _FLOAT_FMT = "%.6e"
 
@@ -114,6 +116,7 @@ class BackgroundModel:
             fh.write(f"# A = {self.alpha:.6f}\n")
             for tab in tables:
                 fh.write(" ".join(_FLOAT_FMT % x for x in tab) + "\n")
+        count("write.values", sum(len(tab) for tab in tables))
 
     @staticmethod
     def read(path: str, alphabet: Alphabet | None = None) -> "BackgroundModel":

@@ -17,7 +17,8 @@ with base case v_j^(0)(a) = (n_j^(0)(a) + alpha_0 * f_bg(a)) / (N_j + alpha_0).
 The device math is float32 torch and batch-generic: every function takes
 optional leading (seed) dimensions, so a seed-stacked group updates in one
 call.  The host ``Motif`` class wraps state and the ``.ihbcp`` / ``.ihbp``
-text formats.
+text formats; a write adds the numbers it formats to the run's counter
+``write.values`` (``utils.metrics``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from bammmotif2_tpu_torch.utils.alphabet import Alphabet
 from bammmotif2_tpu_torch.ops import encode
+from bammmotif2_tpu_torch.utils.metrics import count
 
 _FLOAT_FMT = "%.4e"
 
@@ -276,6 +278,7 @@ def _write_position_blocks(
             for tab in tables:
                 fh.write(" ".join(_FLOAT_FMT % x for x in tab[:, j]) + "\n")
             fh.write("\n")
+    count("write.values", W * sum(tab.shape[0] for tab in tables))
 
 
 def _read_position_blocks(path: str) -> list:

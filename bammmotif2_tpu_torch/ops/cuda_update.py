@@ -26,6 +26,13 @@ from bammmotif2_tpu_torch.ops import _build, encode
 SMEM_TABLE = 48 * 1024 - 256 * 8
 
 
+def table_in_smem(R1: int, W: int) -> bool:
+    """Whether ``em_update`` keeps a seed's count table [R1, W] in shared
+    memory (else in a device-memory ``work`` buffer): A=4 up to K=3 at
+    W=30 and K=4 at W=8."""
+    return 4 * R1 * W <= SMEM_TABLE
+
+
 def library() -> ctypes.CDLL:
     lib = _build.load("em_update")
     if lib.em_update_launch.argtypes is None:
@@ -79,7 +86,7 @@ def em_update(Cd, logz, v, s_flat, q, lls, vds, its, hist, running, eps, alphas,
                          running=(), eps=(), alphas=(M, K + 1, W), f_bg=(A,), bg_flat=(R,),
                          C=(M, R + 1, W)))
     dev = Cd.device
-    work = None if 4 * (R + 1) * W <= SMEM_TABLE else torch.empty((M, R + 1, W), device=dev)
+    work = None if table_in_smem(R + 1, W) else torch.empty((M, R + 1, W), device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         err = library().em_update_launch(

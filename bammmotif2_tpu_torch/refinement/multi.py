@@ -126,8 +126,8 @@ def _refine_group(group: list, idxs: list, results: list, sset, bg, params, devi
                   graphs, group_span) -> None:
     """One (W, K, f_bg) group of ``run_em_multi``: refines ``group`` (the
     motifs at ``idxs``) in place and sets their ``results``; the seeds'
-    iterations and the windows of one data pass join ``group_span``'s
-    attrs."""
+    iterations, the windows of one data pass and ``plan_attrs`` join
+    ``group_span``'s attrs."""
     K, M = group[0].K, len(group)
     with span("em.prepare"):
         v, q, alphas, f_bg, eps, data, n_real, n_win, statics = _stack(
@@ -177,7 +177,8 @@ def _refine_group(group: list, idxs: list, results: list, sset, bg, params, devi
                 windows_scored=n_win * int(its[gi]),
                 group_seconds=seconds,
             )
-    group_span.attrs.update(iterations=[int(x) for x in its[:M]], windows=n_win)
+    group_span.attrs.update(iterations=[int(x) for x in its[:M]], windows=n_win,
+                            **plan_attrs(statics["A"], K, statics["W"], M, data["cidx"].shape))
     count_seed_passes(its[:M], fuses(data, statics["path"], mesh))
 
 
@@ -282,7 +283,8 @@ def run_em(
             converged = v_diff < params.epsilon
 
         motif.v = [vk[0].cpu().numpy().astype(np.float64) for vk in v]
-        group_span.attrs.update(iterations=[it], windows=n_win)
+        group_span.attrs.update(iterations=[it], windows=n_win,
+                                **plan_attrs(motif.A, motif.K, motif.W, 1, data["cidx"].shape))
         count_seed_passes([it], False)  # one seed: no pass to skip
     return EMResult(
         iterations=it,
@@ -348,6 +350,21 @@ def fuses(data, path: str, mesh=None) -> bool:
     """Whether a group loop on ``data`` runs ``FusedStep``: the data pass is
     the kernel's, on a CUDA device, with no mesh."""
     return path == "cuda" and mesh is None and data["cidx"].device.type == "cuda"
+
+
+def plan_attrs(A: int, K: int, W: int, M: int, cidx_shape) -> dict:
+    """What the kernels of a fused group loop take at a group's shapes
+    (codes [S, N, L]), as its ``em.group`` span's attributes: ``R1``, the
+    combined rows with the sentinel; ``update_table``, where
+    ``cuda_update.em_update`` keeps a seed's count table ("smem" or
+    "device"); and B1's ``cuda_em.launch_plan``: ``seeds_per_block``,
+    ``smem_lut`` and ``counts`` ("fixed", "float" or "global")."""
+    S, _N, L = cidx_shape
+    R1 = encode.num_rows(A, K) + 1
+    plan = cuda_em.launch_plan(M, R1, W, S, L)
+    return {"R1": R1, "update_table": "smem" if cuda_update.table_in_smem(R1, W) else "device",
+            "seeds_per_block": plan.seeds_per_block, "smem_lut": plan.smem_lut,
+            "counts": ("global", "float", "fixed")[plan.counts]}
 
 
 def count_seed_passes(its, fused: bool) -> None:

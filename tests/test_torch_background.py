@@ -166,6 +166,10 @@ def test_em_job_builds_the_index_once_for_background_and_em(tmp_path, monkeypatc
     counts = dict(out["trace"]["counts"])  # beside them the EM loops' seed passes
     assert counts.pop("em.seed_passes") == sum(r.iterations for r in out["em_results"])
     assert counts.pop("em.seed_passes_skipped") == 0
+    # and the numbers written to model files: the background's two tables
+    # and the three refined BaMMs' two, 84 rows of W at -k 2
+    assert counts.pop("write.values") == (2 * sum(4 ** (k + 1) for k in range(bg_order + 1))
+                                          + 2 * 84 * (6 + 7 + 8))
     assert counts == {"kmer_index.build": builds, "kmer_index.hit": hits}
     assert len(counted) == 1 and len(prepared) == 3
     assert all(c is prepared[0] for c in prepared)

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from bammmotif2_tpu_torch import cli
+from bammmotif2_tpu_torch.ops import cuda_update
+from bammmotif2_tpu_torch.refinement import multi
 from bammmotif2_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
@@ -168,6 +170,7 @@ def test_cli_writes_its_spans(tmp_path, flags, names, counts):
         sum(map(sum, e["attrs"]["iterations"])) for e in events
         if e["event"] == "span" and e["name"] == "fdr.fetch")
     assert got.pop("em.seed_passes") == passes > 0 and got.pop("em.seed_passes_skipped") == 0
+    assert got.pop("write.values") == file_values(tmp_path / "out")
     assert events[-2]["run"] == root["run"] and got == counts
     by_id = {s["id"]: s for s in spans}
     assert len(by_id) == len(spans)
@@ -193,6 +196,56 @@ def test_cli_writes_its_spans(tmp_path, flags, names, counts):
         assert len(its) == 2 and all(len(f) == 1 and 1 <= f[0] <= 4 for f in its), its
         assert {s["attrs"]["what"] for s in spans if s["name"] == "write"} == {
             "background", "models", "occurrences", "PR curves"}
+
+
+def file_values(outdir) -> int:
+    """The numbers in the model files (.ihbcp, .ihbp, .hbcp, .hbp) of a run."""
+    n = 0
+    for name in os.listdir(outdir):
+        if name.endswith((".ihbcp", ".ihbp", ".hbcp", ".hbp")):
+            with open(outdir / name) as fh:
+                n += sum(len(line.split()) for line in fh if not line.startswith("#"))
+    return n
+
+
+@pytest.mark.parametrize("K, R1", [(2, 85), (4, 1365)])
+def test_em_group_carries_the_kernels_plan(tmp_path, K, R1):
+    """The em.group span of an --EM run at K=2 and K=4 carries R1, the
+    update's table (shared memory while a seed's float table fits
+    SMEM_TABLE) and B1's plan; write.values counts every number of the
+    model files written, the background's and each seed's initial and
+    refined BaMM."""
+    events = run_cli(tmp_path / "out", ["--EM", "-k", str(K), "--maxEMIterations", "3",
+                                        "--saveInitialBaMMs"])
+    (group,) = [e for e in events if e["event"] == "span" and e["name"] == "em.group"]
+    attrs = group["attrs"]
+    assert attrs["R1"] == R1 and attrs["K"] == K and attrs["W"] == 8
+    assert attrs["update_table"] == ("smem" if 4 * R1 * 8 <= cuda_update.SMEM_TABLE else "device")
+    assert attrs["update_table"] == "smem"  # K=4 fits at W=8 (43.7 KB)
+    assert attrs["seeds_per_block"] == 1 and attrs["smem_lut"] is True
+    assert attrs["counts"] == "fixed"
+    counts = events[-2]["counts"]
+    # the background (2 x 84 values at -K 2) and two BaMMs of 2 x R x W values
+    assert counts["write.values"] == file_values(tmp_path / "out") == 2 * 84 + 4 * (R1 - 1) * 8
+
+
+@pytest.mark.parametrize("K, W, table, counts, lut", [
+    (2, 12, "smem", "fixed", True), (2, 30, "smem", "fixed", True),
+    (3, 30, "smem", "fixed", True), (4, 8, "smem", "fixed", True),
+    (4, 10, "device", "fixed", True), (4, 12, "device", "fixed", True),
+    (4, 20, "device", "float", False), (5, 12, "device", "global", False)])
+def test_plan_attrs_follow_the_kernels_tables(K, W, table, counts, lut):
+    """``plan_attrs`` at c4's and c3's rows (10k x 200 bp, both strands):
+    the update's table leaves shared memory past SMEM_TABLE (A=4: K=4 from
+    W=10), B1's counts go float where fixed point does not fit and global
+    where neither does, and the LUT stays in shared memory beside fixed
+    counts only."""
+    attrs = multi.plan_attrs(4, K, W, 4, (2, 10_000, 200))
+    R1 = sum(4 ** (k + 1) for k in range(K + 1)) + 1
+    assert attrs["R1"] == R1 and attrs["seeds_per_block"] == 1
+    assert attrs["update_table"] == table == (
+        "smem" if 4 * R1 * W <= cuda_update.SMEM_TABLE else "device")
+    assert attrs["counts"] == counts and attrs["smem_lut"] is lut
 
 
 def test_run_pipeline_returns_its_trace_and_reads_seconds_from_spans(tmp_path):
